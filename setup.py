@@ -53,7 +53,11 @@ setup(
     name='ciri-long-tpu',
     version=__version__,
     description='TPU-native circular RNA identification from Nanopore long reads',
-    packages=find_packages(include=['ciri_long_tpu', 'ciri_long_tpu.*']),
+    packages=find_packages(include=['ciri_long_tpu', 'ciri_long_tpu.*',
+                                    'ciri_long_tpu_torch',
+                                    'ciri_long_tpu_torch.*']),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={'ciri_long_tpu_torch': ['csrc/*.cu']},
     ext_modules=[fastxcodec, chaincore, nwcore, poacore, alncore, ccscore],
     python_requires='>=3.10',
     install_requires=[
@@ -63,6 +67,7 @@ setup(
     entry_points={
         'console_scripts': [
             'CIRI-long-tpu=ciri_long_tpu.cli.main:main',
+            'CIRI-long-torch=ciri_long_tpu_torch.cli.main:main',
         ],
     },
 )
