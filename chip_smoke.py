@@ -6,25 +6,39 @@
 Drives ``ciri_long_tpu_torch`` on the card in phases, one JSON line each,
 and exits non-zero if any phase fails (none is caught and skipped):
 
-1. device and build: the card, the CUDA kernel built from csrc/, and the
+1. device and build: the card, the CUDA kernels built from csrc/, and the
    native host cores built from native/ (``setup.py build_ext --inplace``);
-2. kernel vs plain PyTorch on the card, exact, at one shape per TPU route
-   it replaces (K1 bench 512x1024x4096, K2 8x256x512, K4 64x2048x512, K3
-   4x8192x16384) plus N codes, mid-row PAD, all-PAD rows and
-   SWParams(1,1,1,1): (score, q_end, r_end) and the five sw_align_batch
-   fields;
+2. every SW kernel (sw_score_ends, sw_rowscan, sw_chain C = 2 and 4)
+   against one plain PyTorch output per case on the card, exact, at one
+   shape per TPU route sw_score_ends replaces (K1 bench 512x1024x4096, K2
+   8x256x512, K4 64x2048x512, K3 4x8192x16384) plus N codes, mid-row PAD,
+   all-PAD rows and SWParams(1,1,1,1): (score, q_end, r_end), and for
+   sw_score_ends the five sw_align_batch fields;
 3. kernel and plain GCUPS at the bench shape and the 1024x1024 square
-   (CUDA events, each launch fed by the previous one's scores);
+   (the kernel's launches replayed from a CUDA graph, the plain version's
+   wall, each launch fed by the previous one's scores);
 4. ``call`` end to end on a seeded 2 Mb world (16 loci, depth 60, 240
    linear reads), ``--device cuda`` then ``--device cpu``: the kernel's
    launch count, byte-identical cand_circ.fa, equal counters, reads/s,
    per-stage seconds and BSJ recall/precision against the simulated truth;
    then the kernel against the plain version on the inputs the cuda run
-   gave it.
+   gave it;
+5. the kernel-probe path: the SW variant harness
+   (``python -m ciri_long_tpu_torch.misc.kexp``) for the row, wave and
+   chain (C = 2, 4) families at the bench shape and the int16 probes
+   (``...misc.int16_probe``), through their entry points, with the launch
+   counts read around them; then each int16 probe exact against its plain
+   version on the TPU probe's input, on negative lanes and on lanes that
+   wrap; the card's peak rate for one SW cell update (csrc/op_rate.cu, the
+   SW bound); and the times of every family beside the plain version and
+   the bound at 512x1024x4096, 512x1024x1024, the main path's 64x28x16384
+   and 128x54x16384, and 4096x32x128, and of each probe.
 
-Then the card's ``nvidia-smi`` name and power limit, the kernels line, and
-last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2
-and prints no result.  Its files go under build/chip_smoke/.
+The five CUDA sources build in parallel (one nvcc each) beside the native
+host cores.  Then the card's ``nvidia-smi`` name and power limit, the
+kernels line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+device it exits 2 and prints no result.  Its files go under
+build/chip_smoke/.
 """
 
 import importlib
@@ -38,21 +52,28 @@ from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
-KERNEL_SOURCE = 'ciri_long_tpu_torch/csrc/sw_score_ends.cu'
-REPLACES = ('ciri_long_tpu/ops/sw_pallas.py:355 _sw_chain_kernel (K1); '
-            'also :240 K2, :141 K3, :58 K4')
+CSRC = 'ciri_long_tpu_torch/csrc/'
+SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
+           'int16_probe.cu', 'op_rate.cu')
+REPLACES = {
+    'sw_score_ends': ('ciri_long_tpu/ops/sw_pallas.py:355 _sw_chain_kernel '
+                      '(K1); also :240 K2, :141 K3, :58 K4; misc/kexp.py:1534 '
+                      'wave family (K6)'),
+    'sw_rowscan': ('misc/kexp.py:1586 make_call row family, build_kernel:1065 '
+                   'and build_kernel_r3:31 (K5)'),
+    'sw_chain': ('misc/kexp.py:1462 make_call chain family, '
+                 'build_kernel_chain:534, _chain7:694, _chain9:875, '
+                 '_chain10:1222 (K7)'),
+    'int16_probe': 'misc/int16_probe.py:41 run, kernel bodies :20-37 (K8)',
+}
 BENCH = (512, 1024, 4096)
+TIMED = (('bench', BENCH), ('square', (512, 1024, 1024)),
+         ('main64', (64, 28, 16384)), ('main128', (128, 54, 16384)),
+         ('short', (4096, 32, 128)))
 
 
 def emit(phase, **fields):
     print(json.dumps(dict(phase=phase, **fields)), flush=True)
-
-
-def nvidia_smi():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def codes(rng, B, L, pad_suffix=False):
@@ -66,24 +87,28 @@ def codes(rng, B, L, pad_suffix=False):
 
 
 def phase_build(torch):
+    from ciri_long_tpu_torch.misc.kexp import nvidia_smi
     from ciri_long_tpu_torch.ops import _build
     from ciri_long_tpu_torch.utils.dispatch import resolve_device
 
     dev = resolve_device('cuda')
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    _build.build('sw_score_ends.cu')
-    kernel_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             _build.BUILD_LOGS.get('sw_score_ends.cu', '').splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, 'setup.py', 'build_ext',
-                           '--inplace'], cwd=ROOT, capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError('native build failed:\n' + proc.stdout[-3000:]
-                           + proc.stderr[-3000:])
+    native = subprocess.Popen(
+        [sys.executable, 'setup.py', 'build_ext', '--inplace', '-j',
+         str(os.cpu_count() or 1)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        _build.build_all(SOURCES)
+        kernel_s = time.perf_counter() - t0
+    finally:
+        native_log = native.communicate()[0]
+    ptxas = {src: [ln.strip() for ln in
+                   _build.BUILD_LOGS.get(src, '').splitlines()
+                   if 'registers' in ln or 'spill' in ln or 'smem' in ln]
+             for src in SOURCES}
+    if native.returncode != 0:
+        raise RuntimeError('native build failed:\n' + native_log[-6000:])
     native_s = time.perf_counter() - t0
     importlib.invalidate_caches()
     from ciri_long_tpu_torch.ops.sw import _alncore
@@ -91,41 +116,51 @@ def phase_build(torch):
         raise RuntimeError('native host cores did not load after the build')
     emit('build', device=torch.cuda.get_device_name(dev), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         kernel_build_s=round(kernel_s, 3), ptxas=ptxas,
+         kernels_build_s=round(kernel_s, 3), ptxas=ptxas,
          native_build_s=round(native_s, 3))
     return dev, smi
 
 
-def compare(torch, dev, q, r, params, label):
-    """Kernel vs plain on the card: scores/ends and the five
-    sw_align_batch fields, exact.  Returns the max abs difference."""
-    from ciri_long_tpu_torch.ops.sw import (_sw_align_fused, sw_score_ends,
-                                            sw_score_ends_cuda)
+def _max_err(got, want):
+    return max(int((a.long() - b.long()).abs().max().item()) if a.numel()
+               else 0 for a, b in zip(got, want))
+
+
+def compare(torch, dev, q, r, params, label, kernels):
+    """Each SW kernel of ``kernels`` ((name, fn) of sw_kernels) against
+    one plain output of the case on the card, exact: (score, q_end, r_end),
+    and for the first kernel also the five sw_align_batch fields.  Returns
+    {name: max abs difference}."""
+    from ciri_long_tpu_torch.ops.sw import _sw_align_fused, sw_score_ends
     qt = torch.as_tensor(q).to(dev).contiguous()
     rt = torch.as_tensor(r).to(dev).contiguous()
-    got = sw_score_ends_cuda(qt, rt, params)
     want = sw_score_ends(qt, rt, params)
-    got5 = _sw_align_fused(qt, rt, params, score_fn=sw_score_ends_cuda)
-    want5 = _sw_align_fused(qt, rt, params, score_fn=sw_score_ends)
+    errs = {name: _max_err(fn(qt, rt, params), want) for name, fn in kernels}
+    name, fn = kernels[0]
+    errs[name] = max(errs[name], _max_err(
+        _sw_align_fused(qt, rt, params, score_fn=fn),
+        _sw_align_fused(qt, rt, params, score_fn=sw_score_ends)))
     torch.cuda.synchronize(dev)
-    err = max(int((a.long() - b.long()).abs().max().item()) if a.numel()
-              else 0 for a, b in zip(got + got5, want + want5))
     emit('kernel_vs_plain', case=label, B=int(q.shape[0]),
          Lq=int(q.shape[1]), Lr=int(r.shape[1]), params=list(params),
-         max_abs_err=err, positive=int((got[0] > 0).sum().item()))
-    if err != 0:
-        raise AssertionError('kernel disagrees with plain on ' + label)
-    return err
+         max_abs_err=errs, positive=int((want[0] > 0).sum().item()))
+    if any(errs.values()):
+        raise AssertionError('a kernel disagrees with plain on ' + label)
+    return errs
 
 
-def phase_kernel(torch, dev):
+def kernel_cases():
+    """(label, q, r, params) of phase 2: one shape per TPU route K1-K4
+    with PAD suffixes, a mid-row PAD and an all-PAD row, then N codes.
+    Every B is a multiple of 4, so the chain takes each case with C = 2
+    and 4."""
     import numpy as np
     from ciri_long_tpu_torch.ops.sw import SWParams
 
     rng = np.random.default_rng(20261016)
     big = SWParams(10, 4, 8, 2)
     clip = SWParams(1, 1, 1, 1)
-    err = 0
+    cases = []
     for label, B, Lq, Lr, params in [
             ('K1 chained wavefront (bench shape)', *BENCH, big),
             ('K2 wave5 small batch', 8, 256, 512, clip),
@@ -136,55 +171,45 @@ def phase_kernel(torch, dev):
         q[0, Lq // 3] = 5          # mid-row PAD
         r[0, Lr // 2] = 5
         r[1] = 5                   # all-PAD row
-        err = max(err, compare(torch, dev, q, r, params, label))
+        cases.append((label, q, r, params))
     q = codes(rng, 16, 70)
     r = codes(rng, 16, 333)
     q[:, 10] = 5
     r[:, 100:103] = 5
     r[3] = 5
     q[4] = 5
-    err = max(err, compare(torch, dev, q, r, clip, 'N, mid-row PAD, all-PAD'))
-    return err
+    cases.append(('N, mid-row PAD, all-PAD', q, r, clip))
+    return cases
 
 
-def gcups(torch, fn, q, r, params, n_iter):
-    """Cells per second of ``fn`` over n_iter dependent launches."""
-    carry = q.clone()
-    score = fn(carry, r, params)[0]          # warm up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n_iter):
-        score = fn(carry, r, params)[0]
-        # a genuine data dependency: codes 0-3 xor 1 stay 0-3
-        carry = carry ^ (score & 1).to(torch.int8)[:, None]
-    stop.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(stop) / n_iter
-    B, Lq = q.shape
-    return B * Lq * r.shape[1] / (ms * 1e-3) / 1e9, ms
+def phase_kernel(torch, dev):
+    """Every SW kernel against one plain output per case; {name: max err}."""
+    errs = {}
+    for label, q, r, params in kernel_cases():
+        for name, err in compare(torch, dev, q, r, params, label,
+                                 sw_kernels()).items():
+            errs[name] = max(errs.get(name, 0), err)
+    return errs
 
 
 def phase_time(torch, dev, smi):
     import numpy as np
+    from ciri_long_tpu_torch.misc.kexp import gcups
     from ciri_long_tpu_torch.ops.sw import (SWParams, sw_score_ends,
                                             sw_score_ends_cuda)
 
     rng = np.random.default_rng(0)
     params = SWParams(10, 4, 8, 2)
-    out = {}
     for name, (B, Lq, Lr) in [('bench', BENCH), ('square', (512, 1024, 1024))]:
         q = torch.from_numpy(rng.integers(0, 4, (B, Lq)).astype(np.int8))
         r = torch.from_numpy(rng.integers(0, 4, (B, Lr)).astype(np.int8))
         q, r = q.to(dev), r.to(dev)
-        k_gcups, k_ms = gcups(torch, sw_score_ends_cuda, q, r, params, 20)
-        p_gcups, p_ms = gcups(torch, sw_score_ends, q, r, params, 3)
-        out[name] = dict(kernel_ms=k_ms, plain_ms=p_ms)
+        k_gcups, k_ms = gcups(sw_score_ends_cuda, q, r, params, 20,
+                              graph=True)
+        p_gcups, p_ms = gcups(sw_score_ends, q, r, params, 3)
         emit('kernel_time', shape=name, B=B, Lq=Lq, Lr=Lr,
              kernel_gcups=k_gcups, kernel_ms=k_ms, plain_gcups=p_gcups,
              plain_ms=p_ms, card=smi)
-    return out['bench']
 
 
 def run_call(device, world, out_dir):
@@ -198,7 +223,8 @@ def run_call(device, world, out_dir):
 def phase_call(torch, dev, smi):
     from ciri_long_tpu_torch.ops import sw
     from ciri_long_tpu_torch.tools.world import bsj_accuracy, make_world
-    from ciri_long_tpu_torch.utils.dispatch import (launch_counts,
+    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS,
+                                                    launch_counts,
                                                     reset_launches)
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -225,7 +251,7 @@ def phase_call(torch, dev, smi):
         t0 = time.perf_counter()
         gpu = run_call('cuda', world, os.path.join(WORK, 'out_cuda'))
         gpu_s = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = launch_counts(CALL_KERNELS)
     finally:
         sw.sw_score_ends_cuda = kernel
     t0 = time.perf_counter()
@@ -262,8 +288,119 @@ def phase_call(torch, dev, smi):
     err = 0
     for t, (q, r, params) in enumerate(seen):
         err = max(err, compare(torch, dev, q.cpu().numpy(), r.cpu().numpy(),
-                               params, 'main path launch {}'.format(t)))
+                               params, 'main path launch {}'.format(t),
+                               sw_kernels()[:1])['sw_score_ends'])
     return launches['sw_score_ends'], err
+
+
+def sw_kernels():
+    """(name, kernel) of every SW design family on the card."""
+    from ciri_long_tpu_torch.misc.kexp import sw_chain_cuda, sw_rowscan_cuda
+    from ciri_long_tpu_torch.ops.sw import sw_score_ends_cuda
+
+    return (('sw_score_ends', sw_score_ends_cuda),
+            ('sw_rowscan', sw_rowscan_cuda),
+            ('sw_chain C=2', lambda q, r, p: sw_chain_cuda(q, r, p, 2)),
+            ('sw_chain C=4', lambda q, r, p: sw_chain_cuda(q, r, p, 4)))
+
+
+def phase_probe_path():
+    """The kernel-probe path through its entry points: the harness for each
+    family at the bench shape, then the int16 probes.  Returns the launch
+    counts of that run."""
+    from ciri_long_tpu_torch.misc import int16_probe, kexp
+    from ciri_long_tpu_torch.utils.dispatch import (launch_counts,
+                                                    reset_launches)
+
+    B, Lq, Lr = BENCH
+    shape = ['--B', str(B), '--Lq', str(Lq), '--Lr', str(Lr), '--iters', '8']
+    reset_launches()
+    lines = [kexp.main(flags + shape) for flags in
+             (['--r3'], ['--wave'], ['--chain', '2'], ['--chain', '4'])]
+    int16_probe.main(['--device', 'cuda'])
+    launches = launch_counts()
+    emit('probe_path', launches=launches,
+         kexp=[dict(l['variant'], gcups=l['gcups'], ms=l['ms'],
+                    bound_ms=l['bound_ms']) for l in lines])
+    if min(launches.values()) <= 0:
+        raise AssertionError('the probe path missed a kernel: {}'.format(
+            launches))
+    return launches
+
+
+def phase_probe_exact(torch, dev):
+    """Every int16 probe against its plain version on each of its
+    ``probe_cases`` (the TPU probe's input, negative lanes, wrapping lanes).
+    Exact, or it raises; returns the max abs difference."""
+    from ciri_long_tpu_torch.misc.int16_probe import (PROBES,
+                                                      int16_probe_cuda,
+                                                      probe_cases)
+
+    worst = 0
+    for probe in PROBES:
+        for label, x in probe_cases(probe, dev):
+            err = _max_err([int16_probe_cuda(probe, x)], [probe.plain(x)])
+            emit('probe_exact', probe=probe.name, case=label,
+                 shape=list(probe.shape), max_abs_err=err)
+            worst = max(worst, err)
+    if worst:
+        raise AssertionError('an int16 probe disagrees with its plain version')
+    return worst
+
+
+def phase_probe_time(torch, dev, smi):
+    """The card's peak cell rate in both forms (the SW bound), the SW
+    families and the plain version at each TIMED shape with the harness's
+    dependent launches, and the int16 probes with independent launches,
+    each beside its bound.  Kernel and library times are a CUDA graph's
+    replay (``kexp.time_launches``: the card's time without the host's
+    cost per launch), plain times the wall of the calls."""
+    import numpy as np
+    from ciri_long_tpu_torch.misc.int16_probe import (PROBES,
+                                                      int16_probe_cuda,
+                                                      probe_input)
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S, PARAMS,
+                                               cell_rate, gcups, sw_bound,
+                                               time_launches)
+    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+
+    rates = {'dpx': cell_rate(dev, True), 'plain': cell_rate(dev, False)}
+    rate = max(rates.values())
+    emit('cell_rate', cells_per_s=rates,
+         sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+         card=smi)
+    rng = np.random.default_rng(1)
+    sw = {}
+    for shape, (B, Lq, Lr) in TIMED:
+        q = torch.from_numpy(rng.integers(0, 4, (B, Lq)).astype(np.int8))
+        r = torch.from_numpy(rng.integers(0, 4, (B, Lr)).astype(np.int8))
+        q, r = q.to(dev), r.to(dev)
+        plain_gcups, plain_ms = gcups(sw_score_ends, q, r, PARAMS, 2)
+        bound_ms, bound_by = sw_bound(B, Lq, Lr, rate)
+        sw[shape] = dict(plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        for name, fn in sw_kernels():
+            k_gcups, k_ms = gcups(fn, q, r, PARAMS, 10, graph=True)
+            sw[shape][name] = k_ms
+            emit('probe_time', shape=shape, B=B, Lq=Lq, Lr=Lr, kernel=name,
+                 ms=k_ms, gcups=k_gcups, plain_ms=plain_ms,
+                 plain_gcups=plain_gcups, bound_ms=bound_ms,
+                 bound_by=bound_by, bound_share=bound_ms / k_ms, card=smi)
+    probes = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for probe in PROBES:
+        x = probe_input(probe, dev)
+        t = dict(ms=time_launches(lambda: int16_probe_cuda(probe, x), 200,
+                                  dev, graph=True),
+                 plain_ms=time_launches(lambda: probe.plain(x), 200, dev),
+                 library_ms=time_launches(lambda: probe.plain(x), 200, dev,
+                                          graph=True),
+                 bound_ms=2 * x.numel() * x.element_size()
+                 / HBM_BYTES_PER_S * 1e3)
+        emit('probe_time', probe=probe.name, shape=list(probe.shape),
+             bound_by='bytes', card=smi, **t)
+        for key, ms in t.items():
+            probes[key] += ms
+    return sw, probes
 
 
 def main():
@@ -275,15 +412,42 @@ def main():
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     dev, smi = phase_build(torch)
-    err = phase_kernel(torch, dev)
-    bench = phase_time(torch, dev, smi)
+    errs = phase_kernel(torch, dev)
+    phase_time(torch, dev, smi)
     launches, call_err = phase_call(torch, dev, smi)
+    probe_launches = phase_probe_path()
+    probe_err = phase_probe_exact(torch, dev)
+    sw, probes = phase_probe_time(torch, dev, smi)
+
+    bench = sw['bench']
+
+    def entry(name, n, max_err, ms, plain_ms=bench['plain_ms'],
+              bound=bench['bound_ms'], by=bench['bound_by'],
+              library_ms=None):
+        return {'name': name, 'route': 'cuda', 'source': CSRC + name + '.cu',
+                'replaces': REPLACES[name], 'launches': n,
+                'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': bound, 'bound_by': by, 'library_ms': library_ms}
+
+    # SW kernels at the bench shape (phase 5 has every shape); no PyTorch
+    # call computes SW, so no library time.  sw_score_ends is launched by
+    # call (phase 4), the others by the probe path (phase 5).
+    kernels = [
+        entry('sw_score_ends', launches, max(errs['sw_score_ends'], call_err),
+              bench['sw_score_ends']),
+        entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
+              bench['sw_rowscan']),
+        entry('sw_chain', probe_launches['sw_chain'],
+              max(errs['sw_chain C=2'], errs['sw_chain C=4']),
+              bench['sw_chain C=4']),
+        # the six probes summed; the library time is the card's own time of
+        # the plain versions, each one PyTorch call
+        entry('int16_probe', probe_launches['int16_probe'], probe_err,
+              probes['ms'], probes['plain_ms'], probes['bound_ms'], 'bytes',
+              probes['library_ms']),
+    ]
     print(smi)
-    print(json.dumps({'kernels': [{
-        'name': 'sw_score_ends', 'route': 'cuda', 'source': KERNEL_SOURCE,
-        'replaces': REPLACES, 'launches': launches,
-        'max_abs_err': max(err, call_err), 'ms': bench['kernel_ms'],
-        'plain_ms': bench['plain_ms']}]}))
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -28,10 +28,11 @@ def _build_context(ref_fasta, gtf_idx, intron_idx, ss_idx, index_cache,
                    build_threads=1):
     """Genome + aligner + annotation indices.  The packed genome and the
     minimizer index are the JAX package's on-disk caches (tmp/gcodes,
-    tmp/minidx), read and written in the same format, so a tmp/ written by
-    either package is reused by the other."""
-    from ciri_long_tpu.context import Context
-    from ciri_long_tpu.io.genome import Genome
+    tmp/minidx), read and written in the same format by this package's own
+    copies of its modules, so a tmp/ written by either package is reused by
+    the other."""
+    from ciri_long_tpu_torch.context import Context
+    from ciri_long_tpu_torch.io.genome import Genome
     from ciri_long_tpu_torch.models.aligner import GenomeAligner
 
     gdir = os.path.join(os.path.dirname(index_cache), 'gcodes')
@@ -49,7 +50,8 @@ def _build_context(ref_fasta, gtf_idx, intron_idx, ss_idx, index_cache,
 
 
 def _load_or_build_index(out_dir, gtf_file, circ_file, logger):
-    from ciri_long_tpu.annot.gtf import index_annotation, index_circ
+    from ciri_long_tpu_torch.annot.gtf import (index_annotation, index_circ,
+                                               load_index)
 
     if gtf_file is None and circ_file is None:
         logger.warning("No annotation provided, entering 'De novo' mode")
@@ -58,8 +60,7 @@ def _load_or_build_index(out_dir, gtf_file, circ_file, logger):
     idx_file = out_dir + '/tmp/ss.idx'
     if os.path.exists(idx_file):
         logger.info('reusing splice-site index: {}'.format(idx_file))
-        with open(idx_file, 'rb') as idx:
-            gtf_idx, intron_idx, ss_idx = pickle.load(idx)
+        gtf_idx, intron_idx, ss_idx = load_index(idx_file)
         return gtf_idx, intron_idx, ss_idx
 
     if gtf_file is not None:
@@ -75,8 +76,8 @@ def _load_or_build_index(out_dir, gtf_file, circ_file, logger):
 
 
 def call(args):
-    from ciri_long_tpu.utils.logger import StageTimer, get_logger
-    from ciri_long_tpu.utils.misc import check_dir, check_file
+    from ciri_long_tpu_torch.utils.logger import StageTimer, get_logger
+    from ciri_long_tpu_torch.utils.misc import check_dir, check_file
     from ciri_long_tpu_torch.utils.dispatch import (reset_launches,
                                                     resolve_device)
 
@@ -131,7 +132,7 @@ def call(args):
 
 def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
                  ref_fasta, idx_file, ctx, index_cache, device):
-    from ciri_long_tpu.context import Context
+    from ciri_long_tpu_torch.context import Context
     from ciri_long_tpu_torch.models.aligner import GenomeAligner
     from ciri_long_tpu_torch.pipeline.find_bsj import (recover_ccs_reads,
                                                        scan_ccs_reads,
@@ -204,7 +205,7 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
 
 
 def _finish_call(logger, timer, reads_count, out_dir, prefix):
-    from ciri_long_tpu_torch.utils.dispatch import launch_counts
+    from ciri_long_tpu_torch.utils.dispatch import CALL_KERNELS, launch_counts
 
     logger.info('non-linear raw reads: {}'.format(reads_count['raw_unmapped']))
     logger.info('mapped consensus reads: {}'.format(reads_count['ccs_mapped']))
@@ -215,7 +216,7 @@ def _finish_call(logger, timer, reads_count, out_dir, prefix):
 
     summary = dict(reads_count)
     summary['timing'] = timer.as_dict()
-    summary['kernels'] = launch_counts()
+    summary['kernels'] = launch_counts(CALL_KERNELS)
     with open('{}/{}.json'.format(out_dir, prefix), 'w') as f:
         json.dump(summary, f)
 
@@ -229,7 +230,7 @@ def collapse(args):
 
 def main(argv=None):
     import argparse
-    from ciri_long_tpu.version import __version__
+    from ciri_long_tpu_torch.version import __version__
 
     parser = argparse.ArgumentParser('CIRI-long-torch')
     parser.add_argument('-v', '--version', action='version',

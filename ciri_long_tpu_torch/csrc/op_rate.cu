@@ -1,0 +1,90 @@
+// The card's peak rate for the arithmetic of one Smith-Waterman cell update:
+// the operations bound of the SW kernels (misc/kexp.py::cell_rate and
+// sw_bound).  No scoring path calls it.
+//
+// Each thread runs CHAINS independent cells, one update per step, all in
+// registers: no memory traffic and no dependence between threads, so the
+// instructions' own throughput is all that bounds it.  One update is
+//   hm = H - gO                          (once, for E to the right and F below)
+//   E  = max(E - gE, hm)                 F = max(F - gE, hm)
+//   s  = q == r ? match : -mismatch      H = max(H_diag + s, E, F, 0)
+// in one of two forms:
+//   DPX=true  Hopper's DPX instructions: __viaddmax_s32 for E and F,
+//             __vimax3_s32_relu for H; 7 instructions (sub, 2 DPX, compare,
+//             select, add, DPX);
+//   DPX=false plain int32: 11 instructions as written (sub, 2 x (sub, max),
+//             compare, select, add, 3 max); ptxas for sm_90a fuses the
+//             add-max pairs and the three-way max into DPX instructions
+//             itself, so this form runs nearly as fast.
+// The launcher's caller times it and counts cells = blocks * THREADS * CHAINS
+// * steps.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int CHAINS = 8;
+
+template <bool DPX>
+__global__ void __launch_bounds__(THREADS)
+cell_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
+                 int gap_extend, int* out) {
+    int h[CHAINS], hd[CHAINS], e[CHAINS], f[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        h[k] = threadIdx.x + k;
+        hd[k] = blockIdx.x + k;
+        e[k] = k;
+        f[k] = 2 * k + 1;
+    }
+    const int nge = -gap_extend;
+    const int nmis = -mismatch;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int hm = h[k] - gap_open;
+            const int s = h[k] == q ? match : nmis;
+            int hn;
+            if (DPX) {
+                e[k] = __viaddmax_s32(e[k], nge, hm);
+                f[k] = __viaddmax_s32(f[k], nge, hm);
+                hn = __vimax3_s32_relu(hd[k] + s, e[k], f[k]);
+            } else {
+                e[k] = max(e[k] + nge, hm);
+                f[k] = max(f[k] + nge, hm);
+                hn = max(max(hd[k] + s, e[k]), max(f[k], 0));
+            }
+            hd[k] = h[k];
+            h[k] = hn;
+        }
+    }
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= h[k] ^ e[k] ^ f[k];
+    if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
+// running CHAINS cells for ``steps`` updates (a multiple of 4), in the DPX
+// form when ``dpx`` is non-zero.  Launches on ``stream`` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int cell_rate_launch(int dpx, int blocks, int steps, int q,
+                                int match, int mismatch, int gap_open,
+                                int gap_extend, void* out, void* stream) {
+    auto st = static_cast<cudaStream_t>(stream);
+    auto* o = static_cast<int*>(out);
+    if (dpx)
+        cell_rate_kernel<true><<<blocks, THREADS, 0, st>>>(
+            steps, q, match, mismatch, gap_open, gap_extend, o);
+    else
+        cell_rate_kernel<false><<<blocks, THREADS, 0, st>>>(
+            steps, q, match, mismatch, gap_open, gap_extend, o);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Cells one block updates per step.
+extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }

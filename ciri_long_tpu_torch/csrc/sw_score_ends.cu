@@ -33,7 +33,8 @@
 // full-warp shuffle) by step c, while lane 31 overwrites it at step c + 31.
 //
 // Bound: the DP is latency- and integer-ALU-bound: O(B*Lq*Lr) cell updates
-// of ~12 integer ops and 6 shuffles per warp step, against O(B*(Lq+Lr))
+// of at least 7 integer instructions (csrc/op_rate.cu) and 6 shuffles per
+// warp step, against O(B*(Lq+Lr))
 // bytes of codes plus the O(B*Lr*(Lq/32)) scratch round trips, which stay
 // in L2.  Parallelism is one warp per batch row, so small batches leave
 // most of the card idle; splitting long queries over several warps is later

@@ -23,9 +23,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from ciri_long_tpu.config import AlignerConfig, DEFAULT
-from ciri_long_tpu.io.genome import Genome
-from ciri_long_tpu.utils.seq import encode_seq, revcomp_encoded
+from ciri_long_tpu_torch.config import AlignerConfig, DEFAULT
+from ciri_long_tpu_torch.io.genome import Genome
+from ciri_long_tpu_torch.utils.seq import encode_seq, revcomp_encoded
 from ciri_long_tpu_torch.models.hits import Hit
 from ciri_long_tpu_torch.models.minimizer import MinimizerIndex, minimizers
 from ciri_long_tpu_torch.ops.traceback import (banded_global_cigar,
@@ -45,7 +45,7 @@ EXT_CAP = 1000         # max bases considered in end extension
 EXT_SCORES = dict(match=2, mismatch=4, gap_open=8, gap_extend=2, zdrop=100)
 
 try:
-    from ciri_long_tpu import _nwcore as _nwc
+    from ciri_long_tpu_torch import _nwcore as _nwc
     _STITCH_NATIVE = getattr(_nwc, 'stitch', None)
     _SELECT_NATIVE = getattr(_nwc, 'select_stitch_batch', None)
 except ImportError:
@@ -386,7 +386,7 @@ class GenomeAligner:
             # (chaincore.cpp::py_anchors; parity fuzz in
             # tests/test_chaincore.py); numpy fallback below
             try:
-                from ciri_long_tpu import _chaincore
+                from ciri_long_tpu_torch import _chaincore
                 native = getattr(_chaincore, 'anchors', None)
             except ImportError:
                 native = None
@@ -441,7 +441,7 @@ class GenomeAligner:
         n = len(r)
         k = self.k
         try:
-            from ciri_long_tpu import _chaincore
+            from ciri_long_tpu_torch import _chaincore
         except ImportError:
             _chaincore = None
         if _chaincore is not None:

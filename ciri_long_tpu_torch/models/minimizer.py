@@ -79,7 +79,7 @@ def minimizers(codes: np.ndarray, k: int, w: int, valid_mask=None,
     """
     if valid_mask is None:
         try:
-            from ciri_long_tpu import _chaincore
+            from ciri_long_tpu_torch import _chaincore
             cb, pb, sb = _chaincore.sketch(
                 np.ascontiguousarray(codes, np.uint8).tobytes(), k, w,
                 max(1, int(n_threads)))
@@ -131,7 +131,7 @@ class MinimizerIndex(NamedTuple):
         assert genome.total_len < (1 << 32), \
             "genomes above 4.29 Gb need a u64-position index"
         try:
-            from ciri_long_tpu import _chaincore
+            from ciri_long_tpu_torch import _chaincore
             build_table = getattr(_chaincore, 'build_table', None)
         except ImportError:
             build_table = None
@@ -197,7 +197,7 @@ class MinimizerIndex(NamedTuple):
     def save(self, cache_dir: str, fingerprint: dict) -> None:
         """Atomically persist the index under ``cache_dir`` (npy files +
         meta.json; ``fingerprint`` records the genome identity)."""
-        from ciri_long_tpu.utils.diskcache import save_array_dir
+        from ciri_long_tpu_torch.utils.diskcache import save_array_dir
 
         meta = dict(version=self._CACHE_VERSION, k=self.k, w=self.w,
                     bucket_bits=self.bucket_bits, **fingerprint)
@@ -209,7 +209,7 @@ class MinimizerIndex(NamedTuple):
     def load(cls, cache_dir: str, k: int, w: int,
              fingerprint: dict) -> Optional["MinimizerIndex"]:
         """Memory-mapped load; None when absent/stale/mismatched."""
-        from ciri_long_tpu.utils.diskcache import load_array_dir
+        from ciri_long_tpu_torch.utils.diskcache import load_array_dir
 
         got = load_array_dir(cache_dir, ['codes', 'pos', 'strand',
                                          'buckets'])
@@ -228,7 +228,7 @@ class MinimizerIndex(NamedTuple):
         searchsorted equivalence asserted in tests); numpy otherwise."""
         if self.buckets is not None and len(query_codes):
             try:
-                from ciri_long_tpu import _chaincore
+                from ciri_long_tpu_torch import _chaincore
                 native = getattr(_chaincore, 'lookup', None)
             except ImportError:
                 native = None

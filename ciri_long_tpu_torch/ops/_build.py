@@ -14,6 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -59,6 +60,13 @@ def build(source: str) -> Path:
     os.replace(tmp, lib)
     BUILD_LOGS[source] = proc.stdout + proc.stderr
     return lib
+
+
+def build_all(sources):
+    """Compile several sources at once, one nvcc each, all started
+    together; returns {source: library path}.  Raises if any build fails."""
+    with ThreadPoolExecutor(max(1, len(sources))) as pool:
+        return dict(zip(sources, pool.map(build, sources)))
 
 
 def load(source: str, symbols):

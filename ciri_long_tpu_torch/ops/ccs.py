@@ -32,7 +32,7 @@ import numpy as np
 
 from ciri_long_tpu_torch.ops.poa import poa
 from ciri_long_tpu_torch.ops.traceback import banded_global_cigar
-from ciri_long_tpu.utils.seq import decode_seq, encode_seq
+from ciri_long_tpu_torch.utils.seq import decode_seq, encode_seq
 
 K = 11                 # k-mer size for lag voting
 MIN_PERIOD = 30        # circRNAs shorter than ~30 bp are dropped anyway
@@ -207,7 +207,7 @@ def center_star_consensus(units, cigars=None):
         # slots) in one C++ call (nwcore.cpp::py_center_star; parity fuzz
         # in tests/test_ccs.py)
         try:
-            from ciri_long_tpu import _nwcore
+            from ciri_long_tpu_torch import _nwcore
             native = getattr(_nwcore, 'center_star', None)
         except ImportError:
             native = None
@@ -306,7 +306,7 @@ def detect_units(codes, k: int = K):
         return None
 
     try:
-        from ciri_long_tpu import _ccscore
+        from ciri_long_tpu_torch import _ccscore
     except ImportError:
         _ccscore = None
     if _ccscore is not None:

@@ -69,7 +69,7 @@ def backtrack_chains(f, pre, valid, min_score, min_anchors, max_chains=10):
     pre = np.asarray(pre)
     valid = np.asarray(valid)
     try:
-        from ciri_long_tpu import _chaincore
+        from ciri_long_tpu_torch import _chaincore
         native = getattr(_chaincore, 'backtrack', None)
     except ImportError:
         native = None

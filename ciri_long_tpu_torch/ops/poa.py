@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ciri_long_tpu.utils.seq import decode_seq, encode_seq
+from ciri_long_tpu_torch.utils.seq import decode_seq, encode_seq
 
 NEG = -(1 << 28)
 
@@ -84,7 +84,7 @@ def _gap_row(n, o1, e1, o2, e2):
 def _align_to_graph_native(g: _Graph, seq: np.ndarray, m, x, o1, e1, o2, e2):
     """C++ twin of _align_to_graph (native/poacore.cpp): same DP, same
     traceback tie order, rank indices mapped back to node ids here."""
-    from ciri_long_tpu import _poacore
+    from ciri_long_tpu_torch import _poacore
 
     order = g.topo_order()
     rank = {v: i for i, v in enumerate(order)}
@@ -313,7 +313,7 @@ def poa(seqs: Sequence, algorithm: int = 2, genmsa: bool = False,
              for s in seqs]
 
     try:
-        from ciri_long_tpu import _poacore
+        from ciri_long_tpu_torch import _poacore
         poa_all = _poacore.poa_all
     except ImportError:
         poa_all = None

@@ -115,6 +115,30 @@ _SW_SYMBOLS = {
 }
 
 
+def check_cuda_codes(name, query: torch.Tensor, ref: torch.Tensor,
+                     params: SWParams):
+    """The inputs every SW kernel takes: int8 codes query [B, Lq] and ref
+    [B, Lr], contiguous, on one CUDA device, with gap_open >= gap_extend and
+    shapes within the kernels' int arguments.  Raises on anything else."""
+    _check_params(params)
+    if not (query.is_cuda and ref.is_cuda and query.device == ref.device):
+        raise ValueError('{} needs query and ref on one CUDA device (got {} '
+                         'and {})'.format(name, query.device, ref.device))
+    if query.dtype != torch.int8 or ref.dtype != torch.int8:
+        raise TypeError('{} needs int8 codes (got {} and {})'.format(
+            name, query.dtype, ref.dtype))
+    if query.dim() != 2 or ref.dim() != 2 or query.shape[0] != ref.shape[0]:
+        raise ValueError('{} needs [B, Lq] and [B, Lr] (got {} and {})'.format(
+            name, tuple(query.shape), tuple(ref.shape)))
+    if not (query.is_contiguous() and ref.is_contiguous()):
+        raise ValueError('{} needs contiguous inputs'.format(name))
+    B, Lq = query.shape
+    Lr = ref.shape[1]
+    if max(B, Lq, Lr + 32) >= 2 ** 31:
+        raise ValueError("{} shape {}x{}x{} exceeds the kernel's int "
+                         'arguments'.format(name, B, Lq, Lr))
+
+
 def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
                        params: SWParams):
     """The hand-written CUDA kernel (csrc/sw_score_ends.cu) on CUDA tensors:
@@ -123,25 +147,9 @@ def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
     launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
-    _check_params(params)
-    if not (query.is_cuda and ref.is_cuda and query.device == ref.device):
-        raise ValueError('sw_score_ends_cuda needs query and ref on one CUDA '
-                         'device (got {} and {})'.format(query.device,
-                                                         ref.device))
-    if query.dtype != torch.int8 or ref.dtype != torch.int8:
-        raise TypeError('sw_score_ends_cuda needs int8 codes (got {} and '
-                        '{})'.format(query.dtype, ref.dtype))
-    if query.dim() != 2 or ref.dim() != 2 or query.shape[0] != ref.shape[0]:
-        raise ValueError('sw_score_ends_cuda needs [B, Lq] and [B, Lr] '
-                         '(got {} and {})'.format(tuple(query.shape),
-                                                  tuple(ref.shape)))
-    if not (query.is_contiguous() and ref.is_contiguous()):
-        raise ValueError('sw_score_ends_cuda needs contiguous inputs')
+    check_cuda_codes('sw_score_ends_cuda', query, ref, params)
     B, Lq = query.shape
     Lr = ref.shape[1]
-    if max(B, Lq, Lr + 32) >= 2 ** 31:
-        raise ValueError('sw_score_ends_cuda shape {}x{}x{} exceeds the '
-                         "kernel's int arguments".format(B, Lq, Lr))
     lib = _build.load('sw_score_ends.cu', _SW_SYMBOLS)
     dev = query.device
     score = torch.empty(B, dtype=torch.int32, device=dev)
@@ -209,7 +217,7 @@ def _alncore():
     global _ALNCORE
     if _ALNCORE is None:
         try:
-            from ciri_long_tpu import _alncore as core
+            from ciri_long_tpu_torch import _alncore as core
             _ALNCORE = core
         except ImportError:
             _ALNCORE = False

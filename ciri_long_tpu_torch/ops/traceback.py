@@ -18,7 +18,7 @@ from typing import List, Tuple
 import numpy as np
 
 try:
-    from ciri_long_tpu import _alncore as _NATIVE
+    from ciri_long_tpu_torch import _alncore as _NATIVE
 except ImportError:
     _NATIVE = None
 
@@ -214,7 +214,7 @@ def extend_align(q: np.ndarray, r: np.ndarray, match=2, mismatch=4,
         return 0, 0, 0, []
 
     try:
-        from ciri_long_tpu import _nwcore
+        from ciri_long_tpu_torch import _nwcore
         score, qi, rj, cig = _nwcore.extend(
             np.ascontiguousarray(q, np.uint8).tobytes(),
             np.ascontiguousarray(r, np.uint8).tobytes(),
@@ -324,7 +324,7 @@ def _nw_native(q, r, band, match, mismatch, gap_open, gap_extend):
     """C++ banded NW (native/nwcore.cpp) with band doubling until the score
     is stable; None when the extension is unavailable."""
     try:
-        from ciri_long_tpu import _nwcore
+        from ciri_long_tpu_torch import _nwcore
     except ImportError:
         return None
     n, m = len(q), len(r)
@@ -401,7 +401,7 @@ def splice_junction_align(qg, ref_gap, intron_len, match=2, mismatch=4,
     ref_right = ref_gap[G:]
 
     try:
-        from ciri_long_tpu import _nwcore
+        from ciri_long_tpu_torch import _nwcore
 
         def _pm(a, b):
             buf = _nwcore.prefix_matrix(

@@ -27,12 +27,13 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ciri_long_tpu.annot.signal import (find_annotated_signal,
-                                        find_denovo_signal, find_host_gene)
-from ciri_long_tpu.config import DEFAULT, CLIP_SCORE
-from ciri_long_tpu.utils.logger import ProgressBar
-from ciri_long_tpu.utils.seq import (encode_seq, pad_encoded, revcomp,
-                                     revcomp_encoded)
+from ciri_long_tpu_torch.annot.signal import (find_annotated_signal,
+                                              find_denovo_signal,
+                                              find_host_gene)
+from ciri_long_tpu_torch.config import DEFAULT, CLIP_SCORE
+from ciri_long_tpu_torch.utils.logger import ProgressBar
+from ciri_long_tpu_torch.utils.seq import (encode_seq, pad_encoded,
+                                           revcomp, revcomp_encoded)
 from ciri_long_tpu_torch.models.hits import (get_blocks, get_parital_blocks,
                                              get_primary_alignment,
                                              merge_clip_exon, merge_exons,
@@ -414,10 +415,9 @@ def _scan_worker_init(ref_fasta, idx_file, short_mode=False,
     ``short_mode`` selects the denser short-read index for the recovery
     pass (reference BWA ont2d, find_bsj.py:457)."""
     global _WORKER_CTX
-    import pickle
-
-    from ciri_long_tpu.context import Context
-    from ciri_long_tpu.io.genome import Genome
+    from ciri_long_tpu_torch.annot.gtf import load_index
+    from ciri_long_tpu_torch.context import Context
+    from ciri_long_tpu_torch.io.genome import Genome
     from ciri_long_tpu_torch.models.aligner import GenomeAligner
 
     genome = None
@@ -431,8 +431,7 @@ def _scan_worker_init(ref_fasta, idx_file, short_mode=False,
                             index_cache=index_cache)
     gtf_idx = intron_idx = ss_idx = None
     if idx_file and os.path.exists(idx_file):
-        with open(idx_file, 'rb') as f:
-            gtf_idx, intron_idx, ss_idx = pickle.load(f)
+        gtf_idx, intron_idx, ss_idx = load_index(idx_file)
     _WORKER_CTX = Context(aligner=aligner, genome=genome, gtf_index=gtf_idx,
                           intron_index=intron_idx, ss_index=ss_idx)
 
@@ -814,7 +813,7 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
     too, find_bsj.py:662); results drain in submission order.  The pass
     aligns with the host aligner only (no SW), so ``device`` only decides
     whether a pool may be used."""
-    from ciri_long_tpu.io.fastx import read_fastx
+    from ciri_long_tpu_torch.io.fastx import read_fastx
 
     circ_reads = {}
     with open('{}/{}.cand_circ.fa'.format(out_dir, prefix), 'r') as f:

@@ -18,8 +18,8 @@ falls back pair-by-pair to the same host aligner).
 import multiprocessing
 import os
 
-from ciri_long_tpu.io.fastx import read_fastx
-from ciri_long_tpu.utils.logger import ProgressBar
+from ciri_long_tpu_torch.io.fastx import read_fastx
+from ciri_long_tpu_torch.utils.logger import ProgressBar
 from ciri_long_tpu_torch.ops.ccs import find_consensus
 
 CHUNK_SIZE = 250  # reference job granularity (find_ccs.py:62)

@@ -2,8 +2,8 @@
 
 ``make_world``: a random single-contig genome with circRNA loci
 (``random_loci``, canonical splice signals planted), rolling-circle reads
-over each locus and linear background reads, all from
-``ciri_long_tpu.tools.simulate`` and one numpy seed.  ``skill_world``: the
+over each locus and linear background reads, all from the package's
+``tools/simulate.py`` (a copy of the JAX package's) and one numpy seed.  ``skill_world``: the
 repo's small verification world (one circRNA at chr1:20001-20520 of a
 50 kb genome, 10 circular + 4 linear reads).
 ``bsj_accuracy``: recall/precision of a ``cand_circ.fa`` against the
@@ -15,10 +15,11 @@ import os
 
 import numpy as np
 
-from ciri_long_tpu.io.genome import Genome
-from ciri_long_tpu.tools.simulate import (mutate, plant_splice_signals,
-                                          random_loci, simulate_linear,
-                                          simulate_reads)
+from ciri_long_tpu_torch.io.genome import Genome
+from ciri_long_tpu_torch.tools.simulate import (mutate,
+                                                plant_splice_signals,
+                                                random_loci, simulate_linear,
+                                                simulate_reads)
 
 
 def _write_fasta(path, name, seq):

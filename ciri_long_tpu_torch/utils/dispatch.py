@@ -6,8 +6,9 @@ CPU behind the user's back.
 
 ``LAUNCHES`` counts, per hand-written kernel, the launches its wrapper made
 since the last ``reset_launches`` (plain integers, read with
-``launch_counts``; ``call`` resets them when it starts), so a run can show
-that its main path went through the kernel.
+``launch_counts``; ``call`` resets them when it starts and reports those of
+``CALL_KERNELS``), so a run can show that its path went through the
+kernel.
 
 ``count_dispatch`` is the JAX package's env-gated accounting decorator
 (``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
@@ -28,7 +29,10 @@ _ENABLED = os.environ.get('CIRI_DISPATCH_STATS') not in (None, '', '0')
 _STATS = defaultdict(lambda: [0, 0.0])
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {'sw_score_ends': 0}
+LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
+            'int16_probe': 0}
+# the kernels ``call`` can launch (the others serve misc/kexp, int16_probe)
+CALL_KERNELS = ('sw_score_ends',)
 
 
 def reset_launches():
@@ -36,8 +40,8 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def launch_counts():
-    return dict(LAUNCHES)
+def launch_counts(names=None):
+    return {name: LAUNCHES[name] for name in (names or LAUNCHES)}
 
 
 def resolve_device(name) -> torch.device:

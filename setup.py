@@ -49,6 +49,15 @@ ccscore = Extension(
     extra_compile_args=_cxx_args,
 )
 
+# the PyTorch port loads the same cores under its own package, so it never
+# imports ciri_long_tpu (each source's PyInit names only the last component)
+_jax_cores = [fastxcodec, chaincore, nwcore, poacore, alncore, ccscore]
+_port_cores = [Extension(ext.name.replace('ciri_long_tpu.',
+                                          'ciri_long_tpu_torch.'),
+                         sources=ext.sources, libraries=ext.libraries,
+                         extra_compile_args=ext.extra_compile_args)
+               for ext in _jax_cores]
+
 setup(
     name='ciri-long-tpu',
     version=__version__,
@@ -58,7 +67,7 @@ setup(
                                     'ciri_long_tpu_torch.*']),
     # the PyTorch/CUDA port builds its kernels from these at first use
     package_data={'ciri_long_tpu_torch': ['csrc/*.cu']},
-    ext_modules=[fastxcodec, chaincore, nwcore, poacore, alncore, ccscore],
+    ext_modules=_jax_cores + _port_cores,
     python_requires='>=3.10',
     install_requires=[
         'jax',

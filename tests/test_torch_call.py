@@ -22,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from ciri_long_tpu.context import Context
-from ciri_long_tpu.io.genome import Genome
+from ciri_long_tpu.context import Context as JaxContext
+from ciri_long_tpu.io.genome import Genome as JaxGenome
 from ciri_long_tpu.models.aligner import GenomeAligner as JaxAligner
 from ciri_long_tpu.pipeline import find_bsj as jfb
+from ciri_long_tpu_torch.context import Context
+from ciri_long_tpu_torch.io.genome import Genome
 from ciri_long_tpu_torch.models.aligner import GenomeAligner
 from ciri_long_tpu_torch.ops.ccs import find_consensus
 from ciri_long_tpu_torch.pipeline import find_bsj as tfb
@@ -131,8 +133,9 @@ def pipeline_world(module_rng):
     chr1[S - 2:S] = list('AG')
     chr1[E:E + 2] = list('GT')
     chr1 = ''.join(chr1)
+    jgenome = JaxGenome.from_dict({'chr1': chr1})
     genome = Genome.from_dict({'chr1': chr1})
-    jctx = Context(aligner=JaxAligner(genome), genome=genome)
+    jctx = JaxContext(aligner=JaxAligner(jgenome), genome=jgenome)
     tctx = Context(aligner=GenomeAligner(genome), genome=genome)
     return jctx, tctx, chr1
 
@@ -196,8 +199,10 @@ def recover_world(module_rng, tmp_path_factory):
         reads.append(('sr_{}'.format(t), segments, unit, unit * 6))
     unit = rand_seq(rng, 100)
     reads.append(('sr_nowhere', '0-100;100-200;200-300', unit, unit * 3))
+    jgenome = JaxGenome.from_dict({'chr1': chr1})
     genome = Genome.from_dict({'chr1': chr1})
-    jctx = Context(aligner=JaxAligner(genome, short_mode=True), genome=genome)
+    jctx = JaxContext(aligner=JaxAligner(jgenome, short_mode=True),
+                      genome=jgenome)
     tctx = Context(aligner=GenomeAligner(genome, short_mode=True),
                    genome=genome)
     return jctx, tctx, reads, tmp_path_factory.mktemp('recover')
@@ -218,13 +223,15 @@ def test_recover_ccs_reads_matches_jax(recover_world):
     byte-identical cand_circ.fa appended after existing records."""
     from dataclasses import replace
 
-    from ciri_long_tpu.config import DEFAULT
+    from ciri_long_tpu.config import DEFAULT as JAX_DEFAULT
+    from ciri_long_tpu_torch.config import DEFAULT
     jctx, tctx, reads, root = recover_world
+    jcfg = replace(JAX_DEFAULT.call, ccs_chunk_size=4)
     cfg = replace(DEFAULT.call, ccs_chunk_size=4)
     cnts, cands = [], []
     for name, run in (
             ('jax', lambda d: jfb.recover_ccs_reads(jctx, reads, True, d,
-                                                    'p', cfg)),
+                                                    'p', jcfg)),
             ('port', lambda d: tfb.recover_ccs_reads(tctx, reads, True, d,
                                                      'p', cfg,
                                                      device='cpu'))):
@@ -249,7 +256,7 @@ def test_aligner_state_carried_across(tmp_path, rng):
     _write_fasta(tmp_path / 'g.fa', 'chr1', chr1)
     cache = str(tmp_path / 'tmp' / 'minidx')
     os.makedirs(os.path.dirname(cache))
-    jgenome = Genome(str(tmp_path / 'g.fa'))
+    jgenome = JaxGenome(str(tmp_path / 'g.fa'))
     jgenome.save_cache(str(tmp_path / 'tmp' / 'gcodes'))
     jal = JaxAligner(jgenome, index_cache=cache)
 
@@ -261,10 +268,10 @@ def test_aligner_state_carried_across(tmp_path, rng):
     assert sum(len(w) for w in want) >= 5
 
     arrays = {f: getattr(jal.index, f) for f in jal.index._fields}
-    from_arrays = GenomeAligner.from_arrays(jgenome, arrays)
     genome = Genome.from_cache(str(tmp_path / 'tmp' / 'gcodes'),
                                str(tmp_path / 'g.fa'))
     assert genome is not None
+    from_arrays = GenomeAligner.from_arrays(genome, arrays)
     from_cache = GenomeAligner(genome, index_cache=cache)
     for al in (from_arrays, from_cache):
         for f in ('codes', 'pos', 'strand', 'buckets'):

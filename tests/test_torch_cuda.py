@@ -1,5 +1,8 @@
-"""The hand-written CUDA SW kernel against its plain PyTorch version, on the
-card.  Marked ``cuda``; each test skips when no GPU is visible.  Imports
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card: the SW scorer of ``call`` (csrc/sw_score_ends.cu), the harness's row
+scan and chained wavefront (csrc/sw_rowscan.cu, csrc/sw_chain.cu) and the
+int16 probes (csrc/int16_probe.cu).  Marked ``cuda``; each test skips when
+no GPU is visible.  Imports
 only torch, numpy and the port (the card's machine has no JAX), so it runs
 there without the suite's conftest:
 
@@ -10,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ciri_long_tpu_torch.misc import int16_probe, kexp
 from ciri_long_tpu_torch.ops import sw
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
 
@@ -70,3 +74,103 @@ def test_kernel_rejects_bad_inputs(dev):
         sw.sw_score_ends_cuda(q, q.cpu(), p)
     with pytest.raises(ValueError):
         sw.sw_score_ends_cuda(q, q[:1], p)
+
+
+SHAPES = [(7, 1, 1), (9, 33, 65), (5, 100, 31), (64, 64, 700), (4, 40, 3000),
+          (2, 70, 16384)]
+
+
+def _case(dev, params, shape, B_mult=1):
+    rng = np.random.default_rng(1000 * sum(params) + sum(shape) + B_mult)
+    B, Lq, Lr = shape
+    B = -(-B // B_mult) * B_mult
+    q = _codes(rng, B, Lq)
+    r = _codes(rng, B, Lr)
+    q[0, Lq // 2] = 5
+    r[min(1, B - 1)] = 5
+    return torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+
+
+@pytest.mark.parametrize("params", [(1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rowscan_matches_plain(dev, params, shape):
+    qt, rt = _case(dev, params, shape)
+    p = sw.SWParams(*params)
+    before = LAUNCHES['sw_rowscan']
+    got = kexp.sw_rowscan(qt, rt, p)
+    want = sw.sw_score_ends(qt, rt, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES['sw_rowscan'] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+@pytest.mark.parametrize("params", [(1, 1, 1, 1), (10, 4, 8, 2)])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chain_matches_plain(dev, C, params, shape):
+    qt, rt = _case(dev, params, shape, B_mult=C)
+    p = sw.SWParams(*params)
+    before = LAUNCHES['sw_chain']
+    got = kexp.sw_chain(qt, rt, p, C)
+    want = sw.sw_score_ends(qt, rt, p)
+    torch.cuda.synchronize()
+    assert LAUNCHES['sw_chain'] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_harness_kernels_reject_bad_inputs(dev):
+    q = torch.zeros((6, 8), dtype=torch.int8, device=dev)
+    p = sw.SWParams()
+    with pytest.raises(ValueError, match='divisible'):
+        kexp.sw_chain_cuda(q, q, p, 4)
+    with pytest.raises(ValueError, match='shared memory'):
+        kexp.sw_rowscan_cuda(q, torch.zeros((6, 26000), dtype=torch.int8,
+                                            device=dev), p)
+    with pytest.raises(TypeError):
+        kexp.sw_rowscan_cuda(q.int(), q, p)
+
+
+@pytest.mark.parametrize("probe", int16_probe.PROBES, ids=lambda p: p.name)
+def test_int16_probe_matches_plain(dev, probe):
+    """On the TPU probe's input, on negative lanes and on lanes that wrap."""
+    for label, x in int16_probe.probe_cases(probe, dev):
+        before = LAUNCHES['int16_probe']
+        got = int16_probe.int16_probe(probe, x)
+        want = probe.plain(x)
+        torch.cuda.synchronize()
+        assert LAUNCHES['int16_probe'] == before + 1
+        assert got.dtype == want.dtype and torch.equal(got, want), label
+
+
+def test_time_launches_in_a_graph_leaves_the_host_out(dev):
+    probe = int16_probe.PROBES[0]
+    x = int16_probe.probe_input(probe, dev)
+    calls = []
+
+    def step():
+        calls.append(1)
+        int16_probe.int16_probe_cuda(probe, x)
+
+    ms = kexp.time_launches(step, 20, dev, graph=True)
+    assert len(calls) == 21                  # one warm-up, 20 captured
+    assert 0 < ms < kexp.time_launches(step, 20, dev)
+
+
+def test_peak_cell_rate_bounds_the_sw_kernels(dev):
+    rate = kexp.peak_cell_rate(dev)
+    B, Lq, Lr = 64, 64, 4096
+    qt, rt = _case(dev, (10, 4, 8, 2), (B, Lq, Lr))
+    for fn in (sw.sw_score_ends_cuda, kexp.sw_rowscan_cuda):
+        _, ms = kexp.gcups(fn, qt, rt, kexp.PARAMS, 3, graph=True)
+        assert kexp.sw_bound(B, Lq, Lr, rate)[0] < ms
+
+
+def test_harness_and_probe_entry_points(dev, capsys):
+    line = kexp.main(['--chain', '2', '--B', '8', '--Lq', '70', '--Lr', '90',
+                      '--iters', '2'])
+    assert line['variant'] == {'family': 'chain', 'chain': 2}
+    assert line['bound_by'] == 'operations' and line['ms'] > 0
+    int16_probe.main([])
+    assert capsys.readouterr().out.count(': OK ') == 6

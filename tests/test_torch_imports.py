@@ -1,9 +1,11 @@
 """Import boundary and device handling of the PyTorch port.
 
-``ciri_long_tpu_torch`` never imports ``jax``; outside itself it imports
-only the JAX-free leaf modules and native cores of ``ciri_long_tpu``; and
-``chip_smoke.py`` imports nothing of either.  Asking for ``--device cuda``
-without a GPU raises, and -t > 1 with cuda raises NotImplementedError.
+Neither ``ciri_long_tpu_torch`` nor ``chip_smoke.py`` imports ``jax`` or
+``ciri_long_tpu`` in any form (the port keeps its own copies of the JAX-free
+leaf modules and loads the native cores built under its own name), and the
+port's ``call`` runs in a process where both are blocked.  Asking for
+``--device cuda`` without a GPU raises, and -t > 1 with cuda raises
+NotImplementedError.
 """
 
 import ast
@@ -11,66 +13,60 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / 'ciri_long_tpu_torch'
-
-# the JAX-free parts of ciri_long_tpu the port may import by name
-ALLOWED = {
-    'ciri_long_tpu', 'ciri_long_tpu.version', 'ciri_long_tpu.config',
-    'ciri_long_tpu.context', 'ciri_long_tpu.io', 'ciri_long_tpu.io.fastx',
-    'ciri_long_tpu.io.genome', 'ciri_long_tpu.annot',
-    'ciri_long_tpu.annot.gtf', 'ciri_long_tpu.annot.signal',
-    'ciri_long_tpu.utils.seq', 'ciri_long_tpu.utils.misc',
-    'ciri_long_tpu.utils.logger', 'ciri_long_tpu.utils.diskcache',
-    'ciri_long_tpu.tools.simulate',
-}
-NATIVE = {'_alncore', '_nwcore', '_chaincore', '_ccscore', '_poacore',
-          '_fastxcodec'}
+BLOCKED = ('jax', 'ciri_long_tpu')
 
 
-def _imports(path):
-    """(module, names) for every import statement in ``path``."""
+def _imported(path):
+    """Every module name ``path`` imports: import statements, and constant
+    arguments of importlib.import_module / __import__."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name, []
+                yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module, [a.name for a in node.names]
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                    node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, 'id', None)
+            if name in ('import_module', '__import__'):
+                yield node.args[0].value
 
 
 def _port_files():
     files = sorted(PORT.rglob('*.py'))
-    assert len(files) >= 15
+    assert len(files) >= 30
     return files
 
 
 @pytest.mark.parametrize('rel', [str(p.relative_to(REPO))
                                  for p in sorted(PORT.rglob('*.py'))])
 def test_port_module_imports_stay_inside_the_boundary(rel):
-    for module, names in _imports(REPO / rel):
-        root = module.split('.')[0]
-        assert root != 'jax', (rel, module)
-        if root != 'ciri_long_tpu':
-            continue
-        if module == 'ciri_long_tpu' and names:
-            assert set(names) <= NATIVE | {'version'}, (rel, names)
-        else:
-            assert module in ALLOWED, (rel, module)
+    for module in _imported(REPO / rel):
+        assert module.split('.')[0] not in BLOCKED, (rel, module)
 
 
 def test_chip_smoke_imports_no_jax_package():
-    for module, _names in _imports(REPO / 'chip_smoke.py'):
-        assert module.split('.')[0] not in ('jax', 'ciri_long_tpu'), module
+    for module in _imported(REPO / 'chip_smoke.py'):
+        assert module.split('.')[0] not in BLOCKED, module
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """Every port module imports, and the CPU scorer runs, in a process
-    where ``import jax`` fails."""
+    """Every port module imports, the CPU scorer runs, and ``call --device
+    cpu`` on the verification world calls its 10 BSJ reads at
+    chr1:20001-20520, in a process where ``import jax`` and ``import
+    ciri_long_tpu`` fail; its cand_circ.fa is byte-identical to the JAX
+    package's ``call --backend cpu`` on the same files."""
     mods = ['.'.join(p.relative_to(REPO).with_suffix('').parts)
             for p in _port_files()]
     mods = [m[:-len('.__init__')] if m.endswith('.__init__') else m
@@ -78,22 +74,41 @@ def test_port_runs_with_jax_blocked(tmp_path):
     code = '\n'.join([
         'import sys',
         "sys.modules['jax'] = None",
+        "sys.modules['ciri_long_tpu'] = None",
         'import importlib, numpy as np',
         'for m in {!r}: importlib.import_module(m)'.format(mods),
         'from ciri_long_tpu_torch.ops.sw import SWParams, sw_align_batch',
         'q = np.array([[0, 1, 2, 3]], np.int8)',
         "res = sw_align_batch(q, q, SWParams(), 'cpu')",
         'assert int(res.score[0]) == 4, res',
-        "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items()"
-        " if v is not None}",
+        'from ciri_long_tpu_torch.tools.world import skill_world',
+        'from ciri_long_tpu_torch.cli.main import main',
+        "ref, reads = skill_world('w')",
+        "main(['call', '-i', reads, '-o', 'out', '-r', ref, '-p', 'vtest',",
+        "      '-t', '1', '--device', 'cpu'])",
+        "heads = [ln.split('\\t')[1] for ln in open('out/vtest.cand_circ.fa')",
+        "         if ln.startswith('>')]",
+        "assert heads == ['chr1:20001-20520'] * 10, heads",
+        'loaded = {k.split(".")[0] for k, v in sys.modules.items() if v}',
+        'assert not loaded & {!r}, loaded'.format(set(BLOCKED)),
         'from ciri_long_tpu_torch.ops import _build',
         'assert _build._LIBS == {}, _build._LIBS   # nothing built or loaded',
     ])
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+    from ciri_long_tpu.cli.main import call
+    world = tmp_path / 'w'
+    call(SimpleNamespace(input=str(world / 'reads.fa'),
+                         output=str(tmp_path / 'out_jax'),
+                         reference=str(world / 'genome.fa'), prefix='vtest',
+                         gtf=None, circ=None, threads=1, debug=False,
+                         backend='cpu'))
+    assert (tmp_path / 'out' / 'vtest.cand_circ.fa').read_bytes() == \
+        (tmp_path / 'out_jax' / 'vtest.cand_circ.fa').read_bytes()
 
 
 def test_cuda_without_gpu_raises(monkeypatch):
@@ -123,7 +138,29 @@ def test_threads_with_cuda_not_implemented(monkeypatch):
 def test_kernel_sources_ship_with_package():
     from ciri_long_tpu_torch.ops import _build
 
-    assert (_build.CSRC / 'sw_score_ends.cu').exists()
+    for src in ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
+                'int16_probe.cu'):
+        assert (_build.CSRC / src).exists(), src
     setup = (REPO / 'setup.py').read_text()
     assert "'ciri_long_tpu_torch': ['csrc/*.cu']" in setup
     assert 'CIRI-long-torch=ciri_long_tpu_torch.cli.main:main' in setup
+
+
+def test_setup_names_the_ports_native_cores():
+    """setup.py builds each native core twice: as ciri_long_tpu._X for the
+    JAX package and as ciri_long_tpu_torch._X for the port."""
+    import setuptools
+
+    seen = {}
+    orig = setuptools.setup
+    setuptools.setup = lambda **kw: seen.update(kw)
+    try:
+        code = compile((REPO / 'setup.py').read_text(), 'setup.py', 'exec')
+        exec(code, {'__name__': '__main__', '__file__': str(REPO / 'setup.py')})
+    finally:
+        setuptools.setup = orig
+    names = {ext.name: ext.sources for ext in seen['ext_modules']}
+    for core in ('_fastxcodec', '_chaincore', '_nwcore', '_alncore',
+                 '_poacore', '_ccscore'):
+        assert names['ciri_long_tpu_torch.' + core] == \
+            names['ciri_long_tpu.' + core] == ['native/{}.cpp'.format(core[1:])]
