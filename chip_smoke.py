@@ -8,21 +8,26 @@ and exits non-zero if any phase fails (none is caught and skipped):
 
 1. device and build: the card, the CUDA kernels built from csrc/, and the
    native host cores built from native/ (``setup.py build_ext --inplace``);
-2. every SW kernel (sw_score_ends, sw_rowscan, sw_chain C = 2 and 4)
+2. every SW kernel (sw_score_ends routed, and each of its two routes
+   forced where it takes the shape; sw_rowscan, sw_chain C = 2 and 4)
    against one plain PyTorch output per case on the card, exact, at one
    shape per TPU route sw_score_ends replaces (K1 bench 512x1024x4096, K2
    8x256x512, K4 64x2048x512, K3 4x8192x16384) plus N codes, mid-row PAD,
    all-PAD rows and SWParams(1,1,1,1): (score, q_end, r_end), and for
-   sw_score_ends the five sw_align_batch fields;
+   sw_score_ends the five sw_align_batch fields; then sw_score_ends's
+   routes on tools/sw_cases.py's tile cases at the main path's
+   64x28x16384 and 128x54x16384 and at 37x33x5000, under three SWParams;
 3. kernel and plain GCUPS at the bench shape and the 1024x1024 square
    (the kernel's launches replayed from a CUDA graph, the plain version's
    wall, each launch fed by the previous one's scores);
 4. ``call`` end to end on a seeded 2 Mb world (16 loci, depth 60, 240
    linear reads), ``--device cuda`` then ``--device cpu``: the kernel's
-   launch count, byte-identical cand_circ.fa, equal counters, reads/s,
-   per-stage seconds and BSJ recall/precision against the simulated truth;
-   then the kernel against the plain version on the inputs the cuda run
-   gave it;
+   launch count and the route of each launch (every launch whose shape
+   ops/sw.py::_tile_plan accepts must take the tiled route),
+   byte-identical cand_circ.fa, equal counters, reads/s, per-stage seconds
+   and BSJ recall/precision against the simulated truth; then both routes
+   against the plain version on the inputs the cuda run gave the kernel,
+   and both timed on them;
 5. the kernel-probe path: the SW variant harness
    (``python -m ciri_long_tpu_torch.misc.kexp``) for the row, wave and
    chain (C = 2, 4) families at the bench shape and the int16 probes
@@ -32,11 +37,16 @@ and exits non-zero if any phase fails (none is caught and skipped):
    wrap; the card's peak rate for one SW cell update (csrc/op_rate.cu, the
    SW bound); and the times of every family beside the plain version and
    the bound at 512x1024x4096, 512x1024x1024, the main path's 64x28x16384
-   and 128x54x16384, and 4096x32x128, and of each probe.
+   and 128x54x16384, and 4096x32x128 (sw_score_ends routed and by each
+   route that takes the shape; at the main path's shapes also the tiled
+   route at tiles of one and two halos beside the rule's four), and of
+   each probe.
 
 The five CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
-kernels line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA
+kernels line (sw_score_ends's entry also has ``main_ms`` and
+``main_bound_ms`` at 128x54x16384), and last ``{"ok": true, "device":
+{...}}``.  Without a CUDA
 device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
 """
@@ -55,6 +65,9 @@ WORK = os.path.join(ROOT, 'build', 'chip_smoke')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu')
+TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
+TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
+TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
 REPLACES = {
     'sw_score_ends': ('ciri_long_tpu/ops/sw_pallas.py:355 _sw_chain_kernel '
                       '(K1); also :240 K2, :141 K3, :58 K4; misc/kexp.py:1534 '
@@ -182,12 +195,33 @@ def kernel_cases():
     return cases
 
 
+def tile_cases():
+    """(label, q, r, params) of phase 2's tile cases: tools/sw_cases.py's
+    rows planted around the tile edges _tile_plan gives each shape."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.sw import SWParams, _tile_plan
+    from ciri_long_tpu_torch.tools.sw_cases import tile_cases as make
+
+    rng = np.random.default_rng(4)
+    cases = []
+    for B, Lq, Lr in TILE_CASES:
+        for params in (SWParams(*p) for p in TILE_PARAMS):
+            q, r = make(rng, B, Lq, Lr, _tile_plan(Lq, Lr, params)[0],
+                        params)
+            cases.append(('tile cases', q, r, params))
+    return cases
+
+
 def phase_kernel(torch, dev):
-    """Every SW kernel against one plain output per case; {name: max err}."""
+    """Every SW kernel against one plain output per case, then
+    sw_score_ends's routes on the tile cases; {name: max err}."""
     errs = {}
-    for label, q, r, params in kernel_cases():
+    runs = [(case, sw_kernels) for case in kernel_cases()]
+    runs += [(case, sw_routes) for case in tile_cases()]
+    for (label, q, r, params), kernels in runs:
         for name, err in compare(torch, dev, q, r, params, label,
-                                 sw_kernels()).items():
+                                 kernels(q.shape[1], r.shape[1],
+                                         params)).items():
             errs[name] = max(errs.get(name, 0), err)
     return errs
 
@@ -223,7 +257,7 @@ def run_call(device, world, out_dir):
 def phase_call(torch, dev, smi):
     from ciri_long_tpu_torch.ops import sw
     from ciri_long_tpu_torch.tools.world import bsj_accuracy, make_world
-    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS,
+    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS, ROUTES,
                                                     launch_counts,
                                                     reset_launches)
 
@@ -235,14 +269,14 @@ def phase_call(torch, dev, smi):
     with open(reads) as f:
         n_reads = sum(1 for ln in f if ln.startswith('>'))
 
-    # record the inputs the main path hands the kernel (launch counts are
-    # kept by the wrapper itself; the recorder only copies its arguments)
+    # record the inputs the main path hands the kernel (launch and route
+    # counts are kept by the wrapper itself; the recorder only copies its
+    # arguments)
     seen = []
     kernel = sw.sw_score_ends_cuda
 
     def recorder(query, ref_, params):
-        if len(seen) < 6:
-            seen.append((query.clone(), ref_.clone(), params))
+        seen.append((query.clone(), ref_.clone(), params))
         return kernel(query, ref_, params)
 
     sw.sw_score_ends_cuda = recorder
@@ -252,6 +286,7 @@ def phase_call(torch, dev, smi):
         gpu = run_call('cuda', world, os.path.join(WORK, 'out_cuda'))
         gpu_s = time.perf_counter() - t0
         launches = launch_counts(CALL_KERNELS)
+        routes = dict(ROUTES)
     finally:
         sw.sw_score_ends_cuda = kernel
     t0 = time.perf_counter()
@@ -264,8 +299,12 @@ def phase_call(torch, dev, smi):
                 for s in (gpu, cpu)]
     recall, precision, n_called = bsj_accuracy(
         os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'), truth)
+    shapes = [[int(q.shape[0]), int(q.shape[1]), int(r.shape[1]),
+               list(p), sw._tile_plan(q.shape[1], r.shape[1], p) is not None]
+              for q, r, p in seen]
     emit('call', reads=n_reads, genome_kb=2000, loci=16, depth=60,
-         profile='nanopore', launches=launches,
+         profile='nanopore', launches=launches, routes=routes,
+         launch_shapes=shapes,
          summary_kernels=gpu['kernels'],
          cpu_summary_kernels=cpu['kernels'], cand_identical=cand[0] == cand[1],
          cand_bytes=len(cand[0]), counters_equal=counters[0] == counters[1],
@@ -277,6 +316,11 @@ def phase_call(torch, dev, smi):
          card=smi)
     if launches['sw_score_ends'] <= 0 or gpu['kernels'] != launches:
         raise AssertionError('call did not go through the SW kernel')
+    planned = sum(tiled for *_, tiled in shapes)
+    if (len(seen) != launches['sw_score_ends'] or planned == 0
+            or routes != {'tiled': planned, 'wave': len(seen) - planned}):
+        raise AssertionError('call did not take the tiled route where its '
+                             'plan applies: {} {}'.format(routes, shapes))
     if cpu['kernels'] != {'sw_score_ends': 0}:
         raise AssertionError('the --device cpu summary counts launches: '
                              '{}'.format(cpu['kernels']))
@@ -287,21 +331,53 @@ def phase_call(torch, dev, smi):
 
     err = 0
     for t, (q, r, params) in enumerate(seen):
-        err = max(err, compare(torch, dev, q.cpu().numpy(), r.cpu().numpy(),
-                               params, 'main path launch {}'.format(t),
-                               sw_kernels()[:1])['sw_score_ends'])
-    return launches['sw_score_ends'], err
+        routes_ = sw_routes(q.shape[1], r.shape[1], params)
+        err = max([err] + list(compare(
+            torch, dev, q.cpu().numpy(), r.cpu().numpy(), params,
+            'main path launch {}'.format(t), routes_).values()))
+    return launches['sw_score_ends'], err, seen
 
 
-def sw_kernels():
+def phase_call_time(torch, dev, smi, seen):
+    """Both routes of sw_score_ends on each input the main path gave it
+    (a CUDA graph's replay of 10 launches each), summed over the launches.
+    Returns {route name: ms}."""
+    from ciri_long_tpu_torch.misc.kexp import gcups
+
+    total = {}
+    for t, (q, r, params) in enumerate(seen):
+        times = {name: gcups(fn, q, r, params, 10, graph=True)[1]
+                 for name, fn in sw_routes(q.shape[1], r.shape[1], params)}
+        emit('call_sw_time', launch=t, B=int(q.shape[0]), Lq=int(q.shape[1]),
+             Lr=int(r.shape[1]), params=list(params), ms=times, card=smi)
+        for name, ms in times.items():
+            total[name] = total.get(name, 0.0) + ms
+    emit('call_sw_time', launches=len(seen), total_ms=total, card=smi)
+    return total
+
+
+def sw_routes(Lq, Lr, params):
+    """(name, kernel) of sw_score_ends: routed, then the wavefront forced,
+    then the tiled route forced where _tile_plan takes the shape."""
+    from ciri_long_tpu_torch.ops.sw import (_tile_plan, sw_score_ends_cuda,
+                                            sw_score_ends_tiled_cuda,
+                                            sw_score_ends_wave_cuda)
+
+    routes = [('sw_score_ends', sw_score_ends_cuda),
+              ('sw_score_ends wave', sw_score_ends_wave_cuda)]
+    if _tile_plan(Lq, Lr, params) is not None:
+        routes.append(('sw_score_ends tiled', sw_score_ends_tiled_cuda))
+    return routes
+
+
+def sw_kernels(Lq, Lr, params):
     """(name, kernel) of every SW design family on the card."""
     from ciri_long_tpu_torch.misc.kexp import sw_chain_cuda, sw_rowscan_cuda
-    from ciri_long_tpu_torch.ops.sw import sw_score_ends_cuda
 
-    return (('sw_score_ends', sw_score_ends_cuda),
-            ('sw_rowscan', sw_rowscan_cuda),
-            ('sw_chain C=2', lambda q, r, p: sw_chain_cuda(q, r, p, 2)),
-            ('sw_chain C=4', lambda q, r, p: sw_chain_cuda(q, r, p, 4)))
+    return sw_routes(Lq, Lr, params) + [
+        ('sw_rowscan', sw_rowscan_cuda),
+        ('sw_chain C=2', lambda q, r, p: sw_chain_cuda(q, r, p, 2)),
+        ('sw_chain C=4', lambda q, r, p: sw_chain_cuda(q, r, p, 4))]
 
 
 def phase_probe_path():
@@ -362,7 +438,8 @@ def phase_probe_time(torch, dev, smi):
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S, PARAMS,
                                                cell_rate, gcups, sw_bound,
                                                time_launches)
-    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+    from ciri_long_tpu_torch.ops.sw import (_tile_plan, sw_score_ends,
+                                            sw_score_ends_tiled_cuda)
 
     rates = {'dpx': cell_rate(dev, True), 'plain': cell_rate(dev, False)}
     rate = max(rates.values())
@@ -379,13 +456,21 @@ def phase_probe_time(torch, dev, smi):
         bound_ms, bound_by = sw_bound(B, Lq, Lr, rate)
         sw[shape] = dict(plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
-        for name, fn in sw_kernels():
+        for name, fn in sw_kernels(Lq, Lr, PARAMS):
             k_gcups, k_ms = gcups(fn, q, r, PARAMS, 10, graph=True)
             sw[shape][name] = k_ms
             emit('probe_time', shape=shape, B=B, Lq=Lq, Lr=Lr, kernel=name,
                  ms=k_ms, gcups=k_gcups, plain_ms=plain_ms,
                  plain_gcups=plain_gcups, bound_ms=bound_ms,
                  bound_by=bound_by, bound_share=bound_ms / k_ms, card=smi)
+        for halos in TILE_RULES if shape.startswith('main') else ():
+            plan = _tile_plan(Lq, Lr, PARAMS, halos)
+            k_gcups, k_ms = gcups(
+                lambda q_, r_, p: sw_score_ends_tiled_cuda(q_, r_, p, plan),
+                q, r, PARAMS, 10, graph=True)
+            emit('tile_rule', shape=shape, B=B, Lq=Lq, Lr=Lr, halos=halos,
+                 T=plan[0], halo=plan[1], ms=k_ms, gcups=k_gcups,
+                 bound_ms=bound_ms, card=smi)
     probes = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for probe in PROBES:
         x = probe_input(probe, dev)
@@ -414,12 +499,14 @@ def main():
     dev, smi = phase_build(torch)
     errs = phase_kernel(torch, dev)
     phase_time(torch, dev, smi)
-    launches, call_err = phase_call(torch, dev, smi)
+    launches, call_err, seen = phase_call(torch, dev, smi)
+    phase_call_time(torch, dev, smi, seen)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
 
     bench = sw['bench']
+    main = sw['main128']
 
     def entry(name, n, max_err, ms, plain_ms=bench['plain_ms'],
               bound=bench['bound_ms'], by=bench['bound_by'],
@@ -432,9 +519,13 @@ def main():
     # SW kernels at the bench shape (phase 5 has every shape); no PyTorch
     # call computes SW, so no library time.  sw_score_ends is launched by
     # call (phase 4), the others by the probe path (phase 5).
+    # sw_score_ends also at the main path's 128x54x16384 (its tiled route)
     kernels = [
-        entry('sw_score_ends', launches, max(errs['sw_score_ends'], call_err),
-              bench['sw_score_ends']),
+        dict(entry('sw_score_ends', launches,
+                   max([call_err] + [err for name, err in errs.items()
+                                     if name.startswith('sw_score_ends')]),
+                   bench['sw_score_ends']),
+             main_ms=main['sw_score_ends'], main_bound_ms=main['bound_ms']),
         entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
               bench['sw_rowscan']),
         entry('sw_chain', probe_launches['sw_chain'],

@@ -14,8 +14,9 @@ kernel:
 - row (``--r3``, the default; kexp.py:1586, ``build_kernel``/``_r3``):
   csrc/sw_rowscan.cu, one block per batch row sweeping the query rows, the
   horizontal gap resolved by a prefix max over all reference columns;
-- wave (``--wave``; kexp.py:1534, ``build_kernel_wave*``):
-  csrc/sw_score_ends.cu, the anti-diagonal wavefront that ``call`` uses;
+- wave (``--wave``; kexp.py:1534, ``build_kernel_wave*``): the
+  anti-diagonal wavefront route of csrc/sw_score_ends.cu, forced at every
+  shape (``call`` takes that kernel's tiled route where it applies);
 - chain (``--chain C``; kexp.py:1462, ``build_kernel_chain*``):
   csrc/sw_chain.cu, the wavefront over C jobs' references laid back to back
   behind boundary codes (``chain_layout``), B % C == 0.
@@ -44,8 +45,9 @@ import time
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.ops.sw import (PAD, SWParams, check_cuda_codes,
-                                        sw_score_ends, sw_score_ends_auto)
+from ciri_long_tpu_torch.ops.sw import (BLOCK_SMEM, PAD, SWParams,
+                                        check_cuda_codes, sw_score_ends,
+                                        sw_score_ends_wave_cuda)
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, resolve_device
 
 PARAMS = SWParams(10, 4, 8, 2)
@@ -53,9 +55,9 @@ CHECK_ROWS = 32          # kexp's check batch (its default --btile)
 BOUNDARY = 6             # the chain stream's job boundary code
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
-# dynamic shared memory a block may opt into on Hopper (232 448 bytes) less
-# the row scan's static arrays
-ROWSCAN_SMEM_LIMIT = 232448 - 512
+# dynamic shared memory a block may opt into on Hopper less the row scan's
+# static arrays
+ROWSCAN_SMEM_LIMIT = BLOCK_SMEM - 512
 
 
 def nvidia_smi(query='name,power.limit'):
@@ -189,6 +191,17 @@ def sw_rowscan(query: torch.Tensor, ref: torch.Tensor, params: SWParams):
         query.device, ref.device))
 
 
+def sw_wave(query: torch.Tensor, ref: torch.Tensor, params: SWParams):
+    """The wavefront route of csrc/sw_score_ends.cu for CUDA tensors, the
+    plain version for CPU tensors."""
+    if query.is_cuda:
+        return sw_score_ends_wave_cuda(query, ref, params)
+    if query.device.type == 'cpu' and ref.device.type == 'cpu':
+        return sw_score_ends(query, ref, params)
+    raise ValueError('sw_wave: unsupported devices {} and {}'.format(
+        query.device, ref.device))
+
+
 def _chain_rows(B, C):
     if C < 1 or B % C:
         raise ValueError('the chain needs a batch divisible by C (B={}, '
@@ -273,7 +286,7 @@ def sw_chain(query: torch.Tensor, ref: torch.Tensor, params: SWParams,
 def family(args):
     """(name, scorer) of the family the flags select."""
     if args.wave:
-        return 'wave', sw_score_ends_auto
+        return 'wave', sw_wave
     if args.chain:
         C = args.chain
         return 'chain', lambda q, r, p: sw_chain(q, r, p, C)
@@ -370,7 +383,8 @@ def parse_args(argv=None):
     fam.add_argument('--r3', '--row', dest='row', action='store_true',
                      help='row scan, csrc/sw_rowscan.cu (the default)')
     fam.add_argument('--wave', action='store_true',
-                     help='anti-diagonal wavefront, csrc/sw_score_ends.cu')
+                     help='anti-diagonal wavefront, the wave route of '
+                          'csrc/sw_score_ends.cu')
     fam.add_argument('--chain', type=int, default=0, metavar='C',
                      help='chained wavefront over C jobs per warp, '
                           'csrc/sw_chain.cu (B %% C == 0)')

@@ -8,12 +8,16 @@ required.  Coordinates are 0-based inclusive (the SSW convention).
 
 ``sw_score_ends`` is the plain PyTorch version (the JAX row scan with the
 within-row gap resolved by a prefix max); ``sw_score_ends_cuda`` launches
-the hand-written kernel ``csrc/sw_score_ends.cu``.  ``sw_score_ends_auto``
-takes the kernel for CUDA tensors and the plain version for CPU tensors,
-nothing else: a CUDA tensor never falls through to the plain version.
+the hand-written kernel ``csrc/sw_score_ends.cu`` by one of its two routes
+(``_tile_plan``): reference tiles with an exact halo for a short query
+against a long reference, the anti-diagonal wavefront for every other
+shape.  ``sw_score_ends_auto`` takes the kernel for CUDA tensors and the
+plain version for CPU tensors, nothing else: a CUDA tensor never falls
+through to the plain version.
 
 Host arrays come in as numpy; every batch function takes the ``device`` to
-run on and returns numpy.
+run on (default 'cuda', resolved by ``resolve_device``, which raises when
+no GPU is visible; pass 'cpu' for the host) and returns numpy.
 """
 
 import ctypes
@@ -22,7 +26,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
+from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES, ROUTES,
+                                                resolve_device)
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 
 NEG = -(1 << 28)
@@ -112,7 +117,44 @@ _SW_SYMBOLS = {
     'sw_score_ends_launch': (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
         + [ctypes.c_void_p] * 5, ctypes.c_int),
+    'sw_tiles_launch': (
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9
+        + [ctypes.c_void_p] * 5, ctypes.c_int),
 }
+
+# The tiled route's rule: a tile owns the smallest multiple of 32 columns
+# that is at least TILE_MIN_COLS and TILE_HALOS halos, and the route is
+# taken when the reference holds at least two such tiles.  Four halos beat
+# one and two at the main path's shapes on the H100 (PERF.md section 6).
+TILE_MIN_COLS = 256
+TILE_HALOS = 4
+# shared memory a Hopper block may opt into (dynamic); one tile warp's
+# (H, F) handoff row of T + halo int2 must fit it
+BLOCK_SMEM = 232448
+
+
+def _tile_halo(Lq, params: SWParams):
+    """Lq + floor(Lq * match / gap_extend) + 1 columns: more than the
+    reference span of any positive local alignment, which has at most Lq
+    diagonal steps and fewer than Lq * match / gap_extend gap columns (each
+    costs at least gap_extend, as gap_open >= gap_extend, and the matches
+    bring at most Lq * match); the bound _window_plan rests on too."""
+    return Lq + (Lq * params.match) // params.gap_extend + 1
+
+
+def _tile_plan(Lq, Lr, params: SWParams, halos=TILE_HALOS):
+    """(T, halo) of the tiled route for a [*, Lq] x [*, Lr] call, or None
+    for the wavefront.  A tile owns T columns and sweeps from _tile_halo
+    columns before them, so the optimum ending in an owned column lies
+    whole in the tile.  ``halos`` is the tile width in halos (the rule's
+    constant; other values only to time other widths)."""
+    if params.match < 1 or params.gap_extend < 1:
+        return None
+    halo = _tile_halo(Lq, params)
+    T = -(-max(TILE_MIN_COLS, halos * halo) // 32) * 32
+    if Lr < 2 * T or (T + halo) * 8 > BLOCK_SMEM:
+        return None
+    return T, halo
 
 
 def check_cuda_codes(name, query: torch.Tensor, ref: torch.Tensor,
@@ -139,15 +181,13 @@ def check_cuda_codes(name, query: torch.Tensor, ref: torch.Tensor,
                          'arguments'.format(name, B, Lq, Lr))
 
 
-def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
-                       params: SWParams):
-    """The hand-written CUDA kernel (csrc/sw_score_ends.cu) on CUDA tensors:
-    query int8 [B, Lq] and ref int8 [B, Lr], contiguous, on one device.
-    Same outputs as sw_score_ends.  Raises on anything else, and when the
-    launch is refused."""
+def _launch(query, ref, params, plan):
+    """Launch csrc/sw_score_ends.cu on checked inputs: the wavefront when
+    ``plan`` is None, else the tiles of ``plan`` = (T, halo) and their
+    merge.  Outputs and scratch come from torch.empty; raises if the launch
+    is refused; counts one launch in LAUNCHES and one in ROUTES."""
     from ciri_long_tpu_torch.ops import _build
 
-    check_cuda_codes('sw_score_ends_cuda', query, ref, params)
     B, Lq = query.shape
     Lr = ref.shape[1]
     lib = _build.load('sw_score_ends.cu', _SW_SYMBOLS)
@@ -155,19 +195,61 @@ def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
     score = torch.empty(B, dtype=torch.int32, device=dev)
     q_end = torch.empty(B, dtype=torch.int32, device=dev)
     r_end = torch.empty(B, dtype=torch.int32, device=dev)
-    scratch = torch.empty((B, Lr, 2), dtype=torch.int32, device=dev)
+    if plan is None:
+        route, fn, args = 'wave', lib.sw_score_ends_launch, ()
+        scratch = torch.empty((B, Lr, 2), dtype=torch.int32, device=dev)
+    else:
+        route, fn, args = 'tiled', lib.sw_tiles_launch, plan
+        scratch = torch.empty((B, -(-Lr // plan[0]), 3), dtype=torch.int32,
+                              device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_score_ends_launch(
-            query.data_ptr(), ref.data_ptr(), B, Lq, Lr, params.match,
-            params.mismatch, params.gap_open, params.gap_extend,
-            scratch.data_ptr(), score.data_ptr(), q_end.data_ptr(),
-            r_end.data_ptr(), stream)
+        rc = fn(query.data_ptr(), ref.data_ptr(), B, Lq, Lr, params.match,
+                params.mismatch, params.gap_open, params.gap_extend, *args,
+                scratch.data_ptr(), score.data_ptr(), q_end.data_ptr(),
+                r_end.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError('sw_score_ends kernel launch failed: cudaError {} '
-                           '(B={}, Lq={}, Lr={})'.format(rc, B, Lq, Lr))
+        raise RuntimeError('sw_score_ends {} launch failed: cudaError {} '
+                           '(B={}, Lq={}, Lr={})'.format(route, rc, B, Lq, Lr))
     LAUNCHES['sw_score_ends'] += 1
+    ROUTES[route] += 1
     return score, q_end, r_end
+
+
+def sw_score_ends_wave_cuda(query: torch.Tensor, ref: torch.Tensor,
+                            params: SWParams):
+    """The wavefront route of csrc/sw_score_ends.cu (one warp per row over
+    all Lr columns), forced, on anything sw_score_ends_cuda takes."""
+    check_cuda_codes('sw_score_ends_wave_cuda', query, ref, params)
+    return _launch(query, ref, params, None)
+
+
+def sw_score_ends_tiled_cuda(query: torch.Tensor, ref: torch.Tensor,
+                             params: SWParams, plan=None):
+    """The tiled route of csrc/sw_score_ends.cu (one warp per row and
+    tile), forced, with ``plan`` = (T, halo) or by default _tile_plan's.
+    Raises where _tile_plan gives no plan, as on anything
+    sw_score_ends_cuda refuses."""
+    check_cuda_codes('sw_score_ends_tiled_cuda', query, ref, params)
+    plan = plan or _tile_plan(query.shape[1], ref.shape[1], params)
+    if plan is None:
+        raise ValueError('sw_score_ends_tiled_cuda: no tile plan for Lq={}, '
+                         'Lr={}, {}'.format(query.shape[1], ref.shape[1],
+                                            params))
+    return _launch(query, ref, params, plan)
+
+
+def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
+                       params: SWParams):
+    """The hand-written CUDA kernel (csrc/sw_score_ends.cu) on CUDA tensors:
+    query int8 [B, Lq] and ref int8 [B, Lr], contiguous, on one device.
+    Same outputs as sw_score_ends.  Routed by _tile_plan: the tiled route
+    for a short query against a long reference, the wavefront for every
+    other shape.  Raises on anything else, and when the launch is
+    refused."""
+    check_cuda_codes('sw_score_ends_cuda', query, ref, params)
+    return _launch(query, ref, params,
+                   _tile_plan(query.shape[1], ref.shape[1], params))
 
 
 def sw_score_ends_auto(query: torch.Tensor, ref: torch.Tensor,
@@ -262,7 +344,7 @@ def _result(fields) -> SWResult:
 
 
 @_count_dispatch('sw_align_batch')
-def sw_align_batch(query, ref, params: SWParams, device='cpu') -> SWResult:
+def sw_align_batch(query, ref, params: SWParams, device='cuda') -> SWResult:
     """Batched SW with begin and end coordinates on ``device``.
 
     Inputs are [B, Lq] / [B, Lr] padded code arrays (numpy).  On the CPU the
@@ -272,10 +354,10 @@ def sw_align_batch(query, ref, params: SWParams, device='cpu') -> SWResult:
         sw_align_batch_submit(query, ref, params, device))
 
 
-def sw_align_batch_submit(query, ref, params: SWParams, device='cpu'):
+def sw_align_batch_submit(query, ref, params: SWParams, device='cuda'):
     """Async half of sw_align_batch: enqueue the device work (or run the
     host core eagerly) and return a handle for sw_align_batch_collect."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == 'cpu' and _alncore() is not None:
         return ('host', _host_align(query, ref, params))
     return ('dev', _sw_align_fused(_to_device(query, device),
@@ -307,7 +389,7 @@ def _window_plan(Lq, Lr, params: SWParams, chunk):
 
 
 def sw_window_align(query, ref, params: SWParams, chunk=16384,
-                    device='cpu'):
+                    device='cuda'):
     """Local alignment of one query against a very long reference window
     (the reference's +-200 kb SSW clip re-alignment, find_bsj.py:196-215):
     the window is tiled into overlapping chunks that become the batch axis
@@ -315,7 +397,7 @@ def sw_window_align(query, ref, params: SWParams, chunk=16384,
 
     Returns (score, q_begin, q_end, r_begin, r_end) python ints with
     reference coordinates global to ``ref``; score 0 => (-1 ...) coords."""
-    device = torch.device(device)
+    device = resolve_device(device)
     query = np.asarray(query)
     ref = np.asarray(ref)
     Lq = len(query)
@@ -356,7 +438,7 @@ _WINDOW_ROW_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 def sw_window_align_many(pairs, params: SWParams, chunk=16384,
-                         device='cpu'):
+                         device='cuda'):
     """Batched sw_window_align: every pair's window chunks stack into one
     sw_align_batch (cross-read batching of the +-200 kb clip windows).
     Per-pair results are identical to sw_window_align(query, ref, params):
@@ -366,6 +448,7 @@ def sw_window_align_many(pairs, params: SWParams, chunk=16384,
 
     Returns a list of (score, q_begin, q_end, r_begin, r_end) int tuples,
     reference coordinates global to each pair's ``ref``."""
+    device = resolve_device(device)
     if not pairs:
         return []
     rows_q, rows_r, row_item, row_gstart = [], [], [], []

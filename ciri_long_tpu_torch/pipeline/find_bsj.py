@@ -8,11 +8,13 @@ align_clip_segments find_bsj.py:182-233).
 
 The reference's per-read SSW call over a +-200 kb genomic window (its
 hottest native kernel) becomes a batched SW (ops/sw.py) on the ``device``
-that every function here takes: the CUDA kernel on ``cuda``, the host core
-on ``cpu``.  Everything else is host logic over Context.  With ``cuda`` the
-stages run in this process; with ``cpu`` at -t > 1 they fan out over spawn
-pools as in the JAX package.  The JAX package's work-steal split between
-pool and device (HybridDrain, find_bsj.py:556) is not ported.
+that every function here takes: the CUDA kernel on ``cuda`` (the default,
+resolved by utils/dispatch.py::resolve_device, which raises without a GPU),
+the host core on ``cpu``.  Everything else is host logic over Context.
+With ``cuda`` the stages run in this process; with ``cpu`` at -t > 1 they
+fan out over spawn pools as in the JAX package.  The JAX package's
+work-steal split between pool and device (HybridDrain, find_bsj.py:556) is
+not ported.
 
 Output record format is byte-compatible with the reference
 (find_bsj.py:363-366):
@@ -25,7 +27,6 @@ import os
 from collections import defaultdict
 
 import numpy as np
-import torch
 
 from ciri_long_tpu_torch.annot.signal import (find_annotated_signal,
                                               find_denovo_signal,
@@ -41,6 +42,7 @@ from ciri_long_tpu_torch.models.hits import (get_blocks, get_parital_blocks,
 from ciri_long_tpu_torch.ops.sw import (SWParams, sw_align_batch,
                                         sw_window_align_many)
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+from ciri_long_tpu_torch.utils.dispatch import resolve_device
 
 CLIP_SW = SWParams(CLIP_SCORE.match, CLIP_SCORE.mismatch,
                    CLIP_SCORE.gap_open, CLIP_SCORE.gap_extend)
@@ -229,13 +231,14 @@ def _clip_finish(res, meta):
 
 
 @_count_dispatch('clip_sw_batch')
-def align_clip_segments_batch(ctx, items, cfg=DEFAULT.call, device='cpu'):
+def align_clip_segments_batch(ctx, items, cfg=DEFAULT.call, device='cuda'):
     """Clip re-alignment (reference align_clip_segments, find_bsj.py:182-233)
     over (circ, hit) pairs: all short-window SW alignments in a chunk run
     as ONE bucketed batch, all +-200 kb windows as one chunked batch
     (sw_window_align_many).  Row results equal per-read alignment -- the SW
     scorer is per-row and padding rows/lengths cannot change a row's
     outcome."""
+    device = resolve_device(device)
     staged = [_clip_prepare(ctx, circ, hit, cfg) for circ, hit in items]
     out = [None] * len(items)
     sw_rows = []
@@ -334,12 +337,13 @@ def _call_circ_from_hit(ctx, read_id, segments, junc, circ, circ_hit,
 
 
 def scan_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
-                   device='cpu'):
+                   device='cuda'):
     """Per-read CCS scan (find_bsj.py:236-325), batch-first: the two
     filter alignments run as whole-chunk batched maps, and the iterative
     BSJ rotation runs in lockstep over all surviving reads
     (find_bsj_batch) -- one device chaining program per rotation round
     instead of 3-5 map() dispatches per read."""
+    device = resolve_device(device)
     reads_cnt = defaultdict(int)
     ret = []
     short_reads = []
@@ -446,17 +450,17 @@ def _pooled(threads, device, ref_fasta):
     """Whether a stage may fan out over a host worker pool: only on the
     CPU (CUDA stages run in this process) with threads > 1."""
     return (threads > 1 and ref_fasta is not None
-            and torch.device(device).type == 'cpu')
+            and device.type == 'cpu')
 
 
 def _scan_worker_chunk(payload):
     chunk, is_canonical, cfg = payload
-    return scan_ccs_chunk(_WORKER_CTX, chunk, is_canonical, cfg)
+    return scan_ccs_chunk(_WORKER_CTX, chunk, is_canonical, cfg, 'cpu')
 
 
 def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
                    cfg=DEFAULT.call, threads=1, ref_fasta=None,
-                   idx_file=None, index_cache=None, device='cpu'):
+                   idx_file=None, index_cache=None, device='cuda'):
     """Scan all CCS reads, write {prefix}.cand_circ.fa
     (find_bsj.py:328-372).
 
@@ -474,6 +478,7 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
     import json
     import zlib
 
+    device = resolve_device(device)
     prog = ProgressBar()
     reads_count = defaultdict(int)
     short_reads = []
@@ -567,9 +572,10 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
 
 
 def recover_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
-                      device='cpu'):
+                      device='cuda'):
     """Short-CCS recovery pass (find_bsj.py:375-448): same logic minus the
     raw-read filters, using the short-read aligner in ctx."""
+    device = resolve_device(device)
     reads_cnt = defaultdict(int)
     ret = []
 
@@ -615,17 +621,18 @@ def recover_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
 
 def _recover_worker_chunk(payload):
     chunk, is_canonical, cfg = payload
-    return recover_ccs_chunk(_WORKER_CTX, chunk, is_canonical, cfg)
+    return recover_ccs_chunk(_WORKER_CTX, chunk, is_canonical, cfg, 'cpu')
 
 
 def recover_ccs_reads(ctx, short_reads, is_canonical, out_dir, prefix,
                       cfg=DEFAULT.call, threads=1, ref_fasta=None,
-                      idx_file=None, index_cache=None, device='cpu'):
+                      idx_file=None, index_cache=None, device='cuda'):
     """Recovery pass over the short reads; appends to {prefix}.cand_circ.fa
     (find_bsj.py:451-490).  On the CPU, threads > 1 fans chunks over a
     spawn pool like the scan pass (the reference pools this pass at
     find_bsj.py:462); workers build a short-mode aligner index.  Results
     drain in submission order, so the output bytes match a serial run."""
+    device = resolve_device(device)
     prog = ProgressBar()
     prog.update(0)
     reads_count = defaultdict(int)
@@ -805,7 +812,7 @@ def _raw_worker_chunk(payload):
 
 def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
                    cfg=DEFAULT.call, threads=1, ref_fasta=None,
-                   idx_file=None, index_cache=None, device='cpu'):
+                   idx_file=None, index_cache=None, device='cuda'):
     """Partial-read pass over the raw reads; writes
     {prefix}.low_confidence.fa (find_bsj.py:623-718).  On the CPU,
     threads > 1 uses the same
@@ -815,6 +822,7 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
     whether a pool may be used."""
     from ciri_long_tpu_torch.io.fastx import read_fastx
 
+    device = resolve_device(device)
     circ_reads = {}
     with open('{}/{}.cand_circ.fa'.format(out_dir, prefix), 'r') as f:
         for line in f:

@@ -1,0 +1,93 @@
+"""Seeded SW inputs that put the optimum where reference tiles can go wrong.
+
+``tile_cases`` makes the rows that hold the tiled route of
+csrc/sw_score_ends.cu (ops/sw.py::_tile_plan: tiles of T owned columns,
+each swept from a halo before it) to the plain scorer: an exact query copy
+across a tile edge, the widest gapped copy that still beats its pieces,
+equal-score twins in two tiles (the smaller r_end must win), N and PAD
+runs at tile edges, all-PAD references and queries, random codes with PAD
+suffixes, and a copy across the last, partial tile's edge.  The CPU tests,
+the card's tests and chip_smoke.py share them.
+"""
+
+import numpy as np
+
+N = 4
+PAD = 5
+KINDS = ('edge', 'gapped', 'twins', 'n_pad', 'pad_ref', 'pad_query',
+         'random', 'last_edge')
+
+
+def _gap(piece, params):
+    """The widest gap, in reference columns, that a junction between two
+    exact pieces of ``piece`` codes still pays for:
+    gap_open + (g-1)*gap_extend < piece*match; 0 when none does."""
+    room = piece * params.match - params.gap_open
+    if room <= 0:
+        return 0
+    return (room - 1) // params.gap_extend + 1
+
+
+def _place(r, start, codes):
+    """Write ``codes`` into r from ``start``, clamped to lie inside r."""
+    start = int(min(max(start, 0), len(r) - len(codes)))
+    r[start:start + len(codes)] = codes
+    return start
+
+
+def _gapped(rng, q, params):
+    """q in about five exact pieces with the widest paying gap of random
+    codes between each two: a plant whose span nears Lq + Lq*match/gE."""
+    Lq = len(q)
+    piece = max(1, Lq // 5)
+    g = _gap(piece, params)
+    cuts = list(range(piece, Lq, piece))
+    parts = np.split(q, cuts)
+    out = []
+    for t, part in enumerate(parts):
+        if t:
+            out.append(rng.integers(0, 4, g).astype(np.int8))
+        out.append(part)
+    return np.concatenate(out)
+
+
+def tile_cases(rng, B, Lq, Lr, T, params):
+    """[B, Lq] queries and [B, Lr] references, int8 codes; row b is of kind
+    KINDS[b % len(KINDS)], planted around the tile edges k*T."""
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
+    r = rng.integers(0, 4, (B, Lr)).astype(np.int8)
+    edges = list(range(T, Lr, T)) or [Lr // 2]
+    for b in range(B):
+        kind = KINDS[b % len(KINDS)]
+        e = int(rng.choice(edges))
+        if kind == 'edge' and Lq <= Lr:
+            _place(r[b], e - int(rng.integers(0, Lq)), q[b])
+        elif kind == 'gapped':
+            plant = _gapped(rng, q[b], params)
+            if len(plant) <= Lr:
+                _place(r[b], e + int(rng.integers(0, 8)) - len(plant) + 1,
+                       plant)
+        elif kind == 'twins' and 2 * Lq <= Lr:
+            first = _place(r[b], int(rng.integers(0, max(1, e - Lq))), q[b])
+            later = [x for x in edges if x >= first + Lq] or [first + Lq]
+            _place(r[b], max(int(rng.choice(later)) - Lq // 2, first + Lq),
+                   q[b])
+        elif kind == 'n_pad':
+            if Lq <= Lr:
+                _place(r[b], e - Lq // 2, q[b])
+            q[b, Lq // 3:Lq // 3 + 2] = N
+            r[b, max(0, e - 3):e + 3] = N
+            e2 = int(rng.choice(edges))
+            r[b, max(0, e2 - 2):e2 + 2] = PAD
+        elif kind == 'pad_ref':
+            r[b] = PAD
+        elif kind == 'pad_query':
+            q[b] = PAD
+        elif kind == 'random':
+            q[b] = rng.integers(0, 5, Lq)
+            r[b] = rng.integers(0, 5, Lr)
+            q[b, int(rng.integers(1, Lq + 1)):] = PAD
+            r[b, int(rng.integers(Lr // 2, Lr + 1)):] = PAD
+        elif kind == 'last_edge' and Lq <= Lr:
+            _place(r[b], edges[-1] - Lq // 2, q[b])
+    return q, r

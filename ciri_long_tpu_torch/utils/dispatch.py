@@ -8,7 +8,7 @@ CPU behind the user's back.
 since the last ``reset_launches`` (plain integers, read with
 ``launch_counts``; ``call`` resets them when it starts and reports those of
 ``CALL_KERNELS``), so a run can show that its path went through the
-kernel.
+kernel; ``ROUTES`` counts the SW kernel's launches by route beside it.
 
 ``count_dispatch`` is the JAX package's env-gated accounting decorator
 (``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
@@ -33,11 +33,16 @@ LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
             'int16_probe': 0}
 # the kernels ``call`` can launch (the others serve misc/kexp, int16_probe)
 CALL_KERNELS = ('sw_score_ends',)
+# route of csrc/sw_score_ends.cu -> its launches since the last
+# reset_launches (ops/sw.py::_tile_plan routes; ``call``'s summary leaves
+# this out)
+ROUTES = {'wave': 0, 'tiled': 0}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts(names=None):

@@ -3,11 +3,14 @@
 - the whole CLI on the small verification world (50 kb genome, one
   circRNA, 10 circular + 4 linear reads): JAX ``call --backend cpu`` and port ``call --device cpu`` give a
   byte-identical cand_circ.fa and equal counters (``timing`` and the port's
-  ``kernels`` aside), and each package resumes from the other's tmp/;
+  ``kernels`` aside), and each package resumes from the other's tmp/; the
+  port's CCS scan on a -t 2 spawn pool equals its serial run;
 - ``scan_ccs_chunk`` on the tests/test_pipeline_call.py world, with reads
   whose clipped bases take the +-200 kb window SW;
 - the short-read recovery stage (``recover_ccs_chunk`` and the chunked
-  ``recover_ccs_reads``) on the tests/test_recover.py world;
+  ``recover_ccs_reads``, serial and on a -t 2 spawn pool) on the
+  tests/test_recover.py world;
+- the entry points' default device, 'cuda', which raises without a GPU;
 - the aligner state carried across: the port's GenomeAligner built from the
   JAX index (``from_arrays``) and from the JAX package's on-disk
   tmp/minidx + tmp/gcodes caches maps exactly as the JAX aligner does.
@@ -29,6 +32,7 @@ from ciri_long_tpu.pipeline import find_bsj as jfb
 from ciri_long_tpu_torch.context import Context
 from ciri_long_tpu_torch.io.genome import Genome
 from ciri_long_tpu_torch.models.aligner import GenomeAligner
+from ciri_long_tpu_torch.ops import sw as tsw
 from ciri_long_tpu_torch.ops.ccs import find_consensus
 from ciri_long_tpu_torch.pipeline import find_bsj as tfb
 from ciri_long_tpu_torch.tools.world import _write_fasta
@@ -119,6 +123,34 @@ def test_each_package_resumes_from_the_others_tmp(skill_runs, first, second):
     LAUNCHES['sw_score_ends'] = 0
 
 
+def test_scan_ccs_reads_pool_matches_serial(skill_runs):
+    """-t 2 on the CPU over the port's CCS reads of the skill world, four a
+    chunk: the spawn-pool workers run scan_ccs_chunk on the host (they pass
+    'cpu', not the 'cuda' default) and the output equals the serial run's
+    and ``call``'s."""
+    from dataclasses import replace
+
+    from ciri_long_tpu_torch.config import DEFAULT
+    from ciri_long_tpu_torch.pipeline.find_ccs import load_ccs_reads
+    ref = str(skill_runs / 'genome.fa')
+    ccs_seq = load_ccs_reads(str(skill_runs / 'out_port'), 'vtest')
+    genome = Genome(ref)
+    ctx = Context(aligner=GenomeAligner(genome), genome=genome)
+    cfg = replace(DEFAULT.call, ccs_chunk_size=4)
+    outs = []
+    for name, threads in (('serial', 1), ('pool', 2)):
+        out = skill_runs / 'scan_{}'.format(name)
+        out.mkdir()
+        cnt, short = tfb.scan_ccs_reads(ctx, ccs_seq, True, str(out), 'p',
+                                        cfg, threads=threads, ref_fasta=ref,
+                                        device='cpu')
+        outs.append((dict(cnt), short, (out / 'p.cand_circ.fa').read_bytes()))
+    assert outs[0] == outs[1]
+    assert outs[0][0]['bsj'] == 10
+    assert outs[0][2] == (skill_runs / 'out_port' /
+                          'vtest.cand_circ.fa').read_bytes()
+
+
 def test_collapse_is_not_ported_yet():
     from ciri_long_tpu_torch.cli.main import main
     with pytest.raises(SystemExit, match='not yet ported'):
@@ -205,7 +237,9 @@ def recover_world(module_rng, tmp_path_factory):
                       genome=jgenome)
     tctx = Context(aligner=GenomeAligner(genome, short_mode=True),
                    genome=genome)
-    return jctx, tctx, reads, tmp_path_factory.mktemp('recover')
+    root = tmp_path_factory.mktemp('recover')
+    _write_fasta(root / 'genome.fa', 'chr1', chr1)   # for the spawn pool
+    return jctx, tctx, reads, root
 
 
 def test_recover_ccs_chunk_matches_jax(recover_world):
@@ -244,6 +278,56 @@ def test_recover_ccs_reads_matches_jax(recover_world):
     assert cands[0] == cands[1]
     assert cands[1].startswith(b'>earlier\tchr1:1-2\n')
     assert cands[1].count(b'>') == 1 + cnts[1]['bsj']
+
+
+def test_recover_ccs_reads_pool_matches_serial(recover_world):
+    """-t 2 on the CPU: the spawn-pool workers run recover_ccs_chunk on the
+    host (they pass 'cpu', not the 'cuda' default) and the appended bytes
+    equal the serial run's."""
+    from dataclasses import replace
+
+    from ciri_long_tpu_torch.config import DEFAULT
+    _, tctx, reads, root = recover_world
+    cfg = replace(DEFAULT.call, ccs_chunk_size=4)
+    outs = []
+    for name, threads in (('serial', 1), ('pool', 2)):
+        out = root / name
+        out.mkdir()
+        (out / 'p.cand_circ.fa').write_text('')
+        cnt = tfb.recover_ccs_reads(tctx, reads, True, str(out), 'p', cfg,
+                                    threads=threads,
+                                    ref_fasta=str(root / 'genome.fa'),
+                                    device='cpu')
+        outs.append((dict(cnt), (out / 'p.cand_circ.fa').read_bytes()))
+    assert outs[0] == outs[1]
+    assert outs[0][0]['bsj'] >= 8
+
+
+@pytest.mark.parametrize('entry', [
+    lambda: tsw.sw_align_batch(np.zeros((1, 4), np.int8),
+                               np.zeros((1, 4), np.int8), tsw.SWParams()),
+    lambda: tsw.sw_align_batch_submit(np.zeros((1, 4), np.int8),
+                                      np.zeros((1, 4), np.int8),
+                                      tsw.SWParams()),
+    lambda: tsw.sw_window_align(np.zeros(4, np.int8), np.zeros(9, np.int8),
+                                tsw.SWParams()),
+    lambda: tsw.sw_window_align_many([], tsw.SWParams()),
+    lambda: tfb.align_clip_segments_batch(None, []),
+    lambda: tfb.scan_ccs_chunk(None, [], True),
+    lambda: tfb.scan_ccs_reads(None, {}, True, 'unused', 'p'),
+    lambda: tfb.recover_ccs_chunk(None, [], True),
+    lambda: tfb.recover_ccs_reads(None, [], True, 'unused', 'p'),
+    lambda: tfb.scan_raw_reads(None, 'unused.fa', True, 'unused', 'p'),
+], ids=['sw_align_batch', 'sw_align_batch_submit', 'sw_window_align',
+        'sw_window_align_many', 'align_clip_segments_batch',
+        'scan_ccs_chunk', 'scan_ccs_reads', 'recover_ccs_chunk',
+        'recover_ccs_reads', 'scan_raw_reads'])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """With no ``device`` the port's entry points ask for 'cuda', which
+    raises where no GPU is visible instead of running on the host."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device 'cuda' requested"):
+        entry()
 
 
 def _hit_key(h):

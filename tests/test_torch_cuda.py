@@ -1,10 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card: the SW scorer of ``call`` (csrc/sw_score_ends.cu), the harness's row
-scan and chained wavefront (csrc/sw_rowscan.cu, csrc/sw_chain.cu) and the
-int16 probes (csrc/int16_probe.cu).  Marked ``cuda``; each test skips when
-no GPU is visible.  Imports
-only torch, numpy and the port (the card's machine has no JAX), so it runs
-there without the suite's conftest:
+card: the SW scorer of ``call`` (csrc/sw_score_ends.cu, both routes), the
+harness's row scan and chained wavefront (csrc/sw_rowscan.cu,
+csrc/sw_chain.cu) and the int16 probes (csrc/int16_probe.cu).  Marked
+``cuda``; each test skips when no GPU is visible.  Imports only torch,
+numpy and the port (the card's machine has no JAX), so it runs there
+without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -15,7 +15,8 @@ import torch
 
 from ciri_long_tpu_torch.misc import int16_probe, kexp
 from ciri_long_tpu_torch.ops import sw
-from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
+from ciri_long_tpu_torch.tools.sw_cases import tile_cases
+from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +53,65 @@ def test_kernel_matches_plain(dev, params, shape):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# the main path's shapes, and B * tiles not a multiple of a block's warps
+TILE_SHAPES = [(64, 28, 16384), (128, 54, 16384), (37, 33, 5000)]
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("params", [(1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1)])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_both_routes_match_plain_on_tile_cases(dev, params, shape):
+    """tools/sw_cases.py's rows (plants across tile edges, gapped plants,
+    twins, N and PAD at edges, all-PAD rows): the tiled route, the routed
+    call (which takes it) and the wavefront, each exact."""
+    B, Lq, Lr = shape
+    p = sw.SWParams(*params)
+    plan = sw._tile_plan(Lq, Lr, p)
+    assert plan is not None
+    rng = np.random.default_rng(sum(shape) + 7 * sum(params))
+    q, r = (torch.from_numpy(x).to(dev)
+            for x in tile_cases(rng, B, Lq, Lr, plan[0], p))
+    want = sw.sw_score_ends(q, r, p)
+    before = dict(ROUTES)
+    _equal(sw.sw_score_ends_tiled_cuda(q, r, p), want)
+    _equal(sw.sw_score_ends_cuda(q, r, p), want)
+    assert ROUTES['tiled'] == before['tiled'] + 2
+    _equal(sw.sw_score_ends_wave_cuda(q, r, p), want)
+    assert ROUTES['wave'] == before['wave'] + 1
+    assert (want[0] > 0).sum() > B // 2
+
+
+@pytest.mark.parametrize("shape", [(5, 300, 5000), (3, 1000, 17000)])
+def test_tiled_route_with_large_shared_rows(dev, shape):
+    """Long queries, whose four warps' handoff rows pass 48 KB of shared
+    memory (300: 97 KB a block) or leave room for two warps a block
+    (1000: 80 KB a warp)."""
+    B, Lq, Lr = shape
+    p = sw.SWParams(1, 1, 1, 1)
+    T, _ = sw._tile_plan(Lq, Lr, p)
+    rng = np.random.default_rng(Lq)
+    q, r = (torch.from_numpy(x).to(dev)
+            for x in tile_cases(rng, B, Lq, Lr, T, p))
+    _equal(sw.sw_score_ends_tiled_cuda(q, r, p), sw.sw_score_ends(q, r, p))
+
+
+def test_tiled_route_refuses_what_the_plan_refuses(dev):
+    q = torch.randint(0, 4, (4, 40), dtype=torch.int8, device=dev)
+    r = torch.randint(0, 4, (4, 300), dtype=torch.int8, device=dev)
+    p = sw.SWParams()
+    assert sw._tile_plan(40, 300, p) is None
+    with pytest.raises(ValueError, match='no tile plan'):
+        sw.sw_score_ends_tiled_cuda(q, r, p)
+    before = dict(ROUTES)
+    _equal(sw.sw_score_ends_cuda(q, r, p), sw.sw_score_ends(q, r, p))
+    assert ROUTES == dict(before, wave=before['wave'] + 1)
 
 
 def test_auto_launches_kernel_for_cuda_tensors(dev):
