@@ -40,14 +40,37 @@ and exits non-zero if any phase fails (none is caught and skipped):
    and 128x54x16384, and 4096x32x128 (sw_score_ends routed and by each
    route that takes the shape; at the main path's shapes also the tiled
    route at tiles of one and two halos beside the rule's four), and of
-   each probe.
+   each probe;
+6. collapse's two kernels, csrc/edit_distance.cu and csrc/sw_traceback.cu,
+   against their plain versions on tools/collapse_cases.py's cases
+   (random codes with N and PAD, empty and one-base rows, equal-score
+   ties, jobs that score 0, references and pairs longer than one strip),
+   exact;
+7. ``collapse`` end to end on phase 4's cand_circ.fa, ``--device cuda``
+   then ``--device cpu``: the launches of sw_score_ends (by route),
+   edit_distance and sw_traceback (all > 0 on cuda, all 0 on cpu),
+   byte-identical .info, .reads, .expression and .isoforms, equal
+   corrected clusters and counters (tmp/*.corrected.pkl), the wall of each
+   run and the seconds spent in its SW, edit-distance, traceback and POA
+   calls (summed over its threads); then every edit and traceback launch
+   and the four largest SW launches of the cuda run against the plain
+   versions on their inputs;
+8. ``collapse`` at full size, the cohort of benchmarks/collapse_bench.py's
+   defaults (4000 reads of 16 loci on a 2 Mb genome, seed 0; its ``call``
+   first), the checks of phase 7 and the walls; the card's rate for each
+   kernel's cell update (csrc/op_rate.cu); each kernel's device time summed
+   over the launches the cuda run made (a CUDA graph's replay of each
+   recorded input) and, at its largest launch, its time, the plain
+   version's and the bound, after that launch's check against the plain
+   version.
 
-The five CUDA sources build in parallel (one nvcc each) beside the native
+The seven CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
 kernels line (sw_score_ends's entry also has ``main_ms`` and
-``main_bound_ms`` at 128x54x16384), and last ``{"ok": true, "device":
-{...}}``.  Without a CUDA
-device it exits 2 and prints no result.  Its files go under
+``main_bound_ms`` at 128x54x16384 and its collapse launches and device
+time; edit_distance's and sw_traceback's numbers are those of their largest
+launch in phase 8), and last ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
 """
 
@@ -64,7 +87,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
-           'int16_probe.cu', 'op_rate.cu')
+           'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
+           'sw_traceback.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
@@ -78,7 +102,16 @@ REPLACES = {
                  'build_kernel_chain:534, _chain7:694, _chain9:875, '
                  '_chain10:1222 (K7)'),
     'int16_probe': 'misc/int16_probe.py:41 run, kernel bodies :20-37 (K8)',
+    'edit_distance': ('ciri_long_tpu/ops/edit.py:28 '
+                      'edit_distance_batch_padded, an XLA program (X7)'),
+    'sw_traceback': ('ciri_long_tpu/ops/sw_tb_batch.py:44 _align_one, :237 '
+                     'sw_traceback_batch, an XLA program (X5)'),
 }
+# benchmarks/collapse_bench.py's defaults
+COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
+COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
+SW_CHECKED = 4             # the largest SW launches of a collapse run checked
+PROBE_KERNELS = ('sw_score_ends', 'sw_rowscan', 'sw_chain', 'int16_probe')
 BENCH = (512, 1024, 4096)
 TIMED = (('bench', BENCH), ('square', (512, 1024, 1024)),
          ('main64', (64, 28, 16384)), ('main128', (128, 54, 16384)),
@@ -394,7 +427,7 @@ def phase_probe_path():
     lines = [kexp.main(flags + shape) for flags in
              (['--r3'], ['--wave'], ['--chain', '2'], ['--chain', '4'])]
     int16_probe.main(['--device', 'cuda'])
-    launches = launch_counts()
+    launches = launch_counts(PROBE_KERNELS)
     emit('probe_path', launches=launches,
          kexp=[dict(l['variant'], gcups=l['gcups'], ms=l['ms'],
                     bound_ms=l['bound_ms']) for l in lines])
@@ -488,6 +521,374 @@ def phase_probe_time(torch, dev, smi):
     return sw, probes
 
 
+def compare_edit(torch, dev, label, a, b, alen, blen):
+    """csrc/edit_distance.cu against the plain version on one batch, on the
+    card, exact; returns the max abs difference or raises."""
+    from ciri_long_tpu_torch.ops.edit import (edit_distance_batch_plain,
+                                              edit_distance_cuda)
+    args = [torch.as_tensor(x).to(dev).contiguous() for x in (a, b, alen,
+                                                            blen)]
+    got = edit_distance_cuda(*args)
+    want = edit_distance_batch_plain(*args)
+    torch.cuda.synchronize(dev)
+    err = _max_err([got], [want])
+    emit('kernel_vs_plain', kernel='edit_distance', case=label,
+         B=int(args[0].shape[0]), La=int(args[0].shape[1]),
+         Lb=int(args[1].shape[1]), max_abs_err=err)
+    if err:
+        raise AssertionError('edit_distance disagrees with plain on ' + label)
+    return err
+
+
+def compare_tb(torch, dev, label, q, r, n, m, scores):
+    """csrc/sw_traceback.cu against the plain version on one batch of jobs,
+    on the card, exact: every (score, begins, ends, op count) and every
+    path.  Returns the max abs difference or raises."""
+    from ciri_long_tpu_torch.ops.sw_tb_batch import (sw_traceback_batch_plain,
+                                                     sw_traceback_cuda,
+                                                     tb_results)
+    args = [torch.as_tensor(x).to(dev).contiguous() for x in (q, r, n, m)]
+    got = sw_traceback_cuda(*args, *scores)
+    want = sw_traceback_batch_plain(*args, *scores)
+    torch.cuda.synchronize(dev)
+    err = _max_err([got[0]], [want[0]])
+    if tb_results(*got) != tb_results(*want):
+        err = max(err, 1)
+    emit('kernel_vs_plain', kernel='sw_traceback', case=label,
+         B=int(args[0].shape[0]), W=int(args[0].shape[1]),
+         M=int(args[1].shape[1]), scores=list(scores), max_abs_err=err,
+         hits=int((want[0][:, 0] > 0).sum().item()))
+    if err:
+        raise AssertionError('sw_traceback disagrees with plain on ' + label)
+    return err
+
+
+def phase_collapse_kernels(torch, dev):
+    """Phase 6: collapse's kernels on tools/collapse_cases.py's cases;
+    {name: max err}."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.sw_tb_batch import pack_jobs
+    from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
+
+    rng = np.random.default_rng(20261017)
+    errs = {'edit_distance': 0, 'sw_traceback': 0}
+    for label, a, b, alen, blen in edit_cases(rng):
+        errs['edit_distance'] = max(errs['edit_distance'], compare_edit(
+            torch, dev, label, a, b, alen, blen))
+    for label, qs, rs, scores in tb_cases(rng):
+        errs['sw_traceback'] = max(errs['sw_traceback'], compare_tb(
+            torch, dev, label, *pack_jobs(qs, rs), scores))
+    return errs
+
+
+def _recording(torch, seen):
+    """Wrap the three kernels' wrappers so that each call first copies its
+    arguments into ``seen`` (lists by kernel name); returns the undo.  The
+    launch counts stay the wrappers' own."""
+    from ciri_long_tpu_torch.ops import edit, sw, sw_tb_batch
+
+    patched = [(sw, 'sw_score_ends_cuda', 'sw_score_ends'),
+               (edit, 'edit_distance_cuda', 'edit_distance'),
+               (sw_tb_batch, 'sw_traceback_cuda', 'sw_traceback')]
+    originals = []
+    for module, attr, name in patched:
+        kernel = getattr(module, attr)
+        originals.append((module, attr, kernel))
+
+        def recorder(*args, _kernel=kernel, _name=name, **kw):
+            seen[_name].append(tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+            return _kernel(*args, **kw)
+
+        setattr(module, attr, recorder)
+
+    def undo():
+        for module, attr, kernel in originals:
+            setattr(module, attr, kernel)
+    return undo
+
+
+# collapse's calls whose wall the run sums over its threads: the SW (fused
+# rounds and direct calls), the edit distances, the rotation's traceback and
+# the host POA
+TIMED_CALLS = {'sw': ('_fused_sw', '_sw_many_vs_many_direct'),
+               'edit': ('_edit_many_direct',),
+               'traceback': ('sw_traceback_batch',),
+               'poa': ('poa', 'poa_consensus_many')}
+
+
+def _timing(seconds):
+    """Wrap TIMED_CALLS in pipeline/collapse.py so that each call adds its
+    wall to ``seconds`` (summed over threads); returns the undo."""
+    import threading
+    from ciri_long_tpu_torch.pipeline import collapse
+
+    lock = threading.Lock()
+    originals = []
+    for kind, names in TIMED_CALLS.items():
+        for attr in names:
+            fn = getattr(collapse, attr)
+            originals.append((attr, fn))
+
+            def timed(*args, _fn=fn, _kind=kind, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    with lock:
+                        seconds[_kind] = seconds.get(_kind, 0.0) + (
+                            time.perf_counter() - t0)
+
+            setattr(collapse, attr, timed)
+
+    def undo():
+        for attr, fn in originals:
+            setattr(collapse, attr, fn)
+    return undo
+
+
+def run_collapse(torch, label, ref, cand_circ, root):
+    """``collapse`` through the CLI on one sample, --device cuda (its kernel
+    inputs recorded) then --device cpu, with the launch counts set to 0
+    before and read after each run.  Raises unless the four files are
+    byte-identical, the corrected clusters and counters equal, every
+    kernel launched on cuda and none on cpu.  Returns the recorded inputs
+    and the phase's fields."""
+    import pickle
+    from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.tools.world import sample_list
+    from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS, ROUTES,
+                                                    launch_counts,
+                                                    reset_launches)
+
+    lst = sample_list(os.path.join(root, 'samples.lst'), [('s1', cand_circ)])
+    seen = {name: [] for name in COLLAPSE_KERNELS}
+    runs = {}
+    for device in ('cuda', 'cpu'):
+        out = os.path.join(root, 'collapse_' + device)
+        shutil.rmtree(out, ignore_errors=True)
+        undo = _recording(torch, seen) if device == 'cuda' else (lambda: 0)
+        host_s = {}
+        untime = _timing(host_s)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            main(['collapse', '-i', lst, '-o', out, '-r', ref, '-p', 'smoke',
+                  '-t', '1', '--device', device])
+            wall = time.perf_counter() - t0
+            launches = launch_counts(COLLAPSE_KERNELS)
+            routes = dict(ROUTES)
+        finally:
+            untime()
+            undo()
+        with open(os.path.join(out, 'tmp', 'smoke.corrected.pkl'), 'rb') as f:
+            circ_num, corrected = pickle.load(f)
+        runs[device] = dict(
+            wall_s=wall, launches=launches, routes=routes, host_s=host_s,
+            files={ext: Path(out, 'smoke.' + ext).read_bytes()
+                   for ext in COLLAPSE_FILES},
+            counters=dict(circ_num), corrected=corrected)
+    gpu, cpu = runs['cuda'], runs['cpu']
+    identical = {ext: gpu['files'][ext] == cpu['files'][ext]
+                 for ext in COLLAPSE_FILES}
+    n_circ = gpu['files']['info'].count(b'\n')
+    fields = dict(
+        world=label, cand_reads=sum(1 for ln in open(cand_circ)
+                                    if ln.startswith('>')),
+        circrnas=n_circ, clusters=len(gpu['corrected']),
+        counters=gpu['counters'], counters_equal=(
+            gpu['counters'] == cpu['counters']),
+        corrected_equal=gpu['corrected'] == cpu['corrected'],
+        files_identical=identical, launches=gpu['launches'],
+        sw_routes=gpu['routes'], cpu_launches=cpu['launches'],
+        cuda_wall_s=gpu['wall_s'], cpu_wall_s=cpu['wall_s'],
+        cuda_calls_s=gpu['host_s'], cpu_calls_s=cpu['host_s'],
+        recorded={k: len(v) for k, v in seen.items()})
+    emit('collapse', **fields)
+    if not all(identical.values()) or not fields['counters_equal'] \
+            or not fields['corrected_equal']:
+        raise AssertionError('collapse differs between --device cuda and '
+                             'cpu on the {} world'.format(label))
+    if min(gpu['launches'].values()) <= 0:
+        raise AssertionError('collapse --device cuda missed a kernel: '
+                             '{}'.format(gpu['launches']))
+    if any(cpu['launches'].values()):
+        raise AssertionError('collapse --device cpu launched a kernel: '
+                             '{}'.format(cpu['launches']))
+    if n_circ <= 0:
+        raise AssertionError('collapse found no circRNA on the {} '
+                             'world'.format(label))
+    return seen, fields
+
+
+def _real(x, torch):
+    """Per-row real lengths of PAD-suffixed codes (the first PAD)."""
+    pad = x >= 5
+    first = torch.where(pad.any(1), pad.int().argmax(1),
+                        torch.full_like(pad[:, 0], x.shape[1], dtype=torch.int64))
+    return first
+
+
+def launch_cells(name, args, torch):
+    """The cells one recorded launch's data needs: real query x reference
+    lengths summed over its rows."""
+    if name == 'sw_score_ends':
+        q, r = args[0], args[1]
+        return int((_real(q, torch) * _real(r, torch)).sum().item())
+    a, b, n, m = args[:4]
+    n = n.long().clamp(0, a.shape[1])
+    m = m.long().clamp(0, b.shape[1])
+    return int((n * m).sum().item())
+
+
+def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
+                   edit_all=True, label='collapse'):
+    """The recorded inputs of a collapse run against the plain versions:
+    every edit and traceback launch (or the largest one when ``*_all`` is
+    False) and the ``sw_count`` largest SW launches.  {name: max err}."""
+    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+    errs = {}
+    for name, args_list in seen.items():
+        order = sorted(range(len(args_list)), reverse=True,
+                       key=lambda t: launch_cells(name, args_list[t], torch))
+        keep = {'sw_score_ends': order[:sw_count],
+                'edit_distance': order if edit_all else order[:1],
+                'sw_traceback': order if tb_all else order[:1]}[name]
+        err = 0
+        for t in keep:
+            args = args_list[t]
+            case = '{} {} launch {}'.format(label, name, t)
+            if name == 'sw_score_ends':
+                err = max(err, compare(torch, dev, args[0].cpu().numpy(),
+                                       args[1].cpu().numpy(), args[2], case,
+                                       sw_routes(args[0].shape[1],
+                                                 args[1].shape[1],
+                                                 args[2]))['sw_score_ends'])
+            elif name == 'edit_distance':
+                err = max(err, compare_edit(torch, dev, case, *args))
+            else:
+                err = max(err, compare_tb(torch, dev, case, *args[:4],
+                                          args[4:8]))
+        errs[name] = err
+    return errs
+
+
+def phase_collapse(torch, dev, smi, world_ref):
+    """Phase 7: collapse on phase 4's cand_circ.fa; {name: max err}."""
+    root = os.path.join(WORK, 'collapse_call_world')
+    os.makedirs(root, exist_ok=True)
+    seen, _ = run_collapse(torch, 'call', world_ref,
+                           os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'),
+                           root)
+    return check_recorded(torch, dev, seen, label='call world collapse')
+
+
+def _time_recorded(torch, dev, name, args, n_iter):
+    """ms of one recorded launch, a CUDA graph's replay of n_iter."""
+    from ciri_long_tpu_torch.misc.kexp import time_launches
+    from ciri_long_tpu_torch.ops import edit, sw, sw_tb_batch
+
+    if name == 'sw_score_ends':
+        def step():
+            sw.sw_score_ends_cuda(*args)
+    elif name == 'edit_distance':
+        def step():
+            edit.edit_distance_cuda(*args)
+    else:
+        q, r, n, m = args[:4]
+        scratch = sw_tb_batch.tb_scratch(n.cpu().numpy(), m.cpu().numpy(),
+                                         q.shape[1], r.shape[1], dev)
+
+        def step():
+            sw_tb_batch.sw_traceback_cuda(*args, scratch=scratch)
+    return time_launches(step, n_iter, dev, graph=True)
+
+
+def _plain_ms(torch, dev, name, args):
+    from ciri_long_tpu_torch.misc.kexp import time_launches
+    from ciri_long_tpu_torch.ops.edit import edit_distance_batch_plain
+    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+    from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch_plain
+
+    fn = {'sw_score_ends': sw_score_ends,
+          'edit_distance': edit_distance_batch_plain,
+          'sw_traceback': sw_traceback_batch_plain}[name]
+    return time_launches(lambda: fn(*args), 1, dev)
+
+
+def launch_bound(name, args, rates, torch):
+    """(least ms, 'operations' or 'bytes') of one recorded launch: its
+    cells at the card's rate for that kernel's update, or its bytes at the
+    HBM rate (codes and lengths read once, outputs written once; for the
+    traceback also its direction bytes, one a cell, written once)."""
+    from ciri_long_tpu_torch.misc.kexp import HBM_BYTES_PER_S
+
+    cells = launch_cells(name, args, torch)
+    if name == 'sw_score_ends':
+        q, r = args[0], args[1]
+        nbytes = int(_real(q, torch).sum() + _real(r, torch).sum()) \
+            + 12 * q.shape[0]
+    else:
+        a, b, n, m = args[:4]
+        nbytes = int(n.long().clamp(0, a.shape[1]).sum()
+                     + m.long().clamp(0, b.shape[1]).sum()) + 8 * a.shape[0]
+        nbytes += 4 * a.shape[0] if name == 'edit_distance' else \
+            24 * a.shape[0] + cells
+    ops_ms = cells / rates[name] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else \
+        (bytes_ms, 'bytes')
+
+
+def phase_collapse_full(torch, dev, smi):
+    """Phase 8: collapse at full size on the cohort of
+    benchmarks/collapse_bench.py's defaults.  Returns ({name: max err},
+    {name: the largest launch's numbers}, the phase's fields)."""
+    from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.misc.kexp import peak_cell_rate, recurrence_rate
+    from ciri_long_tpu_torch.tools.world import cohort_world
+
+    root = os.path.join(WORK, 'cohort')
+    ref, reads, n_reads = cohort_world(os.path.join(root, 'world'), **COHORT)
+    t0 = time.perf_counter()
+    main(['call', '-i', reads, '-o', os.path.join(root, 'call'), '-r', ref,
+          '-p', 'cohort', '-t', '1', '--device', 'cuda'])
+    call_s = time.perf_counter() - t0
+    emit('cohort_call', n_reads=n_reads, wall_s=call_s, cohort=COHORT)
+    seen, fields = run_collapse(
+        torch, 'cohort', ref, os.path.join(root, 'call',
+                                           'cohort.cand_circ.fa'), root)
+    errs = check_recorded(torch, dev, seen, sw_count=2, tb_all=False,
+                          edit_all=False, label='cohort collapse')
+    rates = {'sw_score_ends': peak_cell_rate(dev),
+             'edit_distance': recurrence_rate(dev, 'edit_distance'),
+             'sw_traceback': recurrence_rate(dev, 'sw_traceback')}
+    emit('cell_rate', collapse_cells_per_s=rates, card=smi)
+    largest = {}
+    for name, args_list in seen.items():
+        total = 0.0
+        cells = [launch_cells(name, a, torch) for a in args_list]
+        for args in args_list:
+            total += _time_recorded(torch, dev, name, args, 3)
+        big = args_list[max(range(len(cells)), key=cells.__getitem__)]
+        bound_ms, bound_by = launch_bound(name, big, rates, torch)
+        largest[name] = dict(
+            launches=len(args_list), device_ms=total,
+            cells=sum(cells), ms=_time_recorded(torch, dev, name, big, 10),
+            plain_ms=_plain_ms(torch, dev, name, big), bound_ms=bound_ms,
+            bound_by=bound_by, shape=[list(a.shape) for a in big
+                                      if torch.is_tensor(a)],
+            largest_cells=max(cells))
+        emit('collapse_kernel_time', kernel=name, card=smi, **largest[name])
+    emit('collapse_full', reads=n_reads, cuda_wall_s=fields['cuda_wall_s'],
+         cpu_wall_s=fields['cpu_wall_s'],
+         cuda_reads_per_s=n_reads / fields['cuda_wall_s'],
+         cpu_reads_per_s=n_reads / fields['cpu_wall_s'],
+         device_ms={k: v['device_ms'] for k, v in largest.items()},
+         card=smi)
+    return errs, largest, fields
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -504,6 +905,14 @@ def main():
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
+    collapse_errs = phase_collapse_kernels(torch, dev)
+    for name, err in phase_collapse(torch, dev, smi,
+                                    os.path.join(WORK, 'world',
+                                                 'genome.fa')).items():
+        collapse_errs[name] = max(collapse_errs.get(name, 0), err)
+    full_errs, full, full_fields = phase_collapse_full(torch, dev, smi)
+    for name, err in full_errs.items():
+        collapse_errs[name] = max(collapse_errs.get(name, 0), err)
 
     bench = sw['bench']
     main = sw['main128']
@@ -520,12 +929,26 @@ def main():
     # call computes SW, so no library time.  sw_score_ends is launched by
     # call (phase 4), the others by the probe path (phase 5).
     # sw_score_ends also at the main path's 128x54x16384 (its tiled route)
+    # collapse's kernels at their largest launch of the full-size collapse
+    # (phase 8), launched by it; sw_score_ends's collapse launches and
+    # device time beside its call numbers
+    def collapse_entry(name):
+        big = full[name]
+        return dict(entry(name, full_fields['launches'][name],
+                          collapse_errs[name], big['ms'], big['plain_ms'],
+                          big['bound_ms'], big['bound_by']),
+                    shape=big['shape'], collapse_device_ms=big['device_ms'])
+
     kernels = [
         dict(entry('sw_score_ends', launches,
-                   max([call_err] + [err for name, err in errs.items()
-                                     if name.startswith('sw_score_ends')]),
+                   max([call_err, collapse_errs['sw_score_ends']]
+                       + [err for name, err in errs.items()
+                          if name.startswith('sw_score_ends')]),
                    bench['sw_score_ends']),
-             main_ms=main['sw_score_ends'], main_bound_ms=main['bound_ms']),
+             main_ms=main['sw_score_ends'], main_bound_ms=main['bound_ms'],
+             collapse_launches=full_fields['launches']['sw_score_ends'],
+             collapse_routes=full_fields['sw_routes'],
+             collapse_device_ms=full['sw_score_ends']['device_ms']),
         entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
               bench['sw_rowscan']),
         entry('sw_chain', probe_launches['sw_chain'],
@@ -536,6 +959,8 @@ def main():
         entry('int16_probe', probe_launches['int16_probe'], probe_err,
               probes['ms'], probes['plain_ms'], probes['bound_ms'], 'bytes',
               probes['library_ms']),
+        collapse_entry('edit_distance'),
+        collapse_entry('sw_traceback'),
     ]
     print(smi)
     print(json.dumps({'kernels': kernels}))

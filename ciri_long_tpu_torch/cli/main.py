@@ -4,9 +4,12 @@ Port of ciri_long_tpu/cli/main.py: the ``call`` subcommand with the same
 flags, stage sequencing, tmp/-file resume and run-summary JSON (the
 reference counters total/consensus/raw_unmapped/ccs_mapped/bsj/signal/
 partial, main.py:96-100, plus ``timing``), and a ``kernels`` section with
-the launch count of each hand-written kernel.  ``--device {cuda,cpu}``
-(default cuda) picks where the SW scorer runs; asking for cuda without a
-GPU raises.  ``collapse`` is not ported yet (ROADMAP queue 1).
+the launch count of each hand-written kernel; the ``collapse`` subcommand
+with the same flags, tmp/ index, gcodes cache and tmp/{prefix}.corrected.pkl
+resume and the same .info, .reads, .expression and .isoforms files, its
+kernels' launch counts in its log.  ``--device {cuda,cpu}`` (default cuda)
+picks where the kernels run; asking for cuda without a GPU raises, and so
+does -t > 1 with cuda.
 """
 
 import json
@@ -15,9 +18,6 @@ import pickle
 import sys
 from collections import defaultdict
 
-COLLAPSE_TODO = ('collapse is not yet ported to ciri_long_tpu_torch '
-                 '(ROADMAP.md queue 1, item 3); run it with '
-                 '`python -m ciri_long_tpu.cli.main collapse`')
 THREADS_TODO = ('-t > 1 with --device cuda is not yet supported: the CCS '
                 'pools fork and CUDA does not survive a fork after '
                 'initialisation (ROADMAP.md queue 1, item 1); use -t 1 or '
@@ -225,7 +225,104 @@ def _finish_call(logger, timer, reads_count, out_dir, prefix):
 
 
 def collapse(args):
-    sys.exit(COLLAPSE_TODO)
+    from ciri_long_tpu_torch.annot.gtf import _PortUnpickler
+    from ciri_long_tpu_torch.context import Context
+    from ciri_long_tpu_torch.io.genome import Genome
+    from ciri_long_tpu_torch.pipeline import collapse as collapse_mod
+    from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS,
+                                                    launch_counts,
+                                                    reset_launches,
+                                                    resolve_device)
+    from ciri_long_tpu_torch.utils.logger import StageTimer, get_logger
+    from ciri_long_tpu_torch.utils.misc import check_dir, check_file
+
+    device = resolve_device(args.device)
+    reset_launches()          # the log counts this run's launches only
+    if device.type == 'cuda' and args.threads > 1:
+        raise NotImplementedError(THREADS_TODO)
+
+    if args.input is None or args.output is None:
+        sys.exit('Please provide input and output file, run CIRI-long using '
+                 '-h or --help for detailed information.')
+
+    in_file = check_file(args.input)
+    out_dir = check_dir(args.output)
+    check_dir(out_dir + '/tmp')
+    prefix = args.prefix
+
+    gtf_file = None if args.gtf is None else check_file(args.gtf)
+    circ_file = None if args.circ is None else check_file(args.circ)
+    ref_fasta = check_file(args.reference)
+    debugging = args.debug
+
+    logger = get_logger('CIRI-long', fname='{}/{}.log'.format(out_dir, prefix),
+                        verbosity=debugging)
+    logger.info('=== run configuration ===')
+    logger.info('reads: ' + os.path.basename(in_file))
+    logger.info('output dir: ' + os.path.basename(out_dir))
+    logger.info('device: {}'.format(device))
+    logger.info('=== collapse stage ===')
+
+    timer = StageTimer()
+    gtf_idx, intron_idx, ss_idx = _load_or_build_index(
+        out_dir, gtf_file, circ_file, logger)
+
+    cand_reads = collapse_mod.load_cand_circ(in_file)
+
+    genome = Genome.from_cache(out_dir + '/tmp/gcodes', ref_fasta)
+    if genome is None:
+        genome = Genome(ref_fasta)
+    ctx = Context(aligner=None, genome=genome, gtf_index=gtf_idx,
+                  intron_index=intron_idx, ss_index=ss_idx)
+
+    corrected_file = '{}/tmp/{}.corrected.pkl'.format(out_dir, prefix)
+    if not debugging and os.path.exists(corrected_file):
+        logger.info('[1/2] resuming corrected clusters from tmp/')
+        with open(corrected_file, 'rb') as pkl:
+            circ_num, corrected_reads = _PortUnpickler(pkl).load()
+    else:
+        logger.info('[1/2] clustering + correcting candidate reads')
+        with timer.stage('cluster', items=len(cand_reads)):
+            reads_cluster = collapse_mod.cluster_reads(cand_reads)
+            logger.info('BSJ clusters: {}'.format(len(reads_cluster)))
+            idx_file = out_dir + '/tmp/ss.idx'
+            # refresh the packed-genome cache whenever the current run
+            # could not load it (absent OR stale)
+            import numpy as np
+            gcache = out_dir + '/tmp/gcodes'
+            backing = (ctx.genome.codes if ctx.genome.codes is not None
+                       else ctx.genome.packed)
+            if not isinstance(backing, np.memmap):
+                try:
+                    ctx.genome.save_cache(gcache)
+                except (OSError, ValueError):
+                    gcache = None
+            circ_num, corrected_reads = collapse_mod.correct_reads(
+                ctx, reads_cluster, threads=args.threads,
+                ref_fasta=ref_fasta,
+                idx_file=idx_file if os.path.exists(idx_file) else None,
+                gcache=gcache, device=device)
+        with open(corrected_file, 'wb') as pkl:
+            pickle.dump([circ_num, corrected_reads], pkl, -1)
+        logger.info('Corrected clusters: {}, {}/{}/{}/{} annotated/denovo/'
+                    'lariat/unknown'.format(
+                        len(corrected_reads), circ_num['Annotated'],
+                        circ_num['Denovo signal'],
+                        circ_num['High confidence lariat'],
+                        circ_num['Unknown signal']))
+
+    logger.info('[2/2] writing expression / isoform matrices')
+    with timer.stage('exp_mtx'):
+        circ_cnt, iso_cnt = collapse_mod.cal_exp_mtx(
+            ctx, cand_reads, corrected_reads, out_dir, prefix)
+    if device.type == 'cuda':
+        import torch
+        torch.cuda.synchronize(device)
+    logger.info('circRNAs: {}  isoforms: {}'.format(circ_cnt, iso_cnt))
+    logger.info('kernels: {}'.format(json.dumps(
+        launch_counts(COLLAPSE_KERNELS))))
+    logger.info('collapse stage done')
+    return circ_cnt, iso_cnt
 
 
 def main(argv=None):
@@ -265,18 +362,41 @@ def main(argv=None):
                              help='Run in debugging mode, (default: %(default)s)')
     call_parser.set_defaults(func=call)
 
-    collapse_parser = subparsers.add_parser(
-        'collapse', help='not yet ported (ROADMAP.md queue 1)')
+    collapse_parser = subparsers.add_parser('collapse')
+    collapse_parser.add_argument('-i', '--in', dest='input', metavar='LIST',
+                                 default=None,
+                                 help='Input list of CIRI-long results')
+    collapse_parser.add_argument('-o', '--out', dest='output', metavar='DIR',
+                                 default=None, help='Output directory, default: ./')
+    collapse_parser.add_argument('-p', '--prefix', dest='prefix',
+                                 metavar='PREFIX', default='CIRI-long',
+                                 help='Output sample prefix, (default: %(default)s)')
+    collapse_parser.add_argument('-r', '--ref', dest='reference', metavar='REF',
+                                 default=None, help='Reference genome FASTA file')
+    collapse_parser.add_argument('-a', '--anno', dest='gtf', metavar='GTF',
+                                 default=None, help='Genome reference gtf, (optional)')
+    collapse_parser.add_argument('-c', '--circ', dest='circ', metavar='CIRC',
+                                 default=None,
+                                 help='Additional circRNA annotation in bed/gtf format, (optional)')
+    collapse_parser.add_argument('-t', '--threads', dest='threads',
+                                 metavar='INT', type=int, default=1,
+                                 help='Host worker processes (--device cpu '
+                                      'only above 1), (default: %(default)s)')
+    collapse_parser.add_argument('--device', dest='device', default='cuda',
+                                 choices=['cuda', 'cpu'],
+                                 help='Where the SW, edit-distance and '
+                                      'traceback kernels run, (default: '
+                                      '%(default)s)')
+    collapse_parser.add_argument('--debug', dest='debug', default=False,
+                                 action='store_true',
+                                 help='Run in debugging mode, (default: %(default)s)')
     collapse_parser.set_defaults(func=collapse)
 
-    # collapse takes whatever the JAX package's collapse takes, and exits
-    args, extra = parser.parse_known_args(argv)
+    args = parser.parse_args(argv)
     try:
         func = args.func
     except AttributeError:
         parser.error('too few arguments')
-    if extra and func is not collapse:
-        parser.error('unrecognized arguments: ' + ' '.join(extra))
     func(args)
 
 

@@ -18,6 +18,16 @@
 //             itself, so this form runs nearly as fast.
 // The launcher's caller times it and counts cells = blocks * THREADS * CHAINS
 // * steps.
+//
+// recurrence_rate_launch times two more updates the same way, the bounds of
+// collapse's kernels:
+//   kind 0, edit distance (csrc/edit_distance.cu):
+//     D = min(D_diag + (a != b), min(D_up, D_left) + 1)
+//     a compare and select, an add, a min and a DPX add-min;
+//   kind 1, SW with traceback (csrc/sw_traceback.cu): the DPX SW update
+//     above plus the direction code, the case (H == 0, H == diag + s,
+//     H == E, H == F) and the two stay bits (E == E_up - gE, E != H_up - gO;
+//     F == F_left - gE, F != H_left - gO) packed into one byte.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +76,72 @@ cell_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
     if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
 }
 
+__global__ void __launch_bounds__(THREADS)
+edit_rate_kernel(int steps, int q, int* out) {
+    int left[CHAINS], up[CHAINS], dg[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        left[k] = threadIdx.x + k;
+        up[k] = blockIdx.x + k;
+        dg[k] = k;
+    }
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int sub = (up[k] & 7) != q;
+            const int d = __viaddmin_s32(min(up[k], left[k]), 1, dg[k] + sub);
+            dg[k] = up[k];
+            up[k] = left[k];
+            left[k] = d;
+        }
+    }
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= left[k] ^ up[k] ^ dg[k];
+    if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
+}
+
+__global__ void __launch_bounds__(THREADS)
+tb_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
+               int gap_extend, int* out) {
+    int h[CHAINS], hd[CHAINS], e[CHAINS], f[CHAINS];
+    unsigned acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        h[k] = threadIdx.x + k;
+        hd[k] = blockIdx.x + k;
+        e[k] = k;
+        f[k] = 2 * k + 1;
+    }
+    const int nge = -gap_extend;
+    const int nmis = -mismatch;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int hm = h[k] - gap_open;
+            const int s = h[k] == q ? match : nmis;
+            const int dv = hd[k] + s;
+            const int en = __viaddmax_s32(e[k], nge, hm);
+            const int fn = __viaddmax_s32(f[k], nge, hm);
+            const int hn = __vimax3_s32_relu(dv, en, fn);
+            const int cs = hn == 0 ? 0 : hn == dv ? 1 : hn == en ? 2
+                         : hn == fn ? 3 : 0;
+            const bool estay = en == e[k] + nge && en != hm;
+            const bool fstay = fn == f[k] + nge && fn != hm;
+            acc += (unsigned)(cs | (estay << 2) | (fstay << 3));
+            e[k] = en;
+            f[k] = fn;
+            hd[k] = h[k];
+            h[k] = hn;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= h[k] ^ e[k] ^ f[k];
+    if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
@@ -88,3 +164,22 @@ extern "C" int cell_rate_launch(int dpx, int blocks, int steps, int q,
 
 // Cells one block updates per step.
 extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
+
+// The same for the updates of collapse's kernels: ``kind`` 0 the edit
+// distance, 1 SW with traceback (see above).  Returns cudaErrorInvalidValue
+// for another kind.
+extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
+                                      int match, int mismatch, int gap_open,
+                                      int gap_extend, void* out,
+                                      void* stream) {
+    auto st = static_cast<cudaStream_t>(stream);
+    auto* o = static_cast<int*>(out);
+    if (kind == 0)
+        edit_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
+    else if (kind == 1)
+        tb_rate_kernel<<<blocks, THREADS, 0, st>>>(
+            steps, q, match, mismatch, gap_open, gap_extend, o);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+}

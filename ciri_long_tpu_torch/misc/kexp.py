@@ -71,8 +71,43 @@ def nvidia_smi(query='name,power.limit'):
 _CELL_RATE_SYMBOLS = {
     'cell_rate_launch': ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 2,
                          ctypes.c_int),
+    'recurrence_rate_launch': ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 2,
+                               ctypes.c_int),
     'cell_rate_block_cells': ([], ctypes.c_int),
 }
+# recurrence_rate's kinds: the updates of collapse's two kernels
+RECURRENCES = {'edit_distance': 0, 'sw_traceback': 1}
+
+
+def _rate(device, launcher, form):
+    """Cell updates a second of op_rate.cu's ``launcher`` in ``form``, 16
+    blocks a SM, over five launches between CUDA events."""
+    from ciri_long_tpu_torch.ops import _build
+
+    lib = _build.load('op_rate.cu', _CELL_RATE_SYMBOLS)
+    fn = getattr(lib, launcher)
+    steps = 4096
+    blocks = 16 * torch.cuda.get_device_properties(device).multi_processor_count
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def launch():
+        with torch.cuda.device(device):
+            rc = fn(form, blocks, steps, 3, *PARAMS, out.data_ptr(),
+                    _stream(device))
+        if rc != 0:
+            raise RuntimeError('{} launch failed: cudaError {}'.format(
+                launcher, rc))
+
+    ms = time_launches(launch, 5, device)       # ~6 ms a launch on an H100
+    return blocks * lib.cell_rate_block_cells() * steps / (ms * 1e-3)
+
+
+def recurrence_rate(device, kernel):
+    """``cell_rate``'s measure for the cell update of one of collapse's
+    kernels (``RECURRENCES``: 'edit_distance' or 'sw_traceback'), from
+    csrc/op_rate.cu's register-only loop of that update: the operations
+    bound of that kernel."""
+    return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])
 
 
 def cell_rate(device, dpx):
@@ -90,23 +125,7 @@ def cell_rate(device, dpx):
     fuses into nearly the same DPX instructions.  The card runs the update
     faster than 7 instructions at 64 INT32 lanes a SM would allow, so that
     count alone does not bound the time; the measured rate does."""
-    from ciri_long_tpu_torch.ops import _build
-
-    lib = _build.load('op_rate.cu', _CELL_RATE_SYMBOLS)
-    steps = 4096
-    blocks = 16 * torch.cuda.get_device_properties(device).multi_processor_count
-    out = torch.zeros(1, dtype=torch.int32, device=device)
-
-    def launch():
-        with torch.cuda.device(device):
-            rc = lib.cell_rate_launch(int(dpx), blocks, steps, 3, *PARAMS,
-                                      out.data_ptr(), _stream(device))
-        if rc != 0:
-            raise RuntimeError('cell_rate kernel launch failed: cudaError '
-                               '{}'.format(rc))
-
-    ms = time_launches(launch, 5, device)       # ~6 ms a launch on an H100
-    return blocks * lib.cell_rate_block_cells() * steps / (ms * 1e-3)
+    return _rate(device, 'cell_rate_launch', int(dpx))
 
 
 def peak_cell_rate(device):

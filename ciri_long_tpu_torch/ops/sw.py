@@ -26,8 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES, ROUTES,
-                                                resolve_device)
+from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 
 NEG = -(1 << 28)
@@ -211,8 +210,7 @@ def _launch(query, ref, params, plan):
     if rc != 0:
         raise RuntimeError('sw_score_ends {} launch failed: cudaError {} '
                            '(B={}, Lq={}, Lr={})'.format(route, rc, B, Lq, Lr))
-    LAUNCHES['sw_score_ends'] += 1
-    ROUTES[route] += 1
+    count_launch('sw_score_ends', route)
     return score, q_end, r_end
 
 

@@ -6,6 +6,9 @@ over each locus and linear background reads, all from the package's
 ``tools/simulate.py`` (a copy of the JAX package's) and one numpy seed.  ``skill_world``: the
 repo's small verification world (one circRNA at chr1:20001-20520 of a
 50 kb genome, 10 circular + 4 linear reads).
+``cohort_world``: the simulated cohort of benchmarks/collapse_bench.py,
+written as it writes it, for driving ``collapse``; ``sample_list``: the
+list file ``collapse -i`` takes (sample<TAB>cand_circ.fa a line).
 ``bsj_accuracy``: recall/precision of a ``cand_circ.fa`` against the
 simulated truth (the scoring rule of benchmarks/validate.py: a call
 matches a locus when both ends lie within ``tol`` bp).
@@ -102,6 +105,41 @@ def make_world(root, genome_kb=2000, loci=16, depth=60, linear=240,
     truth = [(ctg, exons[0][0] + 1, exons[-1][1])
              for ctg, exons, _strand in truth_loci]
     return ref, reads, truth
+
+
+def cohort_world(root, reads=4000, genome_kb=2000, loci=16, seed=0):
+    """Write ``root/genome.fa`` (one unwrapped sequence line) and
+    ``root/reads.fa`` as benchmarks/collapse_bench.py:45-70 does: a random
+    genome, ``loci`` random circRNA loci, ``reads // loci`` rolling-circle
+    reads a locus under the default error profile, one numpy seed.  Its
+    defaults are the benchmark's (4000 reads, 16 loci, 2 Mb, seed 0: 250
+    reads a locus).  Returns (genome path, reads path, number of reads)."""
+    rng = np.random.default_rng(seed)
+    chr1 = ''.join(rng.choice(list('ACGT'), size=genome_kb * 1000))
+    os.makedirs(root, exist_ok=True)
+    ref = os.path.join(root, 'genome.fa')
+    with open(ref, 'w') as f:
+        f.write('>chr1\n{}\n'.format(chr1))
+    genome = Genome.from_dict({'chr1': chr1})
+    truth_loci = random_loci(genome, rng, loci)
+    depth = max(1, reads // loci)
+    path = os.path.join(root, 'reads.fa')
+    n_reads = 0
+    with open(path, 'w') as f:
+        for rid, seq, _cid in simulate_reads(genome, truth_loci, rng,
+                                             depth=depth):
+            f.write('>{}\n{}\n'.format(rid, seq))
+            n_reads += 1
+    return ref, path, n_reads
+
+
+def sample_list(path, samples):
+    """Write the list file of ``collapse -i``: one ``sample<TAB>path of its
+    cand_circ.fa`` line for each (sample, path) of ``samples``."""
+    with open(path, 'w') as f:
+        for sample, cand_circ in samples:
+            f.write('{}\t{}\n'.format(sample, cand_circ))
+    return path
 
 
 def bsj_accuracy(cand_circ_fa, truth, tol=5):

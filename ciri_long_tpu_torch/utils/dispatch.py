@@ -5,10 +5,11 @@ raises when CUDA is asked for and absent: the port never carries on on the
 CPU behind the user's back.
 
 ``LAUNCHES`` counts, per hand-written kernel, the launches its wrapper made
-since the last ``reset_launches`` (plain integers, read with
-``launch_counts``; ``call`` resets them when it starts and reports those of
-``CALL_KERNELS``), so a run can show that its path went through the
-kernel; ``ROUTES`` counts the SW kernel's launches by route beside it.
+(``count_launch``) since the last ``reset_launches`` (plain integers, read with
+``launch_counts``; ``call`` and ``collapse`` reset them when they start and
+report those of ``CALL_KERNELS`` and ``COLLAPSE_KERNELS``), so a run can
+show that its path went through the kernel; ``ROUTES`` counts the SW
+kernel's launches by route beside it.
 
 ``count_dispatch`` is the JAX package's env-gated accounting decorator
 (``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
@@ -20,6 +21,7 @@ import atexit
 import functools
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
 
@@ -30,13 +32,28 @@ _STATS = defaultdict(lambda: [0, 0.0])
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
-            'int16_probe': 0}
-# the kernels ``call`` can launch (the others serve misc/kexp, int16_probe)
+            'int16_probe': 0, 'edit_distance': 0, 'sw_traceback': 0}
+# the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
+# int16_probe serve misc/kexp and misc/int16_probe)
 CALL_KERNELS = ('sw_score_ends',)
+COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback')
 # route of csrc/sw_score_ends.cu -> its launches since the last
 # reset_launches (ops/sw.py::_tile_plan routes; ``call``'s summary leaves
 # this out)
 ROUTES = {'wave': 0, 'tiled': 0}
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name, route=None):
+    """One launch of kernel ``name`` (and of the SW kernel's ``route``).
+    Locked: collapse's worker threads launch kernels side by side, and
+    ``+=`` on a dict entry is not atomic."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+        if route is not None:
+            ROUTES[route] += 1
 
 
 def reset_launches():

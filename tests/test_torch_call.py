@@ -10,7 +10,8 @@
 - the short-read recovery stage (``recover_ccs_chunk`` and the chunked
   ``recover_ccs_reads``, serial and on a -t 2 spawn pool) on the
   tests/test_recover.py world;
-- the entry points' default device, 'cuda', which raises without a GPU;
+- the entry points' default device, 'cuda', which raises without a GPU
+  (``call``'s and ``collapse``'s);
 - the aligner state carried across: the port's GenomeAligner built from the
   JAX index (``from_arrays``) and from the JAX package's on-disk
   tmp/minidx + tmp/gcodes caches maps exactly as the JAX aligner does.
@@ -37,6 +38,10 @@ from ciri_long_tpu_torch.ops.ccs import find_consensus
 from ciri_long_tpu_torch.pipeline import find_bsj as tfb
 from ciri_long_tpu_torch.tools.world import _write_fasta
 from ciri_long_tpu_torch.tools.world import skill_world as skill_world_files
+from ciri_long_tpu_torch.cli.main import main as cli_main
+from ciri_long_tpu_torch.ops.edit import edit_distance_batch
+from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
+from ciri_long_tpu_torch.pipeline.collapse import correct_reads
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
 from tests.test_pipeline_call import make_rolling_read, rand_seq
 from tests.test_poa import mutate
@@ -149,12 +154,6 @@ def test_scan_ccs_reads_pool_matches_serial(skill_runs):
     assert outs[0][0]['bsj'] == 10
     assert outs[0][2] == (skill_runs / 'out_port' /
                           'vtest.cand_circ.fa').read_bytes()
-
-
-def test_collapse_is_not_ported_yet():
-    from ciri_long_tpu_torch.cli.main import main
-    with pytest.raises(SystemExit, match='not yet ported'):
-        main(['collapse', '-i', 'x.lst', '-o', 'out'])
 
 
 @pytest.fixture(scope='module')
@@ -318,10 +317,16 @@ def test_recover_ccs_reads_pool_matches_serial(recover_world):
     lambda: tfb.recover_ccs_chunk(None, [], True),
     lambda: tfb.recover_ccs_reads(None, [], True, 'unused', 'p'),
     lambda: tfb.scan_raw_reads(None, 'unused.fa', True, 'unused', 'p'),
+    lambda: edit_distance_batch(np.zeros((1, 4), np.int8),
+                                np.zeros((1, 4), np.int8)),
+    lambda: sw_traceback_batch([np.zeros(4, np.int8)], [np.zeros(4, np.int8)]),
+    lambda: correct_reads(None, []),
+    lambda: cli_main(['collapse', '-i', 'unused.lst', '-o', 'unused']),
 ], ids=['sw_align_batch', 'sw_align_batch_submit', 'sw_window_align',
         'sw_window_align_many', 'align_clip_segments_batch',
         'scan_ccs_chunk', 'scan_ccs_reads', 'recover_ccs_chunk',
-        'recover_ccs_reads', 'scan_raw_reads'])
+        'recover_ccs_reads', 'scan_raw_reads', 'edit_distance_batch',
+        'sw_traceback_batch', 'correct_reads', 'collapse'])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no ``device`` the port's entry points ask for 'cuda', which
     raises where no GPU is visible instead of running on the host."""

@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card: the SW scorer of ``call`` (csrc/sw_score_ends.cu, both routes), the
 harness's row scan and chained wavefront (csrc/sw_rowscan.cu,
-csrc/sw_chain.cu) and the int16 probes (csrc/int16_probe.cu).  Marked
+csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu) and collapse's
+edit distance and SW with traceback (csrc/edit_distance.cu,
+csrc/sw_traceback.cu), with ``collapse --device cuda`` raising when a
+kernel cannot be built.  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -14,7 +17,9 @@ import pytest
 import torch
 
 from ciri_long_tpu_torch.misc import int16_probe, kexp
-from ciri_long_tpu_torch.ops import sw
+from ciri_long_tpu_torch.ops import edit, sw
+from ciri_long_tpu_torch.ops import sw_tb_batch as tb
+from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
 from ciri_long_tpu_torch.tools.sw_cases import tile_cases
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
 
@@ -234,3 +239,105 @@ def test_harness_and_probe_entry_points(dev, capsys):
     assert line['bound_by'] == 'operations' and line['ms'] > 0
     int16_probe.main([])
     assert capsys.readouterr().out.count(': OK ') == 6
+
+
+EDIT_CASES = [c[0] for c in edit_cases(np.random.default_rng(0))]
+TB_CASES = ['{} {}'.format(c[0], c[3]) for c in tb_cases(
+    np.random.default_rng(0))]
+
+
+@pytest.mark.parametrize("label", EDIT_CASES)
+def test_edit_distance_matches_plain(dev, label):
+    case = dict((c[0], c[1:]) for c in edit_cases(np.random.default_rng(0)))
+    args = [torch.from_numpy(x).to(dev) for x in case[label]]
+    before = LAUNCHES['edit_distance']
+    got = edit.edit_distance_auto(*args)
+    want = edit.edit_distance_batch_plain(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES['edit_distance'] == before + 1
+    assert torch.equal(got, want)
+    host = edit.edit_distance_batch(*(a.cpu().numpy() for a in args),
+                                    device='cpu')
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("label", TB_CASES)
+def test_sw_traceback_matches_plain(dev, label):
+    from ciri_long_tpu_torch.ops.traceback import sw_traceback
+    case = dict(('{} {}'.format(c[0], c[3]), c[1:])
+                for c in tb_cases(np.random.default_rng(0)))
+    qs, rs, scores = case[label]
+    args = [torch.from_numpy(x).to(dev) for x in tb.pack_jobs(qs, rs)]
+    before = LAUNCHES['sw_traceback']
+    got = tb.sw_traceback_auto(*args, *scores)
+    want = tb.sw_traceback_batch_plain(*args, *scores)
+    torch.cuda.synchronize()
+    assert LAUNCHES['sw_traceback'] == before + 1
+    assert torch.equal(got[0], want[0])
+    assert tb.tb_results(*got) == tb.tb_results(*want)
+    assert tb.sw_traceback_batch(qs, rs, *scores, device=dev) == \
+        [sw_traceback(q, r, *scores) for q, r in zip(qs, rs)]
+
+
+def test_sw_traceback_batch_chunks_under_its_budget(dev, monkeypatch):
+    rng = np.random.default_rng(1)
+    qs = [rng.integers(0, 4, int(n)).astype(np.int8)
+          for n in rng.integers(100, 3000, 30)]
+    rs = [q[40:90].copy() for q in qs]
+    want = tb.sw_traceback_batch(qs, rs, 10, 4, 8, 2, device=dev)
+    monkeypatch.setattr(tb, 'MEM_BUDGET', 200_000)
+    chunks = len(list(tb._chunks(qs, rs)))
+    assert chunks > 5
+    before = LAUNCHES['sw_traceback']
+    assert tb.sw_traceback_batch(qs, rs, 10, 4, 8, 2, device=dev) == want
+    assert LAUNCHES['sw_traceback'] == before + chunks
+
+
+def test_collapse_kernels_reject_bad_inputs(dev):
+    a = torch.zeros((3, 8), dtype=torch.int8, device=dev)
+    n = torch.full((3,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        edit.edit_distance_cuda(a.int(), a, n, n)
+    with pytest.raises(TypeError):
+        edit.edit_distance_cuda(a, a, n.long(), n)
+    with pytest.raises(ValueError):
+        edit.edit_distance_cuda(a, a.cpu(), n, n)
+    with pytest.raises(ValueError):
+        edit.edit_distance_cuda(a.t(), a.t(), n[:1].expand(8), n[:1].expand(8))
+    with pytest.raises(ValueError):
+        edit.edit_distance_cuda(a, a[:2], n, n)
+    with pytest.raises(TypeError):
+        tb.sw_traceback_cuda(a.int(), a, n, n)
+    with pytest.raises(ValueError):
+        tb.sw_traceback_cuda(a, a, n[:2], n)
+    with pytest.raises(ValueError):
+        tb.sw_traceback_cuda(a, a, n, n, 1, 1, 1, 2)
+    with pytest.raises(ValueError):
+        tb.sw_traceback_cuda(a, a.t().contiguous().t(), n, n)
+
+
+def test_collapse_raises_when_a_kernel_cannot_be_built(dev, tmp_path,
+                                                       monkeypatch):
+    """No host fallback on the cuda route: with the loader failing,
+    ``collapse --device cuda`` raises (the skill world's collapse reaches
+    every kernel)."""
+    from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.ops import _build
+    from ciri_long_tpu_torch.tools.world import sample_list, skill_world
+
+    ref, reads = skill_world(str(tmp_path / 'w'))
+    main(['call', '-i', reads, '-o', str(tmp_path / 'call'), '-r', ref, '-p',
+          'v', '-t', '1', '--device', 'cpu'])
+    lst = sample_list(str(tmp_path / 's.lst'),
+                      [('v', str(tmp_path / 'call' / 'v.cand_circ.fa'))])
+    main(['collapse', '-i', lst, '-o', str(tmp_path / 'ok'), '-r', ref, '-p',
+          'v', '--device', 'cuda'])
+    assert (tmp_path / 'ok' / 'v.info').read_text().count('\n') == 1
+
+    def unbuilt(source, symbols):
+        raise RuntimeError('nvcc failed (1) building ' + source)
+
+    monkeypatch.setattr(_build, 'load', unbuilt)
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        main(['collapse', '-i', lst, '-o', str(tmp_path / 'bad'), '-r', ref,
+              '-p', 'v', '--device', 'cuda'])

@@ -62,19 +62,26 @@ def test_chip_smoke_imports_no_jax_package():
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """Every port module imports, the CPU scorer runs, and ``call --device
+    """Every port module imports, the CPU scorer runs, ``call --device
     cpu`` on the verification world calls its 10 BSJ reads at
-    chr1:20001-20520, in a process where ``import jax`` and ``import
-    ciri_long_tpu`` fail; its cand_circ.fa is byte-identical to the JAX
-    package's ``call --backend cpu`` on the same files."""
+    chr1:20001-20520, and ``collapse --device cpu`` on them writes its one
+    circRNA there, in a process where ``import jax`` and ``import
+    ciri_long_tpu`` fail; the cand_circ.fa and the four collapse files are
+    byte-identical to the JAX package's ``--backend cpu`` runs on the same
+    files."""
     mods = ['.'.join(p.relative_to(REPO).with_suffix('').parts)
             for p in _port_files()]
     mods = [m[:-len('.__init__')] if m.endswith('.__init__') else m
             for m in mods]
     code = '\n'.join([
         'import sys',
-        "sys.modules['jax'] = None",
-        "sys.modules['ciri_long_tpu'] = None",
+        # a finder that refuses the two packages, so that neither enters
+        # sys.modules (scipy looks jax up there, and a None entry breaks it)
+        'class Block:',
+        '    def find_spec(self, name, path=None, target=None):',
+        "        if name.split('.')[0] in {!r}:".format(BLOCKED),
+        "            raise ImportError('blocked: ' + name)",
+        'sys.meta_path.insert(0, Block())',
         'import importlib, numpy as np',
         'for m in {!r}: importlib.import_module(m)'.format(mods),
         'from ciri_long_tpu_torch.ops.sw import SWParams, sw_align_batch',
@@ -89,6 +96,13 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "heads = [ln.split('\\t')[1] for ln in open('out/vtest.cand_circ.fa')",
         "         if ln.startswith('>')]",
         "assert heads == ['chr1:20001-20520'] * 10, heads",
+        "import os",
+        "open('s.lst', 'w').write('vtest\\t{}\\n'.format(",
+        "    os.path.abspath('out/vtest.cand_circ.fa')))",
+        "main(['collapse', '-i', 's.lst', '-o', 'col', '-r', ref, '-p',",
+        "      'vtest', '--device', 'cpu'])",
+        "info = open('col/vtest.info').read().split('\\t')",
+        "assert info[3:5] == ['20001', '20520'], info",
         'loaded = {k.split(".")[0] for k, v in sys.modules.items() if v}',
         'assert not loaded & {!r}, loaded'.format(set(BLOCKED)),
         'from ciri_long_tpu_torch.ops import _build',
@@ -109,6 +123,17 @@ def test_port_runs_with_jax_blocked(tmp_path):
                          backend='cpu'))
     assert (tmp_path / 'out' / 'vtest.cand_circ.fa').read_bytes() == \
         (tmp_path / 'out_jax' / 'vtest.cand_circ.fa').read_bytes()
+
+    from ciri_long_tpu.cli.main import collapse
+    collapse(SimpleNamespace(input=str(tmp_path / 's.lst'),
+                             output=str(tmp_path / 'col_jax'),
+                             reference=str(world / 'genome.fa'),
+                             prefix='vtest', gtf=None, circ=None, threads=1,
+                             debug=False, backend='cpu'))
+    for ext in ('info', 'reads', 'expression', 'isoforms'):
+        name = 'vtest.' + ext
+        assert (tmp_path / 'col' / name).read_bytes() == \
+            (tmp_path / 'col_jax' / name).read_bytes(), name
 
 
 def test_cuda_without_gpu_raises(monkeypatch):
@@ -139,7 +164,8 @@ def test_kernel_sources_ship_with_package():
     from ciri_long_tpu_torch.ops import _build
 
     for src in ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
-                'int16_probe.cu'):
+                'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
+                'sw_traceback.cu'):
         assert (_build.CSRC / src).exists(), src
     setup = (REPO / 'setup.py').read_text()
     assert "'ciri_long_tpu_torch': ['csrc/*.cu']" in setup
