@@ -44,32 +44,39 @@ and exits non-zero if any phase fails (none is caught and skipped):
 6. collapse's two kernels, csrc/edit_distance.cu and csrc/sw_traceback.cu,
    against their plain versions on tools/collapse_cases.py's cases
    (random codes with N and PAD, empty and one-base rows, equal-score
-   ties, jobs that score 0, references and pairs longer than one strip),
-   exact;
+   ties, jobs that score 0, references and pairs longer than one strip,
+   lengths at the edges of a word, of a warp's words and of a strip, a
+   fused round of one-word and multi-word pairs, jobs over a block's shared
+   memory), exact, every route of each kernel launched (ROUTES);
 7. ``collapse`` end to end on phase 4's cand_circ.fa, ``--device cuda``
    then ``--device cpu``: the launches of sw_score_ends (by route),
    edit_distance and sw_traceback (all > 0 on cuda, all 0 on cpu),
    byte-identical .info, .reads, .expression and .isoforms, equal
    corrected clusters and counters (tmp/*.corrected.pkl), the wall of each
-   run and the seconds spent in its SW, edit-distance, traceback and POA
-   calls (summed over its threads); then every edit and traceback launch
-   and the four largest SW launches of the cuda run against the plain
-   versions on their inputs;
+   run, the launches of each kernel's routes, and the seconds spent in its
+   SW, edit-distance, traceback and POA calls (summed over its threads),
+   the traceback calls split into their stages (pack, upload, plan,
+   launch, download and wait, tb_results: wall and thread CPU seconds);
+   then every edit and traceback launch and the four largest SW launches
+   of the cuda run against the plain versions on their inputs;
 8. ``collapse`` at full size, the cohort of benchmarks/collapse_bench.py's
    defaults (4000 reads of 16 loci on a 2 Mb genome, seed 0; its ``call``
    first), the checks of phase 7 and the walls; the card's rate for each
-   kernel's cell update (csrc/op_rate.cu); each kernel's device time summed
-   over the launches the cuda run made (a CUDA graph's replay of each
-   recorded input) and, at its largest launch, its time, the plain
-   version's and the bound, after that launch's check against the plain
-   version.
+   kernel's update (csrc/op_rate.cu: the SW cell, the traceback cell, the
+   edit distance's 32-row word and, for comparison, its DP cell); each
+   kernel's device time summed over the launches the cuda run made (a CUDA
+   graph's replay of each recorded input, with its route plan made
+   beforehand) and, at its largest launch, its time, the plain version's
+   and the bound, after that launch's check against the plain version.
 
 The seven CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
 kernels line (sw_score_ends's entry also has ``main_ms`` and
 ``main_bound_ms`` at 128x54x16384 and its collapse launches and device
 time; edit_distance's and sw_traceback's numbers are those of their largest
-launch in phase 8), and last ``{"ok": true, "device": {...}}``.  Without a
+launch in phase 8, with their route counts, and edit_distance's
+``cell_bound_ms`` the bound of one DP cell an update, the measure of a
+cell-by-cell design), and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
 """
@@ -110,6 +117,8 @@ REPLACES = {
 # benchmarks/collapse_bench.py's defaults
 COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
 COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
+# the routes of collapse's two kernels (utils/dispatch.py::ROUTES)
+COLLAPSE_ROUTES = ('edit_thread', 'edit_warp', 'tb_smem', 'tb_global')
 SW_CHECKED = 4             # the largest SW launches of a collapse run checked
 PROBE_KERNELS = ('sw_score_ends', 'sw_rowscan', 'sw_chain', 'int16_probe')
 BENCH = (512, 1024, 4096)
@@ -350,8 +359,9 @@ def phase_call(torch, dev, smi):
     if launches['sw_score_ends'] <= 0 or gpu['kernels'] != launches:
         raise AssertionError('call did not go through the SW kernel')
     planned = sum(tiled for *_, tiled in shapes)
+    sw_routes_ = {k: routes[k] for k in ('tiled', 'wave')}
     if (len(seen) != launches['sw_score_ends'] or planned == 0
-            or routes != {'tiled': planned, 'wave': len(seen) - planned}):
+            or sw_routes_ != {'tiled': planned, 'wave': len(seen) - planned}):
         raise AssertionError('call did not take the tiled route where its '
                              'plan applies: {} {}'.format(routes, shapes))
     if cpu['kernels'] != {'sw_score_ends': 0}:
@@ -542,8 +552,9 @@ def compare_edit(torch, dev, label, a, b, alen, blen):
 
 def compare_tb(torch, dev, label, q, r, n, m, scores):
     """csrc/sw_traceback.cu against the plain version on one batch of jobs,
-    on the card, exact: every (score, begins, ends, op count) and every
-    path.  Returns the max abs difference or raises."""
+    on the card, exact: every (score, begins, ends, run count) and every
+    path's runs, element for element.  Returns the max abs difference or
+    raises."""
     from ciri_long_tpu_torch.ops.sw_tb_batch import (sw_traceback_batch_plain,
                                                      sw_traceback_cuda,
                                                      tb_results)
@@ -551,7 +562,7 @@ def compare_tb(torch, dev, label, q, r, n, m, scores):
     got = sw_traceback_cuda(*args, *scores)
     want = sw_traceback_batch_plain(*args, *scores)
     torch.cuda.synchronize(dev)
-    err = _max_err([got[0]], [want[0]])
+    err = _max_err(list(got), list(want))     # out, and the runs
     if tb_results(*got) != tb_results(*want):
         err = max(err, 1)
     emit('kernel_vs_plain', kernel='sw_traceback', case=label,
@@ -570,14 +581,21 @@ def phase_collapse_kernels(torch, dev):
     from ciri_long_tpu_torch.ops.sw_tb_batch import pack_jobs
     from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
 
+    from ciri_long_tpu_torch.utils.dispatch import ROUTES
+
     rng = np.random.default_rng(20261017)
     errs = {'edit_distance': 0, 'sw_traceback': 0}
+    before = dict(ROUTES)
     for label, a, b, alen, blen in edit_cases(rng):
         errs['edit_distance'] = max(errs['edit_distance'], compare_edit(
             torch, dev, label, a, b, alen, blen))
     for label, qs, rs, scores in tb_cases(rng):
         errs['sw_traceback'] = max(errs['sw_traceback'], compare_tb(
             torch, dev, label, *pack_jobs(qs, rs), scores))
+    routes = {k: ROUTES[k] - before[k] for k in COLLAPSE_ROUTES}
+    emit('collapse_routes', routes=routes)
+    if min(routes.values()) <= 0:
+        raise AssertionError('phase 6 missed a route: {}'.format(routes))
     return errs
 
 
@@ -615,35 +633,49 @@ TIMED_CALLS = {'sw': ('_fused_sw', '_sw_many_vs_many_direct'),
                'edit': ('_edit_many_direct',),
                'traceback': ('sw_traceback_batch',),
                'poa': ('poa', 'poa_consensus_many')}
+# the stages of ops/sw_tb_batch.py::sw_traceback_batch on the card: packing
+# the jobs, the host-to-device copy, the route plan (its job lists copied
+# too), the launches (the host's side; on a recorded run also the
+# recorder's copies of the inputs), the device-to-host copy that waits for
+# the kernels, and the Python that turns the runs into tuples
+TB_STAGES = {'pack': ('pack_jobs',), 'upload': ('upload',),
+             'plan': ('tb_plan',), 'launch': ('sw_traceback_cuda',),
+             'download_and_wait': ('download',),
+             'tb_results': ('tb_results',)}
 
 
-def _timing(seconds):
-    """Wrap TIMED_CALLS in pipeline/collapse.py so that each call adds its
-    wall to ``seconds`` (summed over threads); returns the undo."""
+def _timing(module, calls, seconds, cpu=None):
+    """Wrap ``calls`` ({kind: attribute names}) of ``module`` so that each
+    call adds its wall to ``seconds[kind]`` and, with ``cpu``, the thread's
+    CPU time to ``cpu[kind]`` (both summed over threads; a thread waiting
+    for the interpreter lock or the card spends wall without CPU, unless
+    CUDA spins while it waits); returns the undo."""
     import threading
-    from ciri_long_tpu_torch.pipeline import collapse
 
     lock = threading.Lock()
     originals = []
-    for kind, names in TIMED_CALLS.items():
+    for kind, names in calls.items():
         for attr in names:
-            fn = getattr(collapse, attr)
+            fn = getattr(module, attr)
             originals.append((attr, fn))
 
             def timed(*args, _fn=fn, _kind=kind, **kw):
-                t0 = time.perf_counter()
+                t0, c0 = time.perf_counter(), time.thread_time()
                 try:
                     return _fn(*args, **kw)
                 finally:
+                    wall = time.perf_counter() - t0
+                    used = time.thread_time() - c0
                     with lock:
-                        seconds[_kind] = seconds.get(_kind, 0.0) + (
-                            time.perf_counter() - t0)
+                        seconds[_kind] = seconds.get(_kind, 0.0) + wall
+                        if cpu is not None:
+                            cpu[_kind] = cpu.get(_kind, 0.0) + used
 
-            setattr(collapse, attr, timed)
+            setattr(module, attr, timed)
 
     def undo():
         for attr, fn in originals:
-            setattr(collapse, attr, fn)
+            setattr(module, attr, fn)
     return undo
 
 
@@ -656,6 +688,8 @@ def run_collapse(torch, label, ref, cand_circ, root):
     and the phase's fields."""
     import pickle
     from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.ops import sw_tb_batch
+    from ciri_long_tpu_torch.pipeline import collapse
     from ciri_long_tpu_torch.tools.world import sample_list
     from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS, ROUTES,
                                                     launch_counts,
@@ -668,8 +702,9 @@ def run_collapse(torch, label, ref, cand_circ, root):
         out = os.path.join(root, 'collapse_' + device)
         shutil.rmtree(out, ignore_errors=True)
         undo = _recording(torch, seen) if device == 'cuda' else (lambda: 0)
-        host_s = {}
-        untime = _timing(host_s)
+        host_s, tb_wall, tb_cpu = {}, {}, {}
+        untime = _timing(collapse, TIMED_CALLS, host_s)
+        untime_tb = _timing(sw_tb_batch, TB_STAGES, tb_wall, tb_cpu)
         try:
             reset_launches()
             t0 = time.perf_counter()
@@ -679,12 +714,14 @@ def run_collapse(torch, label, ref, cand_circ, root):
             launches = launch_counts(COLLAPSE_KERNELS)
             routes = dict(ROUTES)
         finally:
+            untime_tb()
             untime()
             undo()
         with open(os.path.join(out, 'tmp', 'smoke.corrected.pkl'), 'rb') as f:
             circ_num, corrected = pickle.load(f)
         runs[device] = dict(
             wall_s=wall, launches=launches, routes=routes, host_s=host_s,
+            tb_split=dict(wall_s=tb_wall, cpu_s=tb_cpu),
             files={ext: Path(out, 'smoke.' + ext).read_bytes()
                    for ext in COLLAPSE_FILES},
             counters=dict(circ_num), corrected=corrected)
@@ -700,9 +737,10 @@ def run_collapse(torch, label, ref, cand_circ, root):
             gpu['counters'] == cpu['counters']),
         corrected_equal=gpu['corrected'] == cpu['corrected'],
         files_identical=identical, launches=gpu['launches'],
-        sw_routes=gpu['routes'], cpu_launches=cpu['launches'],
+        routes=gpu['routes'], cpu_launches=cpu['launches'],
         cuda_wall_s=gpu['wall_s'], cpu_wall_s=cpu['wall_s'],
         cuda_calls_s=gpu['host_s'], cpu_calls_s=cpu['host_s'],
+        cuda_traceback_split=gpu['tb_split'],
         recorded={k: len(v) for k, v in seen.items()})
     emit('collapse', **fields)
     if not all(identical.values()) or not fields['counters_equal'] \
@@ -712,6 +750,9 @@ def run_collapse(torch, label, ref, cand_circ, root):
     if min(gpu['launches'].values()) <= 0:
         raise AssertionError('collapse --device cuda missed a kernel: '
                              '{}'.format(gpu['launches']))
+    if gpu['routes']['tb_smem'] <= 0 or gpu['routes']['edit_thread'] <= 0:
+        raise AssertionError('collapse --device cuda missed the routes its '
+                             'jobs take: {}'.format(gpu['routes']))
     if any(cpu['launches'].values()):
         raise AssertionError('collapse --device cpu launched a kernel: '
                              '{}'.format(cpu['launches']))
@@ -730,8 +771,8 @@ def _real(x, torch):
 
 
 def launch_cells(name, args, torch):
-    """The cells one recorded launch's data needs: real query x reference
-    lengths summed over its rows."""
+    """The DP cells one recorded launch's data needs: real query x
+    reference lengths summed over its rows."""
     if name == 'sw_score_ends':
         q, r = args[0], args[1]
         return int((_real(q, torch) * _real(r, torch)).sum().item())
@@ -739,6 +780,20 @@ def launch_cells(name, args, torch):
     n = n.long().clamp(0, a.shape[1])
     m = m.long().clamp(0, b.shape[1])
     return int((n * m).sum().item())
+
+
+def launch_work(name, args, torch):
+    """The updates one recorded launch's data needs at the least: DP cells
+    for the SW kernels; for the bit-parallel edit distance, 32-row word
+    updates, ceil(pattern / 32) * text a pair with the pattern the side
+    that needs fewer."""
+    if name != 'edit_distance':
+        return launch_cells(name, args, torch)
+    a, b, n, m = args[:4]
+    n = n.long().clamp(0, a.shape[1])
+    m = m.long().clamp(0, b.shape[1])
+    words = torch.minimum((n + 31) // 32 * m, (m + 31) // 32 * n)
+    return int(words.sum().item())
 
 
 def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
@@ -750,7 +805,7 @@ def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
     errs = {}
     for name, args_list in seen.items():
         order = sorted(range(len(args_list)), reverse=True,
-                       key=lambda t: launch_cells(name, args_list[t], torch))
+                       key=lambda t: launch_work(name, args_list[t], torch))
         keep = {'sw_score_ends': order[:sw_count],
                 'edit_distance': order if edit_all else order[:1],
                 'sw_traceback': order if tb_all else order[:1]}[name]
@@ -784,7 +839,8 @@ def phase_collapse(torch, dev, smi, world_ref):
 
 
 def _time_recorded(torch, dev, name, args, n_iter):
-    """ms of one recorded launch, a CUDA graph's replay of n_iter."""
+    """ms of one recorded launch, a CUDA graph's replay of n_iter (the
+    route plans made beforehand, as the main path makes them)."""
     from ciri_long_tpu_torch.misc.kexp import time_launches
     from ciri_long_tpu_torch.ops import edit, sw, sw_tb_batch
 
@@ -792,15 +848,17 @@ def _time_recorded(torch, dev, name, args, n_iter):
         def step():
             sw.sw_score_ends_cuda(*args)
     elif name == 'edit_distance':
-        def step():
-            edit.edit_distance_cuda(*args)
-    else:
-        q, r, n, m = args[:4]
-        scratch = sw_tb_batch.tb_scratch(n.cpu().numpy(), m.cpu().numpy(),
-                                         q.shape[1], r.shape[1], dev)
+        plan = edit.edit_plan(*(t.cpu().numpy() for t in args), dev)
 
         def step():
-            sw_tb_batch.sw_traceback_cuda(*args, scratch=scratch)
+            edit.edit_distance_cuda(*args, plan=plan)
+    else:
+        q, r, n, m = args[:4]
+        plan = sw_tb_batch.tb_plan(n.cpu().numpy(), m.cpu().numpy(),
+                                   q.shape[1], r.shape[1], dev)
+
+        def step():
+            sw_tb_batch.sw_traceback_cuda(*args, plan=plan)
     return time_launches(step, n_iter, dev, graph=True)
 
 
@@ -818,23 +876,26 @@ def _plain_ms(torch, dev, name, args):
 
 def launch_bound(name, args, rates, torch):
     """(least ms, 'operations' or 'bytes') of one recorded launch: its
-    cells at the card's rate for that kernel's update, or its bytes at the
-    HBM rate (codes and lengths read once, outputs written once; for the
-    traceback also its direction bytes, one a cell, written once)."""
+    updates (launch_work) at the card's rate for that kernel's update, or
+    its bytes at the HBM rate (codes and lengths read once, outputs written
+    once; for the traceback also the direction bytes of its jobs on the
+    global route, one a cell, written once)."""
     from ciri_long_tpu_torch.misc.kexp import HBM_BYTES_PER_S
+    from ciri_long_tpu_torch.ops.sw_tb_batch import global_bytes
 
-    cells = launch_cells(name, args, torch)
     if name == 'sw_score_ends':
         q, r = args[0], args[1]
         nbytes = int(_real(q, torch).sum() + _real(r, torch).sum()) \
             + 12 * q.shape[0]
     else:
         a, b, n, m = args[:4]
-        nbytes = int(n.long().clamp(0, a.shape[1]).sum()
-                     + m.long().clamp(0, b.shape[1]).sum()) + 8 * a.shape[0]
+        n = n.long().clamp(0, a.shape[1])
+        m = m.long().clamp(0, b.shape[1])
+        nbytes = int(n.sum() + m.sum()) + 8 * a.shape[0]
         nbytes += 4 * a.shape[0] if name == 'edit_distance' else \
-            24 * a.shape[0] + cells
-    ops_ms = cells / rates[name] * 1e3
+            24 * a.shape[0] + int(global_bytes(n.cpu().numpy(),
+                                               m.cpu().numpy()).sum())
+    ops_ms = launch_work(name, args, torch) / rates[name] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else \
         (bytes_ms, 'bytes')
@@ -862,23 +923,29 @@ def phase_collapse_full(torch, dev, smi):
                           edit_all=False, label='cohort collapse')
     rates = {'sw_score_ends': peak_cell_rate(dev),
              'edit_distance': recurrence_rate(dev, 'edit_distance'),
-             'sw_traceback': recurrence_rate(dev, 'sw_traceback')}
-    emit('cell_rate', collapse_cells_per_s=rates, card=smi)
+             'sw_traceback': recurrence_rate(dev, 'sw_traceback'),
+             'edit_cell': recurrence_rate(dev, 'edit_cell')}
+    emit('cell_rate', collapse_updates_per_s=rates, card=smi)
     largest = {}
     for name, args_list in seen.items():
         total = 0.0
-        cells = [launch_cells(name, a, torch) for a in args_list]
+        work = [launch_work(name, a, torch) for a in args_list]
         for args in args_list:
             total += _time_recorded(torch, dev, name, args, 3)
-        big = args_list[max(range(len(cells)), key=cells.__getitem__)]
+        big = args_list[max(range(len(work)), key=work.__getitem__)]
         bound_ms, bound_by = launch_bound(name, big, rates, torch)
         largest[name] = dict(
             launches=len(args_list), device_ms=total,
-            cells=sum(cells), ms=_time_recorded(torch, dev, name, big, 10),
+            cells=sum(launch_cells(name, a, torch) for a in args_list),
+            updates=sum(work), ms=_time_recorded(torch, dev, name, big, 10),
             plain_ms=_plain_ms(torch, dev, name, big), bound_ms=bound_ms,
             bound_by=bound_by, shape=[list(a.shape) for a in big
                                       if torch.is_tensor(a)],
-            largest_cells=max(cells))
+            largest_cells=launch_cells(name, big, torch),
+            largest_updates=max(work))
+        if name == 'edit_distance':   # the bound of a DP cell an update
+            largest[name]['cell_bound_ms'] = (
+                largest[name]['largest_cells'] / rates['edit_cell'] * 1e3)
         emit('collapse_kernel_time', kernel=name, card=smi, **largest[name])
     emit('collapse_full', reads=n_reads, cuda_wall_s=fields['cuda_wall_s'],
          cpu_wall_s=fields['cpu_wall_s'],
@@ -934,10 +1001,15 @@ def main():
     # device time beside its call numbers
     def collapse_entry(name):
         big = full[name]
+        prefix = 'edit_' if name == 'edit_distance' else 'tb_'
+        extra = {k: big[k] for k in ('cell_bound_ms',) if k in big}
         return dict(entry(name, full_fields['launches'][name],
                           collapse_errs[name], big['ms'], big['plain_ms'],
                           big['bound_ms'], big['bound_by']),
-                    shape=big['shape'], collapse_device_ms=big['device_ms'])
+                    shape=big['shape'], collapse_device_ms=big['device_ms'],
+                    collapse_routes={k: v for k, v in
+                                     full_fields['routes'].items()
+                                     if k.startswith(prefix)}, **extra)
 
     kernels = [
         dict(entry('sw_score_ends', launches,
@@ -947,7 +1019,8 @@ def main():
                    bench['sw_score_ends']),
              main_ms=main['sw_score_ends'], main_bound_ms=main['bound_ms'],
              collapse_launches=full_fields['launches']['sw_score_ends'],
-             collapse_routes=full_fields['sw_routes'],
+             collapse_routes={k: full_fields['routes'][k]
+                              for k in ('wave', 'tiled')},
              collapse_device_ms=full['sw_score_ends']['device_ms']),
         entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
               bench['sw_rowscan']),

@@ -1,144 +1,255 @@
-// Batched unit-cost edit distance (Levenshtein) for Hopper.
+// Batched unit-cost edit distance (Levenshtein) for Hopper, bit-parallel.
 //
 // Replaces the XLA device program ciri_long_tpu/ops/edit.py::
 // edit_distance_batch_padded (a lax.scan over the rows of a with the
-// insertions resolved by a cummin; ROADMAP X7).  Contract: for each pair b,
-// out[b] = D(a[b, :alen[b]], b[b, :blen[b]]), equality on codes (N equals N,
+// insertions resolved by a cummin; ROADMAP X7).  Contract: for each pair p,
+// out[p] = D(a[p, :alen[p]], b[p, :blen[p]]), equality on codes (N equals N,
 // as edit.py:47 and native/alncore.cpp:17 have it); alen 0 gives blen and
 // blen 0 gives alen.  Lengths are clamped to [0, La] and [0, Lb], so no
-// length makes the kernel read outside its rows.
+// length makes the kernel read outside its rows.  Codes are 0..7, the range
+// of the match masks; the wrapper (ops/edit.py::edit_plan) refuses any
+// other code, and the kernel's ``& 7`` only keeps a refused code inside the
+// mask table.
 //
-// Recurrence, D[r][c] over rows r of a and columns c of b:
-//   D[0][c] = c, D[r][0] = r,
-//   D[r][c] = min(D[r-1][c-1] + (a[r-1] != b[c-1]), D[r-1][c] + 1,
-//                 D[r][c-1] + 1).
+// Algorithm: Myers/Hyyro's blockwise bit-parallel recurrence, as the host
+// runs it in native/alncore.cpp::edit_distance_pair, on 32-bit words.  The
+// pattern x (n codes) lies along the bits, the text y (m codes) is read a
+// column at a time; word w holds the vertical deltas Pv/Mv of rows
+// 32w..32w+31 and a column's update of it takes the horizontal delta hin of
+// the row above the word and gives hout, the delta at its top row.  Row 0 is
+// D[0][c] = c, so the first word's hin is +1 in every column; the answer is
+// n plus the horizontal deltas at row n, read at bit (n-1) % 32 of the top
+// word (the bits above it never feed it: carries and shifts only go up).
+// Edit distance is symmetric, so each pair picks which of a and b is the
+// pattern.
 //
-// The sweep is the wavefront of csrc/sw_score_ends.cu with min / +1 in place
-// of the affine max: one warp per pair; lane t owns row r = 32*s + t + 1 of
-// strip s and at step d computes column c = d - t + 1.  The row above comes
-// from lane t-1 by __shfl_up_sync, with b's code beside it; lane 0 takes it
-// from a handoff row that lane 31 of the previous strip wrote (the border
-// D[0][c] = c in strip 0), fetched 32 columns at a time one chunk ahead and
-// picked out with __shfl_sync.  The handoff row is one [Lb] int32 row of a
-// global scratch per pair (the same one-row argument as sw_score_ends.cu:
-// column c is fetched by step c - 32 and overwritten at step c + 31); a pair
-// whose a fits one strip (alen <= 32, every pair of collapse's junction
-// curation) never touches it.  The scratch has no length limit, so HPC reads
-// of any length go through the one design.
+// Two routes, chosen per pair by the wrapper's plan (one launch runs both
+// lists; blocks [0, thread_blocks) take the first list):
+//   thread  the shorter sequence fits one word (or either is empty): one
+//           thread per pair, the shorter as the pattern, one word update a
+//           column.  Every junction-curation pair of collapse (20 codes
+//           against at most 50) takes it.
+//   warp    both are longer than 32: one warp per pair, the longer as the
+//           pattern (more lanes busy, fewer steps), lane w owning word w.
+//           Lane w updates column c at step c + w, a diagonal over words:
+//           hout goes to lane w + 1 by __shfl_up_sync beside the column's
+//           code, so a pair takes about m + words steps, each covering 32
+//           rows a lane.  Lane 0 takes the code (and, past the first group,
+//           hin) from a chunk of 32 columns fetched one chunk ahead and
+//           picked out with __shfl_sync.  Patterns over 32 words loop over
+//           groups of 32 words; lane 31 hands each column's hout to the next
+//           group through an int8 row of global scratch (column c is fetched
+//           by step c - 32 and overwritten at step c + 31, so one row
+//           suffices).
+// The match masks Peq[code] of a lane's word live in shared memory,
+// [8 codes][block threads] words, the lane's own column of the table (no
+// bank conflicts).
 //
-// Bound: ~5 integer instructions a cell (compare, select, add, min, a DPX
-// add-min; csrc/op_rate.cu times that update) over sum(alen * blen) cells
-// and 3 shuffles a warp step, against the codes read once and 4 bytes a pair
-// written: the kernel is bound by its instructions and, for short pairs, by
-// the 31 fill and drain steps of each strip.
+// Bound: one word update (~17 integer instructions: the mask load, the
+// Myers/Hyyro update, the two delta bits) per word and text column,
+// sum(ceil(pattern / 32) * text) updates at csrc/op_rate.cu's register-only
+// rate for that update (kind 2), against the codes read once and 4 bytes a
+// pair written.  What the warp route adds on top is the two shuffles a step
+// and the idle lanes of patterns under 1024 codes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int THREADS = 128;               // a block of either route
+constexpr int WARPS_PER_BLOCK = THREADS / 32;
+constexpr int CODES = 8;                   // match masks: codes 0..7
 constexpr unsigned FULL = 0xffffffffu;
 
-// Chunk column ``col`` of the row above and of b's codes, one column per
-// lane: the first strip's row above is the border D[0][col + 1] = col + 1.
-// ``edge`` is written by the sweep, so it is not declared __restrict__.
-__device__ __forceinline__ void load_chunk(const int* edge,
-                                           const int8_t* __restrict__ br,
-                                           int col, int m, bool first,
-                                           int& up, int& code) {
-    if (col < m) {
-        code = br[col];
-        up = first ? col + 1 : edge[col];
-    } else {
-        code = -1;
-        up = 0;
-    }
+// One text column's update of a 32-row word: the horizontal deltas of its
+// rows before the shift into (ph, mh), and the new vertical deltas.
+__device__ __forceinline__ void word_update(uint32_t eq, int hin,
+                                            uint32_t& pv, uint32_t& mv,
+                                            uint32_t& ph, uint32_t& mh) {
+    const uint32_t xv = eq | mv;
+    if (hin < 0) eq |= 1u;
+    const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
+    ph = mv | ~(xh | pv);
+    mh = pv & xh;
+    const uint32_t phs = (ph << 1) | (uint32_t)(hin > 0);
+    const uint32_t mhs = (mh << 1) | (uint32_t)(hin < 0);
+    pv = mhs | ~(xv | phs);
+    mv = phs & xv;
 }
 
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+// The delta at bit ``bit``: +1, 0 or -1.
+__device__ __forceinline__ int delta_at(uint32_t ph, uint32_t mh, int bit) {
+    return (int)((ph >> bit) & 1u) - (int)((mh >> bit) & 1u);
+}
+
+// Set the caller's column of the mask table for the ``len`` codes at x.
+__device__ __forceinline__ void build_peq(uint32_t* peq, const int8_t* x,
+                                          int len) {
+#pragma unroll
+    for (int k = 0; k < CODES; ++k) peq[k * THREADS] = 0u;
+    for (int i = 0; i < len; ++i) peq[(x[i] & 7) * THREADS] |= 1u << i;
+}
+
+// One pair whose shorter sequence fits a word, on one thread.
+__device__ void thread_pair(const int8_t* ar, int n, const int8_t* br, int m,
+                            uint32_t* peq, int* out) {
+    if (n == 0 || m == 0) {
+        *out = n + m;
+        return;
+    }
+    const int8_t* x = ar;                  // the pattern: the shorter
+    const int8_t* y = br;
+    if (m < n) {
+        x = br;
+        y = ar;
+        const int t = n;
+        n = m;
+        m = t;
+    }
+    build_peq(peq, x, n);
+    uint32_t pv = FULL, mv = 0u, ph, mh;
+    const int top = n - 1;
+    int score = n;
+#pragma unroll 4
+    for (int c = 0; c < m; ++c) {
+        word_update(peq[(y[c] & 7) * THREADS], 1, pv, mv, ph, mh);
+        score += delta_at(ph, mh, top);
+    }
+    *out = score;
+}
+
+// Column ``col`` of the text and, past the first group, the hin the last
+// group left there, packed as code | (hin + 1) << 3; 0 past the text.
+// ``edge`` is written by the sweep, so it is not declared __restrict__.
+__device__ __forceinline__ int load_col(const int8_t* __restrict__ y,
+                                        const int8_t* edge, int col, int m,
+                                        bool first) {
+    if (col >= m) return 0;
+    const int hin = first ? 1 : edge[col];
+    return (y[col] & 7) | ((hin + 1) << 3);
+}
+
+// One pair with both sequences over a word, on one warp.
+__device__ void warp_pair(const int8_t* ar, int n, const int8_t* br, int m,
+                          uint32_t* peq, int8_t* edge, int* out) {
+    const int lane = threadIdx.x & 31;
+    const int8_t* x = ar;                  // the pattern: the longer
+    const int8_t* y = br;
+    if (m > n) {
+        x = br;
+        y = ar;
+        const int t = n;
+        n = m;
+        m = t;
+    }
+    const int words = (n + 31) >> 5;
+    const int groups = (words + 31) >> 5;
+    const int top_bit = (n - 1) & 31;
+    int score = n;
+    for (int g = 0; g < groups; ++g) {
+        const int w = g * 32 + lane;       // this lane's word
+        const int g_words = min(32, words - g * 32);
+        const bool active = lane < g_words;
+        const bool first = g == 0;
+        const bool last = g + 1 == groups;
+        const bool scorer = last && lane == g_words - 1;
+        const bool hand_off = !last && lane == 31;
+        build_peq(peq, x + w * 32, active ? min(32, n - w * 32) : 0);
+
+        int cur = load_col(y, edge, lane, m, first);
+        int nxt = load_col(y, edge, 32 + lane, m, first);
+        uint32_t pv = FULL, mv = 0u;
+        int pass = 0;                 // code | (hout + 1) << 3 to lane + 1
+        const int chunks = (m + g_words + 30) >> 5;   // m + g_words - 1 steps
+        for (int ch = 0; ch < chunks; ++ch) {
+            if (ch > 0) {
+                cur = nxt;
+                nxt = load_col(y, edge, ch * 32 + 32 + lane, m, first);
+            }
+            // a fixed 32 steps, no branch in them, so the compiler unrolls
+            // them (steps past the last column update no lane)
+#pragma unroll
+            for (int k = 0; k < 32; ++k) {
+                const int from_chunk = __shfl_sync(FULL, cur, k);
+                int in = __shfl_up_sync(FULL, pass, 1);
+                if (lane == 0) in = from_chunk;
+                const int c = ch * 32 + k - lane;   // this lane's column
+                const bool live = active && (unsigned)c < (unsigned)m;
+                const int code = in & 7;
+                const int hin = (in >> 3) - 1;
+                uint32_t npv = pv, nmv = mv, ph, mh;
+                word_update(peq[code * THREADS], hin, npv, nmv, ph, mh);
+                const int hout = delta_at(ph, mh, 31);
+                if (live) {
+                    pv = npv;
+                    mv = nmv;
+                    pass = code | ((hout + 1) << 3);
+                }
+                if (live && scorer) score += delta_at(ph, mh, top_bit);
+                if (live && hand_off) edge[c] = (int8_t)hout;
+            }
+        }
+        __syncwarp();  // lane 31's handoff row is complete for the next group
+    }
+    if (lane == ((words - 1) & 31)) *out = score;
+}
+
+__global__ void __launch_bounds__(THREADS)
 edit_distance_kernel(const int8_t* __restrict__ a,
                      const int8_t* __restrict__ b,
                      const int* __restrict__ alen,
-                     const int* __restrict__ blen, int B, int La, int Lb,
-                     int* edge_rows, int* __restrict__ out) {
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-    if (row >= B) return;  // whole warps leave together
-    const int n = min(max(alen[row], 0), La);
-    const int m = min(max(blen[row], 0), Lb);
-    if (n == 0 || m == 0) {
-        if (lane == 0) out[row] = n + m;
-        return;
+                     const int* __restrict__ blen, int La, int Lb,
+                     const int* __restrict__ order, int n_thread, int n_warp,
+                     int thread_blocks, int8_t* edge_rows, int edge_len,
+                     int* __restrict__ out) {
+    __shared__ uint32_t peq_s[CODES * THREADS];
+    uint32_t* peq = peq_s + threadIdx.x;
+    int slot, p;
+    const bool by_thread = (int)blockIdx.x < thread_blocks;
+    if (by_thread) {
+        slot = blockIdx.x * THREADS + threadIdx.x;
+        if (slot >= n_thread) return;
+        p = order[slot];
+    } else {
+        slot = (blockIdx.x - thread_blocks) * WARPS_PER_BLOCK +
+               (threadIdx.x >> 5);
+        if (slot >= n_warp) return;        // whole warps leave together
+        p = order[n_thread + slot];
     }
-    const int8_t* ar = a + (size_t)row * La;
-    const int8_t* br = b + (size_t)row * Lb;
-    int* edge = edge_rows + (size_t)row * Lb;
-    const int n_strips = (n + 31) / 32;
-    for (int s = 0; s < n_strips; ++s) {
-        const int i = s * 32 + lane;          // a[i]: DP row i + 1
-        const int ac = i < n ? ar[i] : -2;
-        const bool first = s == 0;
-        const bool hand_off = lane == 31 && s + 1 < n_strips;
-        const bool last_row = i == n - 1;
-
-        int cur_up, nxt_up, cur_code, nxt_code;
-        load_chunk(edge, br, lane, m, first, cur_up, cur_code);
-        load_chunk(edge, br, 32 + lane, m, first, nxt_up, nxt_code);
-
-        int left = i + 1;        // D[i+1][c-1], the border D[i+1][0] first
-        int diag = i;            // D[i][c-1]: lane 0's border; the other
-                                 // lanes take theirs from lane t-1
-        int out_D = i + 1, out_code = -1;
-        const int steps = m + 31;
-        for (int d = 0; d < steps; ++d) {
-            const int k = d & 31;
-            if (k == 0 && d > 0) {
-                cur_up = nxt_up;
-                cur_code = nxt_code;
-                load_chunk(edge, br, d + 32 + lane, m, first, nxt_up,
-                           nxt_code);
-            }
-            const int l0_up = __shfl_sync(FULL, cur_up, k);
-            const int l0_code = __shfl_sync(FULL, cur_code, k);
-            int up = __shfl_up_sync(FULL, out_D, 1);
-            int bc = __shfl_up_sync(FULL, out_code, 1);
-            if (lane == 0) {
-                up = l0_up;
-                bc = l0_code;
-            }
-            const int j = d - lane;           // b[j]: DP column j + 1
-            int D = i + 1;                    // before column 0: the border
-            if (j >= 0 && j < m) {
-                D = min(diag + (ac != bc), min(up, left) + 1);
-                left = D;
-                if (hand_off) edge[j] = D;
-                if (last_row && j == m - 1) out[row] = D;
-            }
-            diag = up;
-            out_D = D;
-            out_code = bc;
-        }
-        __syncwarp();  // lane 31's handoff row is complete for lane 0
-    }
+    const int n = min(max(alen[p], 0), La);
+    const int m = min(max(blen[p], 0), Lb);
+    const int8_t* ar = a + (size_t)p * La;
+    const int8_t* br = b + (size_t)p * Lb;
+    if (by_thread)
+        thread_pair(ar, n, br, m, peq, out + p);
+    else
+        warp_pair(ar, n, br, m, peq, edge_rows + (size_t)slot * edge_len,
+                  out + p);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  ``edge_rows`` holds B * Lb int32 when
-// any alen exceeds 32 (it may be any pointer otherwise).  Launches on
-// ``stream``, allocates nothing, and returns cudaGetLastError() (0 on
+// Plain C entry point for ctypes.  ``order`` lists the pairs of the thread
+// route (``n_thread``, those whose shorter sequence is at most 32 codes)
+// and then those of the warp route (``n_warp``).  ``edge_rows`` holds
+// n_warp * edge_len int8, edge_len >= max(La, Lb), when a warp-route
+// pattern exceeds 1024 codes (it may be any pointer otherwise).  Launches
+// on ``stream``, allocates nothing, and returns cudaGetLastError() (0 on
 // success).
 extern "C" int edit_distance_launch(const void* a, const void* b,
                                     const void* alen, const void* blen,
-                                    int B, int La, int Lb, void* edge_rows,
-                                    void* out, void* stream) {
-    if (B <= 0) return 0;
-    edit_distance_kernel<<<(B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
-                           WARPS_PER_BLOCK * 32, 0,
+                                    int La, int Lb, const void* order,
+                                    int n_thread, int n_warp, void* edge_rows,
+                                    int edge_len, void* out, void* stream) {
+    const int thread_blocks = (n_thread + THREADS - 1) / THREADS;
+    const int warp_blocks = (n_warp + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+    if (thread_blocks + warp_blocks == 0) return 0;
+    edit_distance_kernel<<<thread_blocks + warp_blocks, THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-        static_cast<const int*>(alen), static_cast<const int*>(blen), B, La,
-        Lb, static_cast<int*>(edge_rows), static_cast<int*>(out));
+        static_cast<const int*>(alen), static_cast<const int*>(blen), La, Lb,
+        static_cast<const int*>(order), n_thread, n_warp, thread_blocks,
+        static_cast<int8_t*>(edge_rows), edge_len, static_cast<int*>(out));
     return static_cast<int>(cudaGetLastError());
 }

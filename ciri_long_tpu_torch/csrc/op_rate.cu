@@ -27,8 +27,15 @@
 //   kind 1, SW with traceback (csrc/sw_traceback.cu): the DPX SW update
 //     above plus the direction code, the case (H == 0, H == diag + s,
 //     H == E, H == F) and the two stay bits (E == E_up - gE, E != H_up - gO;
-//     F == F_left - gE, F != H_left - gO) packed into one byte.
+//     F == F_left - gE, F != H_left - gO) packed into one byte;
+//   kind 2, the bit-parallel edit distance (csrc/edit_distance.cu): one
+//     Myers/Hyyro update of a 32-row word for one text column, its match
+//     mask (an xor standing in for the kernel's table load), the update
+//     with the row above's delta hin, and hout, the delta at the word's top
+//     row, which is the next update's hin.  A "cell" of this kind is one
+//     word update: 32 DP cells.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -142,6 +149,48 @@ tb_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
     if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
 }
 
+// csrc/edit_distance.cu::word_update
+__device__ __forceinline__ void word_update(uint32_t eq, int hin,
+                                            uint32_t& pv, uint32_t& mv,
+                                            uint32_t& ph, uint32_t& mh) {
+    const uint32_t xv = eq | mv;
+    if (hin < 0) eq |= 1u;
+    const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
+    ph = mv | ~(xh | pv);
+    mh = pv & xh;
+    const uint32_t phs = (ph << 1) | (uint32_t)(hin > 0);
+    const uint32_t mhs = (mh << 1) | (uint32_t)(hin < 0);
+    pv = mhs | ~(xv | phs);
+    mv = phs & xv;
+}
+
+__global__ void __launch_bounds__(THREADS)
+myers_rate_kernel(int steps, int q, int* out) {
+    uint32_t pv[CHAINS], mv[CHAINS];
+    int hin[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        pv[k] = ~(threadIdx.x + k);
+        mv[k] = blockIdx.x + k;
+        hin[k] = k % 3 - 1;
+    }
+    const uint32_t base = (uint32_t)q * 0x9e3779b9u;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            uint32_t ph, mh;
+            word_update(base ^ (uint32_t)(t + k), hin[k], pv[k], mv[k], ph,
+                        mh);
+            hin[k] = (int)(ph >> 31) - (int)(mh >> 31);
+        }
+    }
+    uint32_t acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= pv[k] ^ mv[k] ^ (uint32_t)hin[k];
+    if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
@@ -166,8 +215,9 @@ extern "C" int cell_rate_launch(int dpx, int blocks, int steps, int q,
 extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 
 // The same for the updates of collapse's kernels: ``kind`` 0 the edit
-// distance, 1 SW with traceback (see above).  Returns cudaErrorInvalidValue
-// for another kind.
+// distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
+// distance's word (see above).  Returns cudaErrorInvalidValue for another
+// kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
                                       int gap_extend, void* out,
@@ -179,6 +229,8 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
     else if (kind == 1)
         tb_rate_kernel<<<blocks, THREADS, 0, st>>>(
             steps, q, match, mismatch, gap_open, gap_extend, o);
+    else if (kind == 2)
+        myers_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

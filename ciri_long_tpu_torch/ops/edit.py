@@ -9,7 +9,10 @@ call of [B] pairs instead of per-pair native calls.
 formulation: a scan over the rows of ``a``, insertions resolved exactly by a
 prefix min, D[i][j] = min_k<=j (C[k] + (j - k)) = cummin(C[k] - k) + j,
 valid because an insertion costs exactly 1); ``edit_distance_cuda`` launches
-the hand-written kernel ``csrc/edit_distance.cu``; ``edit_distance_auto``
+the hand-written kernel ``csrc/edit_distance.cu`` (Myers/Hyyro bit-parallel:
+a thread per pair whose shorter sequence fits one 32-bit word, a warp per
+longer pair, the routes planned per pair by ``edit_plan``, which also
+refuses codes outside 0..7); ``edit_distance_auto``
 takes the kernel for CUDA tensors and the plain version for CPU tensors,
 nothing else.  ``edit_distance_batch`` is the numpy entry point on
 ``device`` (default 'cuda', resolved by ``resolve_device``, which raises
@@ -64,18 +67,56 @@ def edit_distance_batch_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 _SYMBOLS = {
-    'edit_distance_launch': ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                             + [ctypes.c_void_p] * 3, ctypes.c_int),
+    'edit_distance_launch': ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p] + [ctypes.c_int]
+                             + [ctypes.c_void_p] * 2, ctypes.c_int),
 }
+# codes csrc/edit_distance.cu's match masks cover: 0..7
+CODES = 8
+# longest sequence of one word: the kernel's thread route
+WORD = 32
+# longest pattern of one warp's 32 words; longer ones hand off between
+# groups through a scratch row
+GROUP = 32 * WORD
+
+
+def _bad_codes(x, lens):
+    """True when a code outside 0..CODES-1 lies inside a row's length."""
+    if x.size == 0 or (x.min() >= 0 and x.max() < CODES):
+        return False
+    inside = np.arange(x.shape[1])[None, :] < lens[:, None]
+    return bool((((x < 0) | (x >= CODES)) & inside).any())
+
+
+def edit_plan(a, b, alen, blen, device):
+    """The routes of one launch of csrc/edit_distance.cu over numpy a
+    [B, La], b [B, Lb] and lengths [B]: (order int32 [B] on ``device``,
+    n_thread), the pairs whose shorter sequence fits one word (the thread
+    route, lengths clamped as the kernel clamps them) first, then the rest
+    (the warp route).  Raises on a code outside 0..7 inside a row's length:
+    the kernel's match masks cover no other code."""
+    n = np.clip(alen, 0, a.shape[1])
+    m = np.clip(blen, 0, b.shape[1])
+    if _bad_codes(a, n) or _bad_codes(b, m):
+        raise ValueError('edit distance kernel: codes must be 0..{} inside '
+                         'the lengths'.format(CODES - 1))
+    by_warp = np.minimum(n, m) > WORD
+    order = np.argsort(by_warp, kind='stable').astype(np.int32)
+    return (torch.from_numpy(order).to(device),
+            int(len(order) - by_warp.sum()))
 
 
 def edit_distance_cuda(a: torch.Tensor, b: torch.Tensor,
-                       alen: torch.Tensor, blen: torch.Tensor):
+                       alen: torch.Tensor, blen: torch.Tensor, plan=None):
     """The hand-written CUDA kernel (csrc/edit_distance.cu) on CUDA tensors:
     a int8 [B, La], b int8 [B, Lb], alen and blen int32 [B], contiguous, on
-    one device.  Same output as edit_distance_batch_plain (lengths clamped
-    to [0, La] and [0, Lb]).  Raises on anything else, and when the launch
-    is refused."""
+    one device, codes 0..7.  Same output as edit_distance_batch_plain
+    (lengths clamped to [0, La] and [0, Lb]).  ``plan`` is edit_plan's
+    answer for these inputs when the caller has it (no copy back from the
+    card), else computed from the inputs read back.  Raises on anything
+    else, and when the launch is refused.  One launch runs both routes;
+    ROUTES counts it once for each route that has pairs."""
     from ciri_long_tpu_torch.ops import _build
 
     tensors = (a, b, alen, blen)
@@ -98,24 +139,31 @@ def edit_distance_cuda(a: torch.Tensor, b: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('edit_distance_cuda needs contiguous inputs')
     La, Lb = a.shape[1], b.shape[1]
-    if max(B, La, Lb + 32) >= 2 ** 31:
+    if max(B, La, Lb + 64) >= 2 ** 31:
         raise ValueError("edit_distance_cuda shape {}x{}x{} exceeds the "
                          "kernel's int arguments".format(B, La, Lb))
-    lib = _build.load('edit_distance.cu', _SYMBOLS)
     dev = a.device
+    order, n_thread = plan or edit_plan(
+        *(t.cpu().numpy() for t in tensors), dev)
+    n_warp = B - n_thread
+    lib = _build.load('edit_distance.cu', _SYMBOLS)
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    # the strip handoff rows; a pair of one strip (alen <= 32) uses none
-    edge = torch.empty((B, Lb) if La > 32 else (1,), dtype=torch.int32,
-                       device=dev)
+    # the group handoff rows; only warp-route patterns over GROUP use them
+    edge_len = max(La, Lb)
+    edge = torch.empty((n_warp, edge_len) if edge_len > GROUP and n_warp
+                       else (1,), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.edit_distance_launch(
-            a.data_ptr(), b.data_ptr(), alen.data_ptr(), blen.data_ptr(), B,
-            La, Lb, edge.data_ptr(), out.data_ptr(),
+            a.data_ptr(), b.data_ptr(), alen.data_ptr(), blen.data_ptr(), La,
+            Lb, order.data_ptr(), n_thread, n_warp, edge.data_ptr(),
+            edge_len, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('edit_distance launch failed: cudaError {} (B={}, '
                            'La={}, Lb={})'.format(rc, B, La, Lb))
-    count_launch('edit_distance')
+    count_launch('edit_distance', *[route for route, k in
+                                    (('edit_thread', n_thread),
+                                     ('edit_warp', n_warp)) if k])
     return out
 
 
@@ -159,7 +207,10 @@ def edit_distance_batch(a, b, alen=None, blen=None, device='cuda'):
                 a, b, B, a.shape[1], b.shape[1], alen, blen),
                 np.int32).copy()
     args = [torch.from_numpy(x).to(device) for x in (a, b, alen, blen)]
-    return edit_distance_auto(*args).cpu().numpy()
+    if device.type == 'cpu':
+        return edit_distance_batch_plain(*args).numpy()
+    return edit_distance_cuda(*args, plan=edit_plan(
+        a, b, alen, blen, device)).cpu().numpy()
 
 
 def edit_distance(x: str, y: str) -> int:

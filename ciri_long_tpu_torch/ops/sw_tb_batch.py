@@ -22,22 +22,26 @@ query end.
 
 ``sw_traceback_batch_plain`` is the plain PyTorch version (the JAX
 recurrence, the within-row gap by a cummax); ``sw_traceback_cuda`` launches
-the hand-written kernel ``csrc/sw_traceback.cu``; both take padded code
-tensors with per-job lengths and return (out [B, 6] int32 = score, q_begin,
-q_end, r_begin, r_end, op count; ops [B, cap] int8 with the path at the end
-of each row, 1=M 2=I 3=D), which ``tb_results`` turns into the host's
-tuples.  ``sw_traceback_batch`` is the entry point on ``device`` (default
-'cuda', resolved by ``resolve_device``, which raises without a GPU): the
-kernel on the card, the host ``sw_traceback`` per job on the CPU, which is
-what the JAX package does where its device path is off.
+the hand-written kernel ``csrc/sw_traceback.cu`` (one block a job, a warp a
+32-row strip of the reference; the direction bytes in shared memory when
+they fit a block's budget, else in global scratch: ``tb_plan`` picks the
+route per job); both take padded code tensors with per-job lengths and
+return (out [B, 6] int32 = score, q_begin, q_end, r_begin, r_end, run count;
+runs [B, cap, 2] int32 with the path's (length, op) runs at the end of each
+row, host ops 0=M 1=I 2=D, 0 elsewhere), which ``tb_results`` turns into the
+host's tuples.  ``sw_traceback_batch`` is the entry point on ``device``
+(default 'cuda', resolved by ``resolve_device``, which raises without a GPU):
+the kernel on the card, the host ``sw_traceback`` per job on the CPU, which
+is what the JAX package does where its device path is off.
 """
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ciri_long_tpu_torch.ops.sw import BLOCK_SMEM
 from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 
@@ -46,13 +50,20 @@ PAD = 5
 
 STOP, CM, CE, CF = 0, 1, 2, 3
 
-# direction bytes and handoff rows of one launch; the jobs are chunked to
-# stay under it
+# global-route direction bytes and handoff rows of one launch; the jobs are
+# chunked to stay under it
 MEM_BUDGET = 1 << 28
+# csrc/sw_traceback.cu: a block's most warps, the ring of (H, E) columns
+# between two of them, and the dynamic shared memory it opts into
+MAX_WARPS = 8
+RING_BYTES = 128 * 8
+TB_SMEM = BLOCK_SMEM - 8192
+# a job's direction bytes on the shared-memory route, beside the most rings
+SMEM_CODES = TB_SMEM - (MAX_WARPS - 1) * RING_BYTES
 
 
 def _cap(W, M):
-    """Width of the ops rows: a path has at most W + M steps."""
+    """Width of the runs rows: a path has at most W + M steps."""
     return W + M + 8
 
 
@@ -71,10 +82,11 @@ def sw_traceback_batch_plain(q: torch.Tensor, r: torch.Tensor,
                              mismatch=1, gap_open=1, gap_extend=1):
     """Plain PyTorch SW with traceback (any device): q [B, W] and r [B, M]
     integer codes (PAD past each job's length), n and m [B] the real
-    lengths.  Returns (out [B, 6] int32, ops [B, W + M + 8] int8) as
+    lengths.  Returns (out [B, 6] int32, runs [B, W + M + 8, 2] int32) as
     sw_traceback_cuda does: a job with no positive cell has out (0, -1, -1,
     -1, -1, 0).  The DP runs over the batch a reference row at a time; the
-    traceback walks each job's codes on the host."""
+    traceback walks each job's codes on the host, merging the ops into
+    runs as the kernel does."""
     B, W = q.shape
     M = r.shape[1]
     dev = q.device
@@ -137,44 +149,52 @@ def sw_traceback_batch_plain(q: torch.Tensor, r: torch.Tensor,
     cap = _cap(W, M)
     out = np.zeros((B, 6), np.int32)
     out[:, 1:5] = -1
-    ops = np.zeros((B, cap), np.int8)
+    runs = np.zeros((B, cap, 2), np.int32)
     for b in range(B):
         if best[b] <= 0:
             continue
         # the host state machine: i = query position (u), j = reference
-        # position (t); states H 0, E 1, F 2
+        # position (t); states H 0, E 1, F 2; host ops 0 M, 1 I, 2 D
         i, j, state, cnt = int(bu[b]), int(bt[b]), 0, 0
+        run_op, run_len = -1, 0
         while i > 0 and j > 0:
             c = int(codes[b, j, i])
             if state == 0:
                 case = c & 3
                 if case == STOP:
                     break
-                if case == CM:
-                    ops[b, cap - 1 - cnt] = 1
-                    cnt += 1
-                    i -= 1
-                    j -= 1
-                else:
+                if case != CM:
                     state = 1 if case == CE else 2
+                    continue
+                op = 0
+                i -= 1
+                j -= 1
             elif state == 1:
-                ops[b, cap - 1 - cnt] = 3
-                cnt += 1
+                op = 2
                 if not (c >> 2) & 1:
                     state = 0
                 j -= 1
             else:
-                ops[b, cap - 1 - cnt] = 2
-                cnt += 1
+                op = 1
                 if not (c >> 3) & 1:
                     state = 0
                 i -= 1
+            if op == run_op:
+                run_len += 1
+            else:
+                if run_len:
+                    runs[b, cap - 1 - cnt] = (run_len, run_op)
+                    cnt += 1
+                run_op, run_len = op, 1
+        if run_len:
+            runs[b, cap - 1 - cnt] = (run_len, run_op)
+            cnt += 1
         out[b] = (best[b], i, bu[b] - 1, j, bt[b] - 1, cnt)
-    return torch.from_numpy(out).to(dev), torch.from_numpy(ops).to(dev)
+    return torch.from_numpy(out).to(dev), torch.from_numpy(runs).to(dev)
 
 
 _SYMBOLS = {
-    'sw_traceback_launch': ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    'sw_traceback_launch': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                             + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
@@ -182,31 +202,78 @@ _SYMBOLS = {
 
 def code_bytes(n, m):
     """Direction bytes of one job in csrc/sw_traceback.cu's (strip, step,
-    lane) layout: ceil(m / 32) strips of n + 31 steps of 32 lanes."""
-    return -(-int(m) // 32) * (int(n) + 31) * 32 if n > 0 and m > 0 else 0
+    lane) layout: ceil(m / 32) strips of n + 31 steps, rounded up to whole
+    32-step chunks, of 32 lanes (numpy arrays or ints)."""
+    n, m = np.asarray(n, np.int64), np.asarray(m, np.int64)
+    return np.where((n > 0) & (m > 0),
+                    -(-m // 32) * -(-(n + 31) // 32) * 1024, 0)
 
 
-def tb_scratch(n_host, m_host, W, M, device):
-    """(code offsets int64 [B] on ``device``, total direction bytes) of a
-    launch over jobs of real lengths ``n_host`` and ``m_host`` (numpy),
-    clamped to the widths W and M as the kernel clamps them."""
-    sizes = np.array([code_bytes(a, b) for a, b in
-                      zip(np.clip(n_host, 0, W), np.clip(m_host, 0, M))],
-                     np.int64)
-    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-    return torch.from_numpy(offsets).to(device), int(sizes.sum())
+def global_bytes(n, m):
+    """The direction bytes a job puts in global scratch: 0 on the
+    shared-memory route."""
+    size = code_bytes(n, m)
+    return np.where(size <= SMEM_CODES, 0, size)
+
+
+class TbLaunch(NamedTuple):
+    """One launch of csrc/sw_traceback.cu: its route ('tb_smem' or
+    'tb_global'), the jobs (int32 indices on the device), warps a block,
+    dynamic shared memory a block, on the global route the jobs' code
+    offsets (int64 on the device) and their bytes in all, and the most
+    32-row strips a job has (more than ``warps``: a handoff row a job)."""
+    route: str
+    jobs: torch.Tensor
+    warps: int
+    smem: int
+    code_off: Optional[torch.Tensor]
+    code_bytes: int
+    strips: int
+
+
+def tb_plan(n_host, m_host, W, M, device) -> List[TbLaunch]:
+    """The launches of a batch of jobs of real lengths ``n_host`` and
+    ``m_host`` (numpy), clamped to the widths W and M as the kernel clamps
+    them: the jobs whose direction bytes fit a block's shared memory next
+    to the rings (SMEM_CODES) on the shared-memory route, the others on the
+    global route; a route with no job has no launch."""
+    n = np.clip(np.asarray(n_host), 0, W)
+    m = np.clip(np.asarray(m_host), 0, M)
+    sizes = code_bytes(n, m)
+    on_smem = sizes <= SMEM_CODES
+    launches = []
+    for route, sel in (('tb_smem', on_smem), ('tb_global', ~on_smem)):
+        idx = np.flatnonzero(sel).astype(np.int32)
+        if not len(idx):
+            continue
+        strips = int(-(-m[idx].max() // 32))
+        warps = min(MAX_WARPS, max(1, strips))
+        rings = (warps - 1) * RING_BYTES
+        jobs = torch.from_numpy(idx).to(device)
+        if route == 'tb_smem':
+            launches.append(TbLaunch(route, jobs, warps,
+                                     rings + int(sizes[idx].max()), None, 0,
+                                     strips))
+        else:
+            off = np.concatenate([[0], np.cumsum(sizes[idx])[:-1]])
+            launches.append(TbLaunch(
+                route, jobs, warps, rings,
+                torch.from_numpy(off.astype(np.int64)).to(device),
+                int(sizes[idx].sum()), strips))
+    return launches
 
 
 def sw_traceback_cuda(q: torch.Tensor, r: torch.Tensor, n: torch.Tensor,
                       m: torch.Tensor, match=1, mismatch=1, gap_open=1,
-                      gap_extend=1, scratch=None):
+                      gap_extend=1, plan=None):
     """The hand-written CUDA kernel (csrc/sw_traceback.cu) on CUDA tensors:
     q int8 [B, W], r int8 [B, M], n and m int32 [B], contiguous, on one
-    device.  Same outputs as sw_traceback_batch_plain.  The direction bytes
-    are sized from each job's real n and m: ``scratch`` is tb_scratch's
-    answer for them when the caller has it (no copy back from the card),
-    else computed from n and m read back.  Raises on anything else, when
-    gap_open < gap_extend, and when the launch is refused."""
+    device.  Same outputs as sw_traceback_batch_plain.  The routes and the
+    direction bytes are planned from each job's real n and m: ``plan`` is
+    tb_plan's answer for them when the caller has it (no copy back from the
+    card), else computed from n and m read back.  One launch a route, each
+    counted in LAUNCHES and ROUTES.  Raises on anything else, when gap_open
+    < gap_extend, and when a launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     tensors = (q, r, n, m)
@@ -235,27 +302,36 @@ def sw_traceback_cuda(q: torch.Tensor, r: torch.Tensor, n: torch.Tensor,
         raise ValueError("sw_traceback_cuda shape {}x{}x{} exceeds the "
                          "kernel's int arguments".format(B, W, M))
     dev = q.device
-    code_off, n_bytes = scratch or tb_scratch(n.cpu().numpy(),
-                                              m.cpu().numpy(), W, M, dev)
+    if plan is None:
+        plan = tb_plan(n.cpu().numpy(), m.cpu().numpy(), W, M, dev)
     lib = _build.load('sw_traceback.cu', _SYMBOLS)
-    codes = torch.empty(max(1, n_bytes), dtype=torch.uint8, device=dev)
-    # the strip handoff rows; jobs of one strip (m <= 32) use none
-    edge = torch.empty((B, W, 2) if M > 32 else (1,), dtype=torch.int32,
-                       device=dev)
-    ops = torch.empty((B, cap), dtype=torch.int8, device=dev)
+    runs = torch.zeros((B, cap, 2), dtype=torch.int32, device=dev)
     out = torch.empty((B, 6), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.sw_traceback_launch(
-            q.data_ptr(), r.data_ptr(), n.data_ptr(), m.data_ptr(), B, W, M,
-            int(match), int(mismatch), int(gap_open), int(gap_extend),
-            code_off.data_ptr(), codes.data_ptr(), edge.data_ptr(), cap,
-            ops.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError('sw_traceback launch failed: cudaError {} (B={}, '
-                           'W={}, M={})'.format(rc, B, W, M))
-    count_launch('sw_traceback')
-    return out, ops
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for launch in plan:
+        jobs = launch.jobs.numel()
+        codes = torch.empty(max(1, launch.code_bytes), dtype=torch.uint8,
+                            device=dev)
+        # the group handoff rows: only jobs of more strips than warps
+        edge = torch.empty((jobs, W, 2) if launch.strips > launch.warps
+                           else (1,), dtype=torch.int32, device=dev)
+        # the shared-memory route reads no code offsets: NULL
+        code_off = None if launch.code_off is None else \
+            launch.code_off.data_ptr()
+        with torch.cuda.device(dev):
+            rc = lib.sw_traceback_launch(
+                q.data_ptr(), r.data_ptr(), n.data_ptr(), m.data_ptr(),
+                launch.jobs.data_ptr(), jobs, launch.warps,
+                int(launch.route == 'tb_smem'), launch.smem, W, M,
+                int(match), int(mismatch), int(gap_open), int(gap_extend),
+                code_off, codes.data_ptr(), edge.data_ptr(), cap,
+                runs.data_ptr(), out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError('sw_traceback launch failed: cudaError {} '
+                               '({} route, {} jobs, W={}, M={})'.format(
+                                   rc, launch.route, jobs, W, M))
+        count_launch('sw_traceback', launch.route)
+    return out, runs
 
 
 def sw_traceback_auto(q, r, n, m, match=1, mismatch=1, gap_open=1,
@@ -285,37 +361,29 @@ def pack_jobs(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray]):
     return q, r, n, m
 
 
-def tb_results(out, ops) -> List[Optional[Tuple]]:
+def tb_results(out, runs) -> List[Optional[Tuple]]:
     """The host's (score, q_begin, q_end, r_begin, r_end, cigar) tuples, or
-    None for a job with no positive cell, from (out, ops): the cigar is
-    the run-length merge of the ops path (host ops 0=M 1=I 2=D)."""
+    None for a job with no positive cell, from (out, runs): the cigar is
+    the (length, op) runs at the end of each row (host ops 0=M 1=I 2=D)."""
     out = out.cpu().numpy() if torch.is_tensor(out) else out
-    ops = ops.cpu().numpy() if torch.is_tensor(ops) else ops
-    cap = ops.shape[1]
+    runs = runs.cpu().numpy() if torch.is_tensor(runs) else runs
+    cap = runs.shape[1]
     res: List[Optional[Tuple]] = []
-    for b in range(out.shape[0]):
-        score, qb, qe, rb, re_, cnt = (int(x) for x in out[b])
-        if score <= 0:
-            res.append(None)
-            continue
-        cigar = []
-        for oc in ops[b, cap - cnt:]:
-            op = int(oc) - 1
-            if cigar and cigar[-1][1] == op:
-                cigar[-1] = (cigar[-1][0] + 1, op)
-            else:
-                cigar.append((1, op))
-        res.append((score, qb, qe, rb, re_, cigar))
+    for row, (score, qb, qe, rb, re_, cnt) in zip(runs, out.tolist()):
+        res.append((score, qb, qe, rb, re_,
+                    [tuple(x) for x in row[cap - cnt:].tolist()])
+                   if score > 0 else None)
     return res
 
 
 def _chunks(qs, rs):
-    """Consecutive job ranges whose direction bytes and handoff rows stay
-    under MEM_BUDGET (a job over it alone is a range of its own)."""
+    """Consecutive job ranges whose global-route direction bytes and
+    handoff rows stay under MEM_BUDGET (a job over it alone is a range of
+    its own)."""
     budget = MEM_BUDGET
     lo, code, W = 0, 0, 0
     for b, (x, y) in enumerate(zip(qs, rs)):
-        job = code_bytes(len(x), len(y))
+        job = int(global_bytes(len(x), len(y)))
         if b > lo and (code + job + 8 * (b + 1 - lo) * max(W, len(x))
                        > budget):
             yield lo, b
@@ -332,7 +400,7 @@ def sw_traceback_batch(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
                        device='cuda') -> List[Optional[Tuple]]:
     """Batched drop-in for [sw_traceback(q, r) for q, r in zip(qs, rs)] on
     ``device``: the kernel on the card, in chunks under MEM_BUDGET bytes of
-    scratch; the host DP per job on the CPU."""
+    global scratch; the host DP per job on the CPU."""
     from ciri_long_tpu_torch.ops.traceback import sw_traceback
 
     device = resolve_device(device)
@@ -342,8 +410,20 @@ def sw_traceback_batch(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
     res: List[Optional[Tuple]] = []
     for lo, hi in _chunks(qs, rs):
         q, r, n, m = pack_jobs(qs[lo:hi], rs[lo:hi])
-        args = [torch.from_numpy(x).to(device) for x in (q, r, n, m)]
-        res += tb_results(*sw_traceback_cuda(
-            *args, *scores, scratch=tb_scratch(n, m, q.shape[1], r.shape[1],
-                                               device)))
+        args = upload((q, r, n, m), device)
+        plan = tb_plan(n, m, q.shape[1], r.shape[1], device)
+        res += tb_results(*download(sw_traceback_cuda(*args, *scores,
+                                                      plan=plan)))
     return res
+
+
+# sw_traceback_batch's copies, named so that a run can time each stage of
+# the batch apart (chip_smoke.py phase 8)
+def upload(arrays, device):
+    """numpy arrays to ``device``."""
+    return [torch.from_numpy(x).to(device) for x in arrays]
+
+
+def download(tensors):
+    """Tensors to numpy; the copy waits for the kernels that write them."""
+    return [t.cpu().numpy() for t in tensors]

@@ -4,14 +4,20 @@ csrc/sw_traceback.cu, with their edge cases.
 ``edit_cases`` gives (label, a, b, alen, blen) batches: random codes with N
 and PAD, lengths 0-300 and an odd batch; empty rows; one-base rows; long
 near-equal pairs over many 32-row strips; junction-curation pairs (20 codes
-against at most 50); rows where N against N decides the distance.
+against at most 50); rows where N against N decides the distance; every
+pair of lengths in BOUNDARY (the edges of a 32-bit word and of a warp's 32
+words); a fused round that mixes junction-curation pairs (one word, the
+kernel's thread route) with HPC-like pairs of ~500 x ~700 (its warp route).
 ``tb_cases`` gives (label, qs, rs, (match, mismatch, gap_open,
 gap_extend)) job lists: a random fuzz under three scorings; doubled reads
 holding a mutated junction window (collapse's rotation step); jobs that
 score 0 and empty jobs; N bases; equal-score ties (a window twice in the
 query, an exact copy of a doubled read); references longer than one strip;
-one-base jobs; PAD codes inside the query.  The CPU tests, the card's tests
-and chip_smoke.py share them.
+one-base jobs; PAD codes inside the query; references at the edges of a
+strip (m 33, 63, 64, 65) against queries shorter and longer than 32, and of
+300 (more strips than a block's warps); jobs whose direction bytes exceed a
+block's shared memory (the kernel's global route) beside small ones.  The
+CPU tests, the card's tests and chip_smoke.py share them.
 """
 
 import numpy as np
@@ -22,6 +28,10 @@ from ciri_long_tpu_torch.utils.seq import encode_seq
 N = 4
 PAD = 5
 JUNC = (10, 4, 8, 2)            # collapse's JUNC_SCORE
+# lengths at the edges of the edit kernel's 32-bit word and 32-word group
+BOUNDARY = (0, 1, 31, 32, 33, 63, 64, 65, 1023, 1024, 1025)
+# strip edges of the traceback kernel's 32 reference rows a warp
+STRIP_EDGES = (33, 63, 64, 65)
 
 
 def _rand(rng, n, high=4):
@@ -85,6 +95,36 @@ def edit_cases(rng):
     a, alen = _pad(xs)
     b, blen = _pad(ys)
     cases.append(('N against N', a, b, alen, blen))
+    # every pair of BOUNDARY lengths, codes A..N, y a mutated copy of x
+    xs, ys = [], []
+    for n in BOUNDARY:
+        for m in BOUNDARY:
+            x = _rand(rng, n, 5)
+            y = np.resize(x, m) if n else _rand(rng, m, 5)
+            y[rng.random(m) < 0.1] = N
+            xs.append(x)
+            ys.append(y)
+    a, alen = _pad(xs)
+    b, blen = _pad(ys)
+    cases.append(('boundary lengths', a, b, alen, blen))
+    # a fused round: junction-curation pairs and HPC-like pairs, interleaved
+    xs, ys = [], []
+    junc = _rand(rng, 50)
+    for k in range(240):
+        if k % 6 == 0:
+            x = encode_seq(_dna(rng, rng.integers(450, 560)))
+            xs.append(x)
+            ys.append(encode_seq(mutate(
+                rng, ''.join('ACGT'[c] for c in x) + _dna(rng, 180),
+                sub=0.05, ins=0.04, dele=0.04)))
+        else:
+            st = int(rng.integers(0, 30))
+            xs.append(junc[st:st + 20].copy())
+            ys.append(junc[int(rng.integers(0, 20)):int(rng.integers(20, 51))])
+    a, alen = _pad(xs)
+    b, blen = _pad(ys)
+    cases.append(('fused round of one-word and multi-word pairs', a, b,
+                  alen, blen))
     return cases
 
 
@@ -155,4 +195,24 @@ def tb_cases(rng):
         qs.append(q)
         rs.append(q[10:50].copy())
     cases.append(('PAD inside the query', qs, rs, JUNC))
+    # references at strip edges, queries under and over 32 codes; and one
+    # of more strips than a block's warps
+    qs, rs = [], []
+    for m in STRIP_EDGES + (300,):
+        for n in (7, 31, 90, 400):
+            r = _rand(rng, m)
+            st = int(rng.integers(0, m - n)) if n < m else 0
+            qs.append(r[st:st + n].copy() if n < 32 else np.concatenate(
+                [_rand(rng, n // 2), r, _rand(rng, n - n // 2)]))
+            rs.append(r)
+    cases.append(('strip edges and strip groups', qs, rs, JUNC))
+    # direction bytes over a block's shared memory beside small jobs
+    qs, rs = [], []
+    for n, m in ((4000, 50), (60, 40), (1100, 300), (700, 33)):
+        r = _rand(rng, m)
+        q = np.concatenate([_rand(rng, n // 2), r, _rand(rng, n - n // 2)])
+        qs.append(encode_seq(mutate(rng, ''.join('ACGT'[c] for c in q),
+                                    sub=0.04, ins=0.02, dele=0.02)))
+        rs.append(r)
+    cases.append(('over the shared-memory budget', qs, rs, JUNC))
     return cases

@@ -8,8 +8,8 @@ CPU behind the user's back.
 (``count_launch``) since the last ``reset_launches`` (plain integers, read with
 ``launch_counts``; ``call`` and ``collapse`` reset them when they start and
 report those of ``CALL_KERNELS`` and ``COLLAPSE_KERNELS``), so a run can
-show that its path went through the kernel; ``ROUTES`` counts the SW
-kernel's launches by route beside it.
+show that its path went through the kernel; ``ROUTES`` counts the
+launches of each kernel's routes beside it.
 
 ``count_dispatch`` is the JAX package's env-gated accounting decorator
 (``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
@@ -37,22 +37,25 @@ LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
 # int16_probe serve misc/kexp and misc/int16_probe)
 CALL_KERNELS = ('sw_score_ends',)
 COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback')
-# route of csrc/sw_score_ends.cu -> its launches since the last
-# reset_launches (ops/sw.py::_tile_plan routes; ``call``'s summary leaves
-# this out)
-ROUTES = {'wave': 0, 'tiled': 0}
+# route -> launches that ran it since the last reset_launches (``call``'s
+# summary leaves this out): csrc/sw_score_ends.cu's wave and tiled
+# (ops/sw.py::_tile_plan), csrc/edit_distance.cu's thread and warp routes
+# (one launch may run both; ops/edit.py::edit_plan), csrc/sw_traceback.cu's
+# shared-memory and global routes (ops/sw_tb_batch.py::tb_plan)
+ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
+          'tb_smem': 0, 'tb_global': 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name, route=None):
-    """One launch of kernel ``name`` (and of the SW kernel's ``route``).
-    Locked: collapse's worker threads launch kernels side by side, and
-    ``+=`` on a dict entry is not atomic."""
+def count_launch(name, *routes):
+    """One launch of kernel ``name``, and one for each route of it that the
+    launch ran.  Locked: collapse's worker threads launch kernels side by
+    side, and ``+=`` on a dict entry is not atomic."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
-        if route is not None:
+        for route in routes:
             ROUTES[route] += 1
 
 

@@ -248,17 +248,28 @@ TB_CASES = ['{} {}'.format(c[0], c[3]) for c in tb_cases(
 
 @pytest.mark.parametrize("label", EDIT_CASES)
 def test_edit_distance_matches_plain(dev, label):
+    """Every case in one launch, each pair on its route (the boundary
+    lengths and the fused round run both routes in that launch)."""
     case = dict((c[0], c[1:]) for c in edit_cases(np.random.default_rng(0)))
     args = [torch.from_numpy(x).to(dev) for x in case[label]]
-    before = LAUNCHES['edit_distance']
+    _, n_thread = edit.edit_plan(*case[label], dev)
+    n_warp = len(case[label][2]) - n_thread
+    before, routes = LAUNCHES['edit_distance'], dict(ROUTES)
     got = edit.edit_distance_auto(*args)
     want = edit.edit_distance_batch_plain(*args)
     torch.cuda.synchronize()
     assert LAUNCHES['edit_distance'] == before + 1
+    assert ROUTES['edit_thread'] == routes['edit_thread'] + (n_thread > 0)
+    assert ROUTES['edit_warp'] == routes['edit_warp'] + (n_warp > 0)
+    if label in ('boundary lengths',
+                 'fused round of one-word and multi-word pairs'):
+        assert n_thread > 0 and n_warp > 0
     assert torch.equal(got, want)
     host = edit.edit_distance_batch(*(a.cpu().numpy() for a in args),
                                     device='cpu')
     assert np.array_equal(got.cpu().numpy(), host)
+    assert np.array_equal(edit.edit_distance_batch(
+        *(a.cpu().numpy() for a in args), device=dev), host)
 
 
 @pytest.mark.parametrize("label", TB_CASES)
@@ -267,30 +278,62 @@ def test_sw_traceback_matches_plain(dev, label):
     case = dict(('{} {}'.format(c[0], c[3]), c[1:])
                 for c in tb_cases(np.random.default_rng(0)))
     qs, rs, scores = case[label]
-    args = [torch.from_numpy(x).to(dev) for x in tb.pack_jobs(qs, rs)]
-    before = LAUNCHES['sw_traceback']
+    packed = tb.pack_jobs(qs, rs)
+    args = [torch.from_numpy(x).to(dev) for x in packed]
+    plan = tb.tb_plan(packed[2], packed[3], packed[0].shape[1],
+                      packed[1].shape[1], dev)
+    before, routes = LAUNCHES['sw_traceback'], dict(ROUTES)
     got = tb.sw_traceback_auto(*args, *scores)
     want = tb.sw_traceback_batch_plain(*args, *scores)
     torch.cuda.synchronize()
-    assert LAUNCHES['sw_traceback'] == before + 1
+    assert LAUNCHES['sw_traceback'] == before + len(plan)
+    for route in ('tb_smem', 'tb_global'):
+        assert ROUTES[route] == routes[route] + sum(
+            p.route == route for p in plan)
+    if label.startswith('over the shared-memory budget'):
+        assert [p.route for p in plan] == ['tb_smem', 'tb_global']
     assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
     assert tb.tb_results(*got) == tb.tb_results(*want)
     assert tb.sw_traceback_batch(qs, rs, *scores, device=dev) == \
         [sw_traceback(q, r, *scores) for q, r in zip(qs, rs)]
 
 
 def test_sw_traceback_batch_chunks_under_its_budget(dev, monkeypatch):
+    """Jobs on the global route (each over a block's shared memory) split
+    into chunks of global scratch under MEM_BUDGET, one launch each."""
     rng = np.random.default_rng(1)
     qs = [rng.integers(0, 4, int(n)).astype(np.int8)
-          for n in rng.integers(100, 3000, 30)]
+          for n in rng.integers(3600, 6000, 30)]
     rs = [q[40:90].copy() for q in qs]
+    assert all(tb.global_bytes(len(q), len(r)) for q, r in zip(qs, rs))
     want = tb.sw_traceback_batch(qs, rs, 10, 4, 8, 2, device=dev)
-    monkeypatch.setattr(tb, 'MEM_BUDGET', 200_000)
+    monkeypatch.setattr(tb, 'MEM_BUDGET', 600_000)
     chunks = len(list(tb._chunks(qs, rs)))
     assert chunks > 5
-    before = LAUNCHES['sw_traceback']
+    before, routes = LAUNCHES['sw_traceback'], dict(ROUTES)
     assert tb.sw_traceback_batch(qs, rs, 10, 4, 8, 2, device=dev) == want
     assert LAUNCHES['sw_traceback'] == before + chunks
+    assert ROUTES['tb_global'] == routes['tb_global'] + chunks
+
+
+def test_collapse_kernels_time_in_a_graph_with_their_plans(dev):
+    """chip_smoke.py times recorded launches as CUDA graph replays: with
+    their plans given, neither wrapper reads back from the card."""
+    a, b, alen, blen = edit_cases(np.random.default_rng(0))[-1][1:]
+    args = [torch.from_numpy(x).to(dev) for x in (a, b, alen, blen)]
+    plan = edit.edit_plan(a, b, alen, blen, dev)
+    assert kexp.time_launches(
+        lambda: edit.edit_distance_cuda(*args, plan=plan), 3, dev,
+        graph=True) > 0
+    _, qs, rs, scores = tb_cases(np.random.default_rng(0))[-1]
+    packed = tb.pack_jobs(qs, rs)
+    targs = [torch.from_numpy(x).to(dev) for x in packed]
+    tplan = tb.tb_plan(packed[2], packed[3], packed[0].shape[1],
+                       packed[1].shape[1], dev)
+    assert kexp.time_launches(
+        lambda: tb.sw_traceback_cuda(*targs, *scores, plan=tplan), 3, dev,
+        graph=True) > 0
 
 
 def test_collapse_kernels_reject_bad_inputs(dev):
@@ -306,6 +349,8 @@ def test_collapse_kernels_reject_bad_inputs(dev):
         edit.edit_distance_cuda(a.t(), a.t(), n[:1].expand(8), n[:1].expand(8))
     with pytest.raises(ValueError):
         edit.edit_distance_cuda(a, a[:2], n, n)
+    with pytest.raises(ValueError, match='codes must be 0..7'):
+        edit.edit_distance_cuda(a, a + 8, n, n)
     with pytest.raises(TypeError):
         tb.sw_traceback_cuda(a.int(), a, n, n)
     with pytest.raises(ValueError):

@@ -6,7 +6,10 @@ cases of tests/test_tb_batch.py (a random fuzz under three scorings,
 junction-like doubled reads, no hit and empty jobs, N bases, mixed query
 lengths, the rotation through ``find_alignment_pos``) and on
 tools/collapse_cases.py's (ties, references over one strip, one-base jobs,
-PAD in the query); the CPU entry point ``sw_traceback_batch``."""
+PAD in the query, references at strip edges and over a block's warps, jobs
+over a block's shared memory); the CPU entry point ``sw_traceback_batch``;
+the (length, op) runs ``tb_results`` reads against the per-op walk they
+merge; and ``tb_plan``'s routes."""
 
 import numpy as np
 import pytest
@@ -88,7 +91,9 @@ def test_mixed_lengths(rng):
 
 COLLAPSE_CASES = [c for c in tb_cases(np.random.default_rng(11))
                   if c[0] in ('equal-score ties', 'references over one strip',
-                              'one-base jobs', 'PAD inside the query')]
+                              'one-base jobs', 'PAD inside the query',
+                              'strip edges and strip groups',
+                              'over the shared-memory budget')]
 
 
 @pytest.mark.parametrize('case', COLLAPSE_CASES,
@@ -138,3 +143,70 @@ def test_chunks_cover_the_jobs_under_the_budget(monkeypatch):
         used = sum(tb.code_bytes(len(q), len(r))
                    for q, r in zip(qs[lo:hi], rs[lo:hi])) + 8 * (hi - lo) * W
         assert hi - lo == 1 or used <= tb.MEM_BUDGET
+
+
+def per_op_results(out, runs):
+    """The host tuples by the per-op walk: each run expanded into its ops,
+    then merged one op at a time, as tb_results did before the kernel
+    wrote runs."""
+    out, runs = out.numpy(), runs.numpy()
+    cap = runs.shape[1]
+    res = []
+    for b in range(out.shape[0]):
+        score, qb, qe, rb, re_, cnt = (int(x) for x in out[b])
+        if score <= 0:
+            res.append(None)
+            continue
+        ops = [int(op) for length, op in runs[b, cap - cnt:]
+               for _ in range(int(length))]
+        cigar = []
+        for op in ops:
+            if cigar and cigar[-1][1] == op:
+                cigar[-1] = (cigar[-1][0] + 1, op)
+            else:
+                cigar.append((1, op))
+        res.append((score, qb, qe, rb, re_, cigar))
+    return res
+
+
+ALL_CASES = tb_cases(np.random.default_rng(3))
+
+
+@pytest.mark.parametrize('case', ALL_CASES,
+                         ids=['{} {}'.format(c[0], c[3]) for c in ALL_CASES])
+def test_runs_give_the_per_op_walk(case):
+    _, qs, rs, scores = case
+    q, r, n, m = (torch.from_numpy(x) for x in tb.pack_jobs(qs, rs))
+    out, runs = tb.sw_traceback_batch_plain(q, r, n, m, *scores)
+    assert runs.shape == (len(qs), tb._cap(q.shape[1], r.shape[1]), 2)
+    got = tb.tb_results(out, runs)
+    assert got == per_op_results(out, runs)
+    cap = runs.shape[1]
+    for b, res in enumerate(got):
+        cnt = int(out[b, 5])
+        assert not runs[b, :cap - cnt].any()       # 0 outside the runs
+        if res is not None:                        # merged: no equal pair
+            ops = [op for _, op in res[5]]
+            assert all(x != y for x, y in zip(ops, ops[1:]))
+            assert cnt == len(res[5])
+
+
+def test_plan_routes_jobs_by_their_direction_bytes():
+    n = np.array([1552, 4000, 0, 60, 1100, 3600], np.int32)
+    m = np.array([50, 50, 20, 40, 300, 64], np.int32)
+    plan = tb.tb_plan(n, m, 4000, 300, 'cpu')
+    assert [p.route for p in plan] == ['tb_smem', 'tb_global']
+    smem, glob = plan
+    assert smem.jobs.tolist() == [0, 2, 3]
+    assert glob.jobs.tolist() == [1, 4, 5]
+    # 1552 x 50: two warps, 100 KB of direction bytes (1583 steps a strip
+    # in 50 chunks of 32), two blocks a SM
+    assert smem.warps == 2 and smem.smem == tb.RING_BYTES + 2 * 1600 * 32
+    assert 2 * smem.smem <= tb.TB_SMEM
+    assert glob.warps == tb.MAX_WARPS and glob.strips == 10
+    sizes = [int(tb.code_bytes(a, b)) for a, b in zip(n[[1, 4, 5]],
+                                                      m[[1, 4, 5]])]
+    assert glob.code_off.tolist() == [0, sizes[0], sizes[0] + sizes[1]]
+    assert glob.code_bytes == sum(sizes)
+    assert all(s > tb.SMEM_CODES for s in sizes)
+    assert list(tb.global_bytes(n, m)) == [0, sizes[0], 0, 0] + sizes[1:]
