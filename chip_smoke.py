@@ -16,7 +16,12 @@ and exits non-zero if any phase fails (none is caught and skipped):
    all-PAD rows and SWParams(1,1,1,1): (score, q_end, r_end), and for
    sw_score_ends the five sw_align_batch fields; then sw_score_ends's
    routes on tools/sw_cases.py's tile cases at the main path's
-   64x28x16384 and 128x54x16384 and at 37x33x5000, under three SWParams;
+   64x28x16384 and 128x54x16384 and at 37x33x5000, and on its wavefront
+   cases (every real query length at an edge of the wavefront's schedule
+   against references of 1, 63, 64, 65 and 130 columns, N, mid-row PAD,
+   all-PAD rows, equal-score twins across warps), under three SWParams;
+   then a reference too wide for the handoff row in shared memory and a
+   fused round of mixed real lengths under one padded shape;
 3. kernel and plain GCUPS at the bench shape and the 1024x1024 square
    (the kernel's launches replayed from a CUDA graph, the plain version's
    wall, each launch fed by the previous one's scores);
@@ -39,8 +44,9 @@ and exits non-zero if any phase fails (none is caught and skipped):
    the bound at 512x1024x4096, 512x1024x1024, the main path's 64x28x16384
    and 128x54x16384, and 4096x32x128 (sw_score_ends routed and by each
    route that takes the shape; at the main path's shapes also the tiled
-   route at tiles of one and two halos beside the rule's four), and of
-   each probe;
+   route at tiles of one and two halos beside the rule's four; at the
+   wavefront's shapes also the wavefront at 1, 2 and 4 query rows a lane,
+   ``wave_rows``), and of each probe;
 6. collapse's two kernels, csrc/edit_distance.cu and csrc/sw_traceback.cu,
    against their plain versions on tools/collapse_cases.py's cases
    (random codes with N and PAD, empty and one-base rows, equal-score
@@ -58,7 +64,10 @@ and exits non-zero if any phase fails (none is caught and skipped):
    the traceback calls split into their stages (pack, upload, plan,
    launch, download and wait, tb_results: wall and thread CPU seconds);
    then every edit and traceback launch and the four largest SW launches
-   of the cuda run against the plain versions on their inputs;
+   of the cuda run against the plain versions on their inputs; then its SW
+   launches split by route (wave, tiled): launches, summed device time (a
+   CUDA graph's replay of each recorded input) and, at each route's
+   largest launch, its shapes, ms, plain ms and bound;
 8. ``collapse`` at full size, the cohort of benchmarks/collapse_bench.py's
    defaults (4000 reads of 16 loci on a 2 Mb genome, seed 0; its ``call``
    first), the checks of phase 7 and the walls; the card's rate for each
@@ -67,13 +76,21 @@ and exits non-zero if any phase fails (none is caught and skipped):
    kernel's device time summed over the launches the cuda run made (a CUDA
    graph's replay of each recorded input, with its route plan made
    beforehand) and, at its largest launch, its time, the plain version's
-   and the bound, after that launch's check against the plain version.
+   and the bound, after that launch's check against the plain version;
+   the SW launches split by route as in phase 7, the largest wavefront
+   launch also at 1, 2 and 4 query rows a lane, and the wavefront launches'
+   inputs saved to build/chip_smoke/cohort_wave_inputs.pt (what
+   ``python3 -m ciri_long_tpu_torch.tools.wave_ab`` times in two
+   checkouts).
 
 The seven CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
 kernels line (sw_score_ends's entry also has ``main_ms`` and
-``main_bound_ms`` at 128x54x16384 and its collapse launches and device
-time; edit_distance's and sw_traceback's numbers are those of their largest
+``main_bound_ms`` at 128x54x16384, its collapse launches and device
+time and, for the cohort's wavefront launches, ``wave_device_ms`` summed
+over them, ``wave_ms`` and ``wave_bound_ms`` at the largest, and the
+wavefront's plans and times by rows a lane there and at the bench shape;
+edit_distance's and sw_traceback's numbers are those of their largest
 launch in phase 8, with their route counts, and edit_distance's
 ``cell_bound_ms`` the bound of one DP cell an update, the measure of a
 cell-by-cell design), and last ``{"ok": true, "device": {...}}``.  Without a
@@ -92,6 +109,7 @@ from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
+WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
@@ -99,6 +117,15 @@ SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
+# query rows a lane of the wavefront timed at the bench shape and at
+# collapse's largest wavefront launch
+WAVE_R_TIMED = (1, 2, 4)
+# a reference whose (H, F) handoff row, 8 bytes a column, passes a block's
+# shared memory (232 448 bytes): the wavefront keeps it in global memory
+WAVE_GLOBAL_LR = 30000
+# rows enough that the wavefront gives each one warp (ops/sw.py::WAVE_FILL)
+# while its query spans two strips: eight rows a block, a handoff row each
+WAVE_MANY_ROWS = 4400
 REPLACES = {
     'sw_score_ends': ('ciri_long_tpu/ops/sw_pallas.py:355 _sw_chain_kernel '
                       '(K1); also :240 K2, :141 K3, :58 K4; misc/kexp.py:1534 '
@@ -237,6 +264,44 @@ def kernel_cases():
     return cases
 
 
+def wave_cases():
+    """(label, q, r, params) of phase 2's wavefront cases: tools/sw_cases.py's
+    rows at every edge of the schedule (a lane's rows, a strip, a group of
+    strips) against each WAVE_LR width under three SWParams; a reference
+    whose handoff row (Lr * 8 bytes) does not fit a block's shared memory;
+    rows enough for one warp a row with queries of two strips; a fused round
+    of mixed real lengths under one padded shape."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.sw import SWParams
+    from ciri_long_tpu_torch.tools.sw_cases import WAVE_LR
+    from ciri_long_tpu_torch.tools.sw_cases import wave_cases as make
+
+    rng = np.random.default_rng(20261018)
+    cases = []
+    for params in (SWParams(*p) for p in TILE_PARAMS):
+        for Lr in WAVE_LR:
+            q, r = make(rng, Lr)
+            cases.append(('wave edges Lr {}'.format(Lr), q, r, params))
+    q = codes(rng, 2, 1100)
+    r = codes(rng, 2, WAVE_GLOBAL_LR)
+    r[1, 17000:18100] = q[1]
+    cases.append(('wave handoff row in global memory', q, r,
+                  SWParams(10, 4, 8, 2)))
+    q = codes(rng, WAVE_MANY_ROWS, 200, pad_suffix=True)
+    r = codes(rng, WAVE_MANY_ROWS, 70, pad_suffix=True)
+    cases.append(('wave one warp a row, rows of two strips', q, r,
+                  SWParams(1, 1, 1, 1)))
+    q = np.full((96, 1500), 5, np.int8)
+    r = np.full((96, 1500), 5, np.int8)
+    for b in range(96):
+        lq, lr = rng.integers(1, 1501, 2)
+        q[b, :lq] = rng.integers(0, 5, lq)
+        r[b, :lr] = rng.integers(0, 5, lr)
+    cases.append(('wave fused round of mixed lengths', q, r,
+                  SWParams(10, 4, 8, 2)))
+    return cases
+
+
 def tile_cases():
     """(label, q, r, params) of phase 2's tile cases: tools/sw_cases.py's
     rows planted around the tile edges _tile_plan gives each shape."""
@@ -259,7 +324,7 @@ def phase_kernel(torch, dev):
     sw_score_ends's routes on the tile cases; {name: max err}."""
     errs = {}
     runs = [(case, sw_kernels) for case in kernel_cases()]
-    runs += [(case, sw_routes) for case in tile_cases()]
+    runs += [(case, sw_routes) for case in tile_cases() + wave_cases()]
     for (label, q, r, params), kernels in runs:
         for name, err in compare(torch, dev, q, r, params, label,
                                  kernels(q.shape[1], r.shape[1],
@@ -467,6 +532,26 @@ def phase_probe_exact(torch, dev):
     return worst
 
 
+def wave_rows(torch, dev, smi, label, q, r, params, bound_ms, timer):
+    """The wavefront at each R of WAVE_R_TIMED (ops/sw.py::_wave_plan with
+    that many query rows a lane, K and the handoff row as the rule gives
+    them), timed by ``timer`` (ms of one step); one JSON line, and {R: ms}.
+    The rule's R (WAVE_ROWS) is the one these lines show fastest."""
+    from ciri_long_tpu_torch.ops.sw import (WAVE_ROWS, _wave_plan,
+                                            sw_score_ends_wave_cuda)
+
+    B, Lq = q.shape
+    Lr = r.shape[1]
+    times, plans = {}, {}
+    for R in WAVE_R_TIMED:
+        plan = _wave_plan(B, Lq, Lr, rows=R)
+        plans[R] = list(plan)
+        times[R] = timer(lambda: sw_score_ends_wave_cuda(q, r, params, plan))
+    emit('wave_rows', shape=label, B=B, Lq=Lq, Lr=Lr, plans=plans, ms=times,
+         rule_rows=WAVE_ROWS, bound_ms=bound_ms, card=smi)
+    return times
+
+
 def phase_probe_time(torch, dev, smi):
     """The card's peak cell rate in both forms (the SW bound), the SW
     families and the plain version at each TIMED shape with the harness's
@@ -514,6 +599,10 @@ def phase_probe_time(torch, dev, smi):
             emit('tile_rule', shape=shape, B=B, Lq=Lq, Lr=Lr, halos=halos,
                  T=plan[0], halo=plan[1], ms=k_ms, gcups=k_gcups,
                  bound_ms=bound_ms, card=smi)
+        if _tile_plan(Lq, Lr, PARAMS) is None:
+            sw[shape]['wave_rows'] = wave_rows(
+                torch, dev, smi, shape, q, r, PARAMS, bound_ms,
+                lambda step: time_launches(step, 10, dev, graph=True))
     probes = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for probe in PROBES:
         x = probe_input(probe, dev)
@@ -750,7 +839,7 @@ def run_collapse(torch, label, ref, cand_circ, root):
     if min(gpu['launches'].values()) <= 0:
         raise AssertionError('collapse --device cuda missed a kernel: '
                              '{}'.format(gpu['launches']))
-    if gpu['routes']['tb_smem'] <= 0 or gpu['routes']['edit_thread'] <= 0:
+    if min(gpu['routes'][k] for k in ('wave', 'tb_smem', 'edit_thread')) <= 0:
         raise AssertionError('collapse --device cuda missed the routes its '
                              'jobs take: {}'.format(gpu['routes']))
     if any(cpu['launches'].values()):
@@ -828,14 +917,65 @@ def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
     return errs
 
 
+def sw_route_split(torch, dev, smi, label, args_list, times, rate,
+                   rows_timed=False):
+    """A collapse run's SW launches by route (tiled where ops/sw.py::
+    _tile_plan gives a plan, wave elsewhere): per route the launches, their
+    summed device time (``times``: each recorded launch's graph replay) and,
+    at the route's largest launch (by cells), its shapes, ms, plain ms and
+    bound at ``rate`` cells/s, and with ``rows_timed`` the wavefront's
+    largest launch at each R (wave_rows).  One JSON line a route; returns
+    {route: fields}."""
+    from ciri_long_tpu_torch.misc.kexp import time_launches
+    from ciri_long_tpu_torch.ops.sw import _tile_plan
+
+    split = {}
+    for route in ('wave', 'tiled'):
+        mine = [t for t, a in enumerate(args_list)
+                if (_tile_plan(a[0].shape[1], a[1].shape[1], a[2]) is None)
+                == (route == 'wave')]
+        fields = dict(launches=len(mine),
+                      device_ms=sum(times[t] for t in mine))
+        if mine:
+            big = args_list[max(mine, key=lambda t: launch_cells(
+                'sw_score_ends', args_list[t], torch))]
+            bound_ms, bound_by = launch_bound(
+                'sw_score_ends', big, {'sw_score_ends': rate}, torch)
+            ms = _time_recorded(torch, dev, 'sw_score_ends', big, 10)
+            fields.update(
+                shape=[list(big[0].shape), list(big[1].shape)],
+                params=list(big[2]),
+                cells=launch_cells('sw_score_ends', big, torch), ms=ms,
+                plain_ms=_plain_ms(torch, dev, 'sw_score_ends', big),
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms)
+        split[route] = fields
+        emit('collapse_sw_route', world=label, route=route, card=smi,
+             **fields)
+        if route == 'wave' and mine and rows_timed:
+            fields['wave_rows'] = wave_rows(
+                torch, dev, smi, label + ' largest wave launch', big[0],
+                big[1], big[2], fields['bound_ms'],
+                lambda step: time_launches(step, 10, dev, graph=True))
+    return split
+
+
 def phase_collapse(torch, dev, smi, world_ref):
-    """Phase 7: collapse on phase 4's cand_circ.fa; {name: max err}."""
+    """Phase 7: collapse on phase 4's cand_circ.fa, then its SW launches by
+    route; {name: max err}."""
+    from ciri_long_tpu_torch.misc.kexp import peak_cell_rate
+
     root = os.path.join(WORK, 'collapse_call_world')
     os.makedirs(root, exist_ok=True)
     seen, _ = run_collapse(torch, 'call', world_ref,
                            os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'),
                            root)
-    return check_recorded(torch, dev, seen, label='call world collapse')
+    errs = check_recorded(torch, dev, seen, label='call world collapse')
+    sw_args = seen['sw_score_ends']
+    sw_route_split(torch, dev, smi, 'call', sw_args,
+                   [_time_recorded(torch, dev, 'sw_score_ends', a, 3)
+                    for a in sw_args], peak_cell_rate(dev))
+    return errs
 
 
 def _time_recorded(torch, dev, name, args, n_iter):
@@ -901,6 +1041,17 @@ def launch_bound(name, args, rates, torch):
         (bytes_ms, 'bytes')
 
 
+def save_wave_inputs(torch, args_list):
+    """The cohort's wavefront launches (query, ref, params), on the host, to
+    WAVE_INPUTS: the inputs ciri_long_tpu_torch/tools/wave_ab.py times in
+    two checkouts."""
+    from ciri_long_tpu_torch.ops.sw import _tile_plan
+
+    torch.save([(a[0].cpu(), a[1].cpu(), tuple(a[2])) for a in args_list
+                if _tile_plan(a[0].shape[1], a[1].shape[1], a[2]) is None],
+               WAVE_INPUTS)
+
+
 def phase_collapse_full(torch, dev, smi):
     """Phase 8: collapse at full size on the cohort of
     benchmarks/collapse_bench.py's defaults.  Returns ({name: max err},
@@ -928,10 +1079,13 @@ def phase_collapse_full(torch, dev, smi):
     emit('cell_rate', collapse_updates_per_s=rates, card=smi)
     largest = {}
     for name, args_list in seen.items():
-        total = 0.0
         work = [launch_work(name, a, torch) for a in args_list]
-        for args in args_list:
-            total += _time_recorded(torch, dev, name, args, 3)
+        times = [_time_recorded(torch, dev, name, a, 3) for a in args_list]
+        total = sum(times)
+        if name == 'sw_score_ends':
+            routes = sw_route_split(torch, dev, smi, 'cohort', args_list,
+                                    times, rates[name], rows_timed=True)
+            save_wave_inputs(torch, args_list)
         big = args_list[max(range(len(work)), key=work.__getitem__)]
         bound_ms, bound_by = launch_bound(name, big, rates, torch)
         largest[name] = dict(
@@ -953,6 +1107,7 @@ def phase_collapse_full(torch, dev, smi):
          cpu_reads_per_s=n_reads / fields['cpu_wall_s'],
          device_ms={k: v['device_ms'] for k, v in largest.items()},
          card=smi)
+    largest['sw_score_ends']['routes'] = routes
     return errs, largest, fields
 
 
@@ -1011,6 +1166,23 @@ def main():
                                      full_fields['routes'].items()
                                      if k.startswith(prefix)}, **extra)
 
+    def wave_fields(wave):
+        """The cohort's wavefront launches: the largest one's time, bound
+        and plan, and the summed device time of all of them; the plan and
+        R times at the bench shape."""
+        from ciri_long_tpu_torch.ops.sw import _wave_plan
+        big = wave.get('shape')
+        return dict(wave_launches=wave['launches'],
+                    wave_device_ms=wave['device_ms'], wave_shape=big,
+                    wave_ms=wave.get('ms'),
+                    wave_plain_ms=wave.get('plain_ms'),
+                    wave_bound_ms=wave.get('bound_ms'),
+                    wave_plan=big and list(_wave_plan(big[0][0], big[0][1],
+                                                      big[1][1])),
+                    wave_rows_ms=wave.get('wave_rows'),
+                    bench_plan=list(_wave_plan(*BENCH)),
+                    bench_rows_ms=bench['wave_rows'])
+
     kernels = [
         dict(entry('sw_score_ends', launches,
                    max([call_err, collapse_errs['sw_score_ends']]
@@ -1021,7 +1193,8 @@ def main():
              collapse_launches=full_fields['launches']['sw_score_ends'],
              collapse_routes={k: full_fields['routes'][k]
                               for k in ('wave', 'tiled')},
-             collapse_device_ms=full['sw_score_ends']['device_ms']),
+             collapse_device_ms=full['sw_score_ends']['device_ms'],
+             **wave_fields(full['sw_score_ends']['routes']['wave'])),
         entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
               bench['sw_rowscan']),
         entry('sw_chain', probe_launches['sw_chain'],

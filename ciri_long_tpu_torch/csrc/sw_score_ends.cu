@@ -8,7 +8,7 @@
 // per row is (score, q_end, r_end) with ties to the highest score, then the
 // smallest r_end, then the smallest q_end; (0, -1, -1) when no cell is
 // positive.  The TPU kernels differ only in Mosaic layout; here two routes
-// of one sweep serve every shape (ops/sw.py::_tile_plan picks the route).
+// serve every shape (ops/sw.py::_tile_plan picks the route).
 //
 // Recurrence (plain Gotoh in int32; equal to the prefix-max form of sw.py
 // because gap_open >= gap_extend, which the wrapper checks):
@@ -20,42 +20,92 @@
 // frame at sw_pallas.py:397-410 relies on them, which CUDA C++ leaves
 // undefined) and no packed best: the best cell is kept as (score, i, j).
 //
-// The sweep (one warp over one reference row): lane t owns query row
-// i = 32*s + t of strip s and the warp sweeps anti-diagonals d across the
-// columns: at step d lane t computes column j = d - t.  H and E of the row
-// stay in registers; H, F and the reference code of the row above come from
-// lane t-1 by __shfl_up_sync.  Lane 0 takes the row above from an int2
-// (H, F) handoff row written by lane 31 of the previous strip; the warp
-// fetches that row and the reference codes 32 columns at a time, one chunk
-// ahead, and lane 0 picks its value out with __shfl_sync, so no step waits
-// on memory.  One row suffices: column c is fetched by step c - 32 and
-// consumed (every lane's chunk value enters a full-warp shuffle) by step c,
-// while lane 31 overwrites it at step c + 31.
+// Route 1, the wavefront (sw_wave_kernel<R>, every shape _tile_plan leaves
+// to it): a block of K warps per row, pipelined over the query's strips
+// (ops/sw.py::_wave_plan gives K, R, the rows a block and where the handoff
+// row lives).
 //
-// Route 1, the wavefront (sw_score_ends_kernel): one warp per batch row
-// over all Lr columns, the handoff row in a global [B, Lr] int2 scratch.
-// A 64-row launch gives the card 64 warps, each ~Lr serial steps.
+//   Strips.  A strip is 32*R query rows: lane t holds rows 32R*s + R*t ..
+//   + R-1, so the vertical dependence between a lane's R rows stays in
+//   registers and one set of shuffles serves R cells.  At its step d lane t
+//   computes column j = d - t of its R rows.
+//   Warps.  Warp k sweeps strips k, k+K, k+2K, ... (a group of K strips at a
+//   time); it runs two 32-step chunks behind warp k-1 and takes the row
+//   above its strip, warp k-1's bottom (M, F) row, from a ring of RING = 128
+//   columns in shared memory, 32 columns at the start of each chunk.  The
+//   warps step through the chunks in lockstep, one __syncthreads a chunk.
+//   Warp k's chunk c needs the columns 32c..32c+31 of warp k-1's bottom row,
+//   which warp k-1's lane 31 computes at steps 32c+31..32c+62, in its chunks
+//   c and c+1: both are done before warp k's chunk c (lag 2).  In that
+//   chunk warp k-1 is at its chunk c+2, whose lane 31 writes the columns
+//   32c+33..32c+64, 2..64 ahead of the ones warp k reads, so a ring of 128
+//   never hands out a slot before it has been read
+//   (tests/test_torch_sw_wave.py asserts it on the emulated schedule).  A
+//   group's critical path is (Lr + 31) + 64 (K - 1) steps instead of
+//   K (Lr + 31).
+//   Groups.  Warp 0 of group g+1 takes the row above from a handoff row
+//   that lane 31 of warp K-1 wrote in group g, fetched one chunk ahead of
+//   its use: in dynamic shared memory when Lr * 8 bytes fit beside the ring
+//   and the score table, else in global scratch [B, Lr] int2.  Within a
+//   group warp K-1 writes columns 2(K-1) chunks behind warp 0's reads (and
+//   with K = 1, lane 31 writes columns its warp fetched a chunk before), so
+//   the row is never overwritten before it is read.  With K = 1 (one strip
+//   a row, or more rows than the card needs warps for) a block holds P
+//   rows, a warp each, and has no barrier in its sweep.
+//   Steps.  A chunk's 32 steps are one fixed loop without branches,
+//   unrolled 8 ways (unrolled whole, nvcc 12.8 crashes at R = 2 and 4, and
+//   R = 1 spills).  A lane's score against each reference code 0..5 (plus
+//   gap_open) comes from a [code][row][thread] table in shared memory built
+//   once a strip (PAD, and any code outside 0..4, scores NEG; N scores 0),
+//   the code from global memory (the block's warps read one row: L1 serves
+//   it).  Only a strip's first chunk and its last, where some lane's column
+//   lies outside [0, lr), mask their cells.  H is kept as M = H - gap_open,
+//   which E to the right and F below both need (the table adds gap_open
+//   back on the diagonal), so a cell is csrc/op_rate.cu's update plus its
+//   best.
+//   Real lengths.  Each block first finds its row's real lengths lq and lr,
+//   one past the last code in 0..4, and sweeps only those strips and
+//   columns.  That is exact: a cell in a trailing PAD row (i >= lq) or
+//   column (j >= lr) has a poisoned diagonal, so a positive H there comes
+//   from a gap (E or F) out of a cell above or to the left; following those
+//   moves back reaches a cell outside the trailing PAD rows and columns
+//   whose H is at least as high (each move costs gap_open or gap_extend,
+//   both >= 0) and that comes first in the contract's order (a smaller j,
+//   or the same j and a smaller i).  And the DP flows only down and to the
+//   right, so the cells kept never read the ones cut.  PAD inside a row is
+//   swept like any code.
+//   The best.  With R rows a lane and K warps a row, sweep order no longer
+//   gives the smallest j, then i, so every fold compares the whole (score,
+//   j, i) with ``before``: each row keeps its first maximum along j (strict
+//   >), then a lane's rows, the lanes (shuffles) and the block's warps
+//   (shared memory) are folded.
 //
 // Route 2, reference tiles (sw_tile_kernel + sw_tile_merge_kernel), for a
-// short query against a long reference: one warp per (row, tile).  Tile k
-// owns columns [k*T, min((k+1)*T, Lr)) and sweeps from max(0, k*T - halo)
-// with the usual zero border, halo = Lq + floor(Lq*match/gE) + 1.  A
-// positive local alignment covers at most Lq diagonal steps and fewer than
-// Lq*match/gE gap columns (each costs >= gE, since gO >= gE, and the matches
-// bring at most Lq*match), so the optimum ending in an owned column lies
-// whole inside the tile and the tile's H there is exact; elsewhere a tile's
-// H never exceeds the true H (its border is 0 <= H, NEG <= E).  So each
-// tile may report its best over all its columns, and the best record under
-// the contract's order is the answer.  The handoff row lives in dynamic
-// shared memory, (T + halo) int2 per warp, and only for queries of more
-// than one strip.  The merge runs one warp per row over the [B, n_tiles]
-// records.
+// short query against a long reference: one warp per (row, tile), over
+// ``sweep`` (a one-warp sweep: lane t owns query row i = 32*s + t of
+// strip s, H, F and the reference code of the row above come from lane t-1
+// by __shfl_up_sync, lane 0 takes the row above from an int2 (H, F) handoff
+// row written by lane 31 of the previous strip, fetched 32 columns at a time
+// one chunk ahead).  Tile k owns columns [k*T, min((k+1)*T, Lr)) and sweeps
+// from max(0, k*T - halo) with the usual zero border, halo = Lq +
+// floor(Lq*match/gE) + 1.  A positive local alignment covers at most Lq
+// diagonal steps and fewer than Lq*match/gE gap columns (each costs >= gE,
+// since gO >= gE, and the matches bring at most Lq*match), so the optimum
+// ending in an owned column lies whole inside the tile and the tile's H
+// there is exact; elsewhere a tile's H never exceeds the true H (its border
+// is 0 <= H, NEG <= E).  So each tile may report its best over all its
+// columns, and the best record under the contract's order is the answer.
+// The handoff row lives in dynamic shared memory, (T + halo) int2 per warp,
+// and only for queries of more than one strip.  The merge runs one warp per
+// row over the [B, n_tiles] records.
 //
 // Bound: the DP is latency- and integer-ALU-bound: O(B*Lq*Lr) cell updates
-// of at least 7 integer instructions (csrc/op_rate.cu) and 6 shuffles per
-// warp step, against O(B*(Lq+Lr)) bytes of codes.  The wavefront's
-// parallelism is one warp per row; the tiles give B*ceil(Lr/T) warps of
-// (T + halo + 31) steps a strip, for a halo overhead of halo/T columns.
+// of at least 7 integer instructions (csrc/op_rate.cu) against O(B*(Lq+Lr))
+// bytes of codes.  The wavefront issues about 9 instructions a cell and
+// 10 a step shared by a lane's R cells (4 shuffles, 2 selects, the code
+// load, its table offset, the ring or handoff store), and fills the card
+// with B*K warps; the tiles give B*ceil(Lr/T) warps of (T + halo + 31)
+// steps a strip, 6 shuffles a step, for a halo overhead of halo/T columns.
 
 #include <climits>
 #include <cstdint>
@@ -64,9 +114,12 @@
 namespace {
 
 constexpr int NEG = -(1 << 28);
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int WARPS_PER_BLOCK = 4;  // the tiles' and the merge's blocks
 constexpr int MAX_SMEM = 232448;  // shared memory a Hopper block may have
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int WAVE_WARPS = 8;     // the wavefront's warps a block (K * P)
+constexpr int WAVE_THREADS = WAVE_WARPS * 32;
+constexpr int RING = 128;         // ring columns between two warps
 
 // Chunk c of the row above (H, F) and of the reference codes, one column per
 // lane.  Columns past W read as the empty border (H 0, F NEG, code PAD).
@@ -92,9 +145,24 @@ __device__ __forceinline__ bool before(int s, int i, int j, int bs, int bi,
     return s > bs || (s == bs && (j < bj || (j == bj && i < bi)));
 }
 
+__device__ __forceinline__ void fold_lanes(int& best, int& best_i,
+                                           int& best_j) {
+    for (int off = 16; off > 0; off >>= 1) {
+        const int ob = __shfl_down_sync(FULL, best, off);
+        const int oi = __shfl_down_sync(FULL, best_i, off);
+        const int oj = __shfl_down_sync(FULL, best_j, off);
+        if (before(ob, oi, oj, best, best_i, best_j)) {
+            best = ob;
+            best_i = oi;
+            best_j = oj;
+        }
+    }
+}
+
 // One warp sweeps query qr [Lq] against reference columns rr [0, W), the
 // handoff row ``edge`` (W int2) between strips.  Returns in lane 0 the best
 // positive cell (score, i, j) with j local to rr, or (0, -1, INT_MAX).
+// The tiled route's sweep.
 __device__ __forceinline__ void sweep(const int8_t* __restrict__ qr, int Lq,
                                       const int8_t* __restrict__ rr, int W,
                                       int match, int mismatch, int gap_open,
@@ -178,17 +246,7 @@ __device__ __forceinline__ void sweep(const int8_t* __restrict__ qr, int Lq,
         }
         __syncwarp();  // lane 31's handoff row is complete for lane 0
     }
-
-    for (int off = 16; off > 0; off >>= 1) {
-        const int ob = __shfl_down_sync(FULL, best, off);
-        const int oi = __shfl_down_sync(FULL, best_i, off);
-        const int oj = __shfl_down_sync(FULL, best_j, off);
-        if (before(ob, oi, oj, best, best_i, best_j)) {
-            best = ob;
-            best_i = oi;
-            best_j = oj;
-        }
-    }
+    fold_lanes(best, best_i, best_j);
 }
 
 __device__ __forceinline__ void write_ends(int row, int best, int best_i,
@@ -200,20 +258,255 @@ __device__ __forceinline__ void write_ends(int row, int best, int best_i,
     out_rend[row] = none ? -1 : best_j;
 }
 
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-sw_score_ends_kernel(const int8_t* __restrict__ q,
-                     const int8_t* __restrict__ r, int B, int Lq, int Lr,
-                     int match, int mismatch, int gap_open, int gap_extend,
-                     int2* __restrict__ scratch, int* __restrict__ out_score,
-                     int* __restrict__ out_qend, int* __restrict__ out_rend) {
-    const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-    if (row >= B) return;  // whole warps leave together
-    int best, best_i, best_j;
-    sweep(q + (size_t)row * Lq, Lq, r + (size_t)row * Lr, Lr, match,
-          mismatch, gap_open, gap_extend, scratch + (size_t)row * Lr, best,
-          best_i, best_j);
-    if ((threadIdx.x & 31) == 0)
-        write_ends(row, best, best_i, best_j, out_score, out_qend, out_rend);
+// The handoff row's column ``col`` (M, F), the border past lr.  ``edge`` is
+// written by the sweep, so it is not declared __restrict__.
+__device__ __forceinline__ int2 load_edge(const int2* edge, int col, int lr,
+                                          int2 border) {
+    return col < lr ? edge[col] : border;
+}
+
+// One lane of the wavefront over one strip: its R rows' M = H - gO and E at
+// the last column, each row's best M and the step that first reached it,
+// the lane's bottom row (M, F) for lane t+1, and M of the row above at the
+// column before (the first row's diagonal).
+template <int R>
+struct WaveLane {
+    int M[R], E[R], bm[R], bd[R];
+    int out_M, out_F, dgM;
+};
+
+// Where a step's values go: the lane's score table row for code 0, the
+// reference row shifted by the lane, and lane 31's ring and handoff rows.
+struct WaveIO {
+    const int* tab;          // + (code * R + u) * WAVE_THREADS: s + gO
+    const int8_t* rr_lane;   // column j = d - lane at rr_lane[d]
+    int2* ring_out;
+    int2* edge;
+    bool to_ring, to_edge;
+    int lane, lr, gE, MB;
+};
+
+// One step d of the sweep: lane t computes column j = d - t of its R rows.
+// MASKED: some lane's column lies outside [0, lr), where the cell is the
+// border (M = -gO, E = F = NEG) and no code is read.  (tM, tF): the row
+// above the strip at column d, for lane 0.
+template <int R, bool MASKED>
+__device__ __forceinline__ void wave_step(WaveLane<R>& st, const WaveIO& io,
+                                          int d, int tM, int tF) {
+    const int j = d - io.lane;
+    const bool cell = !MASKED || (unsigned)j < (unsigned)io.lr;
+    const int code = cell ? (int)io.rr_lane[d] : 5;
+    const int* t = io.tab + min((unsigned)code, 5u) * (R * WAVE_THREADS);
+    int upM = __shfl_up_sync(FULL, st.out_M, 1);
+    int upF = __shfl_up_sync(FULL, st.out_F, 1);
+    if (io.lane == 0) {
+        upM = tM;
+        upF = tF;
+    }
+    int dg = st.dgM;          // M[i-1][j-1] of the lane's first row
+    st.dgM = upM;
+    int mu = upM, fu = upF;
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+        const int left = st.M[u];
+        int e = max(st.E[u] - io.gE, left);
+        int f = max(fu - io.gE, mu);
+        const int h = max(max(dg + t[u * WAVE_THREADS], e), max(f, 0));
+        int m = h + io.MB;
+        if (MASKED) {
+            m = cell ? m : io.MB;
+            e = cell ? e : NEG;
+            f = cell ? f : NEG;
+        }
+        if (m > st.bm[u]) {
+            st.bm[u] = m;
+            st.bd[u] = d;
+        }
+        dg = left;
+        mu = m;
+        fu = f;
+        st.M[u] = m;
+        st.E[u] = e;
+    }
+    st.out_M = mu;
+    st.out_F = fu;
+    if (io.to_ring && cell) io.ring_out[j & (RING - 1)] = make_int2(mu, fu);
+    if (io.to_edge && cell) io.edge[j] = make_int2(mu, fu);
+}
+
+// A chunk's 32 steps, a fixed loop without branches; ``top`` holds the row
+// above the strip at columns 32c + lane.
+template <int R, bool MASKED>
+__device__ __forceinline__ void wave_chunk(WaveLane<R>& st, const WaveIO& io,
+                                           int c, int2 top) {
+#pragma unroll 8
+    for (int kk = 0; kk < 32; ++kk) {
+        const int tM = __shfl_sync(FULL, top.x, kk);
+        const int tF = __shfl_sync(FULL, top.y, kk);
+        wave_step<R, MASKED>(st, io, c * 32 + kk, tM, tF);
+    }
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+    for (int off = 16; off > 0; off >>= 1)
+        v = max(v, __shfl_xor_sync(FULL, v, off));
+    return v;
+}
+
+// The wavefront: blockDim.x = K * P * 32 (K warps a row, P rows a block,
+// P > 1 only with K = 1).  ``edge_smem``: the handoff rows (P * Lr int2)
+// live in dynamic shared memory; otherwise ``scratch`` holds B * Lr int2
+// (read only by rows of more than K strips).
+template <int R>
+__global__ void __launch_bounds__(WAVE_THREADS, 2)
+sw_wave_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
+               int B, int Lq, int Lr, int match, int mismatch, int gap_open,
+               int gap_extend, int K, int edge_smem, int2* scratch,
+               int* __restrict__ out_score, int* __restrict__ out_qend,
+               int* __restrict__ out_rend) {
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int2 ring[(WAVE_WARPS - 1) * RING];
+    __shared__ int sc_tab[6 * R * WAVE_THREADS];  // [code][row][thread]
+    __shared__ int red_s[WAVE_WARPS], red_i[WAVE_WARPS], red_j[WAVE_WARPS];
+    __shared__ int lens[2 * WAVE_WARPS];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int P = (blockDim.x >> 5) / K;
+    const int slot = warp / K;             // this warp's row in the block
+    const int k = warp - slot * K;         // its place in the row's pipeline
+    const int row = blockIdx.x * P + slot;
+    const bool have_row = row < B;
+    const int8_t* qr = q + (size_t)row * Lq;  // read only when have_row
+    const int8_t* rr = r + (size_t)row * Lr;
+
+    // The row's real lengths: one past its last code in 0..4.
+    if (threadIdx.x < 2 * P) lens[threadIdx.x] = 0;
+    __syncthreads();
+    {
+        int lq = 0, lr = 0;
+        if (have_row) {
+            for (int x = k * 32 + lane; x < Lq; x += K * 32)
+                if ((unsigned)qr[x] < 5u) lq = x + 1;
+            for (int x = k * 32 + lane; x < Lr; x += K * 32)
+                if ((unsigned)rr[x] < 5u) lr = x + 1;
+        }
+        lq = warp_max(lq);
+        lr = warp_max(lr);
+        if (lane == 0) {
+            atomicMax(&lens[2 * slot], lq);
+            atomicMax(&lens[2 * slot + 1], lr);
+        }
+    }
+    __syncthreads();
+    const int lq = lens[2 * slot];
+    const int lr = lens[2 * slot + 1];
+
+    constexpr int SR = 32 * R;                  // query rows a strip
+    const int strips = lr > 0 ? (lq + SR - 1) / SR : 0;
+    const int groups = (strips + K - 1) / K;    // uniform when K > 1 (P = 1)
+    const int chunks = (lr + 31 + 31) >> 5;     // a strip's lr + 31 steps
+    const int MB = -gap_open;                   // M of the border (H = 0)
+    const int2 border = make_int2(MB, NEG);
+    WaveIO io;
+    io.tab = sc_tab + threadIdx.x;
+    io.rr_lane = rr - lane;
+    io.ring_out = ring + k * RING;              // written by warps k < K-1
+    io.edge = edge_smem ? reinterpret_cast<int2*>(dyn) + (size_t)slot * Lr
+                        : scratch + (size_t)row * Lr;
+    io.lane = lane;
+    io.lr = lr;
+    io.gE = gap_extend;
+    io.MB = MB;
+    const int2* ring_in = ring + (k - 1) * RING;  // read by warps k >= 1
+    int* tab = sc_tab + threadIdx.x;
+
+    int best = 0, best_i = -1, best_j = INT_MAX;
+    for (int g = 0; g < groups; ++g) {
+        const int s = g * K + k;                  // this warp's strip
+        const bool live = s < strips;
+        const int i0 = s * SR + lane * R;         // this lane's first row
+        const bool from_edge = k == 0 && g > 0;
+        io.to_ring = lane == 31 && k + 1 < K && s + 1 < strips;
+        io.to_edge = lane == 31 && k + 1 == K && s + 1 < strips;
+        if (live) {
+#pragma unroll
+            for (int u = 0; u < R; ++u) {
+                const int i = i0 + u;
+                const unsigned qc = i < lq ? (unsigned)(int)qr[i] : 5u;
+#pragma unroll
+                for (int c = 0; c < 6; ++c)
+                    tab[(c * R + u) * WAVE_THREADS] =
+                        (qc >= 5u || c == 5 ? NEG
+                         : qc == 4u || c == 4 ? 0
+                         : (int)qc == c ? match : -mismatch) + gap_open;
+            }
+        }
+        WaveLane<R> st;
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+            st.M[u] = MB;
+            st.E[u] = NEG;
+            st.bm[u] = MB;
+            st.bd[u] = 0;
+        }
+        st.out_M = MB;
+        st.out_F = NEG;
+        st.dgM = MB;
+        int2 cur = border, nxt = border;  // the row above the strip
+        if (live && from_edge) {
+            cur = load_edge(io.edge, lane, lr, border);
+            nxt = load_edge(io.edge, 32 + lane, lr, border);
+        }
+        const int iters = chunks + 2 * (K - 1);
+        for (int it = 0; it < iters; ++it) {
+            const int c = it - 2 * k;             // this warp's chunk
+            if (live && c >= 0 && c < chunks) {
+                if (k > 0) {
+                    cur = ring_in[(c * 32 + lane) & (RING - 1)];
+                } else if (from_edge && c > 0) {
+                    cur = nxt;
+                    nxt = load_edge(io.edge, c * 32 + 32 + lane, lr, border);
+                }
+                if (c > 0 && c * 32 + 31 < lr)
+                    wave_chunk<R, false>(st, io, c, cur);
+                else
+                    wave_chunk<R, true>(st, io, c, cur);
+            }
+            if (K > 1) __syncthreads();  // the ring's columns are written
+        }
+        if (K == 1) __syncwarp();  // the handoff row is complete
+        if (live) {
+#pragma unroll
+            for (int u = 0; u < R; ++u) {
+                const int i = i0 + u;
+                const int sc = st.bm[u] - MB;
+                const int j = st.bd[u] - lane;
+                if (i < lq && sc > 0 &&
+                    before(sc, i, j, best, best_i, best_j)) {
+                    best = sc;
+                    best_i = i;
+                    best_j = j;
+                }
+            }
+        }
+    }
+
+    fold_lanes(best, best_i, best_j);
+    if (lane == 0) {
+        red_s[warp] = best;
+        red_i[warp] = best_i;
+        red_j[warp] = best_j;
+    }
+    __syncthreads();
+    if (k != 0 || lane != 0 || !have_row) return;
+    for (int w = warp + 1; w < warp + K; ++w) {
+        if (before(red_s[w], red_i[w], red_j[w], best, best_i, best_j)) {
+            best = red_s[w];
+            best_i = red_i[w];
+            best_j = red_j[w];
+        }
+    }
+    write_ends(row, best, best_i, best_j, out_score, out_qend, out_rend);
 }
 
 // One warp per (row, tile); ``edge_cols`` int2 of dynamic shared memory per
@@ -258,16 +551,7 @@ sw_tile_merge_kernel(const int3* __restrict__ records, int B, int n_tiles,
             best_j = x.z;
         }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-        const int ob = __shfl_down_sync(FULL, best, off);
-        const int oi = __shfl_down_sync(FULL, best_i, off);
-        const int oj = __shfl_down_sync(FULL, best_j, off);
-        if (before(ob, oi, oj, best, best_i, best_j)) {
-            best = ob;
-            best_i = oi;
-            best_j = oj;
-        }
-    }
+    fold_lanes(best, best_i, best_j);
     if (lane == 0)
         write_ends(row, best, best_i, best_j, out_score, out_qend, out_rend);
 }
@@ -276,26 +560,74 @@ int blocks_for(int warps, int per_block) {
     return (warps + per_block - 1) / per_block;
 }
 
+template <int R>
+int wave_launch(const void* q, const void* r, int B, int Lq, int Lr,
+                int match, int mismatch, int gap_open, int gap_extend, int K,
+                int P, int edge_smem, void* scratch, void* score,
+                void* q_end, void* r_end, cudaStream_t stream) {
+    // the dynamic shared memory this kernel may opt into: the block's
+    // limit less its static arrays (the 48 KB default counts them too)
+    static int max_dyn = -1;
+    if (max_dyn < 0) {
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, sw_wave_kernel<R>);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const int room = MAX_SMEM - (int)attr.sharedSizeBytes;
+        err = cudaFuncSetAttribute(
+            sw_wave_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            room);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        max_dyn = room;
+    }
+    const long long dyn = edge_smem ? (long long)P * Lr * sizeof(int2) : 0;
+    if (dyn > max_dyn) return static_cast<int>(cudaErrorInvalidValue);
+    // a row of more than K strips writes a handoff row: it needs one
+    if (!edge_smem && scratch == nullptr && (Lq + 32 * R - 1) / (32 * R) > K)
+        return static_cast<int>(cudaErrorInvalidValue);
+    sw_wave_kernel<R><<<blocks_for(B, P), K * P * 32, (size_t)dyn, stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const int8_t*>(r), B, Lq,
+        Lr, match, mismatch, gap_open, gap_extend, K, edge_smem,
+        static_cast<int2*>(scratch), static_cast<int*>(score),
+        static_cast<int*>(q_end), static_cast<int*>(r_end));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on ``stream`` and returns
 // cudaGetLastError() (0 on success); neither allocates.
 
-// The wavefront.  ``scratch`` holds B * Lr int2 (H, F) values.
-extern "C" int sw_score_ends_launch(const void* q, const void* r, int B,
-                                    int Lq, int Lr, int match, int mismatch,
-                                    int gap_open, int gap_extend,
-                                    void* scratch, void* score, void* q_end,
-                                    void* r_end, void* stream) {
+// The wavefront: R query rows a lane (1, 2 or 4), K warps a row, P rows a
+// block (K * P <= 8, P > 1 only with K = 1).  ``edge_smem`` non-zero: the
+// handoff rows live in P * Lr * 8 bytes of dynamic shared memory; else
+// ``scratch`` holds B * Lr int2 (null when no row has more than K strips).
+// Returns cudaErrorInvalidValue for a plan it cannot launch.
+extern "C" int sw_wave_launch(const void* q, const void* r, int B, int Lq,
+                              int Lr, int match, int mismatch, int gap_open,
+                              int gap_extend, int R, int K, int P,
+                              int edge_smem, void* scratch, void* score,
+                              void* q_end, void* r_end, void* stream) {
     if (B <= 0) return 0;
-    sw_score_ends_kernel<<<blocks_for(B, WARPS_PER_BLOCK),
-                           WARPS_PER_BLOCK * 32, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(r), B, Lq,
-        Lr, match, mismatch, gap_open, gap_extend,
-        static_cast<int2*>(scratch), static_cast<int*>(score),
-        static_cast<int*>(q_end), static_cast<int*>(r_end));
-    return static_cast<int>(cudaGetLastError());
+    if (K < 1 || P < 1 || K * P > WAVE_WARPS || (K > 1 && P > 1) || Lq < 0 ||
+        Lr < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (R) {
+        case 1:
+            return wave_launch<1>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                  gap_extend, K, P, edge_smem, scratch,
+                                  score, q_end, r_end, st);
+        case 2:
+            return wave_launch<2>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                  gap_extend, K, P, edge_smem, scratch,
+                                  score, q_end, r_end, st);
+        case 4:
+            return wave_launch<4>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                  gap_extend, K, P, edge_smem, scratch,
+                                  score, q_end, r_end, st);
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 // Tiles of T owned columns swept from halo columns before them.

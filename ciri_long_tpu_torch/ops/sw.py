@@ -10,8 +10,9 @@ required.  Coordinates are 0-based inclusive (the SSW convention).
 within-row gap resolved by a prefix max); ``sw_score_ends_cuda`` launches
 the hand-written kernel ``csrc/sw_score_ends.cu`` by one of its two routes
 (``_tile_plan``): reference tiles with an exact halo for a short query
-against a long reference, the anti-diagonal wavefront for every other
-shape.  ``sw_score_ends_auto`` takes the kernel for CUDA tensors and the
+against a long reference, the anti-diagonal wavefront (a block of warps
+per row, pipelined over the query's strips, ``_wave_plan``) for every
+other shape.  ``sw_score_ends_auto`` takes the kernel for CUDA tensors and the
 plain version for CPU tensors, nothing else: a CUDA tensor never falls
 through to the plain version.
 
@@ -113,8 +114,8 @@ def sw_score_ends(query: torch.Tensor, ref: torch.Tensor, params: SWParams):
 
 
 _SW_SYMBOLS = {
-    'sw_score_ends_launch': (
-        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
+    'sw_wave_launch': (
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11
         + [ctypes.c_void_p] * 5, ctypes.c_int),
     'sw_tiles_launch': (
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9
@@ -130,6 +131,64 @@ TILE_HALOS = 4
 # shared memory a Hopper block may opt into (dynamic); one tile warp's
 # (H, F) handoff row of T + halo int2 must fit it
 BLOCK_SMEM = 232448
+
+
+# The wavefront's rule (sw_wave_kernel): R query rows a lane, a block of
+# WAVE_WARPS warps (K warps on one row, or P rows of one warp when K = 1).
+# R = 4 was the fastest of 1, 2 and 4 at the bench shape and at collapse's
+# largest wavefront launch on the H100 (PERF.md section 6).
+WAVE_ROWS = 4
+WAVE_WARPS = 8
+WAVE_RING = 128
+# warps that fill the card: 32 a SM on 132 SMs (eight a scheduler, enough
+# to cover a step's latency); K grows until B * K reaches it
+WAVE_FILL = 32 * 132
+
+
+class WavePlan(NamedTuple):
+    """The wavefront's launch: ``rows`` (R) query rows a lane, ``warps`` (K)
+    warps a row, ``per_block`` (P) rows a block, and where the handoff row
+    between groups of K strips lives: 'none' (no row has more than K
+    strips), 'smem' (P * Lr * 8 bytes of dynamic shared memory) or
+    'global' (a [B, Lr] int2 scratch)."""
+    rows: int
+    warps: int
+    per_block: int
+    edge: str
+
+
+def _wave_static_bytes(R):
+    """sw_wave_kernel<R>'s static shared memory, with room to spare: the
+    rings, the score table ([6 codes][R rows][256 threads] int32) and the
+    folds' and lengths' arrays."""
+    return ((WAVE_WARPS - 1) * WAVE_RING * 8 + 6 * R * WAVE_WARPS * 32 * 4
+            + 5 * WAVE_WARPS * 4 + 512)
+
+
+def _wave_plan(B, Lq, Lr, rows=WAVE_ROWS):
+    """WavePlan of the wavefront for a [B, Lq] x [B, Lr] call.  R is
+    ``rows`` (the rule's WAVE_ROWS; other values only to time them), halved
+    while a strip of half as many rows still holds the whole query.  K is
+    the query's strips, at most WAVE_WARPS, and no more than B * K warps
+    fill the card (WAVE_FILL).  With K = 1 a block holds WAVE_WARPS rows,
+    fewer when their handoff rows would not fit its shared memory.  The
+    handoff row is needed only when a row has more than K strips, and lives
+    in shared memory when it fits beside the static arrays."""
+    R = rows
+    while R > 1 and 32 * (R // 2) >= Lq:
+        R //= 2
+    strips = max(1, -(-Lq // (32 * R)))
+    K = max(1, min(WAVE_WARPS, strips, -(-WAVE_FILL // max(B, 1))))
+    P = WAVE_WARPS if K == 1 else 1
+    if strips <= K:
+        return WavePlan(R, K, P, 'none')
+    room = BLOCK_SMEM - _wave_static_bytes(R)
+    row_bytes = max(1, Lr) * 8
+    if K == 1:
+        P = max(1, min(WAVE_WARPS, room // row_bytes))
+    if P * row_bytes <= room:
+        return WavePlan(R, K, P, 'smem')
+    return WavePlan(R, K, WAVE_WARPS if K == 1 else 1, 'global')
 
 
 def _tile_halo(Lq, params: SWParams):
@@ -180,11 +239,12 @@ def check_cuda_codes(name, query: torch.Tensor, ref: torch.Tensor,
                          'arguments'.format(name, B, Lq, Lr))
 
 
-def _launch(query, ref, params, plan):
-    """Launch csrc/sw_score_ends.cu on checked inputs: the wavefront when
-    ``plan`` is None, else the tiles of ``plan`` = (T, halo) and their
-    merge.  Outputs and scratch come from torch.empty; raises if the launch
-    is refused; counts one launch in LAUNCHES and one in ROUTES."""
+def _launch(query, ref, params, route, plan):
+    """Launch csrc/sw_score_ends.cu on checked inputs: the wavefront of
+    ``plan`` (a WavePlan) for route 'wave', else the tiles of ``plan`` =
+    (T, halo) and their merge.  Outputs and scratch come from torch.empty;
+    raises if the launch is refused; counts one launch in LAUNCHES and one
+    in ROUTES."""
     from ciri_long_tpu_torch.ops import _build
 
     B, Lq = query.shape
@@ -194,32 +254,38 @@ def _launch(query, ref, params, plan):
     score = torch.empty(B, dtype=torch.int32, device=dev)
     q_end = torch.empty(B, dtype=torch.int32, device=dev)
     r_end = torch.empty(B, dtype=torch.int32, device=dev)
-    if plan is None:
-        route, fn, args = 'wave', lib.sw_score_ends_launch, ()
-        scratch = torch.empty((B, Lr, 2), dtype=torch.int32, device=dev)
+    if route == 'wave':
+        fn = lib.sw_wave_launch
+        args = (plan.rows, plan.warps, plan.per_block, plan.edge == 'smem')
+        scratch = (torch.empty((B, Lr, 2), dtype=torch.int32, device=dev)
+                   if plan.edge == 'global' else None)
     else:
-        route, fn, args = 'tiled', lib.sw_tiles_launch, plan
+        fn, args = lib.sw_tiles_launch, plan
         scratch = torch.empty((B, -(-Lr // plan[0]), 3), dtype=torch.int32,
                               device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(query.data_ptr(), ref.data_ptr(), B, Lq, Lr, params.match,
                 params.mismatch, params.gap_open, params.gap_extend, *args,
-                scratch.data_ptr(), score.data_ptr(), q_end.data_ptr(),
-                r_end.data_ptr(), stream)
+                None if scratch is None else scratch.data_ptr(),
+                score.data_ptr(), q_end.data_ptr(), r_end.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError('sw_score_ends {} launch failed: cudaError {} '
-                           '(B={}, Lq={}, Lr={})'.format(route, rc, B, Lq, Lr))
+                           '(B={}, Lq={}, Lr={}, plan {})'.format(
+                               route, rc, B, Lq, Lr, plan))
     count_launch('sw_score_ends', route)
     return score, q_end, r_end
 
 
 def sw_score_ends_wave_cuda(query: torch.Tensor, ref: torch.Tensor,
-                            params: SWParams):
-    """The wavefront route of csrc/sw_score_ends.cu (one warp per row over
-    all Lr columns), forced, on anything sw_score_ends_cuda takes."""
+                            params: SWParams, plan=None):
+    """The wavefront route of csrc/sw_score_ends.cu, forced, on anything
+    sw_score_ends_cuda takes, with ``plan`` (a WavePlan) or by default
+    _wave_plan's."""
     check_cuda_codes('sw_score_ends_wave_cuda', query, ref, params)
-    return _launch(query, ref, params, None)
+    B, Lq = query.shape
+    return _launch(query, ref, params, 'wave',
+                   plan or _wave_plan(B, Lq, ref.shape[1]))
 
 
 def sw_score_ends_tiled_cuda(query: torch.Tensor, ref: torch.Tensor,
@@ -234,20 +300,24 @@ def sw_score_ends_tiled_cuda(query: torch.Tensor, ref: torch.Tensor,
         raise ValueError('sw_score_ends_tiled_cuda: no tile plan for Lq={}, '
                          'Lr={}, {}'.format(query.shape[1], ref.shape[1],
                                             params))
-    return _launch(query, ref, params, plan)
+    return _launch(query, ref, params, 'tiled', plan)
 
 
 def sw_score_ends_cuda(query: torch.Tensor, ref: torch.Tensor,
                        params: SWParams):
     """The hand-written CUDA kernel (csrc/sw_score_ends.cu) on CUDA tensors:
     query int8 [B, Lq] and ref int8 [B, Lr], contiguous, on one device.
-    Same outputs as sw_score_ends.  Routed by _tile_plan: the tiled route
-    for a short query against a long reference, the wavefront for every
-    other shape.  Raises on anything else, and when the launch is
-    refused."""
+    Same outputs as sw_score_ends for codes 0..5 (the kernel scores any
+    code outside 0..4 as PAD).  Routed by _tile_plan: the tiled route for a
+    short query against a long reference, the wavefront for every other
+    shape.  Raises on anything else, and when the launch is refused."""
     check_cuda_codes('sw_score_ends_cuda', query, ref, params)
-    return _launch(query, ref, params,
-                   _tile_plan(query.shape[1], ref.shape[1], params))
+    B, Lq = query.shape
+    Lr = ref.shape[1]
+    plan = _tile_plan(Lq, Lr, params)
+    if plan is None:
+        return _launch(query, ref, params, 'wave', _wave_plan(B, Lq, Lr))
+    return _launch(query, ref, params, 'tiled', plan)
 
 
 def sw_score_ends_auto(query: torch.Tensor, ref: torch.Tensor,

@@ -6,8 +6,16 @@ each swept from a halo before it) to the plain scorer: an exact query copy
 across a tile edge, the widest gapped copy that still beats its pieces,
 equal-score twins in two tiles (the smaller r_end must win), N and PAD
 runs at tile edges, all-PAD references and queries, random codes with PAD
-suffixes, and a copy across the last, partial tile's edge.  The CPU tests,
-the card's tests and chip_smoke.py share them.
+suffixes, and a copy across the last, partial tile's edge.
+
+``wave_cases`` makes the rows that hold the wavefront route (a block of K
+warps per row, each over strips of 32*R query rows, each row swept only to
+its real lengths): one row for every real query length in ``WAVE_LQ`` (the
+edges of a lane's R rows, of a strip and of a group of K strips, for R in
+1, 2, 4 and K in 2, 4, 8), rows with N, a mid-row PAD, an all-PAD query or
+reference, and equal-score twins in strips far apart (across warps and
+groups), all under one padded shape.  The CPU tests, the card's tests and
+chip_smoke.py share them.
 """
 
 import numpy as np
@@ -16,6 +24,16 @@ N = 4
 PAD = 5
 KINDS = ('edge', 'gapped', 'twins', 'n_pad', 'pad_ref', 'pad_query',
          'random', 'last_edge')
+# real query lengths at every edge of the wavefront's schedule
+WAVE_LQ = tuple(sorted(
+    {1, 31, 32, 33}
+    | {32 * R + d for R in (1, 2, 4) for d in (-1, 1)}
+    | {32 * R * K + d for R in (1, 2, 4) for K in (2, 4, 8)
+       for d in (-1, 1, 33)}))
+# reference widths: one column, one chunk and one column either side of
+# two, and a few chunks
+WAVE_LR = (1, 63, 64, 65, 130)
+WAVE_SPECIAL = ('mid_pad', 'pad_query', 'pad_ref', 'twins', 'n_rows')
 
 
 def _gap(piece, params):
@@ -90,4 +108,49 @@ def tile_cases(rng, B, Lq, Lr, T, params):
             r[b, int(rng.integers(Lr // 2, Lr + 1)):] = PAD
         elif kind == 'last_edge' and Lq <= Lr:
             _place(r[b], edges[-1] - Lq // 2, q[b])
+    return q, r
+
+
+def wave_cases(rng, Lr, lqs=WAVE_LQ):
+    """[B, max(lqs)] queries and [B, Lr] references, int8 codes PAD
+    suffixed: one row of random codes 0-4 for each real query length of
+    ``lqs`` (every other one with a random reference PAD suffix), then one
+    row of each WAVE_SPECIAL kind at the longest length: a PAD in the middle
+    of both rows, an all-PAD query, an all-PAD reference, twins (an N
+    background with a motif at three query rows in strips far apart and at
+    two reference columns: every pairing ties, the first pair must win) and
+    all-N rows with a few codes."""
+    Lq = max(lqs)
+    rows = len(lqs) + len(WAVE_SPECIAL)
+    q = np.full((rows, Lq), PAD, np.int8)
+    r = np.full((rows, Lr), PAD, np.int8)
+    for b, lq in enumerate(lqs):
+        q[b, :lq] = rng.integers(0, 5, lq)
+        lr = int(rng.integers(1, Lr + 1)) if b % 2 else Lr
+        r[b, :lr] = rng.integers(0, 5, lr)
+    for t, kind in enumerate(WAVE_SPECIAL):
+        b = len(lqs) + t
+        q[b] = rng.integers(0, 5, Lq)
+        r[b] = rng.integers(0, 5, Lr)
+        if kind == 'mid_pad':
+            q[b, Lq // 2] = PAD
+            r[b, Lr // 2] = PAD
+        elif kind == 'pad_query':
+            q[b] = PAD
+        elif kind == 'pad_ref':
+            r[b] = PAD
+        elif kind == 'twins':
+            m = max(1, min(24, Lr // 3, Lq // 4))
+            motif = rng.integers(0, 4, m).astype(np.int8)
+            q[b] = N
+            r[b] = N
+            for at in (Lq // 8, Lq // 2, Lq - m):
+                _place(q[b], at, motif)
+            _place(r[b], 0, motif)
+            _place(r[b], Lr - m, motif)
+        elif kind == 'n_rows':
+            q[b] = N
+            r[b] = N
+            q[b, ::7] = rng.integers(0, 4, len(q[b, ::7]))
+            r[b, ::5] = rng.integers(0, 4, len(r[b, ::5]))
     return q, r

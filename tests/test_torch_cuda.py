@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card: the SW scorer of ``call`` (csrc/sw_score_ends.cu, both routes), the
+card: the SW scorer of ``call`` and ``collapse`` (csrc/sw_score_ends.cu,
+both routes, the wavefront under every plan it takes), the
 harness's row scan and chained wavefront (csrc/sw_rowscan.cu,
 csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu) and collapse's
 edit distance and SW with traceback (csrc/edit_distance.cu,
@@ -20,7 +21,7 @@ from ciri_long_tpu_torch.misc import int16_probe, kexp
 from ciri_long_tpu_torch.ops import edit, sw
 from ciri_long_tpu_torch.ops import sw_tb_batch as tb
 from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
-from ciri_long_tpu_torch.tools.sw_cases import tile_cases
+from ciri_long_tpu_torch.tools.sw_cases import WAVE_LR, tile_cases, wave_cases
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
 
 pytestmark = pytest.mark.cuda
@@ -117,6 +118,93 @@ def test_tiled_route_refuses_what_the_plan_refuses(dev):
     before = dict(ROUTES)
     _equal(sw.sw_score_ends_cuda(q, r, p), sw.sw_score_ends(q, r, p))
     assert ROUTES == dict(before, wave=before['wave'] + 1)
+
+
+@pytest.mark.parametrize("params", [(1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1)])
+@pytest.mark.parametrize("Lr", WAVE_LR)
+def test_wave_route_matches_plain_on_wave_cases(dev, params, Lr):
+    """tools/sw_cases.py's wavefront rows (every real query length at an
+    edge of a lane's rows, a strip or a group of strips; N, mid-row PAD,
+    all-PAD rows, equal-score twins across warps): the routed call and the
+    forced wavefront, each exact, each counted once in ROUTES['wave']."""
+    p = sw.SWParams(*params)
+    rng = np.random.default_rng(Lr + 11 * sum(params))
+    q, r = (torch.from_numpy(x).to(dev) for x in wave_cases(rng, Lr))
+    assert sw._tile_plan(q.shape[1], Lr, p) is None
+    want = sw.sw_score_ends(q, r, p)
+    before = dict(ROUTES)
+    _equal(sw.sw_score_ends_cuda(q, r, p), want)
+    _equal(sw.sw_score_ends_wave_cuda(q, r, p), want)
+    assert ROUTES == dict(before, wave=before['wave'] + 2)
+    assert (want[0] > 0).sum() > q.shape[0] // 3
+
+
+WAVE_PLANS = [sw.WavePlan(R, K, P, edge)
+              for R in (1, 2, 4)
+              for K, P in ((1, 1), (1, 3), (1, 8), (2, 1), (3, 1), (8, 1))
+              for edge in ('smem', 'global')]
+
+
+@pytest.mark.parametrize("plan", WAVE_PLANS, ids=lambda x: '-'.join(
+    map(str, x)))
+def test_wave_plans_match_plain(dev, plan):
+    """Every R, K, rows a block and handoff row the kernel takes, forced on
+    the wavefront rows against 130 columns (rows of up to 17 strips of 64:
+    several groups at every K)."""
+    p = sw.SWParams(10, 4, 8, 2)
+    q, r = (torch.from_numpy(x).to(dev)
+            for x in wave_cases(np.random.default_rng(sum(plan[:3])), 130))
+    _equal(sw.sw_score_ends_wave_cuda(q, r, p, plan),
+           sw.sw_score_ends(q, r, p))
+
+
+def test_wave_handoff_row_in_global_memory(dev):
+    """A reference whose handoff row (8 bytes a column) does not fit a
+    block's shared memory, under a query of two groups of strips."""
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 5, (2, 1100)).astype(np.int8)
+    r = rng.integers(0, 5, (2, 30000)).astype(np.int8)
+    r[1, 17000:18100] = q[1]
+    assert sw._wave_plan(2, 1100, 30000).edge == 'global'
+    qt, rt = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    p = sw.SWParams(10, 4, 8, 2)
+    _equal(sw.sw_score_ends_cuda(qt, rt, p), sw.sw_score_ends(qt, rt, p))
+
+
+def test_wave_fused_round_of_mixed_lengths(dev):
+    """collapse's fused rounds: rows of mixed real lengths PAD-suffixed to
+    one shape, each swept only to its own lengths."""
+    rng = np.random.default_rng(5)
+    q = np.full((96, 1500), 5, np.int8)
+    r = np.full((96, 1500), 5, np.int8)
+    for b in range(96):
+        lq, lr = rng.integers(1, 1501, 2)
+        q[b, :lq] = rng.integers(0, 5, lq)
+        r[b, :lr] = rng.integers(0, 5, lr)
+    qt, rt = torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev)
+    p = sw.SWParams(10, 4, 8, 2)
+    _equal(sw.sw_score_ends_cuda(qt, rt, p), sw.sw_score_ends(qt, rt, p))
+
+
+def test_wave_bench_shape(dev):
+    rng = np.random.default_rng(7)
+    qt, rt = (torch.from_numpy(rng.integers(0, 4, shape).astype(np.int8)).to(
+        dev) for shape in ((512, 1024), (512, 4096)))
+    p = sw.SWParams(10, 4, 8, 2)
+    assert sw._wave_plan(512, 1024, 4096) == sw.WavePlan(4, 8, 1, 'none')
+    _equal(sw.sw_score_ends_cuda(qt, rt, p), sw.sw_score_ends(qt, rt, p))
+
+
+def test_wave_refuses_plans_it_cannot_launch(dev):
+    q = torch.randint(0, 4, (2, 1100), dtype=torch.int8, device=dev)
+    r = torch.randint(0, 4, (2, 30000), dtype=torch.int8, device=dev)
+    p = sw.SWParams()
+    for plan in (sw.WavePlan(3, 2, 1, 'none'), sw.WavePlan(2, 2, 2, 'none'),
+                 sw.WavePlan(2, 9, 1, 'none'),
+                 sw.WavePlan(4, 2, 1, 'none'),     # 9 strips, no handoff row
+                 sw.WavePlan(4, 8, 1, 'smem')):    # 240 KB of handoff row
+        with pytest.raises(RuntimeError, match='launch failed'):
+            sw.sw_score_ends_wave_cuda(q, r, p, plan)
 
 
 def test_auto_launches_kernel_for_cuda_tensors(dev):
