@@ -21,7 +21,12 @@ and exits non-zero if any phase fails (none is caught and skipped):
    against references of 1, 63, 64, 65 and 130 columns, N, mid-row PAD,
    all-PAD rows, equal-score twins across warps), under three SWParams;
    then a reference too wide for the handoff row in shared memory and a
-   fused round of mixed real lengths under one padded shape;
+   fused round of mixed real lengths under one padded shape; then the
+   harness's chain and row scan on tools/sw_cases.py's chain jobs (best
+   cell in a job's first and last column, all-PAD jobs, twins, N rows,
+   queries longer than the references) and wavefront rows at the edges of
+   the row scan's runs and warps: the chain at C = 1, 2, 4 and B, the row
+   scan by its rule and at every width W of ROWSCAN_WIDTHS;
 3. kernel and plain GCUPS at the bench shape and the 1024x1024 square
    (the kernel's launches replayed from a CUDA graph, the plain version's
    wall, each launch fed by the previous one's scores);
@@ -46,7 +51,9 @@ and exits non-zero if any phase fails (none is caught and skipped):
    route that takes the shape; at the main path's shapes also the tiled
    route at tiles of one and two halos beside the rule's four; at the
    wavefront's shapes also the wavefront at 1, 2 and 4 query rows a lane,
-   ``wave_rows``), and of each probe;
+   ``wave_rows``; at every shape the chain at C = 2 and 4 by each R of
+   1, 2 and 4, ``chain_rows``, and the row scan at each width W,
+   ``rowscan_widths``), and of each probe;
 6. collapse's two kernels, csrc/edit_distance.cu and csrc/sw_traceback.cu,
    against their plain versions on tools/collapse_cases.py's cases
    (random codes with N and PAD, empty and one-base rows, equal-score
@@ -90,6 +97,8 @@ kernels line (sw_score_ends's entry also has ``main_ms`` and
 time and, for the cohort's wavefront launches, ``wave_device_ms`` summed
 over them, ``wave_ms`` and ``wave_bound_ms`` at the largest, and the
 wavefront's plans and times by rows a lane there and at the bench shape;
+sw_rowscan's and sw_chain's entries also have their ms at every phase-5
+shape, ``shapes_ms``, and their plan variants' ms, ``plans_ms``;
 edit_distance's and sw_traceback's numbers are those of their largest
 launch in phase 8, with their route counts, and edit_distance's
 ``cell_bound_ms`` the bound of one DP cell an update, the measure of a
@@ -152,6 +161,17 @@ BENCH = (512, 1024, 4096)
 TIMED = (('bench', BENCH), ('square', (512, 1024, 1024)),
          ('main64', (64, 28, 16384)), ('main128', (128, 54, 16384)),
          ('short', (4096, 32, 128)))
+# the harness's chain: C jobs a stream timed, and query rows a lane timed
+# beside the rule's
+CHAIN_C_TIMED = (2, 4)
+CHAIN_R_TIMED = (1, 2, 4)
+# phase 2's chain jobs (B, Lq, Lr): one strip and several, Lq far above
+# Lr, a reference of one chunk and of several; every B divisible by 4
+CHAIN_SHAPES = ((28, 40, 7), (64, 150, 33), (32, 1100, 300),
+                (8, 70, 2000))
+# phase 2's row-scan references: the edges of a warp's runs at each width
+# and the widest reference the kernel takes
+ROWSCAN_LRS = (1, 127, 129, 513, 1025, 4097, 16384)
 
 
 def emit(phase, **fields):
@@ -319,12 +339,61 @@ def tile_cases():
     return cases
 
 
+def probe_cases():
+    """((label, q, r, params), kernels) of phase 2's cases for the
+    harness's chain and row scan: tools/sw_cases.py's chain jobs at
+    CHAIN_SHAPES through the chain, and its wavefront rows against
+    ROWSCAN_LRS references through the row scan, under three SWParams."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.sw import SWParams
+    from ciri_long_tpu_torch.tools.sw_cases import chain_cases
+    from ciri_long_tpu_torch.tools.sw_cases import wave_cases as make
+
+    rng = np.random.default_rng(20261017)
+    cases = []
+    for params in (SWParams(*p) for p in TILE_PARAMS):
+        for B, Lq, Lr in CHAIN_SHAPES:
+            q, r = chain_cases(rng, B, Lq, Lr)
+            cases.append((('chain jobs', q, r, params), chain_kernels))
+        for Lr in ROWSCAN_LRS:
+            q, r = make(rng, Lr, (1, 31, 33, 65, 129, 300))
+            cases.append((('row scan runs Lr {}'.format(Lr), q, r, params),
+                          rowscan_kernels))
+    return cases
+
+
+def chain_kernels(Lq, Lr, params):
+    """(name, kernel) of the harness's chain at C = 2, 4, 1 and B."""
+    from ciri_long_tpu_torch.misc.kexp import sw_chain_cuda
+
+    kernels = [('sw_chain C={}'.format(C),
+                lambda q, r, p, C=C: sw_chain_cuda(q, r, p, C))
+               for C in (2, 4, 1)]
+    return kernels + [('sw_chain C=B', lambda q, r, p: sw_chain_cuda(
+        q, r, p, q.shape[0]))]
+
+
+def rowscan_kernels(Lq, Lr, params):
+    """(name, kernel) of the harness's row scan by its rule and at every
+    width."""
+    from ciri_long_tpu_torch.misc.kexp import (ROWSCAN_WIDTHS, rowscan_plan,
+                                               sw_rowscan_cuda)
+
+    return [('sw_rowscan', sw_rowscan_cuda)] + [
+        ('sw_rowscan W={}'.format(W),
+         lambda q, r, p, W=W: sw_rowscan_cuda(
+             q, r, p, rowscan_plan(q.shape[0], r.shape[1], W)))
+        for W in ROWSCAN_WIDTHS]
+
+
 def phase_kernel(torch, dev):
     """Every SW kernel against one plain output per case, then
-    sw_score_ends's routes on the tile cases; {name: max err}."""
+    sw_score_ends's routes on the tile and wavefront cases, then the
+    harness's chain and row scan on their cases; {name: max err}."""
     errs = {}
     runs = [(case, sw_kernels) for case in kernel_cases()]
     runs += [(case, sw_routes) for case in tile_cases() + wave_cases()]
+    runs += probe_cases()
     for (label, q, r, params), kernels in runs:
         for name, err in compare(torch, dev, q, r, params, label,
                                  kernels(q.shape[1], r.shape[1],
@@ -552,6 +621,43 @@ def wave_rows(torch, dev, smi, label, q, r, params, bound_ms, timer):
     return times
 
 
+def probe_plans(smi, label, q, r, bound_ms, timer):
+    """The harness's chain at each C of CHAIN_C_TIMED and R of
+    CHAIN_R_TIMED (misc/kexp.py::chain_plan with that many query rows a
+    lane) and its row scan at each width W (rowscan_plan with that W), timed
+    by ``timer`` (ms of one step); two JSON lines, and {'chain_rows': {C:
+    {R: ms}}, 'rowscan_widths': {W: ms}}.  The rules' R (CHAIN_ROWS) and W
+    (ROWSCAN_WIDTH) are the ones these lines show fastest."""
+    from ciri_long_tpu_torch.misc.kexp import (CHAIN_MIN_LR, CHAIN_ROWS,
+                                               ROWSCAN_WIDTH,
+                                               ROWSCAN_WIDTHS, chain_plan,
+                                               rowscan_plan,
+                                               sw_chain_cuda,
+                                               sw_rowscan_cuda)
+    from ciri_long_tpu_torch.misc.kexp import PARAMS as params
+
+    B, Lq = q.shape
+    Lr = r.shape[1]
+    chain, chain_plans = {}, {}
+    for C in CHAIN_C_TIMED:
+        T = C * (max(Lr, CHAIN_MIN_LR) + 1) + 1   # the stream's slots
+        chain[C], chain_plans[C] = {}, {}
+        for R in CHAIN_R_TIMED:
+            plan = chain_plan(B // C, Lq, T, C, rows=R)
+            chain_plans[C][R] = list(plan)
+            chain[C][R] = timer(lambda: sw_chain_cuda(q, r, params, C, plan))
+    emit('chain_rows', shape=label, B=B, Lq=Lq, Lr=Lr, plans=chain_plans,
+         ms=chain, rule_rows=CHAIN_ROWS, bound_ms=bound_ms, card=smi)
+    widths, width_plans = {}, {}
+    for W in ROWSCAN_WIDTHS:
+        plan = rowscan_plan(B, Lr, W)
+        width_plans[W] = list(plan)
+        widths[W] = timer(lambda: sw_rowscan_cuda(q, r, params, plan))
+    emit('rowscan_widths', shape=label, B=B, Lq=Lq, Lr=Lr, plans=width_plans,
+         ms=widths, rule_width=ROWSCAN_WIDTH, bound_ms=bound_ms, card=smi)
+    return {'chain_rows': chain, 'rowscan_widths': widths}
+
+
 def phase_probe_time(torch, dev, smi):
     """The card's peak cell rate in both forms (the SW bound), the SW
     families and the plain version at each TIMED shape with the harness's
@@ -603,6 +709,9 @@ def phase_probe_time(torch, dev, smi):
             sw[shape]['wave_rows'] = wave_rows(
                 torch, dev, smi, shape, q, r, PARAMS, bound_ms,
                 lambda step: time_launches(step, 10, dev, graph=True))
+        sw[shape].update(probe_plans(smi, shape, q, r, bound_ms,
+                                     lambda step: time_launches(
+                                         step, 10, dev, graph=True)))
     probes = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for probe in PROBES:
         x = probe_input(probe, dev)
@@ -1183,6 +1292,13 @@ def main():
                     bench_plan=list(_wave_plan(*BENCH)),
                     bench_rows_ms=bench['wave_rows'])
 
+    def family_err(prefix):
+        return max(err for name, err in errs.items()
+                   if name.startswith(prefix))
+
+    def shapes_ms(name):
+        return {shape: sw[shape][name] for shape in sw}
+
     kernels = [
         dict(entry('sw_score_ends', launches,
                    max([call_err, collapse_errs['sw_score_ends']]
@@ -1195,11 +1311,16 @@ def main():
                               for k in ('wave', 'tiled')},
              collapse_device_ms=full['sw_score_ends']['device_ms'],
              **wave_fields(full['sw_score_ends']['routes']['wave'])),
-        entry('sw_rowscan', probe_launches['sw_rowscan'], errs['sw_rowscan'],
-              bench['sw_rowscan']),
-        entry('sw_chain', probe_launches['sw_chain'],
-              max(errs['sw_chain C=2'], errs['sw_chain C=4']),
-              bench['sw_chain C=4']),
+        dict(entry('sw_rowscan', probe_launches['sw_rowscan'],
+                   family_err('sw_rowscan'), bench['sw_rowscan']),
+             shapes_ms=shapes_ms('sw_rowscan'),
+             plans_ms={shape: sw[shape]['rowscan_widths'] for shape in sw}),
+        dict(entry('sw_chain', probe_launches['sw_chain'],
+                   family_err('sw_chain'), bench['sw_chain C=4']),
+             c2_ms=bench['sw_chain C=2'],
+             shapes_ms={C: shapes_ms('sw_chain C={}'.format(C))
+                        for C in CHAIN_C_TIMED},
+             plans_ms={shape: sw[shape]['chain_rows'] for shape in sw}),
         # the six probes summed; the library time is the card's own time of
         # the plain versions, each one PyTorch call
         entry('int16_probe', probe_launches['int16_probe'], probe_err,

@@ -12,14 +12,15 @@ name and power limit.  The families are the counterparts of the three
 kernel:
 
 - row (``--r3``, the default; kexp.py:1586, ``build_kernel``/``_r3``):
-  csrc/sw_rowscan.cu, one block per batch row sweeping the query rows, the
-  horizontal gap resolved by a prefix max over all reference columns;
+  csrc/sw_rowscan.cu, the query swept a row at a time over all reference
+  columns, the horizontal gap resolved by a prefix max (a thread's run of
+  W columns in registers, ``rowscan_plan``);
 - wave (``--wave``; kexp.py:1534, ``build_kernel_wave*``): the
   anti-diagonal wavefront route of csrc/sw_score_ends.cu, forced at every
   shape (``call`` takes that kernel's tiled route where it applies);
 - chain (``--chain C``; kexp.py:1462, ``build_kernel_chain*``):
   csrc/sw_chain.cu, the wavefront over C jobs' references laid back to back
-  behind boundary codes (``chain_layout``), B % C == 0.
+  behind boundary codes (``chain_layout``, ``chain_plan``), B % C == 0.
 
 Before timing, the variant is held to the plain version (ops/sw.py::
 sw_score_ends) on 32 rows of random codes with N, at 300x517 and at the
@@ -41,11 +42,13 @@ import ctypes
 import json
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.ops.sw import (BLOCK_SMEM, PAD, SWParams,
+from ciri_long_tpu_torch.ops.sw import (BLOCK_SMEM, PAD, WAVE_FILL,
+                                        WAVE_RING, SWParams,
                                         check_cuda_codes, sw_score_ends,
                                         sw_score_ends_wave_cuda)
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, resolve_device
@@ -55,9 +58,6 @@ CHECK_ROWS = 32          # kexp's check batch (its default --btile)
 BOUNDARY = 6             # the chain stream's job boundary code
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
-# dynamic shared memory a block may opt into on Hopper less the row scan's
-# static arrays
-ROWSCAN_SMEM_LIMIT = BLOCK_SMEM - 512
 
 
 def nvidia_smi(query='name,power.limit'):
@@ -163,41 +163,83 @@ def _stream(dev):
 
 
 _ROWSCAN_SYMBOLS = {
-    'sw_rowscan_launch': ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    'sw_rowscan_launch': ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p] * 4, ctypes.c_int),
-    'sw_rowscan_smem_bytes': ([ctypes.c_int], ctypes.c_int),
 }
 
+# The row scan's rule (sw_rowscan_kernel): W reference columns a thread, a
+# warp covering 32 W columns, at most ROWSCAN_MAX_WARPS warps a block (NW
+# warps a batch row, P rows a block).
+ROWSCAN_WIDTHS = (4, 8, 16, 32)
+ROWSCAN_WIDTH = 32
+ROWSCAN_MAX_WARPS = 16
+ROWSCAN_BLOCK_WARPS = 8
+# warps that fill the card: 4 a SM on 132 SMs, one a scheduler
+ROWSCAN_FILL = 4 * 132
+# the widest reference a launch takes: 16 warps of 32 threads of 32 columns
+ROWSCAN_MAX_LR = ROWSCAN_MAX_WARPS * 32 * max(ROWSCAN_WIDTHS)
 
-def sw_rowscan_cuda(query: torch.Tensor, ref: torch.Tensor, params: SWParams):
-    """The row-scan kernel (csrc/sw_rowscan.cu) on CUDA tensors; the inputs
-    and outputs of ops/sw.py::sw_score_ends_cuda.  Raises on anything else,
-    for a reference whose H/F rows do not fit a block's shared memory
-    (Lr above about 25 000), and when the launch is refused."""
+
+class RowscanPlan(NamedTuple):
+    """The row scan's launch: ``width`` (W) reference columns a thread,
+    ``warps`` (NW) warps a batch row, ``per_block`` (P) rows a block."""
+    width: int
+    warps: int
+    per_block: int
+
+
+def rowscan_plan(B, Lr, width=ROWSCAN_WIDTH):
+    """RowscanPlan for B rows of Lr reference columns: W is ``width`` (the
+    rule's ROWSCAN_WIDTH; other values only to time them), halved while a
+    warp of half as many columns a thread still covers the reference, then
+    while the B * NW warps do not fill the card (ROWSCAN_FILL: 512x1024x1024
+    runs 1.5x faster at W = 16 than at 32 on the H100, PERF.md section 6),
+    and doubled while the row would need more than ROWSCAN_MAX_WARPS warps;
+    a block holds ROWSCAN_BLOCK_WARPS warps' worth of rows (at least one
+    row).  Raises above ROWSCAN_MAX_LR."""
+    if Lr > ROWSCAN_MAX_LR:
+        raise ValueError('sw_rowscan_cuda: Lr={} is above the {} reference '
+                         'columns the kernel takes'.format(Lr, ROWSCAN_MAX_LR))
+    W = width
+    while W > ROWSCAN_WIDTHS[0] and 32 * (W // 2) >= Lr:
+        W //= 2
+    while W > ROWSCAN_WIDTHS[0] and B * -(-Lr // (32 * W)) < ROWSCAN_FILL:
+        W //= 2
+    while -(-Lr // (32 * W)) > ROWSCAN_MAX_WARPS:
+        W *= 2
+    NW = max(1, -(-Lr // (32 * W)))
+    return RowscanPlan(W, NW, max(1, ROWSCAN_BLOCK_WARPS // NW))
+
+
+def sw_rowscan_cuda(query: torch.Tensor, ref: torch.Tensor, params: SWParams,
+                    plan=None):
+    """The row-scan kernel (csrc/sw_rowscan.cu) on CUDA tensors, with
+    ``plan`` (a RowscanPlan) or by default rowscan_plan's; the inputs and
+    outputs of ops/sw.py::sw_score_ends_cuda.  Raises on anything else, for
+    a reference above ROWSCAN_MAX_LR columns (16 warps of 32 threads, each
+    holding 32 columns' H and F in registers), and when the launch is
+    refused."""
     from ciri_long_tpu_torch.ops import _build
 
     check_cuda_codes('sw_rowscan_cuda', query, ref, params)
     B, Lq = query.shape
     Lr = ref.shape[1]
+    plan = plan or rowscan_plan(B, Lr)
     lib = _build.load('sw_rowscan.cu', _ROWSCAN_SYMBOLS)
-    smem = lib.sw_rowscan_smem_bytes(Lr)
-    if smem > ROWSCAN_SMEM_LIMIT:
-        raise ValueError('sw_rowscan_cuda: Lr={} needs {} bytes of shared '
-                         'memory, above the {} a block may have'.format(
-                             Lr, smem, ROWSCAN_SMEM_LIMIT))
     dev = query.device
     score, q_end, r_end = _ends(B, dev, Lq, Lr)
     if B == 0 or Lq == 0 or Lr == 0:
         return score, q_end, r_end
     with torch.cuda.device(dev):
         rc = lib.sw_rowscan_launch(
-            query.data_ptr(), ref.data_ptr(), B, Lq, Lr, params.match,
-            params.mismatch, params.gap_open, params.gap_extend,
-            score.data_ptr(), q_end.data_ptr(), r_end.data_ptr(),
-            _stream(dev))
+            query.data_ptr(), ref.data_ptr(), B, Lq, Lr, plan.width,
+            plan.per_block, params.match, params.mismatch, params.gap_open,
+            params.gap_extend, score.data_ptr(), q_end.data_ptr(),
+            r_end.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError('sw_rowscan kernel launch failed: cudaError {} '
-                           '(B={}, Lq={}, Lr={})'.format(rc, B, Lq, Lr))
+                           '(B={}, Lq={}, Lr={}, plan {})'.format(
+                               rc, B, Lq, Lr, plan))
     LAUNCHES['sw_rowscan'] += 1
     return score, q_end, r_end
 
@@ -249,45 +291,152 @@ def chain_layout(query: torch.Tensor, ref: torch.Tensor, C: int):
 
 
 _CHAIN_SYMBOLS = {
-    'sw_chain_launch': ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+    'sw_chain_launch': ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 13
                         + [ctypes.c_void_p] * 6, ctypes.c_int),
 }
 
+# The chained wavefront's rule (sw_chain_kernel): R query rows a lane, a
+# block of CHAIN_WARPS warps (K warps on one stream, or P streams of one
+# warp when K = 1), as ops/sw.py::_wave_plan gives the wavefront's;
+# CHAIN_ROWS from the H100 runs in PERF.md section 6.
+CHAIN_ROWS = 4
+CHAIN_WARPS = 8
+# the job keys (8 bytes a job) a block keeps in shared memory at most;
+# more go to a global [B] uint64 scratch
+CHAIN_KEY_SMEM = 16384
+# the kernel's limits: T = C*(Lr+1)+1 stream slots in an int with room for
+# a chunk, and a best cell (j, i) packed as j*Lq + i in 32 bits
+CHAIN_MAX_SLOTS = 2 ** 31 - 65
+CHAIN_MAX_CELLS = 2 ** 32
+# a job spans at least 32 slots (a lane crosses one boundary a chunk at
+# most): shorter references are padded with PAD to CHAIN_MIN_LR columns
+CHAIN_MIN_LR = 31
+
+
+class ChainPlan(NamedTuple):
+    """The chained wavefront's launch: ``rows`` (R) query rows a lane,
+    ``warps`` (K) warps a stream, ``per_block`` (P) streams a block, where
+    the job keys live ('smem' or 'global') and where the handoff row between
+    groups of K strips lives: 'none' (no stream has more than K strips),
+    'smem' (P * T * 8 bytes of dynamic shared memory) or 'global' (a
+    [B/C, T] int2 scratch)."""
+    rows: int
+    warps: int
+    per_block: int
+    keys: str
+    edge: str
+
+
+def _chain_static_bytes(R):
+    """sw_chain_kernel<R>'s shared memory besides the keys and the handoff
+    rows, with room to spare: the rings and the two score tables ([2 jobs]
+    [6 codes][R rows][256 threads] int32)."""
+    return ((CHAIN_WARPS - 1) * WAVE_RING * 8
+            + 2 * 6 * R * CHAIN_WARPS * 32 * 4 + 512)
+
+
+def chain_pad(ref: torch.Tensor):
+    """``ref`` with PAD columns appended up to CHAIN_MIN_LR: every result
+    stays, since a trailing PAD column's H comes from a gap out of an
+    earlier cell of the row, lower and later in the contract's order."""
+    short = CHAIN_MIN_LR - ref.shape[1]
+    if short <= 0:
+        return ref
+    return torch.nn.functional.pad(ref, (0, short), value=PAD)
+
+
+def _chain_warps(streams, Lq, R):
+    """(strips, K): the query's strips of 32 R rows, and the warps a stream:
+    the strips, at most CHAIN_WARPS, and no more than streams * K warps fill
+    the card (WAVE_FILL)."""
+    strips = max(1, -(-Lq // (32 * R)))
+    return strips, max(1, min(CHAIN_WARPS, strips,
+                              -(-WAVE_FILL // max(streams, 1))))
+
+
+def chain_plan(streams, Lq, T, C, rows=CHAIN_ROWS):
+    """ChainPlan for ``streams`` streams of T slots (C jobs each) against
+    queries of Lq rows, by the rule of ops/sw.py::_wave_plan: R is ``rows``
+    (the rule's CHAIN_ROWS; other values only to time them), halved while a
+    strip of half as many rows still holds the query, and while half as
+    many rows a lane give a stream more warps (few streams of a short
+    query: 128x54x16384 runs 1.4x faster at R = 1, K = 2 than at R = 2,
+    K = 1 on the H100, PERF.md section 6); K from _chain_warps; with K = 1
+    a block holds CHAIN_WARPS streams, fewer when
+    their handoff rows would not fit its shared memory.  The handoff row is
+    needed only when a stream has more than K strips and lives in shared
+    memory when it fits beside the static arrays; the keys of a block's jobs
+    live in shared memory when they take at most CHAIN_KEY_SMEM bytes and
+    fit beside the handoff rows."""
+    R = rows
+    while R > 1 and (32 * (R // 2) >= Lq or _chain_warps(
+            streams, Lq, R // 2)[1] > _chain_warps(streams, Lq, R)[1]):
+        R //= 2
+    strips, K = _chain_warps(streams, Lq, R)
+    P = CHAIN_WARPS if K == 1 else 1
+    room = BLOCK_SMEM - _chain_static_bytes(R)
+    row_bytes = max(1, T) * 8
+    if strips <= K:
+        edge = 'none'
+    else:
+        if K == 1:
+            P = max(1, min(CHAIN_WARPS, room // row_bytes))
+        edge = 'smem' if P * row_bytes <= room else 'global'
+        if edge == 'global':
+            P = CHAIN_WARPS if K == 1 else 1
+    key_bytes = -(-P * C * 8 // 16) * 16
+    free = room - (P * row_bytes if edge == 'smem' else 0)
+    keys = 'smem' if key_bytes <= min(CHAIN_KEY_SMEM, free) else 'global'
+    return ChainPlan(R, K, P, keys, edge)
+
 
 def sw_chain_cuda(query: torch.Tensor, ref: torch.Tensor, params: SWParams,
-                  C: int):
+                  C: int, plan=None):
     """The chained wavefront kernel (csrc/sw_chain.cu) on CUDA tensors, C
-    jobs per warp; the inputs and outputs of ops/sw.py::sw_score_ends_cuda.
-    Raises on anything else, when C does not divide B, and when the launch
-    is refused."""
+    jobs per stream, with ``plan`` (a ChainPlan) or by default
+    chain_plan's; the inputs and outputs of ops/sw.py::sw_score_ends_cuda.
+    Raises on anything else, when C does not divide B, above the kernel's
+    limits (Lq * Lr above 2^32 cells a job, or C*(Lr+1)+1 stream slots
+    above 2^31 - 65), and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     check_cuda_codes('sw_chain_cuda', query, ref, params)
     B, Lq = query.shape
     Lr = ref.shape[1]
-    qrows, stream = chain_layout(query, ref, C)
-    rows, T = stream.shape
-    if T >= 2 ** 31 - 32:
-        raise ValueError("sw_chain_cuda stream of {} slots exceeds the "
-                         "kernel's int arguments".format(T))
-    lib = _build.load('sw_chain.cu', _CHAIN_SYMBOLS)
     dev = query.device
     score, q_end, r_end = _ends(B, dev, Lq, Lr)
+    if Lr == 0:
+        _chain_rows(B, C)
+        return score, q_end, r_end
+    ref = chain_pad(ref)
+    qrows, stream = chain_layout(query, ref, C)
+    rows, T = stream.shape
+    if T > CHAIN_MAX_SLOTS or Lq * ref.shape[1] > CHAIN_MAX_CELLS:
+        raise ValueError("sw_chain_cuda: {}x{} jobs in streams of {} slots "
+                         "exceed the kernel's limits (Lq*Lr <= 2^32, "
+                         "C*(Lr+1)+1 <= 2^31-65)".format(Lq, Lr, T))
+    plan = plan or chain_plan(rows, Lq, T, C)
+    lib = _build.load('sw_chain.cu', _CHAIN_SYMBOLS)
     if B == 0 or Lq == 0:
         return score, q_end, r_end
-    scratch = torch.empty((rows, T, 2), dtype=torch.int32, device=dev)
-    records = torch.empty((rows, C, 32, 3), dtype=torch.int32, device=dev)
+    scratch = (torch.empty((rows, T, 2), dtype=torch.int32, device=dev)
+               if plan.edge == 'global' else None)
+    keys = (torch.empty(B, dtype=torch.int64, device=dev)
+            if plan.keys == 'global' else None)
     with torch.cuda.device(dev):
         rc = lib.sw_chain_launch(
-            qrows.data_ptr(), stream.data_ptr(), rows, C, Lq, T,
+            qrows.data_ptr(), stream.data_ptr(), rows, C, Lq, ref.shape[1],
             params.match, params.mismatch, params.gap_open,
-            params.gap_extend, scratch.data_ptr(), records.data_ptr(),
+            params.gap_extend, plan.rows, plan.warps, plan.per_block,
+            plan.keys == 'smem', plan.edge == 'smem',
+            None if scratch is None else scratch.data_ptr(),
+            None if keys is None else keys.data_ptr(),
             score.data_ptr(), q_end.data_ptr(), r_end.data_ptr(),
             _stream(dev))
     if rc != 0:
         raise RuntimeError('sw_chain kernel launch failed: cudaError {} '
-                           '(B={}, Lq={}, Lr={}, C={})'.format(rc, B, Lq, Lr,
-                                                              C))
+                           '(B={}, Lq={}, Lr={}, C={}, plan {})'.format(
+                               rc, B, Lq, Lr, C, plan))
     LAUNCHES['sw_chain'] += 1
     return score, q_end, r_end
 

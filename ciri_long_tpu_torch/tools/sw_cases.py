@@ -14,8 +14,14 @@ its real lengths): one row for every real query length in ``WAVE_LQ`` (the
 edges of a lane's R rows, of a strip and of a group of K strips, for R in
 1, 2, 4 and K in 2, 4, 8), rows with N, a mid-row PAD, an all-PAD query or
 reference, and equal-score twins in strips far apart (across warps and
-groups), all under one padded shape.  The CPU tests, the card's tests and
-chip_smoke.py share them.
+groups), all under one padded shape.
+
+``chain_cases`` makes the jobs that hold the chained wavefront
+(csrc/sw_chain.cu: C jobs' references back to back behind boundary codes):
+the best cell in a job's last column, just before the next boundary, and
+in its first, just after one; all-PAD references and queries; equal-score
+twins; N rows; random codes with PAD suffixes.  The CPU tests, the card's
+tests and chip_smoke.py share them.
 """
 
 import numpy as np
@@ -34,6 +40,8 @@ WAVE_LQ = tuple(sorted(
 # two, and a few chunks
 WAVE_LR = (1, 63, 64, 65, 130)
 WAVE_SPECIAL = ('mid_pad', 'pad_query', 'pad_ref', 'twins', 'n_rows')
+CHAIN_KINDS = ('last_col', 'first_col', 'pad_ref', 'pad_query', 'twins',
+               'n_rows', 'random')
 
 
 def _gap(piece, params):
@@ -153,4 +161,48 @@ def wave_cases(rng, Lr, lqs=WAVE_LQ):
             r[b] = N
             q[b, ::7] = rng.integers(0, 4, len(q[b, ::7]))
             r[b, ::5] = rng.integers(0, 4, len(r[b, ::5]))
+    return q, r
+
+
+def chain_cases(rng, B, Lq, Lr):
+    """[B, Lq] queries and [B, Lr] references, int8 codes; job b is of kind
+    CHAIN_KINDS[b % len(CHAIN_KINDS)] on random codes 0-3: 'last_col' ends
+    a copy of the query's last m codes at the job's last column (m = min(24,
+    Lq, Lr)), 'first_col' starts a copy of its first m codes at column 0,
+    'pad_ref' and 'pad_query' are all PAD, 'twins' puts one motif at two
+    query rows and two reference columns (every pairing ties: the first
+    pair wins), 'n_rows' is all N with a few codes, 'random' has codes 0-4
+    with random PAD suffixes."""
+    q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
+    r = rng.integers(0, 4, (B, Lr)).astype(np.int8)
+    m = max(1, min(24, Lq, Lr))
+    for b in range(B):
+        kind = CHAIN_KINDS[b % len(CHAIN_KINDS)]
+        if kind == 'last_col':
+            r[b, Lr - m:] = q[b, Lq - m:]
+        elif kind == 'first_col':
+            r[b, :m] = q[b, :m]
+        elif kind == 'pad_ref':
+            r[b] = PAD
+        elif kind == 'pad_query':
+            q[b] = PAD
+        elif kind == 'twins':
+            k = max(1, m // 2)
+            motif = rng.integers(0, 4, k).astype(np.int8)
+            q[b] = N
+            r[b] = N
+            _place(q[b], 0, motif)
+            _place(q[b], Lq - k, motif)
+            _place(r[b], Lr // 3, motif)
+            _place(r[b], Lr - k, motif)
+        elif kind == 'n_rows':
+            q[b] = N
+            r[b] = N
+            q[b, ::5] = rng.integers(0, 4, len(q[b, ::5]))
+            r[b, ::3] = rng.integers(0, 4, len(r[b, ::3]))
+        else:
+            q[b] = rng.integers(0, 5, Lq)
+            r[b] = rng.integers(0, 5, Lr)
+            q[b, int(rng.integers(1, Lq + 1)):] = PAD
+            r[b, int(rng.integers(max(1, Lr // 2), Lr + 1)):] = PAD
     return q, r

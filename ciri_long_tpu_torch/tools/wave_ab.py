@@ -1,6 +1,9 @@
-"""The wavefront route of csrc/sw_score_ends.cu in two checkouts, on one card.
+"""SW kernels of two checkouts timed in turns on one card: the wavefront
+route of csrc/sw_score_ends.cu, and with ``--probes`` the SW variant
+harness's chain and row scan (csrc/sw_chain.cu, csrc/sw_rowscan.cu).
 
     python3 -m ciri_long_tpu_torch.tools.wave_ab --other DIR [--inputs FILE]
+        [--probes]
 
 DIR is another checkout of this repository (the parent commit, say,
 unpacked with ``git archive``).  Four runs, each in a process of its own on
@@ -13,8 +16,13 @@ case shapes (random codes 0-3, SWParams(10, 4, 8, 2), 10 launches, 3 at
 K3) and, with FILE,
 on each input FILE holds (chip_smoke.py writes the cohort collapse's
 wavefront launches to build/chip_smoke/cohort_wave_inputs.pt; 3 launches
-each), summed.  Prints one JSON line a run, then the means of the two
-checkouts and their ratio, with the card's name and power limit.
+each), summed.  With ``--probes`` each run also times misc/kexp.py's
+``sw_chain_cuda`` at C = 2 and 4 and ``sw_rowscan_cuda`` (both wrappers
+have kept their signatures since the first checkout that had them) by
+their default plans at PROBE_SHAPES, chip_smoke.py's phase-5 shapes
+(random codes 0-3, SWParams(10, 4, 8, 2), 10 launches).  Prints one JSON
+line a run, then the means of the two checkouts and their ratio, with the
+card's name and power limit.
 """
 
 import argparse
@@ -27,9 +35,15 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SHAPES = {'bench': (512, 1024, 4096), 'square': (512, 1024, 1024),
           'K2': (8, 256, 512), 'K4': (64, 2048, 512), 'K3': (4, 8192, 16384)}
+PROBE_SHAPES = {'bench': (512, 1024, 4096), 'square': (512, 1024, 1024),
+                'main64': (64, 28, 16384), 'main128': (128, 54, 16384),
+                'short': (4096, 32, 128)}
+PROBES = {'chain2': lambda kexp, q, r, p: kexp.sw_chain_cuda(q, r, p, 2),
+          'chain4': lambda kexp, q, r, p: kexp.sw_chain_cuda(q, r, p, 4),
+          'rowscan': lambda kexp, q, r, p: kexp.sw_rowscan_cuda(q, r, p)}
 
 
-def time_tree(tree, inputs):
+def time_tree(tree, inputs, probes=False):
     """One run: this process imports the port from ``tree``; returns the
     run's numbers."""
     script_dir = os.path.dirname(os.path.abspath(__file__))
@@ -38,6 +52,7 @@ def time_tree(tree, inputs):
     import numpy as np
     import torch
 
+    from ciri_long_tpu_torch.misc import kexp
     from ciri_long_tpu_torch.misc.kexp import nvidia_smi, time_launches
     from ciri_long_tpu_torch.ops import sw
 
@@ -64,6 +79,12 @@ def time_tree(tree, inputs):
                 lambda: sw.sw_score_ends_wave_cuda(qd, rd, p), 3, dev,
                 graph=True)
         out.update(inputs_launches=len(launches), inputs_device_ms=total)
+    for shape, (B, Lq, Lr) in PROBE_SHAPES.items() if probes else ():
+        q, r = (torch.from_numpy(rng.integers(0, 4, size).astype(
+            np.int8)).to(dev) for size in ((B, Lq), (B, Lr)))
+        for name, fn in PROBES.items():
+            out['{}_{}_ms'.format(name, shape)] = time_launches(
+                lambda: fn(kexp, q, r, params), 10, dev, graph=True)
     return out
 
 
@@ -75,17 +96,21 @@ def main(argv=None):
     ap.add_argument('--inputs', default=None,
                     help='recorded wavefront inputs (torch.save of '
                          '(query, ref, params) tuples)')
+    ap.add_argument('--probes', action='store_true',
+                    help="also time the harness's chain and row scan")
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.tree:                          # one run, in its own process
-        print(json.dumps(time_tree(args.tree, args.inputs)), flush=True)
+        print(json.dumps(time_tree(args.tree, args.inputs, args.probes)),
+              flush=True)
         return None
     other = os.path.abspath(args.other)
     inputs = args.inputs and os.path.abspath(args.inputs)
     runs = []
     for tree in (other, HERE, HERE, other):
         cmd = [sys.executable, os.path.abspath(__file__), '--other', other,
-               '--tree', tree] + (['--inputs', inputs] if inputs else [])
+               '--tree', tree] + (['--inputs', inputs] if inputs else []) + (
+                   ['--probes'] if args.probes else [])
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               cwd=tree)
         if proc.returncode != 0:
@@ -94,8 +119,8 @@ def main(argv=None):
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     summary = {}
-    for key in [name + '_ms' for name in SHAPES] + ['inputs_device_ms']:
-        if key not in runs[0]:
+    for key in runs[0]:
+        if not key.endswith('_ms'):
             continue
         mine = (runs[1][key] + runs[2][key]) / 2
         theirs = (runs[0][key] + runs[3][key]) / 2

@@ -278,11 +278,52 @@ def test_harness_kernels_reject_bad_inputs(dev):
     p = sw.SWParams()
     with pytest.raises(ValueError, match='divisible'):
         kexp.sw_chain_cuda(q, q, p, 4)
-    with pytest.raises(ValueError, match='shared memory'):
-        kexp.sw_rowscan_cuda(q, torch.zeros((6, 26000), dtype=torch.int8,
-                                            device=dev), p)
+    with pytest.raises(ValueError, match='reference columns'):
+        kexp.sw_rowscan_cuda(q, torch.zeros(
+            (6, kexp.ROWSCAN_MAX_LR + 1), dtype=torch.int8, device=dev), p)
+    with pytest.raises(ValueError, match="kernel's limits"):
+        kexp.sw_chain_cuda(torch.zeros((2, 70000), dtype=torch.int8,
+                                       device=dev),
+                           torch.zeros((2, 70000), dtype=torch.int8,
+                                       device=dev), p, 2)
     with pytest.raises(TypeError):
         kexp.sw_rowscan_cuda(q.int(), q, p)
+    with pytest.raises(TypeError):
+        kexp.sw_chain_cuda(q.int(), q, p, 2)
+
+
+# (B, Lq, Lr, C, plan): every R, K of 1 to 8, several streams a block,
+# keys and handoff rows in global memory, Lq far above Lr
+CHAIN_PLANS = [
+    (8, 100, 90, 2, kexp.ChainPlan(1, 4, 1, 'smem', 'none')),
+    (8, 300, 90, 4, kexp.ChainPlan(2, 3, 1, 'smem', 'smem')),
+    (8, 300, 90, 4, kexp.ChainPlan(4, 1, 5, 'global', 'global')),
+    (12, 700, 33, 3, kexp.ChainPlan(4, 2, 1, 'global', 'smem')),
+    (16, 40, 7, 16, kexp.ChainPlan(1, 1, 8, 'smem', 'global')),
+    (6, 1, 1, 1, kexp.ChainPlan(1, 1, 8, 'smem', 'none')),
+]
+
+
+@pytest.mark.parametrize("case", CHAIN_PLANS)
+def test_chain_plans_match_plain(dev, case):
+    B, Lq, Lr, C, plan = case
+    for params in [(1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1)]:
+        qt, rt = _case(dev, params, (B, Lq, Lr))
+        p = sw.SWParams(*params)
+        _equal(kexp.sw_chain_cuda(qt, rt, p, C, plan),
+               sw.sw_score_ends(qt, rt, p))
+
+
+@pytest.mark.parametrize("width", kexp.ROWSCAN_WIDTHS)
+@pytest.mark.parametrize("shape", [(9, 33, 65), (6, 100, 700),
+                                   (3, 70, 4100), (2, 40, 16384)])
+def test_rowscan_widths_match_plain(dev, width, shape):
+    plan = kexp.rowscan_plan(shape[0], shape[2], width)
+    for params in [(1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1)]:
+        qt, rt = _case(dev, params, shape)
+        p = sw.SWParams(*params)
+        _equal(kexp.sw_rowscan_cuda(qt, rt, p, plan),
+               sw.sw_score_ends(qt, rt, p))
 
 
 @pytest.mark.parametrize("probe", int16_probe.PROBES, ids=lambda p: p.name)
