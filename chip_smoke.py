@@ -53,25 +53,39 @@ and exits non-zero if any phase fails (none is caught and skipped):
    wavefront's shapes also the wavefront at 1, 2 and 4 query rows a lane,
    ``wave_rows``; at every shape the chain at C = 2 and 4 by each R of
    1, 2 and 4, ``chain_rows``, and the row scan at each width W,
-   ``rowscan_widths``), and of each probe;
-6. collapse's two kernels, csrc/edit_distance.cu and csrc/sw_traceback.cu,
-   against their plain versions on tools/collapse_cases.py's cases
-   (random codes with N and PAD, empty and one-base rows, equal-score
-   ties, jobs that score 0, references and pairs longer than one strip,
-   lengths at the edges of a word, of a warp's words and of a strip, a
-   fused round of one-word and multi-word pairs, jobs over a block's shared
-   memory), exact, every route of each kernel launched (ROUTES);
+   ``rowscan_widths``), and of each probe; then the six probes in one
+   launch (``int16_probe_all``) beside the six launches and the six
+   PyTorch calls;
+6. collapse's three kernels, csrc/edit_distance.cu, csrc/sw_traceback.cu
+   and csrc/poa_align.cu, against their plain versions on
+   tools/collapse_cases.py's and tools/poa_cases.py's cases (random codes
+   with N and PAD, empty and one-base rows, equal-score ties, jobs that
+   score 0, references and pairs longer than one strip, lengths at the
+   edges of a word, of a warp's words and of a strip, a fused round of
+   one-word and multi-word pairs, jobs over a block's shared memory; for
+   the POA graphs of fused mutated reads, one-node graphs, empty
+   sequences, identical copies, indel-heavy reads, in-degree 12 and 130,
+   long back edges, mixed sizes and sequences at the edges of its run
+   widths and tiles), exact, every route of each kernel launched (ROUTES);
 7. ``collapse`` end to end on phase 4's cand_circ.fa, ``--device cuda``
    then ``--device cpu``: the launches of sw_score_ends (by route),
-   edit_distance and sw_traceback (all > 0 on cuda, all 0 on cpu),
-   byte-identical .info, .reads, .expression and .isoforms, equal
+   edit_distance, sw_traceback and poa_align (all > 0 on cuda, all 0 on
+   cpu), byte-identical .info, .reads, .expression and .isoforms, equal
    corrected clusters and counters (tmp/*.corrected.pkl), the wall of each
    run, the launches of each kernel's routes, and the seconds spent in its
-   SW, edit-distance, traceback and POA calls (summed over its threads),
-   the traceback calls split into their stages (pack, upload, plan,
-   launch, download and wait, tb_results: wall and thread CPU seconds);
+   SW, edit-distance, traceback and POA calls (summed over its threads; the
+   POA split into the junction consensus, ``poa``, and the sub-cluster
+   consensus, ``poa_consensus_many``), the traceback calls split into their
+   stages (pack, upload, plan, launch, download and wait, tb_results: wall
+   and thread CPU seconds);
    then every edit and traceback launch and the four largest SW launches
-   of the cuda run against the plain versions on their inputs; then its SW
+   of the cuda run against the plain versions on their inputs; every
+   sub-cluster job of the cuda run replayed through the native ``poa``,
+   byte-identical; poa_align's device time summed over the run (CUDA
+   events around each launch, in the run) and its largest launch, its
+   inputs kept by replaying its call (ops/poa.py::poa_launch_inputs),
+   checked against the plain version and timed beside it and the bound
+   (operations or the direction words' bytes); then its SW
    launches split by route (wave, tiled): launches, summed device time (a
    CUDA graph's replay of each recorded input) and, at each route's
    largest launch, its shapes, ms, plain ms and bound;
@@ -90,7 +104,7 @@ and exits non-zero if any phase fails (none is caught and skipped):
    ``python3 -m ciri_long_tpu_torch.tools.wave_ab`` times in two
    checkouts).
 
-The seven CUDA sources build in parallel (one nvcc each) beside the native
+The eight CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
 kernels line (sw_score_ends's entry also has ``main_ms`` and
 ``main_bound_ms`` at 128x54x16384, its collapse launches and device
@@ -99,10 +113,12 @@ over them, ``wave_ms`` and ``wave_bound_ms`` at the largest, and the
 wavefront's plans and times by rows a lane there and at the bench shape;
 sw_rowscan's and sw_chain's entries also have their ms at every phase-5
 shape, ``shapes_ms``, and their plan variants' ms, ``plans_ms``;
-edit_distance's and sw_traceback's numbers are those of their largest
-launch in phase 8, with their route counts, and edit_distance's
-``cell_bound_ms`` the bound of one DP cell an update, the measure of a
-cell-by-cell design), and last ``{"ok": true, "device": {...}}``.  Without a
+int16_probe_all's the one launch of phase 5; edit_distance's,
+sw_traceback's and poa_align's numbers are those of their largest launch in
+phase 8, with their route counts, edit_distance's ``cell_bound_ms`` the
+bound of one DP cell an update, the measure of a cell-by-cell design, and
+poa_align's device time summed over the cohort's launches and its phase-7
+numbers), and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
 """
@@ -122,7 +138,7 @@ WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
-           'sw_traceback.cu')
+           'sw_traceback.cu', 'poa_align.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
@@ -145,10 +161,15 @@ REPLACES = {
                  'build_kernel_chain:534, _chain7:694, _chain9:875, '
                  '_chain10:1222 (K7)'),
     'int16_probe': 'misc/int16_probe.py:41 run, kernel bodies :20-37 (K8)',
+    'int16_probe_all': ('misc/int16_probe.py:41 run, kernel bodies :20-37 '
+                        '(K8), all six probes in one launch'),
     'edit_distance': ('ciri_long_tpu/ops/edit.py:28 '
                       'edit_distance_batch_padded, an XLA program (X7)'),
     'sw_traceback': ('ciri_long_tpu/ops/sw_tb_batch.py:44 _align_one, :237 '
                      'sw_traceback_batch, an XLA program (X5)'),
+    'poa_align': ('ciri_long_tpu/ops/poa_batch.py:39 _align_one, :194 '
+                  '_align_one_win, :391 poa_align_batch, an XLA program '
+                  '(X6)'),
 }
 # benchmarks/collapse_bench.py's defaults
 COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
@@ -156,7 +177,8 @@ COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
 # the routes of collapse's two kernels (utils/dispatch.py::ROUTES)
 COLLAPSE_ROUTES = ('edit_thread', 'edit_warp', 'tb_smem', 'tb_global')
 SW_CHECKED = 4             # the largest SW launches of a collapse run checked
-PROBE_KERNELS = ('sw_score_ends', 'sw_rowscan', 'sw_chain', 'int16_probe')
+PROBE_KERNELS = ('sw_score_ends', 'sw_rowscan', 'sw_chain', 'int16_probe',
+                 'int16_probe_all')
 BENCH = (512, 1024, 4096)
 TIMED = (('bench', BENCH), ('square', (512, 1024, 1024)),
          ('main64', (64, 28, 16384)), ('main128', (128, 54, 16384)),
@@ -583,20 +605,30 @@ def phase_probe_path():
 
 def phase_probe_exact(torch, dev):
     """Every int16 probe against its plain version on each of its
-    ``probe_cases`` (the TPU probe's input, negative lanes, wrapping lanes).
-    Exact, or it raises; returns the max abs difference."""
+    ``probe_cases`` (the TPU probe's input, negative lanes, wrapping lanes),
+    launched alone and all six in one launch.  Exact, or it raises; returns
+    the max abs difference of each entry point."""
     from ciri_long_tpu_torch.misc.int16_probe import (PROBES,
+                                                      int16_probe_all_cuda,
                                                       int16_probe_cuda,
                                                       probe_cases)
 
-    worst = 0
-    for probe in PROBES:
-        for label, x in probe_cases(probe, dev):
+    worst = {'int16_probe': 0, 'int16_probe_all': 0}
+    cases = [probe_cases(probe, dev) for probe in PROBES]
+    for probe, mine in zip(PROBES, cases):
+        for label, x in mine:
             err = _max_err([int16_probe_cuda(probe, x)], [probe.plain(x)])
             emit('probe_exact', probe=probe.name, case=label,
                  shape=list(probe.shape), max_abs_err=err)
-            worst = max(worst, err)
-    if worst:
+            worst['int16_probe'] = max(worst['int16_probe'], err)
+    for k in range(len(cases[0])):
+        xs = [mine[k][1] for mine in cases]
+        errs = [_max_err([got], [probe.plain(x)]) for probe, x, got in
+                zip(PROBES, xs, int16_probe_all_cuda(xs))]
+        emit('probe_exact', probe='all six in one launch',
+             case=cases[0][k][0], max_abs_err=errs)
+        worst['int16_probe_all'] = max([worst['int16_probe_all']] + errs)
+    if any(worst.values()):
         raise AssertionError('an int16 probe disagrees with its plain version')
     return worst
 
@@ -667,6 +699,7 @@ def phase_probe_time(torch, dev, smi):
     cost per launch), plain times the wall of the calls."""
     import numpy as np
     from ciri_long_tpu_torch.misc.int16_probe import (PROBES,
+                                                      int16_probe_all_cuda,
                                                       int16_probe_cuda,
                                                       probe_input)
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S, PARAMS,
@@ -726,6 +759,28 @@ def phase_probe_time(torch, dev, smi):
              bound_by='bytes', card=smi, **t)
         for key, ms in t.items():
             probes[key] += ms
+    # the six in one launch beside the six launches (both a graph's replay)
+    # and the six PyTorch calls
+    xs = [probe_input(probe, dev) for probe in PROBES]
+
+    def six():
+        for probe, x in zip(PROBES, xs):
+            int16_probe_cuda(probe, x)
+
+    def six_plain():
+        for probe, x in zip(PROBES, xs):
+            probe.plain(x)
+
+    probes['all_ms'] = time_launches(lambda: int16_probe_all_cuda(xs), 200,
+                                     dev, graph=True)
+    probes['six_launches_ms'] = time_launches(six, 200, dev, graph=True)
+    probes['six_plain_graph_ms'] = time_launches(six_plain, 200, dev,
+                                                 graph=True)
+    emit('probe_time', probe='all six in one launch', ms=probes['all_ms'],
+         six_launches_ms=probes['six_launches_ms'],
+         library_ms=probes['six_plain_graph_ms'],
+         bound_ms=probes['bound_ms'], bound_by='bytes',
+         bound_share=probes['bound_ms'] / probes['all_ms'], card=smi)
     return sw, probes
 
 
@@ -772,17 +827,41 @@ def compare_tb(torch, dev, label, q, r, n, m, scores):
     return err
 
 
+def compare_poa(torch, dev, label, arrays):
+    """csrc/poa_align.cu against the plain version on one batch (numpy
+    batch_arrays), on the card, exact: scores, pair counts and every pair.
+    Returns the max abs difference or raises."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.poa_batch import (poa_align_batch_cuda,
+                                                   poa_align_batch_plain)
+    args = [torch.as_tensor(x).to(dev).contiguous() for x in arrays]
+    got = poa_align_batch_cuda(*args)
+    want = poa_align_batch_plain(*args)
+    torch.cuda.synchronize(dev)
+    err = _max_err(list(got), list(want))
+    bases, offs = arrays[0], arrays[1]
+    emit('kernel_vs_plain', kernel='poa_align', case=label,
+         B=int(bases.shape[0]), Vmax=int(bases.shape[1]),
+         nmax=int(arrays[3].shape[1]),
+         max_indegree=int(np.diff(offs, axis=1).max(initial=0)),
+         max_abs_err=err, pairs=int(want[2].sum().item()))
+    if err:
+        raise AssertionError('poa_align disagrees with plain on ' + label)
+    return err
+
+
 def phase_collapse_kernels(torch, dev):
-    """Phase 6: collapse's kernels on tools/collapse_cases.py's cases;
-    {name: max err}."""
+    """Phase 6: collapse's kernels on tools/collapse_cases.py's and
+    tools/poa_cases.py's cases; {name: max err}."""
     import numpy as np
     from ciri_long_tpu_torch.ops.sw_tb_batch import pack_jobs
     from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
+    from ciri_long_tpu_torch.tools.poa_cases import poa_cases
 
     from ciri_long_tpu_torch.utils.dispatch import ROUTES
 
     rng = np.random.default_rng(20261017)
-    errs = {'edit_distance': 0, 'sw_traceback': 0}
+    errs = {'edit_distance': 0, 'sw_traceback': 0, 'poa_align': 0}
     before = dict(ROUTES)
     for label, a, b, alen, blen in edit_cases(rng):
         errs['edit_distance'] = max(errs['edit_distance'], compare_edit(
@@ -790,6 +869,10 @@ def phase_collapse_kernels(torch, dev):
     for label, qs, rs, scores in tb_cases(rng):
         errs['sw_traceback'] = max(errs['sw_traceback'], compare_tb(
             torch, dev, label, *pack_jobs(qs, rs), scores))
+    for label, arrays in poa_cases(np.random.default_rng(20261019),
+                                   wide=True):
+        errs['poa_align'] = max(errs['poa_align'], compare_poa(
+            torch, dev, label, arrays))
     routes = {k: ROUTES[k] - before[k] for k in COLLAPSE_ROUTES}
     emit('collapse_routes', routes=routes)
     if min(routes.values()) <= 0:
@@ -825,12 +908,15 @@ def _recording(torch, seen):
 
 
 # collapse's calls whose wall the run sums over its threads: the SW (fused
-# rounds and direct calls), the edit distances, the rotation's traceback and
-# the host POA
+# rounds and direct calls), the edit distances, the rotation's traceback,
+# the junction consensus (a host ``poa`` on both routes) and the sub-cluster
+# consensus (``poa_consensus_many``: csrc/poa_align.cu's rounds on cuda,
+# host ``poa`` calls on cpu)
 TIMED_CALLS = {'sw': ('_fused_sw', '_sw_many_vs_many_direct'),
                'edit': ('_edit_many_direct',),
                'traceback': ('sw_traceback_batch',),
-               'poa': ('poa', 'poa_consensus_many')}
+               'poa_junction': ('poa',),
+               'poa_subcluster': ('poa_consensus_many',)}
 # the stages of ops/sw_tb_batch.py::sw_traceback_batch on the card: packing
 # the jobs, the host-to-device copy, the route plan (its job lists copied
 # too), the launches (the host's side; on a recorded run also the
@@ -877,29 +963,54 @@ def _timing(module, calls, seconds, cpu=None):
     return undo
 
 
+def _recording_poa(calls):
+    """Wrap collapse's ``poa_consensus_many`` so that each call on the card
+    appends (jobs, consensus list, the round loop's stats of the call) to
+    ``calls``; returns the undo."""
+    from ciri_long_tpu_torch.pipeline import collapse
+
+    real = collapse.poa_consensus_many
+
+    def recorder(jobs, *args, **kw):
+        stats = {}
+        out = real(jobs, *args, stats=stats, **kw)
+        calls.append((jobs, out, stats))
+        return out
+
+    collapse.poa_consensus_many = recorder
+
+    def undo():
+        collapse.poa_consensus_many = real
+    return undo
+
+
 def run_collapse(torch, label, ref, cand_circ, root):
     """``collapse`` through the CLI on one sample, --device cuda (its kernel
-    inputs recorded) then --device cpu, with the launch counts set to 0
-    before and read after each run.  Raises unless the four files are
-    byte-identical, the corrected clusters and counters equal, every
-    kernel launched on cuda and none on cpu.  Returns the recorded inputs
-    and the phase's fields."""
+    inputs and its sub-cluster POA calls recorded) then --device cpu, with
+    the launch counts set to 0 before and read after each run.  Raises
+    unless the four files are byte-identical, the corrected clusters and
+    counters equal, every kernel launched on cuda and none on cpu.  Returns
+    the recorded inputs, the phase's fields and the recorded POA calls."""
     import pickle
     from ciri_long_tpu_torch.cli.main import main
     from ciri_long_tpu_torch.ops import sw_tb_batch
     from ciri_long_tpu_torch.pipeline import collapse
     from ciri_long_tpu_torch.tools.world import sample_list
-    from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS, ROUTES,
+    from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS,
+                                                    DEVICE_MS, ROUTES,
                                                     launch_counts,
                                                     reset_launches)
 
     lst = sample_list(os.path.join(root, 'samples.lst'), [('s1', cand_circ)])
-    seen = {name: [] for name in COLLAPSE_KERNELS}
+    seen = {name: [] for name in COLLAPSE_KERNELS if name != 'poa_align'}
+    poa_calls = []
     runs = {}
     for device in ('cuda', 'cpu'):
         out = os.path.join(root, 'collapse_' + device)
         shutil.rmtree(out, ignore_errors=True)
         undo = _recording(torch, seen) if device == 'cuda' else (lambda: 0)
+        undo_poa = _recording_poa(poa_calls) if device == 'cuda' else \
+            (lambda: 0)
         host_s, tb_wall, tb_cpu = {}, {}, {}
         untime = _timing(collapse, TIMED_CALLS, host_s)
         untime_tb = _timing(sw_tb_batch, TB_STAGES, tb_wall, tb_cpu)
@@ -911,15 +1022,17 @@ def run_collapse(torch, label, ref, cand_circ, root):
             wall = time.perf_counter() - t0
             launches = launch_counts(COLLAPSE_KERNELS)
             routes = dict(ROUTES)
+            device_ms = dict(DEVICE_MS)
         finally:
             untime_tb()
             untime()
+            undo_poa()
             undo()
         with open(os.path.join(out, 'tmp', 'smoke.corrected.pkl'), 'rb') as f:
             circ_num, corrected = pickle.load(f)
         runs[device] = dict(
             wall_s=wall, launches=launches, routes=routes, host_s=host_s,
-            tb_split=dict(wall_s=tb_wall, cpu_s=tb_cpu),
+            device_ms=device_ms, tb_split=dict(wall_s=tb_wall, cpu_s=tb_cpu),
             files={ext: Path(out, 'smoke.' + ext).read_bytes()
                    for ext in COLLAPSE_FILES},
             counters=dict(circ_num), corrected=corrected)
@@ -939,6 +1052,9 @@ def run_collapse(torch, label, ref, cand_circ, root):
         cuda_wall_s=gpu['wall_s'], cpu_wall_s=cpu['wall_s'],
         cuda_calls_s=gpu['host_s'], cpu_calls_s=cpu['host_s'],
         cuda_traceback_split=gpu['tb_split'],
+        poa_device_ms=gpu['device_ms']['poa_align'],
+        poa_calls=len(poa_calls),
+        poa_jobs=sum(len(c[0]) for c in poa_calls),
         recorded={k: len(v) for k, v in seen.items()})
     emit('collapse', **fields)
     if not all(identical.values()) or not fields['counters_equal'] \
@@ -957,7 +1073,89 @@ def run_collapse(torch, label, ref, cand_circ, root):
     if n_circ <= 0:
         raise AssertionError('collapse found no circRNA on the {} '
                              'world'.format(label))
-    return seen, fields
+    return seen, fields, poa_calls
+
+
+def poa_checks(torch, dev, smi, label, calls, rate):
+    """A collapse run's sub-cluster POA on the card (``calls``, recorded by
+    _recording_poa): every job replayed through the native ``poa``,
+    byte-identical; then the call that held the largest launch (by cells)
+    replayed to keep that launch's inputs (ops/poa.py::poa_launch_inputs),
+    checked against the plain version, timed (a CUDA graph's replay of 10
+    launches) beside the plain version and the bound: its cell updates,
+    V x (n + 1) a job, at ``rate``, the card's rate for this update, or
+    the bytes it must move at the HBM rate, whichever is larger (the
+    inputs read once, the pairs, scores and counts written once, and the
+    16-bit direction word of each of the (V + 1) x (n + 1) cells, which
+    the walk reads; H, F1 and F2 need not leave the chip).  One JSON line;
+    returns its fields."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from ciri_long_tpu_torch.misc.kexp import HBM_BYTES_PER_S, time_launches
+    from ciri_long_tpu_torch.ops import poa as poa_mod
+    from ciri_long_tpu_torch.ops.poa_batch import (DIR_BYTES,
+                                                   poa_align_batch_cuda,
+                                                   poa_align_batch_plain)
+
+    def native(job):
+        return poa_mod.poa(job, 2, False, 10, -4, -8, -2, -24, -1)[0]
+
+    jobs = [job for c in calls for job in c[0]]
+    got = [ccs for c in calls for ccs in c[1]]
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        want = list(pool.map(native, jobs))
+    differ = sum(not _same(a, b) for a, b in zip(got, want))
+    if differ or not calls:
+        raise AssertionError('{}: {} of {} sub-cluster consensus differ from '
+                             'the native poa ({} calls)'.format(
+                                 label, differ, len(jobs), len(calls)))
+
+    big_call = max(calls, key=lambda c: c[2]['largest_cells'])
+    again, arrays = poa_mod.poa_launch_inputs(big_call[0], big_call[2],
+                                              device=dev)
+    if not all(_same(a, b) for a, b in zip(again, big_call[1])):
+        raise AssertionError('{}: a replayed POA call differs'.format(label))
+    err = compare_poa(torch, dev, label + ' largest poa_align launch',
+                      arrays)
+    bases, offs, preds, seqs, nv, ns = arrays
+    args = [torch.as_tensor(x).to(dev).contiguous() for x in arrays]
+    pairs = int(poa_align_batch_cuda(*args)[2].sum().item())
+    ms = time_launches(lambda: poa_align_batch_cuda(*args, checked=True),
+                       10, dev, graph=True)
+    plain_ms = time_launches(lambda: poa_align_batch_plain(*args), 1, dev)
+    nv64, ns64 = nv.astype(np.int64), ns.astype(np.int64)
+    updates = int((nv64 * (ns64 + 1)).sum())
+    cells = int(((nv64 + 1) * (ns64 + 1)).sum())
+    nbytes = DIR_BYTES * cells + int(nv64.sum() + ns64.sum()) + \
+        4 * int((nv64 + 1).sum() + preds.size) + 8 * pairs + 8 * len(nv)
+    ops_ms = updates / rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms else \
+        (bytes_ms, 'bytes')
+    fields = dict(
+        world=label, calls=len(calls), jobs=len(jobs), identical_to_native=
+        len(jobs) - differ, launches=sum(c[2]['launches'] for c in calls),
+        run_device_ms=sum(c[2]['device_ms'] for c in calls),
+        largest=dict(B=int(len(nv)), Vmax=int(bases.shape[1]),
+                     nmax=int(seqs.shape[1]), cells=cells, updates=updates,
+                     pairs=pairs, max_indegree=int(
+                         np.diff(offs, axis=1).max(initial=0)),
+                     run_ms=big_call[2]['largest_ms']),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / ms, ops_bound_ms=ops_ms,
+        bytes_bound_ms=bytes_ms, max_abs_err=err, card=smi)
+    emit('collapse_poa', **fields)
+    return fields
+
+
+def _same(a, b):
+    """Two consensus results equal in form and bytes."""
+    import numpy as np
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    return np.asarray(a).dtype == np.asarray(b).dtype and \
+        np.array_equal(a, b)
 
 
 def _real(x, torch):
@@ -1070,21 +1268,25 @@ def sw_route_split(torch, dev, smi, label, args_list, times, rate,
 
 
 def phase_collapse(torch, dev, smi, world_ref):
-    """Phase 7: collapse on phase 4's cand_circ.fa, then its SW launches by
-    route; {name: max err}."""
-    from ciri_long_tpu_torch.misc.kexp import peak_cell_rate
+    """Phase 7: collapse on phase 4's cand_circ.fa, then its sub-cluster POA
+    and its SW launches by route; ({name: max err}, the POA's fields)."""
+    from ciri_long_tpu_torch.misc.kexp import peak_cell_rate, recurrence_rate
 
     root = os.path.join(WORK, 'collapse_call_world')
     os.makedirs(root, exist_ok=True)
-    seen, _ = run_collapse(torch, 'call', world_ref,
-                           os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'),
-                           root)
+    seen, fields, poa_calls = run_collapse(
+        torch, 'call', world_ref,
+        os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'), root)
     errs = check_recorded(torch, dev, seen, label='call world collapse')
+    poa = poa_checks(torch, dev, smi, 'call', poa_calls,
+                     recurrence_rate(dev, 'poa_align'))
+    errs['poa_align'] = poa['max_abs_err']
     sw_args = seen['sw_score_ends']
     sw_route_split(torch, dev, smi, 'call', sw_args,
                    [_time_recorded(torch, dev, 'sw_score_ends', a, 3)
                     for a in sw_args], peak_cell_rate(dev))
-    return errs
+    return errs, dict(poa, launches=fields['launches']['poa_align'],
+                      device_ms=fields['poa_device_ms'])
 
 
 def _time_recorded(torch, dev, name, args, n_iter):
@@ -1176,7 +1378,7 @@ def phase_collapse_full(torch, dev, smi):
           '-p', 'cohort', '-t', '1', '--device', 'cuda'])
     call_s = time.perf_counter() - t0
     emit('cohort_call', n_reads=n_reads, wall_s=call_s, cohort=COHORT)
-    seen, fields = run_collapse(
+    seen, fields, poa_calls = run_collapse(
         torch, 'cohort', ref, os.path.join(root, 'call',
                                            'cohort.cand_circ.fa'), root)
     errs = check_recorded(torch, dev, seen, sw_count=2, tb_all=False,
@@ -1184,8 +1386,12 @@ def phase_collapse_full(torch, dev, smi):
     rates = {'sw_score_ends': peak_cell_rate(dev),
              'edit_distance': recurrence_rate(dev, 'edit_distance'),
              'sw_traceback': recurrence_rate(dev, 'sw_traceback'),
-             'edit_cell': recurrence_rate(dev, 'edit_cell')}
+             'edit_cell': recurrence_rate(dev, 'edit_cell'),
+             'poa_align': recurrence_rate(dev, 'poa_align')}
     emit('cell_rate', collapse_updates_per_s=rates, card=smi)
+    poa = poa_checks(torch, dev, smi, 'cohort', poa_calls,
+                     rates['poa_align'])
+    errs['poa_align'] = poa['max_abs_err']
     largest = {}
     for name, args_list in seen.items():
         work = [launch_work(name, a, torch) for a in args_list]
@@ -1210,12 +1416,17 @@ def phase_collapse_full(torch, dev, smi):
             largest[name]['cell_bound_ms'] = (
                 largest[name]['largest_cells'] / rates['edit_cell'] * 1e3)
         emit('collapse_kernel_time', kernel=name, card=smi, **largest[name])
+    largest['poa_align'] = dict(
+        poa, launches=fields['launches']['poa_align'],
+        device_ms=fields['poa_device_ms'],
+        shape=[poa['largest'][k] for k in ('B', 'Vmax', 'nmax')])
     emit('collapse_full', reads=n_reads, cuda_wall_s=fields['cuda_wall_s'],
          cpu_wall_s=fields['cpu_wall_s'],
          cuda_reads_per_s=n_reads / fields['cuda_wall_s'],
          cpu_reads_per_s=n_reads / fields['cpu_wall_s'],
          device_ms={k: v['device_ms'] for k, v in largest.items()},
-         card=smi)
+         cuda_calls_s=fields['cuda_calls_s'],
+         cpu_calls_s=fields['cpu_calls_s'], card=smi)
     largest['sw_score_ends']['routes'] = routes
     return errs, largest, fields
 
@@ -1237,9 +1448,9 @@ def main():
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
     collapse_errs = phase_collapse_kernels(torch, dev)
-    for name, err in phase_collapse(torch, dev, smi,
-                                    os.path.join(WORK, 'world',
-                                                 'genome.fa')).items():
+    call_errs, call_poa = phase_collapse(
+        torch, dev, smi, os.path.join(WORK, 'world', 'genome.fa'))
+    for name, err in call_errs.items():
         collapse_errs[name] = max(collapse_errs.get(name, 0), err)
     full_errs, full, full_fields = phase_collapse_full(torch, dev, smi)
     for name, err in full_errs.items():
@@ -1323,11 +1534,32 @@ def main():
              plans_ms={shape: sw[shape]['chain_rows'] for shape in sw}),
         # the six probes summed; the library time is the card's own time of
         # the plain versions, each one PyTorch call
-        entry('int16_probe', probe_launches['int16_probe'], probe_err,
-              probes['ms'], probes['plain_ms'], probes['bound_ms'], 'bytes',
-              probes['library_ms']),
+        entry('int16_probe', probe_launches['int16_probe'],
+              probe_err['int16_probe'], probes['ms'], probes['plain_ms'],
+              probes['bound_ms'], 'bytes', probes['library_ms']),
+        # the six in one launch, beside the six launches' graph
+        dict(entry('int16_probe_all', probe_launches['int16_probe_all'],
+                   probe_err['int16_probe_all'], probes['all_ms'],
+                   probes['plain_ms'], probes['bound_ms'], 'bytes',
+                   probes['six_plain_graph_ms']),
+             source=CSRC + 'int16_probe.cu',
+             six_launches_ms=probes['six_launches_ms']),
         collapse_entry('edit_distance'),
         collapse_entry('sw_traceback'),
+        # the largest launch of the cohort's sub-cluster POA, its launches
+        # and their summed device time (CUDA events in the run); phase 7's
+        # numbers beside them
+        dict(entry('poa_align', full_fields['launches']['poa_align'],
+                   collapse_errs['poa_align'], full['poa_align']['ms'],
+                   full['poa_align']['plain_ms'],
+                   full['poa_align']['bound_ms'],
+                   full['poa_align']['bound_by']),
+             shape=full['poa_align']['shape'],
+             collapse_device_ms=full['poa_align']['device_ms'],
+             largest=full['poa_align']['largest'],
+             call_world={k: call_poa[k] for k in (
+                 'launches', 'device_ms', 'ms', 'plain_ms', 'bound_ms',
+                 'bound_by', 'largest')}),
     ]
     print(smi)
     print(json.dumps({'kernels': kernels}))

@@ -7,7 +7,7 @@ partial, main.py:96-100, plus ``timing``), and a ``kernels`` section with
 the launch count of each hand-written kernel; the ``collapse`` subcommand
 with the same flags, tmp/ index, gcodes cache and tmp/{prefix}.corrected.pkl
 resume and the same .info, .reads, .expression and .isoforms files, its
-kernels' launch counts in its log.  ``--device {cuda,cpu}`` (default cuda)
+kernels' launch counts and poa_align's device time in its log.  ``--device {cuda,cpu}`` (default cuda)
 picks where the kernels run; asking for cuda without a GPU raises, and so
 does -t > 1 with cuda.
 """
@@ -230,7 +230,7 @@ def collapse(args):
     from ciri_long_tpu_torch.io.genome import Genome
     from ciri_long_tpu_torch.pipeline import collapse as collapse_mod
     from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS,
-                                                    launch_counts,
+                                                    DEVICE_MS, launch_counts,
                                                     reset_launches,
                                                     resolve_device)
     from ciri_long_tpu_torch.utils.logger import StageTimer, get_logger
@@ -321,6 +321,8 @@ def collapse(args):
     logger.info('circRNAs: {}  isoforms: {}'.format(circ_cnt, iso_cnt))
     logger.info('kernels: {}'.format(json.dumps(
         launch_counts(COLLAPSE_KERNELS))))
+    # the device time of the launches a host loop times itself
+    logger.info('device ms: {}'.format(json.dumps(DEVICE_MS)))
     logger.info('collapse stage done')
     return circ_cnt, iso_cnt
 

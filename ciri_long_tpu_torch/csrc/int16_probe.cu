@@ -19,6 +19,12 @@
 //
 // Bound: bytes; each word is read once and written once, one to three
 // integer operations per word.
+//
+// int16_probe_all_launch runs all six in one launch (the redesign: each
+// probe moves 128-512 KB, so six launches cost six times the card's
+// per-launch floor, far more than their bytes): the grid's blocks are split
+// by probe, an elementwise probe's blocks taking VEC words a thread in one
+// 16-byte load and store, the roll's rows taking one block each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,6 +73,64 @@ __global__ void probe_roll16(const unsigned* __restrict__ x,
     out[base + w] = (cur << 16) | (prev >> 16);
 }
 
+constexpr int PROBES = 6;
+constexpr int VEC = 4;            // words a thread of an elementwise probe
+
+// The elementwise probes' word operation (probe 3, the roll, is not one).
+__device__ __forceinline__ unsigned word_op(int probe, unsigned v) {
+    switch (probe) {
+        case 0: return __vadd2(v, 0x00010001u);
+        case 1: return __vmaxs2(v, 0x00030003u);
+        case 2: {
+            const unsigned keep = __vcmpgts2(v, 0u);
+            return (v & keep) | ~keep;
+        }
+        case 4: return __vadd4(v, 0x01010101u);
+        default: return v;
+    }
+}
+
+struct AllProbes {
+    const unsigned* x[PROBES];
+    unsigned* out[PROBES];
+    int n_words[PROBES];
+    int first_block[PROBES + 1];   // probe p runs blocks [first, next first)
+    int row_words;                 // the roll's row, at most THREADS
+};
+
+__global__ void __launch_bounds__(THREADS) probe_all(AllProbes a) {
+    __shared__ unsigned words[THREADS];
+    int p = 0;
+    while (blockIdx.x >= a.first_block[p + 1]) ++p;   // uniform in a block
+    const int blk = blockIdx.x - a.first_block[p];
+    const unsigned* x = a.x[p];
+    unsigned* out = a.out[p];
+    const int t = threadIdx.x;
+    if (p == 3) {
+        const int rw = a.row_words;
+        const size_t base = (size_t)blk * rw;
+        const unsigned cur = t < rw ? x[base + t] : 0u;
+        words[t] = cur;
+        __syncthreads();
+        unsigned prev = __shfl_up_sync(FULL, cur, 1);
+        if ((t & 31) == 0) prev = words[(t + rw - 1) % rw];
+        if (t < rw) out[base + t] = (cur << 16) | (prev >> 16);
+        return;
+    }
+    const int n = a.n_words[p];
+    const int w0 = (blk * THREADS + t) * VEC;
+    if (w0 + VEC <= n) {
+        uint4 v = *reinterpret_cast<const uint4*>(x + w0);
+        v.x = word_op(p, v.x);
+        v.y = word_op(p, v.y);
+        v.z = word_op(p, v.z);
+        v.w = word_op(p, v.w);
+        *reinterpret_cast<uint4*>(out + w0) = v;
+    } else {
+        for (int w = w0; w < n; ++w) out[w] = word_op(p, x[w]);
+    }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes: probe 0-5 as listed above over ``n_words``
@@ -95,5 +159,34 @@ extern "C" int int16_probe_launch(int probe, const void* x, void* out,
         case 5: probe_elementwise<5><<<blocks, THREADS, 0, st>>>(xin, y, n_words); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// All six probes in one launch: ``xs`` and ``outs`` the six probes' word
+// arrays (16-byte aligned, as PyTorch allocates them), ``n_words`` their
+// sizes, the roll's rows of ``row_words`` words (a multiple of 32, at most
+// THREADS).  Launches on ``stream`` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a roll row it does not take.
+extern "C" int int16_probe_all_launch(const void* const* xs,
+                                      void* const* outs, const int* n_words,
+                                      int row_words, void* stream) {
+    if (row_words <= 0 || row_words > THREADS || row_words % 32 != 0 ||
+        n_words[3] % row_words != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    AllProbes a;
+    a.row_words = row_words;
+    a.first_block[0] = 0;
+    for (int p = 0; p < PROBES; ++p) {
+        a.x[p] = static_cast<const unsigned*>(xs[p]);
+        a.out[p] = static_cast<unsigned*>(outs[p]);
+        a.n_words[p] = n_words[p];
+        const int blocks = p == 3 ? n_words[p] / row_words
+                                  : (n_words[p] + THREADS * VEC - 1) /
+                                        (THREADS * VEC);
+        a.first_block[p + 1] = a.first_block[p] + blocks;
+    }
+    if (a.first_block[PROBES] == 0) return 0;
+    probe_all<<<a.first_block[PROBES], THREADS, 0,
+                static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());
 }

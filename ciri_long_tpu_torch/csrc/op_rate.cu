@@ -34,6 +34,13 @@
 //     with the row above's delta hin, and hout, the delta at the word's top
 //     row, which is the next update's hin.  A "cell" of this kind is one
 //     word update: 32 DP cells.
+//   kind 3, the graph alignment of collapse's POA (csrc/poa_align.cu), a
+//     cell with one predecessor: F1 = max(F1_up + e1, H_up + o1) and F2
+//     alike (DPX add-max each), M = max(H_diag, source) + s with its slot
+//     (compare, select, compare, select, add), Hpre = max3, the two E
+//     pieces from running prefix maxima of Hpre - j e (sub, max, add each),
+//     H = max3, and the direction word: five compares, three selects, a
+//     shift and an or.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -191,6 +198,53 @@ myers_rate_kernel(int steps, int q, int* out) {
     if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
 }
 
+__global__ void __launch_bounds__(THREADS)
+poa_rate_kernel(int steps, int q, int match, int mismatch, int* out) {
+    constexpr int o1 = -8, e1 = -2, o2 = -24, e2 = -1;
+    int h[CHAINS], f1[CHAINS], f2[CHAINS], m1[CHAINS], m2[CHAINS];
+    unsigned acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        h[k] = threadIdx.x + k;
+        f1[k] = blockIdx.x + k;
+        f2[k] = k;
+        m1[k] = 2 * k;
+        m2[k] = 3 * k;
+    }
+    const int nmis = -mismatch;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int hu = h[k];
+            const int v1 = __viaddmax_s32(f1[k], e1, hu + o1);
+            const int v2 = __viaddmax_s32(f2[k], e2, hu + o2);
+            const int src = t + k;                       // the source row
+            const bool take_src = src > hu;
+            const int mb = take_src ? src : hu;
+            const int slot = take_src ? 1 : 0;
+            const int mrow = mb + ((hu & 3) == q ? match : nmis);
+            const int hp = max(mrow, max(v1, v2));
+            m1[k] = max(m1[k], hp - t * e1);
+            m2[k] = max(m2[k], hp - t * e2);
+            const int ev1 = m1[k] + o1 + t * e1;
+            const int ev2 = m2[k] + o2 + t * e2;
+            const int hn = max(hp, max(ev1, ev2));
+            const bool is_e = hn == ev1 || hn == ev2;
+            const bool is_m = hn == mrow;
+            const bool is_f = hn == v1 || hn == v2;
+            const int cs = is_e ? 1 : is_m ? 2 : is_f ? 3 : 0;
+            acc += (unsigned)((cs << 14) | (is_m && !is_e ? slot : 0));
+            f1[k] = v1;
+            f2[k] = v2;
+            h[k] = hn;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= h[k] ^ f1[k] ^ f2[k];
+    if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
@@ -216,8 +270,8 @@ extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 
 // The same for the updates of collapse's kernels: ``kind`` 0 the edit
 // distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
-// distance's word (see above).  Returns cudaErrorInvalidValue for another
-// kind.
+// distance's word, 3 the POA graph alignment's cell (see above).  Returns
+// cudaErrorInvalidValue for another kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
                                       int gap_extend, void* out,
@@ -231,6 +285,9 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
             steps, q, match, mismatch, gap_open, gap_extend, o);
     else if (kind == 2)
         myers_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
+    else if (kind == 3)
+        poa_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, match,
+                                                    mismatch, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

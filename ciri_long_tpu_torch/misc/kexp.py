@@ -75,10 +75,12 @@ _CELL_RATE_SYMBOLS = {
                                ctypes.c_int),
     'cell_rate_block_cells': ([], ctypes.c_int),
 }
-# recurrence_rate's kinds: the updates of collapse's two kernels, the edit
+# recurrence_rate's kinds: the updates of collapse's kernels, the edit
 # distance's by its bit-parallel word (32 rows of one column) and, to
-# compare with a cell-by-cell design, by its DP cell
-RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2}
+# compare with a cell-by-cell design, by its DP cell; the POA graph
+# alignment's cell with one predecessor
+RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2,
+               'poa_align': 3}
 
 
 def _rate(device, launcher, form):
@@ -108,7 +110,8 @@ def recurrence_rate(device, kernel):
     """``cell_rate``'s measure for the update of one of collapse's kernels
     (``RECURRENCES``: 'edit_distance', a Myers/Hyyro word update of 32 rows
     and one column; 'sw_traceback', a cell; 'edit_cell', one DP cell of the
-    edit distance), from csrc/op_rate.cu's register-only loop of that
+    edit distance; 'poa_align', a graph-alignment cell with one
+    predecessor), from csrc/op_rate.cu's register-only loop of that
     update: the operations bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])
 

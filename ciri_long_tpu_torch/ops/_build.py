@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/ciri_torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  A failed build raises.
+checkout, named by a hash of the source, the headers of ``csrc/`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  A failed build raises.
 Nothing here runs at import time.
 """
 
@@ -45,7 +46,8 @@ def build(source: str) -> Path:
     """Compile ``csrc/<source>`` if its library is missing; returns the
     library path."""
     src = CSRC / source
-    text = src.read_bytes()
+    text = src.read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(CSRC.glob('*.h')))
     tag = hashlib.sha1(text + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
     lib = BUILD_DIR / '{}_{}.so'.format(src.stem, tag)
     if lib.exists():
@@ -71,13 +73,16 @@ def build_all(sources):
 
 def load(source: str, symbols):
     """ctypes handle on the built ``csrc/<source>``; ``symbols`` maps each
-    C function name to its (argtypes, restype)."""
+    C function name to its (argtypes, restype), set on the first load that
+    names it (callers of one source may each name their own functions)."""
     with _LOCK:
         if source not in _LIBS:
-            handle = ctypes.CDLL(str(build(source)))
-            for name, (argtypes, restype) in symbols.items():
+            _LIBS[source] = (ctypes.CDLL(str(build(source))), set())
+        handle, typed = _LIBS[source]
+        for name, (argtypes, restype) in symbols.items():
+            if name not in typed:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _LIBS[source] = handle
-        return _LIBS[source]
+                typed.add(name)
+        return handle

@@ -18,10 +18,22 @@ sequence is fully consumed, graph overhangs on both sides are free.
 The per-sequence DP runs one numpy-vectorized row per graph node in
 topological order, with the within-row gap dependency resolved by the
 prefix-max identity (exact while |open| >= |extend|, which holds for both
-pieces).  Host half of ciri_long_tpu/ops/poa.py: the native core
-(native/poacore.cpp) when built, this Python graph otherwise.
+pieces).  ``poa`` is the host half of ciri_long_tpu/ops/poa.py: the native
+core (native/poacore.cpp) when built, this Python graph otherwise.
+
+``poa_consensus_many`` runs a batch of independent ``poa`` calls: on a CUDA
+device in rounds, every job's next alignment in one launch of
+csrc/poa_align.cu, the graphs kept and fused in host C++
+(csrc/poa_graph.h) by the same source's round loop, called through
+ctypes (the interpreter lock released for the whole call); on the CPU as
+``poa`` calls.  ``poa_consensus_many_plain`` is the same round structure in
+Python on ops/poa_batch.py::poa_align_batch_plain (the JAX package's device
+branch, ciri_long_tpu/ops/poa.py:393-485, with CSR predecessor lists in
+place of its P <= 8 slots, so no alignment falls back to the native core).
+The results are byte-identical on every route.
 """
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -288,13 +300,210 @@ def _consensus(g: _Graph) -> np.ndarray:
     return np.array([g.base[v] for v in path], np.int8)
 
 
+def _flatten_graph(g: _Graph):
+    """Rank-space CSR of ``g`` for ops/poa_batch.py: (order, bases int32
+    [V], offs int32 [V+1] from 0, preds int32 [E]), each node's
+    predecessors as rank + 1 in insertion order, [0] (the virtual source)
+    for a node without any (ciri_long_tpu/ops/poa.py::_flatten_graph with
+    lists in place of its P slots)."""
+    order = g.topo_order()
+    rank = {v: i for i, v in enumerate(order)}
+    bases = np.array([g.base[v] for v in order], np.int32)
+    offs = np.zeros(len(order) + 1, np.int32)
+    preds: List[int] = []
+    for i, v in enumerate(order):
+        preds.extend([rank[p] + 1 for p in g.in_edges[v]] or [0])
+        offs[i + 1] = len(preds)
+    return order, bases, offs, np.asarray(preds, np.int32)
+
+
+def _queues(jobs):
+    """Each job's sequences as int8 codes, and whether it came as strings."""
+    as_str = [bool(seqs) and isinstance(seqs[0], str) for seqs in jobs]
+    codes = [[encode_seq(s) if isinstance(s, str) else np.asarray(s, np.int8)
+              for s in seqs] for seqs in jobs]
+    return codes, as_str
+
+
+def _result(job, as_str, cons):
+    """A job's consensus in its input's form; ``cons`` None when the job
+    had no non-empty sequence (poa()'s empty result)."""
+    if cons is None:
+        return "" if (not job or as_str) else np.zeros(0, np.int8)
+    return decode_seq(cons) if as_str else cons
+
+
+def poa_consensus_many_plain(jobs: Sequence[Sequence], m: int = 10,
+                             x: int = -4, o1: int = -8, e1: int = -2,
+                             o2: int = -24, e2: int = -1):
+    """The rounds of ``poa_consensus_many`` in Python, each round's
+    alignments one call of the plain ops/poa_batch.py::
+    poa_align_batch_plain on CPU tensors: the JAX package's device branch
+    (ciri_long_tpu/ops/poa.py:393-485), byte-identical to ``poa`` per
+    job."""
+    import torch
+
+    from ciri_long_tpu_torch.ops.poa_batch import (batch_arrays,
+                                                   poa_align_batch_plain)
+
+    codes, as_str = _queues(jobs)
+    queues = [[c for c in q if len(c) > 0] for q in codes]
+    graphs: List[Optional[_Graph]] = [None] * len(jobs)
+    cursor = [0] * len(jobs)
+    for t, q in enumerate(queues):
+        if not q:
+            continue
+        g = _Graph()
+        prev = None
+        for b in q[0]:
+            cur = g.new_node(int(b))
+            g.support[cur] += 1
+            if prev is not None:
+                g.add_edge(prev, cur)
+            prev = cur
+        graphs[t] = g
+        cursor[t] = 1
+
+    while True:
+        pending = [t for t in range(len(jobs))
+                   if graphs[t] is not None and cursor[t] < len(queues[t])]
+        if not pending:
+            break
+        flats = [_flatten_graph(graphs[t]) for t in pending]
+        seqs = [queues[t][cursor[t]] for t in pending]
+        arrays = batch_arrays([f[1:] for f in flats], seqs)
+        _, aln, acnt = poa_align_batch_plain(
+            *(torch.from_numpy(a) for a in arrays), (m, x, o1, e1, o2, e2))
+        aln, acnt = aln.numpy(), acnt.numpy()
+        cap = aln.shape[1]
+        for b, t in enumerate(pending):
+            order = flats[b][0]
+            pairs = aln[b, cap - int(acnt[b]):]
+            _fuse(graphs[t], seqs[b],
+                  [(order[r] if r >= 0 else None, int(p) if p >= 0 else None)
+                   for r, p in pairs])
+            cursor[t] += 1
+
+    return [_result(job, a, None if g is None else _consensus(g))
+            for job, a, g in zip(jobs, as_str, graphs)]
+
+
+_STREAMS = threading.local()
+# the fields of csrc/poa_align.cu::poa_consensus_run's stats, after
+# 'launches' those of its largest launch (by cells)
+STATS_FIELDS = ('launches', 'largest_round', 'largest_jobs', 'largest_vmax',
+                'largest_nmax', 'largest_preds', 'largest_cells')
+
+
+def _thread_stream(device):
+    """This thread's own stream on ``device``: one cluster's rounds never
+    wait on another's."""
+    import torch
+
+    streams = getattr(_STREAMS, 'by_device', None)
+    if streams is None:
+        streams = _STREAMS.by_device = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
+    """``poa_consensus_many`` on the card: one call of csrc/poa_align.cu's
+    round loop for all the jobs.  ``stats`` (a dict) gets the loop's counts
+    (STATS_FIELDS, 'device_ms', 'largest_ms'); ``keep`` is an earlier such
+    dict of the same jobs, whose largest launch's inputs are kept and
+    returned beside the consensus list."""
+    import torch
+
+    from ciri_long_tpu_torch.ops import _build
+    from ciri_long_tpu_torch.ops.poa_batch import (MAX_INDEGREE, SYMBOLS,
+                                                   split_inputs)
+    from ciri_long_tpu_torch.utils.dispatch import count_launch
+
+    codes, as_str = _queues(jobs)
+    lens = np.array([len(c) for q in codes for c in q], np.int32)
+    counts = np.array([len(q) for q in codes], np.int32)
+    flat = [np.ascontiguousarray(c, np.uint8) for q in codes for c in q]
+    concat = np.concatenate(flat) if lens.sum() else np.zeros(1, np.uint8)
+    cons = np.zeros(max(1, int(lens.sum())), np.uint8)
+    cons_len = np.zeros(max(1, len(jobs)), np.int32)
+    counted = np.zeros(len(STATS_FIELDS), np.int64)
+    device_ms = np.zeros(2, np.float64)
+    kept, shape = None, None
+    if keep is not None:
+        shape = [keep['largest_' + k]
+                 for k in ('jobs', 'vmax', 'nmax', 'preds')]
+        B, V, n, E = shape
+        kept = np.zeros(B * V + B * (V + 1) + E + B * n + 2 * B + 1,
+                        np.int32)
+    lib = _build.load('poa_align.cu', SYMBOLS)
+    with torch.cuda.device(device):
+        stream = _thread_stream(device)
+        rc = lib.poa_consensus_run(
+            concat.ctypes.data, lens.ctypes.data if len(lens) else None,
+            counts.ctypes.data if len(counts) else None, len(jobs),
+            *scores, stream.cuda_stream, cons.ctypes.data,
+            cons_len.ctypes.data, counted.ctypes.data, device_ms.ctypes.data,
+            -1 if keep is None else keep['largest_round'],
+            None if kept is None else kept.ctypes.data)
+    if counted[0]:
+        count_launch('poa_align', times=int(counted[0]),
+                     device_ms=float(device_ms[0]))
+    if rc == -1:
+        raise ValueError('poa_consensus_many: a graph node has more than {} '
+                         'predecessors, which csrc/poa_align.cu cannot '
+                         'store'.format(MAX_INDEGREE))
+    if rc != 0:
+        raise RuntimeError('poa_align round loop failed: cudaError {} ({} '
+                           'jobs)'.format(rc, len(jobs)))
+    if stats is not None:
+        stats.update(zip(STATS_FIELDS, counted.tolist()),
+                     device_ms=float(device_ms[0]),
+                     largest_ms=float(device_ms[1]))
+    out, off = [], 0
+    for t, job in enumerate(jobs):
+        k = int(cons_len[t])
+        out.append(_result(job, as_str[t], cons[off:off + k].astype(np.int8)
+                           if k else None))
+        off += int(sum(len(c) for c in codes[t]))
+    if keep is None:
+        return out
+    if counted[1:].tolist() != [keep[k] for k in STATS_FIELDS[1:]]:
+        raise RuntimeError('poa_launch_inputs: the replayed rounds differ '
+                           'from the stats given')
+    return out, split_inputs(kept[:-1], *shape)
+
+
+def poa_launch_inputs(jobs, stats, device='cuda', m=10, x=-4, o1=-8, e1=-2,
+                      o2=-24, e2=-1):
+    """For measurement: the inputs (ops/poa_batch.py::batch_arrays' layout)
+    of the largest launch of an earlier ``poa_consensus_many(jobs,
+    device=device, stats=stats)``, the rounds replayed on the card (they
+    are deterministic), and the replay's consensus list."""
+    from ciri_long_tpu_torch.utils.dispatch import resolve_device
+
+    return _poa_consensus_cuda(jobs, (m, x, o1, e1, o2, e2),
+                               resolve_device(device), keep=stats)
+
+
 def poa_consensus_many(jobs: Sequence[Sequence], m: int = 10, x: int = -4,
                        o1: int = -8, e1: int = -2, o2: int = -24,
-                       e2: int = -1):
-    """A batch of independent ``poa(seqs)`` calls (the host branch of
-    ciri_long_tpu/ops/poa.py::poa_consensus_many).  Its device branch, the
-    batched POA rounds of ops/poa_batch.py, is ROADMAP X6 and not ported
-    yet."""
+                       e2: int = -1, device='cuda', stats=None):
+    """A batch of independent ``poa(seqs)`` calls, byte-identical results,
+    on ``device`` (resolved by ``resolve_device``, which raises for 'cuda'
+    without a GPU): on the card, csrc/poa_align.cu's round loop, one
+    launch a round for every job with a sequence left (the graphs fused and
+    the consensus taken in host C++), its counts put in ``stats`` when it
+    is a dict; on the CPU, ``poa`` (the native ``poa_all``) for each job,
+    as the JAX package's ``use_device=False``.  A build or launch failure
+    raises: there is no host retry."""
+    from ciri_long_tpu_torch.utils.dispatch import resolve_device
+
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        return _poa_consensus_cuda(jobs, (m, x, o1, e1, o2, e2), device,
+                                   stats)
     return [poa(seqs, 2, False, m, x, o1, e1, o2, e2)[0] for seqs in jobs]
 
 

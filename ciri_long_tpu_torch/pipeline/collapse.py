@@ -7,14 +7,16 @@ cluster_sequence :458, curate_cirexons :557, merge_isoforms :709,
 cal_exp_mtx :903).
 
 The device is passed explicitly, from ``correct_reads`` down to every SW,
-edit-distance and traceback call:
+edit-distance, traceback and sub-cluster POA call:
   * ``cuda``: clusters run on a pool of DEVICE_THREADS threads; their SW
     and edit-distance jobs fuse across clusters through one DeviceFuser
     (parallel/fuser.py), each fused round a few launches of
     csrc/sw_score_ends.cu and csrc/edit_distance.cu; the rotation step
-    launches csrc/sw_traceback.cu once per cluster; the POA consensus runs
-    on the host (ops/poa.py::poa_consensus_many, the native core: its device
-    program is ROADMAP X6, not ported yet).
+    launches csrc/sw_traceback.cu once per cluster; the sub-cluster
+    consensus of ``cluster_sequence`` runs its alignments on the card
+    (ops/poa.py::poa_consensus_many: csrc/poa_align.cu, one launch a round
+    from host C++ on the calling thread's own stream); the junction
+    consensus of ``correct_cluster`` stays a host ``poa`` call.
   * ``cpu``: the native host cores, clusters on host threads when the mean
     cluster holds >= 100 reads, and with threads > 1 a spawn pool of host
     workers.
@@ -767,8 +769,8 @@ def cluster_sequence(hpc_freq, sequence, cfg=DEFAULT.collapse, device='cuda'):
             else:
                 clusters.append([j])
 
-    # multi-read sub-clusters run as one batch of POA jobs, on the host
-    # (the device POA, ROADMAP X6, is not ported yet)
+    # multi-read sub-clusters run as one batch of POA jobs on ``device``
+    # (on cuda, a launch of csrc/poa_align.cu a round for all of them)
     jobs = []
     slots = []
     ccs_seq = []
@@ -781,7 +783,8 @@ def cluster_sequence(hpc_freq, sequence, cfg=DEFAULT.collapse, device='cuda'):
         slots.append(len(ccs_seq))
         ccs_seq.append((None, cluster_reads))
     if jobs:
-        for slot, ccs in zip(slots, poa_consensus_many(jobs)):
+        for slot, ccs in zip(slots, poa_consensus_many(jobs,
+                                                       device=device)):
             ccs_seq[slot] = (ccs, ccs_seq[slot][1])
     return ccs_seq
 

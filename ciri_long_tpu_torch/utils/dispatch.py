@@ -9,7 +9,9 @@ CPU behind the user's back.
 ``launch_counts``; ``call`` and ``collapse`` reset them when they start and
 report those of ``CALL_KERNELS`` and ``COLLAPSE_KERNELS``), so a run can
 show that its path went through the kernel; ``ROUTES`` counts the
-launches of each kernel's routes beside it.
+launches of each kernel's routes beside it, and ``DEVICE_MS`` the device
+time of the launches that a host loop times itself (csrc/poa_align.cu's
+round loop, CUDA events around each launch).
 
 ``count_dispatch`` is the JAX package's env-gated accounting decorator
 (``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
@@ -32,11 +34,15 @@ _STATS = defaultdict(lambda: [0, 0.0])
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
-            'int16_probe': 0, 'edit_distance': 0, 'sw_traceback': 0}
+            'int16_probe': 0, 'int16_probe_all': 0, 'edit_distance': 0,
+            'sw_traceback': 0, 'poa_align': 0}
 # the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
-# int16_probe serve misc/kexp and misc/int16_probe)
+# the int16 probes serve misc/kexp and misc/int16_probe)
 CALL_KERNELS = ('sw_score_ends',)
-COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback')
+COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback',
+                    'poa_align')
+# kernel name -> ms of device time since the last reset_launches()
+DEVICE_MS = {'poa_align': 0.0}
 # route -> launches that ran it since the last reset_launches (``call``'s
 # summary leaves this out): csrc/sw_score_ends.cu's wave and tiled
 # (ops/sw.py::_tile_plan), csrc/edit_distance.cu's thread and warp routes
@@ -49,20 +55,25 @@ ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name, *routes):
-    """One launch of kernel ``name``, and one for each route of it that the
-    launch ran.  Locked: collapse's worker threads launch kernels side by
-    side, and ``+=`` on a dict entry is not atomic."""
+def count_launch(name, *routes, times=1, device_ms=None):
+    """``times`` launches of kernel ``name`` (one by default), and as many
+    for each route of it that the launches ran; ``device_ms`` adds their
+    device time to DEVICE_MS.  Locked: collapse's worker threads launch
+    kernels side by side, and ``+=`` on a dict entry is not atomic."""
     with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += times
         for route in routes:
-            ROUTES[route] += 1
+            ROUTES[route] += times
+        if device_ms is not None:
+            DEVICE_MS[name] += device_ms
 
 
 def reset_launches():
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
+    for name in DEVICE_MS:
+        DEVICE_MS[name] = 0.0
 
 
 def launch_counts(names=None):

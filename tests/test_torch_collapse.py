@@ -33,6 +33,7 @@ from ciri_long_tpu_torch.context import Context
 from ciri_long_tpu_torch.io.genome import Genome
 from ciri_long_tpu_torch.ops import edit, sw
 from ciri_long_tpu_torch.ops import sw_tb_batch as tb
+from ciri_long_tpu_torch.ops.poa import poa_consensus_many_plain
 from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
 from ciri_long_tpu_torch.pipeline import collapse as tcl
 from ciri_long_tpu_torch.tools.world import (make_world, sample_list,
@@ -295,11 +296,11 @@ def test_correct_cluster_matches_jax(cohort):
 # -- the cuda route's structure on the CPU ---------------------------------
 
 class _PlainKernels:
-    """Stand-ins for the three kernels' entry points on the cuda route: the
+    """Stand-ins for the four kernels' entry points on the cuda route: the
     plain PyTorch versions on CPU tensors, counted per call."""
 
     def __init__(self):
-        self.calls = {'sw': 0, 'edit': 0, 'tb': 0}
+        self.calls = {'sw': 0, 'edit': 0, 'tb': 0, 'poa': 0}
         self.devices = set()
         self.lock = threading.Lock()
 
@@ -330,6 +331,10 @@ class _PlainKernels:
         return tb.tb_results(*tb.sw_traceback_batch_plain(
             *args, match, mismatch, gap_open, gap_extend))
 
+    def poa_consensus_many(self, jobs, device):
+        self._count('poa', device)
+        return poa_consensus_many_plain(jobs)
+
 
 def _fake_cuda(monkeypatch, kernels):
     """Route collapse as on the card: its device resolves to one whose
@@ -337,7 +342,8 @@ def _fake_cuda(monkeypatch, kernels):
     fake = SimpleNamespace(type='cuda')
     monkeypatch.setattr(tcl, 'resolve_device', lambda d: fake)
     for name in ('sw_align_batch', 'sw_align_batch_submit',
-                 'edit_distance_batch', 'sw_traceback_batch'):
+                 'edit_distance_batch', 'sw_traceback_batch',
+                 'poa_consensus_many'):
         monkeypatch.setattr(tcl, name, getattr(kernels, name))
     return fake
 
@@ -372,6 +378,7 @@ def test_cuda_route_structure_matches_host_route(cohort, monkeypatch):
     assert len(rounds) == 1 and 0 < rounds[0][0] < rounds[0][1]
     assert kernels.calls['sw'] > 0 and kernels.calls['edit'] > 0
     assert kernels.calls['tb'] >= sum(len(c) >= 2 for c in clusters)
+    assert kernels.calls['poa'] > 0
     assert kernels.devices == {'cuda'}
 
 
@@ -401,7 +408,8 @@ def test_collapse_cli_matches_jax_on_skill_world(skill):
     log = (skill.root / 'out_port' / 'vtest.log').read_text()
     assert 'circRNAs: 1  isoforms: 1' in log
     assert ('kernels: {"sw_score_ends": 0, "edit_distance": 0, '
-            '"sw_traceback": 0}') in log
+            '"sw_traceback": 0, "poa_align": 0}') in log
+    assert 'device ms: {"poa_align": 0.0}' in log
 
 
 def test_collapse_cli_matches_jax_on_two_sample_cohort(cohort):

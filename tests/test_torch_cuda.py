@@ -2,10 +2,11 @@
 card: the SW scorer of ``call`` and ``collapse`` (csrc/sw_score_ends.cu,
 both routes, the wavefront under every plan it takes), the
 harness's row scan and chained wavefront (csrc/sw_rowscan.cu,
-csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu) and collapse's
-edit distance and SW with traceback (csrc/edit_distance.cu,
-csrc/sw_traceback.cu), with ``collapse --device cuda`` raising when a
-kernel cannot be built.  Marked
+csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu, one launch a
+probe and all six in one) and collapse's edit distance, SW with traceback
+and POA graph alignment (csrc/edit_distance.cu, csrc/sw_traceback.cu,
+csrc/poa_align.cu and its round loop, alone and from threads at once),
+with ``collapse --device cuda`` raising when a kernel cannot be built.  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -18,9 +19,12 @@ import pytest
 import torch
 
 from ciri_long_tpu_torch.misc import int16_probe, kexp
-from ciri_long_tpu_torch.ops import edit, sw
+from ciri_long_tpu_torch.ops import edit, poa_batch, sw
+from ciri_long_tpu_torch.ops import poa as poa_mod
 from ciri_long_tpu_torch.ops import sw_tb_batch as tb
 from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
+from ciri_long_tpu_torch.tools.poa_cases import poa_cases, star_graph
+from ciri_long_tpu_torch.tools.simulate import mutate
 from ciri_long_tpu_torch.tools.sw_cases import WAVE_LR, tile_cases, wave_cases
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
 
@@ -338,6 +342,19 @@ def test_int16_probe_matches_plain(dev, probe):
         assert got.dtype == want.dtype and torch.equal(got, want), label
 
 
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_int16_probes_in_one_launch_match_plain(dev, case):
+    xs = [int16_probe.probe_cases(p, dev)[case][1]
+          for p in int16_probe.PROBES]
+    before = LAUNCHES['int16_probe_all']
+    got = int16_probe.int16_probe_all(xs)
+    torch.cuda.synchronize()
+    assert LAUNCHES['int16_probe_all'] == before + 1
+    for probe, x, g in zip(int16_probe.PROBES, xs, got):
+        want = probe.plain(x)
+        assert g.dtype == want.dtype and torch.equal(g, want), probe.name
+
+
 def test_time_launches_in_a_graph_leaves_the_host_out(dev):
     probe = int16_probe.PROBES[0]
     x = int16_probe.probe_input(probe, dev)
@@ -515,3 +532,106 @@ def test_collapse_raises_when_a_kernel_cannot_be_built(dev, tmp_path,
     with pytest.raises(RuntimeError, match='nvcc failed'):
         main(['collapse', '-i', lst, '-o', str(tmp_path / 'bad'), '-r', ref,
               '-p', 'v', '--device', 'cuda'])
+
+
+# -- collapse's POA graph alignment (csrc/poa_align.cu) ---------------------
+
+def test_poa_align_matches_plain(dev):
+    """tools/poa_cases.py's cases, each launch exact against the plain
+    version on the card: scores, pair counts and every pair."""
+    for label, arrays in poa_cases(np.random.default_rng(7), wide=True):
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        before = LAUNCHES['poa_align']
+        got = poa_batch.poa_align_batch(*args)
+        want = poa_batch.poa_align_batch_plain(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES['poa_align'] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), label
+
+
+def _poa_jobs(rng, n_jobs, lo=20, hi=400):
+    jobs = []
+    for _ in range(n_jobs):
+        t = ''.join(rng.choice(list('ACGTN'), size=int(rng.integers(lo, hi))))
+        sub = float(rng.uniform(0.0, 0.12))
+        jobs.append([mutate(rng, t, sub=sub, ins=sub / 2, dele=sub / 2)
+                     for _ in range(int(rng.integers(2, 12)))])
+    return jobs + [[''], [], ['ACGT'], ['', 'GGGT', 'GGAT'],
+                   [np.array([0, 1, 2, 3, 0, 1], np.int8)] * 3]
+
+
+def _norm(xs):
+    return [x if isinstance(x, str) else (x.dtype.str, x.tolist())
+            for x in xs]
+
+
+def test_poa_round_loop_matches_host(dev):
+    """ops/poa.py::poa_consensus_many on the card equals poa() per job and
+    the plain rounds, byte for byte; it counts one launch a round and their
+    device time."""
+    from ciri_long_tpu_torch.utils.dispatch import DEVICE_MS
+
+    jobs = _poa_jobs(np.random.default_rng(11), 10)
+    before, ms = LAUNCHES['poa_align'], DEVICE_MS['poa_align']
+    stats = {}
+    got = poa_mod.poa_consensus_many(jobs, device='cuda', stats=stats)
+    rounds = max(len([s for s in job if len(s)]) for job in jobs) - 1
+    assert LAUNCHES['poa_align'] == before + rounds
+    assert stats['launches'] == rounds
+    assert DEVICE_MS['poa_align'] - ms == pytest.approx(stats['device_ms'])
+    assert 0 < stats['largest_ms'] <= stats['device_ms']
+    assert _norm(got) == _norm([poa_mod.poa(j)[0] for j in jobs])
+    assert _norm(got) == _norm(poa_mod.poa_consensus_many_plain(jobs))
+
+
+def test_poa_launch_inputs_replays_the_largest_round(dev):
+    """poa_launch_inputs keeps the largest launch of an earlier call: its
+    batch has the stats' shape and cells, and the kernel on it equals the
+    plain version."""
+    jobs = _poa_jobs(np.random.default_rng(14), 6, 100, 600)
+    stats = {}
+    want = poa_mod.poa_consensus_many(jobs, device='cuda', stats=stats)
+    got, arrays = poa_mod.poa_launch_inputs(jobs, stats, device='cuda')
+    assert _norm(got) == _norm(want)
+    bases, offs, preds, seqs, nv, ns = arrays
+    assert bases.shape == (stats['largest_jobs'], stats['largest_vmax'])
+    assert seqs.shape[1] == stats['largest_nmax']
+    assert len(preds) == stats['largest_preds']
+    assert int(((nv + 1) * (ns + 1)).sum()) == stats['largest_cells']
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    for a, b in zip(poa_batch.poa_align_batch_cuda(*args),
+                    poa_batch.poa_align_batch_plain(*args)):
+        assert torch.equal(a, b)
+
+
+def test_poa_round_loop_from_threads(dev):
+    """Sixteen threads drive the round loop at once (collapse's cluster
+    threads, each on its own stream): every result equals poa()."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(12)
+    batches = [_poa_jobs(rng, 3, 100, 900) for _ in range(16)]
+    with ThreadPoolExecutor(16) as pool:
+        got = list(pool.map(
+            lambda jobs: poa_mod.poa_consensus_many(jobs, device='cuda'),
+            batches))
+    for jobs, out in zip(batches, got):
+        assert _norm(out) == _norm([poa_mod.poa(j)[0] for j in jobs])
+
+
+def test_poa_rejects_bad_inputs(dev):
+    """An in-degree past the direction word's slot field; wrong types and
+    shapes."""
+    from ciri_long_tpu_torch.tools.poa_cases import batch
+
+    rng = np.random.default_rng(13)
+    g = star_graph(rng, poa_batch.MAX_INDEGREE + 1, 3)
+    arrays = batch([g], [np.array([0, 1, 2], np.int8)])
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    with pytest.raises(ValueError, match='predecessor lists'):
+        poa_batch.poa_align_batch_cuda(*args)
+    with pytest.raises(TypeError):
+        poa_batch.poa_align_batch_cuda(args[0], args[1].long(), *args[2:])
+    with pytest.raises(ValueError):
+        poa_batch.poa_align_batch_cuda(args[0], args[1][:, :-1], *args[2:])

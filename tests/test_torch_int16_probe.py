@@ -75,10 +75,23 @@ def test_cli_prints_six_probes_on_the_cpu(capsys):
     outs = int16_probe.main(['--device', 'cpu'])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == 'device: cpu'
-    assert lines[1:] == ['PROBE {}: OK {}'.format(
+    assert lines[1:7] == ['PROBE {}: OK {}'.format(
         p.name, np.asarray(outs[p.name]).ravel()[:4])
         for p in int16_probe.PROBES]
     assert lines[4] == 'PROBE int16 roll: OK [0 0 1 2]'
+    assert lines[7:] == ['PROBES in one launch: OK']
+
+
+@pytest.mark.parametrize('case', [0, 1, 2])
+def test_one_launch_entry_matches_each_probe_on_the_cpu(case):
+    """int16_probe_all on CPU tensors: the six plain versions, each equal
+    to the per-probe entry, on each of ``probe_cases``' inputs."""
+    xs = [int16_probe.probe_cases(p)[case][1] for p in int16_probe.PROBES]
+    for probe, x, got in zip(int16_probe.PROBES, xs,
+                             int16_probe.int16_probe_all(xs)):
+        assert torch.equal(got, int16_probe.int16_probe(probe, x))
+    with pytest.raises(ValueError, match='CUDA'):
+        int16_probe.int16_probe_all_cuda(xs)
 
 
 def test_kernel_wrapper_raises_off_the_card(monkeypatch):
