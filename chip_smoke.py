@@ -65,8 +65,10 @@ and exits non-zero if any phase fails (none is caught and skipped):
    one-word and multi-word pairs, jobs over a block's shared memory; for
    the POA graphs of fused mutated reads, one-node graphs, empty
    sequences, identical copies, indel-heavy reads, in-degree 12 and 130,
-   long back edges, mixed sizes and sequences at the edges of its run
-   widths and tiles), exact, every route of each kernel launched (ROUTES);
+   long back edges, mixed sizes, a long insertion and sequences at the
+   edges of its run widths, each under the plan and under forced ring
+   depths 0-3, which spill, and forced blocks of one and four warps),
+   exact, every route of each kernel launched (ROUTES);
 7. ``collapse`` end to end on phase 4's cand_circ.fa, ``--device cuda``
    then ``--device cpu``: the launches of sw_score_ends (by route),
    edit_distance, sw_traceback and poa_align (all > 0 on cuda, all 0 on
@@ -85,7 +87,8 @@ and exits non-zero if any phase fails (none is caught and skipped):
    events around each launch, in the run) and its largest launch, its
    inputs kept by replaying its call (ops/poa.py::poa_launch_inputs),
    checked against the plain version and timed beside it and the bound
-   (operations or the direction words' bytes); then its SW
+   (operations or the direction words' bytes), split into its rows and its
+   walk, with its ring depth; then its SW
    launches split by route (wave, tiled): launches, summed device time (a
    CUDA graph's replay of each recorded input) and, at each route's
    largest launch, its shapes, ms, plain ms and bound;
@@ -118,7 +121,8 @@ sw_traceback's and poa_align's numbers are those of their largest launch in
 phase 8, with their route counts, edit_distance's ``cell_bound_ms`` the
 bound of one DP cell an update, the measure of a cell-by-cell design, and
 poa_align's device time summed over the cohort's launches and its phase-7
-numbers), and last ``{"ok": true, "device": {...}}``.  Without a
+numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them), and last
+``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
 """
@@ -176,6 +180,11 @@ COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
 COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
 # the routes of collapse's two kernels (utils/dispatch.py::ROUTES)
 COLLAPSE_ROUTES = ('edit_thread', 'edit_warp', 'tb_smem', 'tb_global')
+# the (ring depth, block shape) phase 6 forces on every POA case beside
+# the plan's: depths 0-3 (0: every predecessor but the source from the
+# spill copy), and one warp and four warps of one column a lane
+POA_VARIANTS = ((None, None), (0, None), (1, None), (2, None), (3, None),
+                (None, (1, 32)), (2, (1, 128)))
 SW_CHECKED = 4             # the largest SW launches of a collapse run checked
 PROBE_KERNELS = ('sw_score_ends', 'sw_rowscan', 'sw_chain', 'int16_probe',
                  'int16_probe_all')
@@ -827,27 +836,37 @@ def compare_tb(torch, dev, label, q, r, n, m, scores):
     return err
 
 
-def compare_poa(torch, dev, label, arrays):
+def compare_poa(torch, dev, label, arrays, variants=((None, None),)):
     """csrc/poa_align.cu against the plain version on one batch (numpy
-    batch_arrays), on the card, exact: scores, pair counts and every pair.
-    Returns the max abs difference or raises."""
+    batch_arrays), on the card, exact: scores, pair counts and every pair;
+    under each (ring depth, block shape) of ``variants``, None for the
+    plan's own, one line each.  Returns the max abs difference or
+    raises."""
     import numpy as np
     from ciri_long_tpu_torch.ops.poa_batch import (poa_align_batch_cuda,
-                                                   poa_align_batch_plain)
+                                                   poa_align_batch_plain,
+                                                   poa_plan)
     args = [torch.as_tensor(x).to(dev).contiguous() for x in arrays]
-    got = poa_align_batch_cuda(*args)
     want = poa_align_batch_plain(*args)
-    torch.cuda.synchronize(dev)
-    err = _max_err(list(got), list(want))
-    bases, offs = arrays[0], arrays[1]
-    emit('kernel_vs_plain', kernel='poa_align', case=label,
-         B=int(bases.shape[0]), Vmax=int(bases.shape[1]),
-         nmax=int(arrays[3].shape[1]),
-         max_indegree=int(np.diff(offs, axis=1).max(initial=0)),
-         max_abs_err=err, pairs=int(want[2].sum().item()))
-    if err:
-        raise AssertionError('poa_align disagrees with plain on ' + label)
-    return err
+    bases, offs, preds, seqs, nv, ns = arrays
+    for depth, shape in variants:
+        plan = poa_plan(offs, preds, nv, ns, bases.shape[1], seqs.shape[1],
+                        dev, depth=depth, shape=shape)
+        got = poa_align_batch_cuda(*args, plan=plan)
+        torch.cuda.synchronize(dev)
+        err = _max_err(list(got), list(want))
+        emit('kernel_vs_plain', kernel='poa_align', case=label,
+             B=int(bases.shape[0]), Vmax=int(bases.shape[1]),
+             nmax=int(seqs.shape[1]),
+             max_indegree=int(np.diff(offs, axis=1).max(initial=0)),
+             cols=plan.cols, warps=plan.warps, depth=plan.depth,
+             forced=[depth is not None, shape is not None],
+             spill_rows=plan.spill_rows, max_abs_err=err,
+             pairs=int(want[2].sum().item()))
+        if err:
+            raise AssertionError('poa_align disagrees with plain on {} '
+                                 'under {}'.format(label, plan[:5]))
+    return 0
 
 
 def phase_collapse_kernels(torch, dev):
@@ -872,7 +891,7 @@ def phase_collapse_kernels(torch, dev):
     for label, arrays in poa_cases(np.random.default_rng(20261019),
                                    wide=True):
         errs['poa_align'] = max(errs['poa_align'], compare_poa(
-            torch, dev, label, arrays))
+            torch, dev, label, arrays, POA_VARIANTS))
     routes = {k: ROUTES[k] - before[k] for k in COLLAPSE_ROUTES}
     emit('collapse_routes', routes=routes)
     if min(routes.values()) <= 0:
@@ -1082,12 +1101,17 @@ def poa_checks(torch, dev, smi, label, calls, rate):
     byte-identical; then the call that held the largest launch (by cells)
     replayed to keep that launch's inputs (ops/poa.py::poa_launch_inputs),
     checked against the plain version, timed (a CUDA graph's replay of 10
-    launches) beside the plain version and the bound: its cell updates,
-    V x (n + 1) a job, at ``rate``, the card's rate for this update, or
-    the bytes it must move at the HBM rate, whichever is larger (the
-    inputs read once, the pairs, scores and counts written once, and the
-    16-bit direction word of each of the (V + 1) x (n + 1) cells, which
-    the walk reads; H, F1 and F2 need not leave the chip).  One JSON line;
+    launches, its plan made beforehand) beside the plain version and the
+    bound: its cell updates, V x (n + 1) a job, at ``rate``, the card's
+    rate for this update, or the bytes it must move at the HBM rate,
+    whichever is larger (the inputs read once, the pairs, scores and
+    counts written once, and the 32-bit direction word of each of the
+    (V + 1) x (n + 1) cells, which the walk reads; H, F1 and F2 need not
+    leave the chip), and split into its rows and its walk (block 0's
+    %globaltimer stamps, the mean of 10 launches), with its plan's ring
+    depth and spill rows.  The launch's inputs go to
+    build/chip_smoke/<label>_poa_largest.npz (what ``python3 -m
+    ciri_long_tpu_torch.tools.poa_split --inputs`` times).  One JSON line;
     returns its fields."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1096,7 +1120,8 @@ def poa_checks(torch, dev, smi, label, calls, rate):
     from ciri_long_tpu_torch.ops import poa as poa_mod
     from ciri_long_tpu_torch.ops.poa_batch import (DIR_BYTES,
                                                    poa_align_batch_cuda,
-                                                   poa_align_batch_plain)
+                                                   poa_align_batch_plain,
+                                                   poa_plan)
 
     def native(job):
         return poa_mod.poa(job, 2, False, 10, -4, -8, -2, -24, -1)[0]
@@ -1119,10 +1144,19 @@ def poa_checks(torch, dev, smi, label, calls, rate):
     err = compare_poa(torch, dev, label + ' largest poa_align launch',
                       arrays)
     bases, offs, preds, seqs, nv, ns = arrays
+    np.savez(os.path.join(WORK, label + '_poa_largest.npz'), bases=bases,
+             offs=offs, preds=preds, seqs=seqs, nv=nv, ns=ns)
     args = [torch.as_tensor(x).to(dev).contiguous() for x in arrays]
-    pairs = int(poa_align_batch_cuda(*args)[2].sum().item())
-    ms = time_launches(lambda: poa_align_batch_cuda(*args, checked=True),
+    plan = poa_plan(offs, preds, nv, ns, bases.shape[1], seqs.shape[1], dev)
+    pairs = int(poa_align_batch_cuda(*args, plan=plan)[2].sum().item())
+    ms = time_launches(lambda: poa_align_batch_cuda(*args, plan=plan),
                        10, dev, graph=True)
+    stamps = torch.zeros((len(nv), 3), dtype=torch.int64, device=dev)
+    split = []
+    for _ in range(10):
+        poa_align_batch_cuda(*args, plan=plan, stamps=stamps)
+        split.append(np.diff(stamps[0].cpu().numpy()) * 1e-6)
+    rows_ms, walk_ms = np.mean(split, axis=0).tolist()
     plain_ms = time_launches(lambda: poa_align_batch_plain(*args), 1, dev)
     nv64, ns64 = nv.astype(np.int64), ns.astype(np.int64)
     updates = int((nv64 * (ns64 + 1)).sum())
@@ -1142,7 +1176,10 @@ def poa_checks(torch, dev, smi, label, calls, rate):
                      pairs=pairs, max_indegree=int(
                          np.diff(offs, axis=1).max(initial=0)),
                      run_ms=big_call[2]['largest_ms']),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms, rows_ms=rows_ms, walk_ms=walk_ms, cols=plan.cols,
+        warps=plan.warps, depth=plan.depth, spill_rows=plan.spill_rows,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
         bound_share=bound_ms / ms, ops_bound_ms=ops_ms,
         bytes_bound_ms=bytes_ms, max_abs_err=err, card=smi)
     emit('collapse_poa', **fields)
@@ -1555,11 +1592,14 @@ def main():
                    full['poa_align']['bound_ms'],
                    full['poa_align']['bound_by']),
              shape=full['poa_align']['shape'],
+             rows_ms=full['poa_align']['rows_ms'],
+             walk_ms=full['poa_align']['walk_ms'],
+             depth=full['poa_align']['depth'],
              collapse_device_ms=full['poa_align']['device_ms'],
              largest=full['poa_align']['largest'],
              call_world={k: call_poa[k] for k in (
-                 'launches', 'device_ms', 'ms', 'plain_ms', 'bound_ms',
-                 'bound_by', 'largest')}),
+                 'launches', 'device_ms', 'ms', 'rows_ms', 'walk_ms',
+                 'depth', 'plain_ms', 'bound_ms', 'bound_by', 'largest')}),
     ]
     print(smi)
     print(json.dumps({'kernels': kernels}))

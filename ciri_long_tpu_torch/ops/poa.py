@@ -390,9 +390,11 @@ def poa_consensus_many_plain(jobs: Sequence[Sequence], m: int = 10,
 
 _STREAMS = threading.local()
 # the fields of csrc/poa_align.cu::poa_consensus_run's stats, after
-# 'launches' those of its largest launch (by cells)
+# 'launches' those of its largest launch (by cells), its plan's ring depth
+# and spill rows last
 STATS_FIELDS = ('launches', 'largest_round', 'largest_jobs', 'largest_vmax',
-                'largest_nmax', 'largest_preds', 'largest_cells')
+                'largest_nmax', 'largest_preds', 'largest_cells',
+                'largest_depth', 'largest_spill_rows')
 
 
 def _thread_stream(device):
@@ -417,7 +419,7 @@ def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
     import torch
 
     from ciri_long_tpu_torch.ops import _build
-    from ciri_long_tpu_torch.ops.poa_batch import (MAX_INDEGREE, SYMBOLS,
+    from ciri_long_tpu_torch.ops.poa_batch import (MAX_ROW, SYMBOLS,
                                                    split_inputs)
     from ciri_long_tpu_torch.utils.dispatch import count_launch
 
@@ -451,9 +453,9 @@ def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
         count_launch('poa_align', times=int(counted[0]),
                      device_ms=float(device_ms[0]))
     if rc == -1:
-        raise ValueError('poa_consensus_many: a graph node has more than {} '
-                         'predecessors, which csrc/poa_align.cu cannot '
-                         'store'.format(MAX_INDEGREE))
+        raise ValueError('poa_consensus_many: a graph has more than {} '
+                         "nodes, past csrc/poa_align.cu's direction "
+                         'word'.format(MAX_ROW))
     if rc != 0:
         raise RuntimeError('poa_align round loop failed: cudaError {} ({} '
                            'jobs)'.format(rc, len(jobs)))

@@ -21,8 +21,9 @@ the native core were there for Mosaic's fixed shapes.
 ``poa_align_batch_plain`` is the plain PyTorch version (JAX's
 ``_align_one`` with the jobs in lockstep, a row of every job at a time);
 ``poa_align_batch_cuda`` launches the hand-written kernel
-``csrc/poa_align.cu``; ``poa_align_batch`` takes the kernel for CUDA
-tensors and the plain version for CPU tensors, nothing else.  All return
+``csrc/poa_align.cu`` under a plan (``poa_plan``: its ring depth and the
+rows it spills to global memory); ``poa_align_batch`` takes the kernel for
+CUDA tensors and the plain version for CPU tensors, nothing else.  All return
 (score int32 [B], aln int32 [B, CAP, 2], acnt int32 [B]) in JAX's layout:
 CAP = Vmax + nmax + 1, job b's acnt[b] pairs at the end of aln[b] in forward
 order, -2 before them.  collapse itself reaches the kernel through the
@@ -31,6 +32,7 @@ csrc/poa_graph.h packs each round in this same layout.
 """
 
 import ctypes
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -42,9 +44,10 @@ STOP, GAPSEQ, MATCH, GAPGRAPH = 0, 1, 2, 3
 # spoa's scores as collapse calls poa (m, x, o1, e1, o2, e2)
 SCORES = (10, -4, -8, -2, -24, -1)
 # bytes a cell that the alignment and its walk must keep in memory: the
-# 16-bit direction word (the kernel also writes H, F1 and F2, which a
-# kernel keeping recent rows on chip would not)
-DIR_BYTES = 2
+# 32-bit direction word (case << 30 | the predecessor's row), the only
+# plane csrc/poa_align.cu writes out; H, F1 and F2 stay on chip but for
+# the rows it spills
+DIR_BYTES = 4
 
 
 def _pred_lists(offs, preds):
@@ -207,45 +210,142 @@ def _walk(case, pidx, offs, preds, i, j, out):
 # csrc/poa_align.cu's C functions: one launch, and the round loop of
 # ops/poa.py::poa_consensus_many
 SYMBOLS = {
-    'poa_align_launch': ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
-                         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4,
+    'poa_align_launch': ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                         + [ctypes.c_int, ctypes.c_void_p]
+                         + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5,
                          ctypes.c_int),
     'poa_consensus_run': ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p] * 5
                           + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
-# the longest predecessor list csrc/poa_align.cu's direction word takes
-# (its slot field, 14 bits, also holds the source's slot, np)
-MAX_INDEGREE = (1 << 14) - 1
+# the largest row csrc/poa_align.cu's direction word holds (its row field,
+# 30 bits): graphs of more nodes are refused
+MAX_ROW = (1 << 30) - 1
+# csrc/poa_align.cu's launch constants: warps a block at most (8 at 8
+# columns a lane), the dynamic shared memory a block takes at most, the
+# words a row pads to
+MAX_WARPS = 16
+SMEM_BYTES = 232448 - 1024
+ROW_ALIGN = 8
+# a launch's plan (poa_plan): C columns a lane, warps, ring depth, the
+# longest job's list entries, the spill rows a job needs at most and each
+# row's spill slot (int32 [B, Vmax+1] on the device, -1 for none; None
+# without spill rows)
+PoaPlan = namedtuple('PoaPlan', 'cols warps depth emax spill_rows sidx')
 
 
-def check_batch(offs, nv, ns, Vmax, nmax):
+def max_warps(C):
+    """csrc/poa_align.cu::max_warps."""
+    return 8 if C == 8 else MAX_WARPS
+
+
+def launch_shape(nmax):
+    """csrc/poa_align.cu::launch_shape: (C columns a lane, threads), a warp
+    for each chunk of 32 C columns up to max_warps(C)."""
+    W = nmax + 1
+    C = 1 if W <= 512 else 2 if W <= 1024 else 4 if W <= 2048 else 8
+    return C, 32 * min(-(-W // (32 * C)), max_warps(C))
+
+
+def padded_width(nmax):
+    """Wp: the words of a ring, spill or direction row."""
+    return -(-(nmax + 1) // ROW_ALIGN) * ROW_ALIGN
+
+
+def stage_bytes(Vmax, nmax, emax):
+    """Shared memory of the staged inputs: offs, preds, sidx, bases and
+    the sequence, each rounded up to 16 bytes (csrc/poa_align.cu::
+    make_layout)."""
+    def r16(x):
+        return -(-x // 16) * 16
+    return 2 * r16(4 * (Vmax + 1)) + r16(4 * emax) + r16(Vmax) + r16(nmax)
+
+
+def check_batch(offs, preds, nv, ns, Vmax, nmax):
     """Raise unless a batch of [B, Vmax] nodes and [B, nmax] codes holds
-    its lengths (numpy nv, ns [B]) and its CSR lists (numpy offs
-    [B, Vmax+1]) have at most MAX_INDEGREE entries, all the kernel can
-    store."""
+    its lengths (numpy nv, ns [B]), has at most MAX_ROW nodes, and its CSR
+    lists (numpy offs [B, Vmax+1], preds [E]) are ordered and name rows
+    before their own (rank order: 0 <= p < i), all the kernel takes."""
     nv = np.asarray(nv, np.int64)
     ns = np.asarray(ns, np.int64)
     if len(nv) and (nv.min() < 0 or nv.max() > Vmax or ns.min() < 0
                     or ns.max() > nmax):
         raise ValueError('poa_align: nv must lie in [0, {}] and ns in [0, '
                          '{}]'.format(Vmax, nmax))
-    deg = np.diff(np.asarray(offs, np.int64), axis=1)
-    if deg.size and (deg.min() < 0 or deg.max() > MAX_INDEGREE):
-        raise ValueError('poa_align: predecessor lists must be CSR with at '
-                         'most {} entries (got {} to {})'.format(
-                             MAX_INDEGREE, deg.min(), deg.max()))
+    if Vmax > MAX_ROW:
+        raise ValueError('poa_align: {} nodes exceed the direction word\'s '
+                         'row field ({} at most)'.format(Vmax, MAX_ROW))
+    offs = np.asarray(offs, np.int64)
+    preds = np.asarray(preds, np.int64)
+    deg = np.diff(offs, axis=1)
+    if deg.size and (deg.min() < 0 or offs.min() < 0
+                     or offs.max() > len(preds)):
+        raise ValueError('poa_align: predecessor lists must be CSR into '
+                         'preds')
+    for b in range(len(nv)):
+        o = offs[b, :nv[b] + 1]
+        rows = np.repeat(np.arange(1, nv[b] + 1), np.diff(o))
+        p = preds[o[0]:o[-1]]
+        if p.size and (p.min() < 0 or (p >= rows).any()):
+            raise ValueError('poa_align: a predecessor must come before its '
+                             'node (rank order, rows 0 <= p < i)')
+
+
+def poa_plan(offs, preds, nv, ns, Vmax, nmax, device='cpu', depth=None,
+             shape=None):
+    """The plan of one launch of csrc/poa_align.cu over numpy offs [B,
+    Vmax+1] (absolute), preds [E], nv and ns [B] (checked by check_batch):
+    csrc/poa_align.cu::plan_launch's twin.  The ring gets ``depth`` rows,
+    by default the farthest lookback, within the shared memory the staged
+    inputs leave (all of it when they do not fit); a row is spilled when a
+    successor reaches it from farther.  ``depth`` forces a depth and
+    ``shape`` (C, threads) a block (tests, timing); by default
+    launch_shape(nmax)."""
+    check_batch(offs, preds, nv, ns, Vmax, nmax)
+    offs = np.asarray(offs, np.int64)
+    preds = np.asarray(preds, np.int64)
+    C, threads = shape or launch_shape(nmax)
+    if C not in (1, 2, 4, 8) or threads % 32 or not \
+            32 <= threads <= 32 * max_warps(C):
+        raise ValueError('poa_plan: no block of {} columns a lane and {} '
+                         'threads'.format(C, threads))
+    edges = []
+    for b in range(len(nv)):
+        o = offs[b, :int(nv[b]) + 1]
+        rows = np.repeat(np.arange(1, int(nv[b]) + 1), np.diff(o))
+        edges.append((rows, preds[o[0]:o[-1]]))
+    emax = max([len(p) for _, p in edges], default=0)
+    look = max([int((r - p)[p > 0].max(initial=0)) for r, p in edges],
+               default=0)
+    row = 12 * padded_width(nmax)
+    stage = stage_bytes(Vmax, nmax, emax)
+    room = SMEM_BYTES - stage if stage <= SMEM_BYTES else SMEM_BYTES
+    if depth is None:
+        depth = min(look, room // row)
+    elif depth < 0 or depth * row > SMEM_BYTES:
+        raise ValueError('poa_plan: a ring of {} rows of {} bytes does not '
+                         'fit {} bytes'.format(depth, row, SMEM_BYTES))
+    sidx = np.full((len(nv), Vmax + 1), -1, np.int32)
+    for b, (r, p) in enumerate(edges):
+        far = np.unique(p[(p > 0) & (r - p > depth)])
+        sidx[b, far] = np.arange(len(far))
+    spill_rows = int((sidx >= 0).sum(1).max(initial=0))
+    return PoaPlan(C, threads // 32, depth, emax, spill_rows,
+                   torch.from_numpy(sidx).to(device) if spill_rows else None)
 
 
 def poa_align_batch_cuda(bases, offs, preds, seqs, nv, ns, scores=SCORES,
-                         checked=False):
+                         plan=None, stamps=None):
     """The hand-written CUDA kernel (csrc/poa_align.cu) on CUDA tensors of
     one device: bases [B, Vmax] and seqs [B, nmax] integer codes, offs
     int32 [B, Vmax+1] absolute into preds int32 [E], nv and ns [B].  Same
-    output as poa_align_batch_plain.  Raises on anything else, and when the
-    launch is refused.  ``checked`` skips check_batch and its copy back
-    from the card, for a caller that made it (as a CUDA graph's capture
-    must)."""
+    output as poa_align_batch_plain.  ``plan`` is poa_plan's answer for
+    these inputs when the caller has it (nothing is read back from the
+    card, as a CUDA graph's capture needs), else made from the inputs read
+    back.  ``stamps`` (int64 [B, 3] on the device) gets each block's
+    %globaltimer in ns at its start, after its rows and after its walk.
+    Raises on anything else, and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     tensors = (bases, offs, preds, seqs, nv, ns)
@@ -264,13 +364,24 @@ def poa_align_batch_cuda(bases, offs, preds, seqs, nv, ns, scores=SCORES,
                          '[B, Vmax+1], preds [E], seqs [B, nmax], nv and ns '
                          '[B] (got {})'.format(
                              [tuple(t.shape) for t in tensors]))
-    if B * (Vmax + nmax + 1) * 2 >= 2 ** 31 or max(Vmax, nmax) >= 2 ** 30:
+    if Vmax > MAX_ROW:
+        raise ValueError('poa_align_batch_cuda: {} nodes exceed the '
+                         "direction word's row field ({} at most)".format(
+                             Vmax, MAX_ROW))
+    if B * (Vmax + nmax + 1) * 2 >= 2 ** 31 or nmax >= 2 ** 30:
         raise ValueError('poa_align_batch_cuda: {} x {} x {} exceeds the '
                          "kernel's int sizes".format(B, Vmax, nmax))
-    if not checked:
-        check_batch(offs.cpu().numpy(), nv.cpu().numpy(), ns.cpu().numpy(),
-                    Vmax, nmax)
+    if stamps is not None and (not stamps.is_cuda or stamps.dtype !=
+                               torch.int64 or tuple(stamps.shape) != (B, 3)):
+        raise ValueError('poa_align_batch_cuda: stamps must be int64 [B, 3] '
+                         'on the card')
     dev = bases.device
+    if plan is None:
+        plan = poa_plan(offs.cpu().numpy(), preds.cpu().numpy(),
+                        nv.cpu().numpy(), ns.cpu().numpy(), Vmax, nmax, dev)
+    if plan.sidx is not None and plan.sidx.device != dev:
+        raise ValueError('poa_align_batch_cuda: the plan lies on {}'.format(
+            plan.sidx.device))
     lib = _build.load('poa_align.cu', SYMBOLS)
     u8, i32 = torch.uint8, torch.int32
     bases8 = bases.to(u8).contiguous()
@@ -280,9 +391,10 @@ def poa_align_batch_cuda(bases, offs, preds, seqs, nv, ns, scores=SCORES,
     offs = offs.contiguous()
     preds = preds.contiguous() if preds.numel() else \
         torch.zeros(1, dtype=i32, device=dev)
-    cells = max(B * (Vmax + 1) * (nmax + 1), 1)
-    planes = [torch.empty(cells, dtype=i32, device=dev) for _ in range(3)]
-    dirs = torch.empty(cells, dtype=torch.int16, device=dev)
+    Wp = padded_width(nmax)
+    dirs = torch.empty(max(B * (Vmax + 1) * Wp, 1), dtype=i32, device=dev)
+    spill = torch.empty(max(B * plan.spill_rows * 3 * Wp, 1), dtype=i32,
+                        device=dev)
     score = torch.empty(B, dtype=i32, device=dev)
     acnt = torch.empty(B, dtype=i32, device=dev)
     aln = torch.full((B, Vmax + nmax + 1, 2), -2, dtype=i32, device=dev)
@@ -292,13 +404,16 @@ def poa_align_batch_cuda(bases, offs, preds, seqs, nv, ns, scores=SCORES,
         rc = lib.poa_align_launch(
             B, Vmax, nmax, bases8.data_ptr(), offs.data_ptr(),
             preds.data_ptr(), seqs8.data_ptr(), nv32.data_ptr(),
-            ns32.data_ptr(), *(p.data_ptr() for p in planes),
-            dirs.data_ptr(), *(int(v) for v in scores), score.data_ptr(),
-            acnt.data_ptr(), aln.data_ptr(),
+            ns32.data_ptr(), plan.cols, plan.warps, plan.emax, plan.depth,
+            None if plan.sidx is None else plan.sidx.data_ptr(),
+            spill.data_ptr(), plan.spill_rows, dirs.data_ptr(),
+            *(int(v) for v in scores), score.data_ptr(), acnt.data_ptr(),
+            aln.data_ptr(), None if stamps is None else stamps.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('poa_align launch failed: cudaError {} (B={}, '
-                           'Vmax={}, nmax={})'.format(rc, B, Vmax, nmax))
+                           'Vmax={}, nmax={}, plan {})'.format(
+                               rc, B, Vmax, nmax, plan[:5]))
     count_launch('poa_align')
     return score, aln, acnt
 

@@ -8,7 +8,8 @@ collapse's rounds align to), a one-node graph against sequences of 0, 1 and
 5 codes, an empty sequence against a graph, identical copies, indel-heavy
 reads, in-degree 12 (above the JAX program's 8 slots) and 130 (above an
 int8 slot) on a star graph, long back edges from a repeated template, a
-round of mixed sizes and, with ``wide``, sequences at the edges of the
+round of mixed sizes, an insertion of 150 codes (gaps in the sequence
+across several warps' columns) and, with ``wide``, sequences at the edges of the
 kernel's run widths (columns 256, 512, 1024 and 2048 a block) and past one
 tile.  The CPU tests, the card's tests and chip_smoke.py share them.
 """
@@ -113,6 +114,10 @@ def poa_cases(rng, wide=False):
     graphs, seqs = zip(_fused(rng, 40, 3), _fused(rng, 400, 2),
                        _fused(rng, 8, 5))
     cases.append(('mixed sizes', batch(graphs, seqs)))
+    t = _template(rng, 160)
+    g = fused_graph([mutate(rng, t) for _ in range(3)])
+    cases.append(('long insertion', batch([g], [encode_seq(
+        t[:60] + _template(rng, 150) + t[60:])])))
     if wide:
         for n in WIDE_LENGTHS:
             g, s = _fused(rng, n, 2, 0.03, 0.02, 0.02)

@@ -550,6 +550,61 @@ def test_poa_align_matches_plain(dev):
             assert torch.equal(a, b), label
 
 
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+def test_poa_align_forced_ring_depths(dev, depth):
+    """Every case under a forced ring depth (poa_plan(depth=)): 0 leaves
+    every predecessor but the source to the spill copy, 1-3 spill the rows
+    reached from farther; at the launch shape and at blocks of one and
+    four warps of one column a lane (shape=); exact against the plain
+    version.  The long back edges and the in-degree 130 star take the
+    spill at depth 2."""
+    for label, arrays in poa_cases(np.random.default_rng(7), wide=True):
+        bases, offs, preds, seqs, nv, ns = arrays
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        want = poa_batch.poa_align_batch_plain(*args)
+        for shape in (None, (1, 32), (1, 128)):
+            plan = poa_batch.poa_plan(offs, preds, nv, ns, bases.shape[1],
+                                      seqs.shape[1], dev, depth=depth,
+                                      shape=shape)
+            if depth == 2 and label in ('long back edges',
+                                        'in-degree 12 and 130'):
+                assert plan.spill_rows > 0, label
+            got = poa_batch.poa_align_batch_cuda(*args, plan=plan)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (label, depth, shape)
+
+
+def test_poa_align_takes_any_in_degree(dev):
+    """A node of 2^14 predecessors aligns exactly: any in-degree is
+    taken."""
+    from ciri_long_tpu_torch.tools.poa_cases import batch
+
+    rng = np.random.default_rng(15)
+    g = star_graph(rng, 1 << 14, 3)
+    arrays = batch([g], [np.array([0, 1, 2, 3], np.int8)])
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    got = poa_batch.poa_align_batch_cuda(*args)
+    want = poa_batch.poa_align_batch_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_poa_align_stamps_split_rows_and_walk(dev):
+    """stamps= gets each block's start, end of rows and end of walk, in
+    order, and leaves the output as it is."""
+    arrays = poa_cases(np.random.default_rng(16))[0][1]
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    stamps = torch.zeros((len(arrays[4]), 3), dtype=torch.int64,
+                         device=dev)
+    got = poa_batch.poa_align_batch_cuda(*args, stamps=stamps)
+    want = poa_batch.poa_align_batch_cuda(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    t = stamps.cpu().numpy()
+    assert (t[:, 0] > 0).all() and (np.diff(t, axis=1) >= 0).all()
+
+
 def _poa_jobs(rng, n_jobs, lo=20, hi=400):
     jobs = []
     for _ in range(n_jobs):
@@ -587,8 +642,9 @@ def test_poa_round_loop_matches_host(dev):
 
 def test_poa_launch_inputs_replays_the_largest_round(dev):
     """poa_launch_inputs keeps the largest launch of an earlier call: its
-    batch has the stats' shape and cells, and the kernel on it equals the
-    plain version."""
+    batch has the stats' shape and cells, the round loop's plan (C++
+    plan_launch) has poa_plan's depth and spill rows, and the kernel on it
+    equals the plain version."""
     jobs = _poa_jobs(np.random.default_rng(14), 6, 100, 600)
     stats = {}
     want = poa_mod.poa_consensus_many(jobs, device='cuda', stats=stats)
@@ -599,10 +655,28 @@ def test_poa_launch_inputs_replays_the_largest_round(dev):
     assert seqs.shape[1] == stats['largest_nmax']
     assert len(preds) == stats['largest_preds']
     assert int(((nv + 1) * (ns + 1)).sum()) == stats['largest_cells']
+    plan = poa_batch.poa_plan(offs, preds, nv, ns, bases.shape[1],
+                              seqs.shape[1], dev)
+    assert (plan.depth, plan.spill_rows) == (stats['largest_depth'],
+                                             stats['largest_spill_rows'])
     args = [torch.from_numpy(a).to(dev) for a in arrays]
     for a, b in zip(poa_batch.poa_align_batch_cuda(*args),
                     poa_batch.poa_align_batch_plain(*args)):
         assert torch.equal(a, b)
+
+
+def test_poa_round_loop_spills_long_rows(dev):
+    """Sequences of 9 000 codes: 8 columns a lane, a ring of two rows of
+    108 KB, so the round loop's plan spills the rows reached from farther;
+    every consensus equals poa()."""
+    rng = np.random.default_rng(17)
+    t = ''.join(rng.choice(list('ACGT'), size=9000))
+    jobs = [[mutate(rng, t, sub=0.03, ins=0.03, dele=0.03)
+             for _ in range(4)]]
+    stats = {}
+    got = poa_mod.poa_consensus_many(jobs, device='cuda', stats=stats)
+    assert stats['largest_depth'] <= 2 and stats['largest_spill_rows'] > 0
+    assert _norm(got) == _norm([poa_mod.poa(j)[0] for j in jobs])
 
 
 def test_poa_round_loop_from_threads(dev):
@@ -621,16 +695,33 @@ def test_poa_round_loop_from_threads(dev):
 
 
 def test_poa_rejects_bad_inputs(dev):
-    """An in-degree past the direction word's slot field; wrong types and
-    shapes."""
+    """More nodes than the direction word's row field holds (a batch of
+    expanded tensors, never copied); a predecessor after its node; a ring
+    deeper than shared memory; wrong types and shapes."""
     from ciri_long_tpu_torch.tools.poa_cases import batch
 
     rng = np.random.default_rng(13)
-    g = star_graph(rng, poa_batch.MAX_INDEGREE + 1, 3)
+    g = star_graph(rng, 40, 3)
     arrays = batch([g], [np.array([0, 1, 2], np.int8)])
     args = [torch.from_numpy(a).to(dev) for a in arrays]
-    with pytest.raises(ValueError, match='predecessor lists'):
-        poa_batch.poa_align_batch_cuda(*args)
+    V = poa_batch.MAX_ROW + 1
+    huge = (torch.zeros((1, 1), dtype=torch.uint8, device=dev).expand(1, V),
+            torch.zeros((1, 1), dtype=torch.int32, device=dev).expand(
+                1, V + 1), *args[2:])
+    with pytest.raises(ValueError, match='row field'):
+        poa_batch.poa_align_batch_cuda(*huge)
+    late = args[2].clone()
+    late[0] = 7
+    with pytest.raises(ValueError, match='before its node'):
+        poa_batch.poa_align_batch_cuda(args[0], args[1], late, *args[3:])
+    with pytest.raises(ValueError, match='does not fit'):
+        poa_batch.poa_plan(*(arrays[k] for k in (1, 2, 4, 5)),
+                           arrays[0].shape[1], arrays[3].shape[1], dev,
+                           depth=100000)
+    with pytest.raises(ValueError, match='no block'):
+        poa_batch.poa_plan(*(arrays[k] for k in (1, 2, 4, 5)),
+                           arrays[0].shape[1], arrays[3].shape[1], dev,
+                           shape=(8, 512))
     with pytest.raises(TypeError):
         poa_batch.poa_align_batch_cuda(args[0], args[1].long(), *args[2:])
     with pytest.raises(ValueError):

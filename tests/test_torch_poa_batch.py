@@ -24,8 +24,9 @@ import pytest
 import torch
 
 from ciri_long_tpu.ops.poa_batch import poa_align_batch as jax_align
-from ciri_long_tpu_torch.ops.poa_batch import (SCORES, batch_arrays,
-                                               check_batch, poa_align_batch,
+from ciri_long_tpu_torch.ops.poa_batch import (MAX_ROW, SCORES,
+                                               batch_arrays, check_batch,
+                                               poa_align_batch,
                                                poa_align_batch_plain,
                                                split_inputs)
 from ciri_long_tpu_torch.tools import poa_cases as pc
@@ -165,7 +166,8 @@ def test_flatten_matches_jax(rng):
 def test_batch_checks_and_split(rng):
     """split_inputs gives back a batch laid one array after another (the
     round loop's kept launch); check_batch refuses lengths past the batch's
-    shapes and an in-degree past the direction word's slot field."""
+    shapes, lists that are not CSR into preds, a predecessor at or after
+    its node, and more nodes than the direction word's row field holds."""
     graphs = [pc._fused(rng, n, 3)[0] for n in (30, 70, 5)]
     seqs = [rng.integers(0, 4, n).astype(np.int8) for n in (20, 0, 44)]
     arrays = pc.batch(graphs, seqs)
@@ -175,17 +177,23 @@ def test_batch_checks_and_split(rng):
                          n, len(preds))
     for x, y in zip(again, arrays):
         assert x.shape == y.shape and np.array_equal(x, y)
-    check_batch(offs, nv, ns, V, n)
+    check_batch(offs, preds, nv, ns, V, n)
     with pytest.raises(ValueError, match='nv must lie'):
-        check_batch(offs, nv + 1, ns, V, n)
+        check_batch(offs, preds, nv + 1, ns, V, n)
     with pytest.raises(ValueError, match='nv must lie'):
-        check_batch(offs, nv, ns + n, V, n)
+        check_batch(offs, preds, nv, ns + n, V, n)
     star = pc.batch([pc.star_graph(rng, 4, 2)], [seqs[0]])
-    check_batch(star[1], star[4], star[5], star[0].shape[1],
+    check_batch(star[1], star[2], star[4], star[5], star[0].shape[1],
                 star[3].shape[1])
     with pytest.raises(ValueError, match='predecessor lists'):
-        check_batch(star[1] * 10000, star[4], star[5], star[0].shape[1],
-                    star[3].shape[1])
+        check_batch(star[1] * 10000, star[2], star[4], star[5],
+                    star[0].shape[1], star[3].shape[1])
+    late = preds.copy()
+    late[offs[0, 1]] = 5            # node 2's list names row 5
+    with pytest.raises(ValueError, match='before its node'):
+        check_batch(offs, late, nv, ns, V, n)
+    with pytest.raises(ValueError, match="row field"):
+        check_batch(offs, preds, nv, ns, MAX_ROW + 1, n)
 
 
 def test_auto_takes_plain_on_cpu(rng):
