@@ -31,13 +31,26 @@ and exits non-zero if any phase fails (none is caught and skipped):
    (the kernel's launches replayed from a CUDA graph, the plain version's
    wall, each launch fed by the previous one's scores);
 4. ``call`` end to end on a seeded 2 Mb world (16 loci, depth 60, 240
-   linear reads), ``--device cuda`` then ``--device cpu``: the kernel's
-   launch count and the route of each launch (every launch whose shape
+   linear reads), ``--device cuda`` then ``--device cpu``: the launch
+   counts of its four kernels (sw_score_ends, X2's chain_dp and
+   chain_extract, X3's screen_keep: all > 0 on cuda, all 0 in the cpu
+   summary) and the route of each SW launch (every launch whose shape
    ops/sw.py::_tile_plan accepts must take the tiled route),
-   byte-identical cand_circ.fa, equal counters, reads/s, per-stage seconds
-   and BSJ recall/precision against the simulated truth; then both routes
-   against the plain version on the inputs the cuda run gave the kernel,
-   and both timed on them;
+   byte-identical cand_circ.fa, equal counters, reads/s, per-stage seconds,
+   each route's wall split (``call_split``, from a third and fourth run
+   with those parts timed: the screen, CCS detection, anchors, chaining,
+   selection and stitching, the clips' SW, and map_batch / map around the
+   middle three) and BSJ recall/precision
+   against the simulated truth; then both SW routes against the plain
+   version on the inputs the cuda run gave the kernel, and both timed on
+   them; then (4b) every X2 launch of the cuda run held to the port's
+   native chain core (f and pre bit for bit, row by row) and to the host
+   backtrack_chains (chains row by row), the first three and the largest
+   also to chain_dp_plain and chain_extract_plain, every screen_keep launch
+   to screen_keep_plain (one ``kernel_vs_plain`` line each), the card's
+   rates for a chaining candidate and a screen compare (csrc/op_rate.cu),
+   and each kernel's largest launch timed (``call_kernel_time``: a CUDA
+   graph's replay, the plain version's wall, the bound);
 5. the kernel-probe path: the SW variant harness
    (``python -m ciri_long_tpu_torch.misc.kexp``) for the row, wave and
    chain (C = 2, 4) families at the bench shape and the int16 probes
@@ -107,7 +120,7 @@ and exits non-zero if any phase fails (none is caught and skipped):
    ``python3 -m ciri_long_tpu_torch.tools.wave_ab`` times in two
    checkouts).
 
-The eight CUDA sources build in parallel (one nvcc each) beside the native
+The ten CUDA sources build in parallel (one nvcc each) beside the native
 host cores.  Then the card's ``nvidia-smi`` name and power limit, the
 kernels line (sw_score_ends's entry also has ``main_ms`` and
 ``main_bound_ms`` at 128x54x16384, its collapse launches and device
@@ -121,7 +134,10 @@ sw_traceback's and poa_align's numbers are those of their largest launch in
 phase 8, with their route counts, edit_distance's ``cell_bound_ms`` the
 bound of one DP cell an update, the measure of a cell-by-cell design, and
 poa_align's device time summed over the cohort's launches and its phase-7
-numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them), and last
+numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them; chain_dp's,
+chain_extract's and screen_keep's those of their largest launch in phase
+4b, with its size, screen_keep's bound its equal k-mer pairs and its
+``window_bound_ms`` the brute-force (window, lag) measure), and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -142,7 +158,8 @@ WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
-           'sw_traceback.cu', 'poa_align.cu')
+           'sw_traceback.cu', 'poa_align.cu', 'chain_dp.cu',
+           'screen_keep.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
@@ -174,7 +191,34 @@ REPLACES = {
     'poa_align': ('ciri_long_tpu/ops/poa_batch.py:39 _align_one, :194 '
                   '_align_one_win, :391 poa_align_batch, an XLA program '
                   '(X6)'),
+    'chain_dp': ('ciri_long_tpu/ops/chain.py:26 _chain_dp, the DP of :219 '
+                 'chain_extract_batch, an XLA program (X2)'),
+    'chain_extract': ('ciri_long_tpu/ops/chain.py:219 chain_extract_batch, '
+                      'its greedy extraction :251-307, an XLA program (X2)'),
+    'screen_keep': ('ciri_long_tpu/ops/period.py:138 screen_keep, with :90 '
+                    '_tandem_counts_impl and :32 _chunked_lag_sum, an XLA '
+                    'program (X3)'),
 }
+# call's kernels of X2 and X3: (module, wrapper) recorded in phase 4
+CALL_X = {'chain_dp': ('chain', 'chain_dp_cuda'),
+          'chain_extract': ('chain', 'chain_extract_cuda'),
+          'screen_keep': ('period', 'screen_keep_cuda')}
+# the parts of call's wall (phase 4, both routes): the screen, the anchors,
+# the chaining (the card's batch, the host core's rows, or map()'s chain),
+# the selection and stitching, the SW of the clips, and map_batch / map
+# around the three middle ones (ms summed over calls)
+CALL_PARTS = (('find_ccs', {'screen': ('device_screen',)}),
+              ('aligner', {'anchors': ('_anchors',),
+                           'chain': ('_device_chains', '_host_chains',
+                                     '_chain'),
+                           'select_stitch': ('_select_and_stitch_batch',
+                                             '_select_and_stitch'),
+                           'map': ('map_batch', 'map')}),
+              ('find_bsj', {'sw': ('align_clip_segments_batch',)}))
+# X2's plain DP loops in Python over anchor slots: held on every recorded
+# launch through the native core, on these many first launches and the
+# largest through the plain versions
+X_PLAIN_FIRST = 3
 # benchmarks/collapse_bench.py's defaults
 COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
 COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
@@ -461,6 +505,65 @@ def run_call(device, world, out_dir):
         return json.load(f)
 
 
+def _modules():
+    from ciri_long_tpu_torch.models.aligner import GenomeAligner
+    from ciri_long_tpu_torch.ops import chain, period
+    from ciri_long_tpu_torch.pipeline import find_bsj, find_ccs
+    return dict(chain=chain, period=period, find_ccs=find_ccs,
+                find_bsj=find_bsj, aligner=GenomeAligner)
+
+
+def _recording_x(torch, seen):
+    """Wrap X2's and X3's wrappers (CALL_X) so that each launch keeps CPU
+    copies of its inputs and outputs in ``seen`` (lists by kernel name; the
+    extraction's plan is left out, extract_plan remakes it); returns the
+    undo."""
+    mods = _modules()
+    originals = []
+    for name, (mod, attr) in CALL_X.items():
+        module = mods[mod]
+        kernel = getattr(module, attr)
+        originals.append((module, attr, kernel))
+
+        def recorder(*args, _kernel=kernel, _name=name):
+            out = _kernel(*args)
+            keep = args[:6] if _name == 'chain_extract' else args
+            seen[_name].append((
+                tuple(a.cpu() if torch.is_tensor(a) else a for a in keep),
+                tuple(o.cpu() for o in out) if isinstance(out, tuple)
+                else out.cpu()))
+            return out
+
+        setattr(module, attr, recorder)
+
+    def undo():
+        for module, attr, kernel in originals:
+            setattr(module, attr, kernel)
+    return undo
+
+
+def _timed_call(device, world, out_dir):
+    """run_call with the parts of CALL_PARTS timed; returns (summary,
+    wall s, {part: s}), detection = the ccs stage less the screen.  The
+    hooks take a clock and a lock around every call they time, so the walls
+    phase 4 reports come from runs without them."""
+    mods = _modules()
+    seconds = {}
+    undos = [_timing(mods[mod], calls, seconds) for mod, calls in CALL_PARTS]
+    try:
+        t0 = time.perf_counter()
+        summary = run_call(device, world, out_dir)
+        wall = time.perf_counter() - t0
+    finally:
+        for undo in undos:
+            undo()
+    parts = {k: seconds.get(k, 0.0) for calls in CALL_PARTS
+             for k in calls[1]}
+    parts['ccs_detection'] = (summary['timing']['ccs']['seconds']
+                              - parts['screen'])
+    return summary, wall, parts
+
+
 def phase_call(torch, dev, smi):
     from ciri_long_tpu_torch.ops import sw
     from ciri_long_tpu_torch.tools.world import bsj_accuracy, make_world
@@ -476,10 +579,11 @@ def phase_call(torch, dev, smi):
     with open(reads) as f:
         n_reads = sum(1 for ln in f if ln.startswith('>'))
 
-    # record the inputs the main path hands the kernel (launch and route
-    # counts are kept by the wrapper itself; the recorder only copies its
-    # arguments)
+    # record the inputs the main path hands the kernels (launch and route
+    # counts are kept by the wrappers themselves; the recorders only copy
+    # their arguments, and X2's and X3's outputs)
     seen = []
+    x_seen = {name: [] for name in CALL_X}
     kernel = sw.sw_score_ends_cuda
 
     def recorder(query, ref_, params):
@@ -487,6 +591,7 @@ def phase_call(torch, dev, smi):
         return kernel(query, ref_, params)
 
     sw.sw_score_ends_cuda = recorder
+    undo_x = _recording_x(torch, x_seen)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -496,9 +601,15 @@ def phase_call(torch, dev, smi):
         routes = dict(ROUTES)
     finally:
         sw.sw_score_ends_cuda = kernel
+        undo_x()
     t0 = time.perf_counter()
     cpu = run_call('cpu', world, os.path.join(WORK, 'out_cpu'))
     cpu_s = time.perf_counter() - t0
+    # the wall split, each route from a run of its own
+    _, gpu_split_s, gpu_parts = _timed_call('cuda', world,
+                                            os.path.join(WORK, 'split_cuda'))
+    _, cpu_split_s, cpu_parts = _timed_call('cpu', world,
+                                            os.path.join(WORK, 'split_cpu'))
 
     cand = [Path(WORK, d, 'smoke.cand_circ.fa').read_bytes()
             for d in ('out_cuda', 'out_cpu')]
@@ -521,15 +632,21 @@ def phase_call(torch, dev, smi):
          cpu_timing=cpu['timing'], bsj_recall=recall,
          bsj_precision=precision, called_loci=n_called, tolerance_bp=5,
          card=smi)
-    if launches['sw_score_ends'] <= 0 or gpu['kernels'] != launches:
-        raise AssertionError('call did not go through the SW kernel')
+    emit('call_split', cuda_s=gpu_parts, cpu_s=cpu_parts,
+         cuda_wall_s=gpu_split_s, cpu_wall_s=cpu_split_s, card=smi)
+    if any(launches[k] <= 0 for k in CALL_KERNELS) \
+            or gpu['kernels'] != launches:
+        raise AssertionError('call did not go through its kernels: '
+                             '{}'.format(launches))
+    if any(len(x_seen[k]) != launches[k] for k in CALL_X):
+        raise AssertionError('X2/X3 launches and recorded inputs differ')
     planned = sum(tiled for *_, tiled in shapes)
     sw_routes_ = {k: routes[k] for k in ('tiled', 'wave')}
     if (len(seen) != launches['sw_score_ends'] or planned == 0
             or sw_routes_ != {'tiled': planned, 'wave': len(seen) - planned}):
         raise AssertionError('call did not take the tiled route where its '
                              'plan applies: {} {}'.format(routes, shapes))
-    if cpu['kernels'] != {'sw_score_ends': 0}:
+    if cpu['kernels'] != {k: 0 for k in CALL_KERNELS}:
         raise AssertionError('the --device cpu summary counts launches: '
                              '{}'.format(cpu['kernels']))
     if cand[0] != cand[1] or counters[0] != counters[1]:
@@ -543,7 +660,7 @@ def phase_call(torch, dev, smi):
         err = max([err] + list(compare(
             torch, dev, q.cpu().numpy(), r.cpu().numpy(), params,
             'main path launch {}'.format(t), routes_).values()))
-    return launches['sw_score_ends'], err, seen
+    return launches, err, seen, x_seen
 
 
 def phase_call_time(torch, dev, smi, seen):
@@ -562,6 +679,238 @@ def phase_call_time(torch, dev, smi, seen):
             total[name] = total.get(name, 0.0) + ms
     emit('call_sw_time', launches=len(seen), total_ms=total, card=smi)
     return total
+
+
+def _dp_candidates(offs, window=64):
+    """The candidates the chaining DP scores over rows of these offsets:
+    min(i, window) for anchor i of each row."""
+    import numpy as np
+    A = np.diff(np.asarray(offs, np.int64))
+    m = np.minimum(A, window + 1)
+    return int((m * (m - 1) // 2 + window * (A - m)).sum())
+
+
+def _screen_pairs(reads, lags, k=11):
+    """The (window, lag) pairs csrc/screen_keep.cu compares for these reads
+    and lag ranges: for each valid window i, min(M, nwin - 1 - i), nwin the
+    last valid window + 1."""
+    import numpy as np
+    x = np.asarray(reads) < 4
+    W = x.shape[1]
+    total = 0
+    for row, M in zip(x, np.asarray(lags)):
+        run = np.concatenate([[0], np.cumsum(row)])
+        i = np.arange(max(0, W - k + 1))
+        valid = i[run[i + k] - run[i] == k]
+        if len(valid):
+            nwin = valid[-1] + 1
+            total += int(np.minimum(int(M), nwin - 1 - valid).sum())
+    return total
+
+
+def _screen_equal_pairs(reads, lags, k=11):
+    """The work the screen's function needs: the pairs of valid windows i <
+    j of one read with equal k-mer ids and j - i <= its lag range M, what
+    grouping the windows by k-mer id (a sort) finds in O(L log L + pairs).
+    About L M / p for a tandem read of period p, near 0 for a random one."""
+    import numpy as np
+    x = np.asarray(reads).astype(np.int64)
+    B, W = x.shape
+    if W < k:
+        return 0
+    n = W - k + 1
+    ok = x < 4
+    code = np.where(ok, x, 0)
+    kid = np.zeros((B, n), np.int64)
+    valid = np.ones((B, n), bool)
+    for j in range(k):
+        kid = kid * 4 + code[:, j:j + n]
+        valid &= ok[:, j:j + n]
+    total = 0
+    for kr, vr, M in zip(kid, valid, np.asarray(lags)):
+        pos = np.nonzero(vr)[0]
+        key = np.sort(kr[pos] * (2 * W) + pos)    # by k-mer id, then position
+        after = np.searchsorted(key, key + int(M), 'right')
+        total += int((after - np.arange(1, len(key) + 1)).sum())
+    return total
+
+
+def _wall_ms(torch, dev, fn):
+    """One call's wall in ms, the card synchronised on both sides; (ms,
+    result)."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _bits_differ(a, b):
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float64:
+        return int((a.view(np.int64) != b.view(np.int64)).sum())
+    return int((a != b).sum())
+
+
+def check_chain(torch, dev, x_seen):
+    """Every recorded X2 launch of phase 4: f and pre bit-equal to the
+    port's native chain core (native/chaincore.cpp) row by row, chains
+    equal to the host backtrack_chains (its native core) row by row; the
+    plain versions on the first X_PLAIN_FIRST launches and the largest.
+    Returns ({name: max err}, plain ms of the largest launch by kernel)."""
+    import numpy as np
+    from ciri_long_tpu_torch import _chaincore
+    from ciri_long_tpu_torch.ops import chain
+
+    dp = x_seen['chain_dp']
+    ext = x_seen['chain_extract']
+    work = [_dp_candidates(args[0]) for args, _ in dp]
+    big = max(range(len(dp)), key=work.__getitem__)
+    plain_at = sorted(set(range(min(X_PLAIN_FIRST, len(dp)))) | {big})
+    errs = {'chain_dp': 0, 'chain_extract': 0}
+    plain_ms = {}
+    for t, ((offs, r, q, c, k, window, gr, gq), (f, pre)) in enumerate(dp):
+        o = offs.numpy()
+        cols = [x.numpy().astype(np.int64) for x in (r, q, c)]
+        fn, pn = [], []
+        for b in range(len(o) - 1):
+            fb, pb = _chaincore.chain(*(x[o[b]:o[b + 1]] for x in cols), k,
+                                      window, gr, gq)
+            fn.append(np.frombuffer(fb, np.float64))
+            pn.append(np.frombuffer(pb, np.int64))
+        fn = np.concatenate(fn) if fn else np.zeros(0)
+        pn = np.concatenate(pn) if pn else np.zeros(0, np.int64)
+        differ = {'native': _bits_differ(f.numpy(), fn)
+                  + _bits_differ(pre.numpy(), pn)}
+        if t in plain_at:
+            table = chain.card_log2_table(chain.table_size(gr, gq), dev)
+            ms, (fp, pp) = _wall_ms(torch, dev, lambda: chain.chain_dp_plain(
+                *(x.to(dev) for x in (offs, r, q, c)), table, k, window, gr,
+                gq))
+            differ['plain'] = (_bits_differ(f.numpy(), fp.cpu().numpy())
+                               + _bits_differ(pre.numpy(), pp.cpu().numpy()))
+            if t == big:
+                plain_ms['chain_dp'] = ms
+        max_err = max(float((f - torch.from_numpy(fn)).abs().max())
+                      if len(fn) else 0.0,
+                      int((pre.long() - torch.from_numpy(pn)).abs().max())
+                      if len(pn) else 0)
+        emit('kernel_vs_plain', case='call launch {}'.format(t),
+             kernel='chain_dp', rows=len(o) - 1, anchors=int(o[-1]),
+             candidates=work[t], differ=differ, max_abs_err=max_err)
+        errs['chain_dp'] = max(errs['chain_dp'], max_err, *differ.values())
+
+    for t, ((offs, f, pre, ms_, ma, mc), out) in enumerate(ext):
+        o = offs.numpy()
+        got = chain.decode_chain_ids(o, *(x.numpy() for x in out))
+        fc, pc = f.numpy(), pre.numpy()
+        rows_differ = 0
+        for b in range(len(o) - 1):
+            lo, hi = o[b], o[b + 1]
+            host = chain.backtrack_chains(fc[None, lo:hi], pc[None, lo:hi],
+                                          np.ones((1, hi - lo), bool), ms_,
+                                          ma, mc)[0]
+            same = len(host) == len(got[b]) and all(
+                np.array_equal(hi_, gi) and hs == gs
+                for (hi_, hs), (gi, gs) in zip(host, got[b]))
+            rows_differ += not same
+        differ = {'host_rows': rows_differ}
+        if t in plain_at:
+            ms, want = _wall_ms(torch, dev, lambda: chain.chain_extract_plain(
+                offs, f, pre, ms_, ma, mc))
+            differ['plain'] = sum(_bits_differ(a.numpy(), b.numpy())
+                                  for a, b in zip(out, want))
+            if t == big:
+                plain_ms['chain_extract'] = ms
+        emit('kernel_vs_plain', case='call launch {}'.format(t),
+             kernel='chain_extract', rows=len(o) - 1, anchors=int(o[-1]),
+             chains=int(out[2].sum()), differ=differ,
+             max_abs_err=max(differ.values()))
+        errs['chain_extract'] = max(errs['chain_extract'], *differ.values())
+    if any(errs.values()):
+        raise AssertionError('X2 disagrees with its references: '
+                             '{}'.format(errs))
+    return errs, plain_ms, big
+
+
+def phase_call_kernels(torch, dev, smi, x_seen):
+    """Phase 4b: phase 4's X2 and X3 launches against their references
+    (check_chain; screen_keep against the plain version on every launch),
+    then each kernel at its largest launch: a CUDA graph's replay of 10
+    launches beside the plain version's wall (one call) and the bound (X2's
+    DP: its candidates at csrc/op_rate.cu's float64 candidate rate, or its
+    bytes; the extraction: its bytes; the screen: its equal k-mer pairs
+    within each read's lag range at the screen's compare rate, or its
+    bytes; bytes at 3.35 TB/s).  The screen's (window, lag) pairs, the work
+    of the kernel's brute-force design, give ``window_bound_ms`` beside it
+    as a design measure.  Returns {kernel: numbers for the kernels line}."""
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
+                                               recurrence_rate, time_launches)
+    from ciri_long_tpu_torch.ops import chain, period
+
+    errs, plain_ms, big = check_chain(torch, dev, x_seen)
+    scr = x_seen['screen_keep']
+    pairs = [_screen_pairs(args[0], args[2], args[3]) for args, _ in scr]
+    sbig = max(range(len(scr)), key=pairs.__getitem__)
+    equal = _screen_equal_pairs(scr[sbig][0][0], scr[sbig][0][2],
+                                scr[sbig][0][3])
+    errs['screen_keep'] = 0
+    for t, (args, keep) in enumerate(scr):
+        ms, want = _wall_ms(torch, dev, lambda: period.screen_keep_plain(
+            *(a.to(dev) if torch.is_tensor(a) else a for a in args)))
+        err = int((keep != want.cpu()).sum())
+        if t == sbig:
+            plain_ms['screen_keep'] = ms
+        emit('kernel_vs_plain', case='call launch {}'.format(t),
+             kernel='screen_keep', reads=int(args[0].shape[0]),
+             width=int(args[0].shape[1]), pairs=pairs[t], kept=int(keep.sum()),
+             max_abs_err=err)
+        errs['screen_keep'] = max(errs['screen_keep'], err)
+    if errs['screen_keep']:
+        raise AssertionError('screen_keep disagrees with the plain version')
+
+    rates = {k: recurrence_rate(dev, k) for k in ('chain_dp', 'screen_keep')}
+    emit('cell_rate', call_updates_per_s=rates, card=smi)
+    numbers = {}
+    (offs, r, q, c, k, window, gr, gq), (f, pre) = x_seen['chain_dp'][big]
+    d = [x.to(dev) for x in (offs, r, q, c)]
+    R, N = len(offs) - 1, len(r)
+    cands = _dp_candidates(offs)
+    numbers['chain_dp'] = dict(
+        ms=time_launches(lambda: chain.chain_dp_cuda(*d, k, window, gr, gq),
+                         10, dev, graph=True),
+        bound=max((cands / rates['chain_dp'], 'operations'),
+                  ((24 * N + 8 * (R + 1)) / HBM_BYTES_PER_S, 'bytes')),
+        rows=R, anchors=N, candidates=cands,
+        longest=int((offs[1:] - offs[:-1]).max()))
+    (offs, f, pre, ms_, ma, mc), _out = x_seen['chain_extract'][big]
+    d = [x.to(dev) for x in (offs, f, pre)]
+    plan = chain.extract_plan((offs[1:] - offs[:-1]).numpy(), dev)
+    numbers['chain_extract'] = dict(
+        ms=time_launches(lambda: chain.chain_extract_cuda(
+            *d, ms_, ma, mc, plan), 10, dev, graph=True),
+        bound=((13 * N + 8 * (R + 1) + (8 * mc + 4) * R) / HBM_BYTES_PER_S,
+               'bytes'),
+        rows=R, anchors=N, cap=plan[0], global_slots=plan[2])
+    args, _keep = scr[sbig]
+    d = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    B, W = args[0].shape
+    numbers['screen_keep'] = dict(
+        ms=time_launches(lambda: period.screen_keep_cuda(*d), 10, dev,
+                         graph=True),
+        bound=max((equal / rates['screen_keep'], 'operations'),
+                  ((B * W + 9 * B + 8 * int(args[2].max()))
+                   / HBM_BYTES_PER_S, 'bytes')),
+        window_bound_ms=pairs[sbig] / rates['screen_keep'] * 1e3,
+        reads=int(B), width=int(W), pairs=pairs[sbig], equal_pairs=equal)
+    for name, n in numbers.items():
+        bound_s, by = n.pop('bound')
+        n.update(max_abs_err=errs[name], plain_ms=plain_ms[name],
+                 bound_ms=bound_s * 1e3, bound_by=by,
+                 launches_recorded=len(x_seen[name]))
+        emit('call_kernel_time', kernel=name, card=smi, **n)
+    return numbers
 
 
 def sw_routes(Lq, Lr, params):
@@ -1479,8 +1828,10 @@ def main():
     dev, smi = phase_build(torch)
     errs = phase_kernel(torch, dev)
     phase_time(torch, dev, smi)
-    launches, call_err, seen = phase_call(torch, dev, smi)
+    call_launches, call_err, seen, x_seen = phase_call(torch, dev, smi)
+    launches = call_launches['sw_score_ends']
     phase_call_time(torch, dev, smi, seen)
+    x_numbers = phase_call_kernels(torch, dev, smi, x_seen)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
@@ -1601,6 +1952,15 @@ def main():
                  'launches', 'device_ms', 'ms', 'rows_ms', 'walk_ms',
                  'depth', 'plain_ms', 'bound_ms', 'bound_by', 'largest')}),
     ]
+    # call's X2 and X3 at their largest launch of phase 4, launched by it
+    for name, source in (('chain_dp', 'chain_dp.cu'),
+                         ('chain_extract', 'chain_dp.cu'),
+                         ('screen_keep', 'screen_keep.cu')):
+        n = dict(x_numbers[name])
+        kernels.append(dict(
+            entry(name, call_launches[name], n.pop('max_abs_err'),
+                  n.pop('ms'), n.pop('plain_ms'), n.pop('bound_ms'),
+                  n.pop('bound_by')), source=CSRC + source, **n))
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -150,7 +150,7 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
     else:
         with timer.stage('ccs'):
             total_reads, ro_reads, ccs_seq = find_ccs_reads(
-                in_file, out_dir, prefix, args.threads)
+                in_file, out_dir, prefix, args.threads, device)
         reads_count['total'] = total_reads
         reads_count['consensus'] = ro_reads
 

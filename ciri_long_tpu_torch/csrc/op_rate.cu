@@ -41,6 +41,15 @@
 //     pieces from running prefix maxima of Hpre - j e (sub, max, add each),
 //     H = max3, and the direction word: five compares, three selects, a
 //     shift and an or.
+//   kind 4, a candidate of the chaining DP (csrc/chain_dp.cu): dr and dq,
+//     the five window tests, alpha = min(dq, dr, k), g = |dr - dq|, its
+//     log term (a multiply standing in for the kernel's table load), skip,
+//     pen on either side of dr >= dq, cand = (f + alpha) - pen in float64
+//     round-to-nearest adds and multiplies, and the running best (compare,
+//     two selects).  A "cell" of this kind is one candidate.
+//   kind 5, one lag of one window of the tandem pre-screen
+//     (csrc/screen_keep.cu): the lag's range test, the k-mer compare and the
+//     count's add.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -245,6 +254,80 @@ poa_rate_kernel(int steps, int q, int match, int mismatch, int* out) {
     if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
 }
 
+__global__ void __launch_bounds__(THREADS)
+chain_rate_kernel(int steps, int q, int* out) {
+    int dr[CHAINS], dq[CHAINS], bj[CHAINS];
+    double fj[CHAINS], best[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        dr[k] = threadIdx.x + 40 * k + 1;
+        dq[k] = blockIdx.x % 97 + k + 1;
+        fj[k] = 15.0 + k;
+        best[k] = 15.0;
+        bj[k] = -1;
+    }
+    const double kd = 15.0, two_k = 30.0;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int r = dr[k] + (t & 63);
+            const int s = dq[k] + (t & 31) - q;
+            const bool ok = r > 0 && s > 0 && s <= 5000 && r <= 200000 &&
+                            (r & 1023) != q;
+            const double alpha = static_cast<double>(min(min(s, r), 15));
+            const int g = abs(r - s);
+            const double lgv = __dmul_rn(static_cast<double>(g), 1e-3);
+            const double skip = __dmul_rn(
+                0.1, fmax(0.0, __dsub_rn(static_cast<double>(s), two_k)));
+            const double pen =
+                r >= s ? __dadd_rn(lgv, skip)
+                       : __dadd_rn(
+                             __dadd_rn(__dmul_rn(0.5, static_cast<double>(g)),
+                                       __dmul_rn(0.5, lgv)),
+                             skip);
+            const double cand = __dsub_rn(__dadd_rn(fj[k], alpha), pen);
+            if (ok && cand > best[k]) {
+                best[k] = cand;
+                bj[k] = t;
+            }
+            fj[k] = __dadd_rn(fj[k], kd * 1e-9);
+        }
+    }
+    double acc = 0.0;
+    int iacc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        acc += best[k];
+        iacc ^= bj[k];
+    }
+    if (acc == -1.0 || iacc == 0x7fffffff) out[0] = iacc;  // keeps it live
+}
+
+__global__ void __launch_bounds__(THREADS)
+screen_rate_kernel(int steps, int q, int* out) {
+    int cnt[CHAINS], kid[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        cnt[k] = 0;
+        kid[k] = (threadIdx.x * 7 + k) & 1023;
+    }
+    const int room = steps - q;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+        const int xi = (t * 13) & 1023;    // the window's broadcast k-mer
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int d = threadIdx.x + 1 + k * THREADS;
+            if (d < room - t) cnt[k] += kid[k] == xi;
+        }
+    }
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= cnt[k];
+    if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
@@ -270,7 +353,8 @@ extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 
 // The same for the updates of collapse's kernels: ``kind`` 0 the edit
 // distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
-// distance's word, 3 the POA graph alignment's cell (see above).  Returns
+// distance's word, 3 the POA graph alignment's cell, 4 the chaining DP's
+// candidate, 5 the tandem screen's window and lag (see above).  Returns
 // cudaErrorInvalidValue for another kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
@@ -288,6 +372,10 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
     else if (kind == 3)
         poa_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, match,
                                                     mismatch, o);
+    else if (kind == 4)
+        chain_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
+    else if (kind == 5)
+        screen_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

@@ -78,9 +78,10 @@ _CELL_RATE_SYMBOLS = {
 # recurrence_rate's kinds: the updates of collapse's kernels, the edit
 # distance's by its bit-parallel word (32 rows of one column) and, to
 # compare with a cell-by-cell design, by its DP cell; the POA graph
-# alignment's cell with one predecessor
+# alignment's cell with one predecessor; call's chaining DP by its float64
+# candidate and the tandem screen by one window at one lag
 RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2,
-               'poa_align': 3}
+               'poa_align': 3, 'chain_dp': 4, 'screen_keep': 5}
 
 
 def _rate(device, launcher, form):
@@ -111,7 +112,8 @@ def recurrence_rate(device, kernel):
     (``RECURRENCES``: 'edit_distance', a Myers/Hyyro word update of 32 rows
     and one column; 'sw_traceback', a cell; 'edit_cell', one DP cell of the
     edit distance; 'poa_align', a graph-alignment cell with one
-    predecessor), from csrc/op_rate.cu's register-only loop of that
+    predecessor; 'chain_dp', a chaining candidate; 'screen_keep', a window
+    at one lag), from csrc/op_rate.cu's register-only loop of that
     update: the operations bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])
 

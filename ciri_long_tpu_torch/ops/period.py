@@ -1,0 +1,198 @@
+"""The CCS tandem pre-screen (port of the screen of
+``ciri_long_tpu/ops/period.py``, ROADMAP X3).
+
+For each read, whether any candidate period could clear the host lag vote of
+ops/ccs.py::_elect_period: the exact k-mer self-match count at every lag
+(``tandem_counts``), summed over each period's relative window, against the
+vote's bar.  Those counts dominate the host's votes lag by lag, so a read the
+screen drops would get no consensus from find_consensus: the screen never
+changes which reads get one.
+
+- ``tandem_counts_plain``: out[b, d-1] = the positions i whose k-mer equals
+  the one at i + d (both windows free of codes >= 4), d in 1..max_lag;
+- ``screen_keep_plain``: the fused election, in int32 as JAX's
+  ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
+  bucket's b // 2: the support windows clip there, so L // 2 would be
+  another function);
+- ``screen_keep_cuda``: csrc/screen_keep.cu, one block a read;
+- ``screen_keep``: numpy in, numpy out, on ``device``.
+
+The support windows [ceil(0.94 l - 4), floor(1.06 l + 4)] come from numpy's
+float64 expressions on the host (``support_windows``) and are clipped in
+integers, as JAX's program does with its static tables.  ``lag_profile``
+is not ported (ROADMAP, not to port).
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
+from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+
+PAD = 5
+# the JAX screen's length ladder: a read is screened at its bucket's lags
+SCREEN_BUCKETS = (512, 1024, 2048, 4096)
+SCREEN_MAX_LEN = SCREEN_BUCKETS[-1]    # csrc/screen_keep.cu's MAX_W
+MAX_LAG = SCREEN_MAX_LEN // 2
+
+
+def screen_bucket(n):
+    """The smallest screen bucket holding a read of n codes."""
+    for b in SCREEN_BUCKETS:
+        if n <= b:
+            return b
+    raise ValueError('read of {} codes is over the screen ladder'.format(n))
+
+
+def support_windows(max_lag):
+    """The raw (unclipped) support window [lo, hi] of every lag 1..max_lag,
+    int64, from JAX's numpy float64 expressions (ops/period.py:157-158)."""
+    lags = np.arange(1, max_lag + 1)
+    return (np.ceil(0.94 * lags - 4).astype(np.int64),
+            np.floor(1.06 * lags + 4).astype(np.int64))
+
+
+def tandem_counts_plain(reads, max_lag, k=11):
+    """Plain PyTorch k-mer self-match counts (any device): reads int8
+    [B, W] (PAD = 5 past a read).  Returns int32 [B, max_lag]."""
+    B, W = reads.shape
+    dev = reads.device
+    out = torch.zeros((B, max_lag), dtype=torch.int32, device=dev)
+    if W < k:
+        return out
+    x = reads.to(torch.int32)
+    padded = torch.nn.functional.pad(x, (0, k), value=PAD)
+    kid = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    vk = torch.ones((B, W), dtype=torch.bool, device=dev)
+    for j in range(k):
+        shifted = padded[:, j:j + W]
+        kid = kid * 4 + torch.where(shifted < 4, shifted, 0)
+        vk &= shifted < 4
+    vk &= torch.arange(W, device=dev)[None, :] <= W - k
+    for d in range(1, min(max_lag, W - 1) + 1):
+        eq = (kid[:, :W - d] == kid[:, d:]) & vk[:, :W - d] & vk[:, d:]
+        out[:, d - 1] = eq.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def _lag_ranges(max_lag, B, device):
+    m = torch.as_tensor(max_lag, dtype=torch.int32, device=device)
+    m = m.expand(B) if m.dim() == 0 else m
+    if B and (int(m.min()) < 1 or int(m.max()) > MAX_LAG):
+        raise ValueError('max_lag must lie in 1..{}'.format(MAX_LAG))
+    return m
+
+
+def screen_keep_plain(reads, lengths, max_lag, k=11, min_period=30,
+                      min_units=2.0):
+    """Plain PyTorch screen (any device): reads int8 [B, W], lengths [B],
+    max_lag an int or [B] ints.  keep[b] is True when some lag l in
+    1..max_lag[b] with l >= min_period and l * min_units <= L (float32) has
+    support sup >= 8 and 20 sup >= L.  Returns bool [B]."""
+    B = reads.shape[0]
+    dev = reads.device
+    m = _lag_ranges(max_lag, B, dev)
+    if B == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
+    mmax = int(m.max())
+    counts = tandem_counts_plain(reads, mmax, k)
+    cs = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=dev),
+                    torch.cumsum(counts, dim=1, dtype=torch.int32)], dim=1)
+    lo_raw, hi_raw = (torch.from_numpy(t).to(dev)
+                      for t in support_windows(mmax))
+    M = m.to(torch.int64)[:, None]
+    lo = torch.minimum(lo_raw.clamp(min=1)[None, :], M + 1)
+    hi = torch.minimum(hi_raw.clamp(min=0)[None, :], M)
+    sup = torch.gather(cs, 1, hi) - torch.gather(cs, 1, lo - 1)
+    L = torch.as_tensor(lengths, device=dev).to(torch.int32)[:, None]
+    lags = torch.arange(1, mmax + 1, dtype=torch.int32, device=dev)[None, :]
+    valid = ((lags <= M) & (lags >= min_period)
+             & (lags.to(torch.float32) * min_units <= L.to(torch.float32)))
+    ok = (sup >= 8) & (20 * sup >= L)
+    return (valid & ok).any(dim=1)
+
+
+_SYMBOLS = {
+    'screen_keep_launch': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                           + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                           + [ctypes.c_float] + [ctypes.c_void_p] * 2,
+                           ctypes.c_int),
+}
+_WINDOWS = {}
+
+
+def card_windows(device):
+    """support_windows(MAX_LAG) as int32 tensors on ``device``, uploaded
+    once a device (every lag range is a prefix of it)."""
+    key = str(device)
+    if key not in _WINDOWS:
+        _WINDOWS[key] = tuple(torch.from_numpy(t.astype(np.int32)).to(device)
+                              for t in support_windows(MAX_LAG))
+    return _WINDOWS[key]
+
+
+def screen_keep_cuda(reads, lengths, max_lag, k=11, min_period=30,
+                     min_units=2.0):
+    """csrc/screen_keep.cu on CUDA tensors: reads int8 [B, W] (W <=
+    SCREEN_MAX_LEN), lengths and max_lag int32 [B] (each in 1..MAX_LAG),
+    contiguous, on one device.  Same output as screen_keep_plain.  Raises
+    on anything else and when the launch is refused."""
+    from ciri_long_tpu_torch.ops import _build
+
+    tensors = (reads, lengths, max_lag)
+    dev = reads.device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError('screen_keep_cuda needs its tensors on one CUDA '
+                         'device (got {})'.format([str(t.device)
+                                                   for t in tensors]))
+    if (reads.dtype != torch.int8 or lengths.dtype != torch.int32
+            or max_lag.dtype != torch.int32):
+        raise TypeError('screen_keep_cuda needs int8 reads and int32 lengths '
+                        'and lag ranges')
+    B = reads.shape[0] if reads.dim() == 2 else -1
+    if (reads.dim() != 2 or tuple(lengths.shape) != (B,)
+            or tuple(max_lag.shape) != (B,)):
+        raise ValueError('screen_keep_cuda needs [B, W], [B] and [B] (got {})'
+                         .format([tuple(t.shape) for t in tensors]))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError('screen_keep_cuda needs contiguous inputs')
+    W = reads.shape[1]
+    if W > SCREEN_MAX_LEN or not 1 <= k <= 15:
+        raise ValueError('screen_keep_cuda takes W <= {} and k in 1..15 (got '
+                         'W={}, k={})'.format(SCREEN_MAX_LEN, W, k))
+    lo_raw, hi_raw = card_windows(dev)
+    keep = torch.empty(B, dtype=torch.uint8, device=dev)
+    lib = _build.load('screen_keep.cu', _SYMBOLS)
+    with torch.cuda.device(dev):
+        rc = lib.screen_keep_launch(
+            reads.data_ptr(), B, W, lengths.data_ptr(), max_lag.data_ptr(),
+            lo_raw.data_ptr(), hi_raw.data_ptr(), int(k), int(min_period),
+            float(min_units), keep.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('screen_keep launch failed: cudaError {} (B={}, '
+                           'W={})'.format(rc, B, W))
+    count_launch('screen_keep')
+    return keep.bool()
+
+
+@_count_dispatch('screen_keep')
+def screen_keep(reads, lengths, max_lag, k=11, min_period=30, min_units=2.0,
+                device='cuda'):
+    """The screen of padded reads on ``device``: numpy reads int8 [B, W]
+    (PAD = 5 past each read), lengths [B], max_lag an int or [B] ints in
+    1..MAX_LAG; numpy bool keep [B] out.  The kernel on the card, the plain
+    version on the CPU."""
+    device = resolve_device(device)
+    reads = torch.from_numpy(np.ascontiguousarray(reads, np.int8))
+    B = reads.shape[0]
+    lengths = torch.from_numpy(np.ascontiguousarray(lengths, np.int32))
+    m = _lag_ranges(max_lag, B, 'cpu').contiguous()
+    if device.type == 'cpu':
+        keep = screen_keep_plain(reads, lengths, m, k, min_period, min_units)
+    else:
+        keep = screen_keep_cuda(reads.to(device), lengths.to(device),
+                                m.to(device), k, min_period, min_units)
+    return keep.cpu().numpy()

@@ -10,7 +10,9 @@ The reference's per-read SSW call over a +-200 kb genomic window (its
 hottest native kernel) becomes a batched SW (ops/sw.py) on the ``device``
 that every function here takes: the CUDA kernel on ``cuda`` (the default,
 resolved by utils/dispatch.py::resolve_device, which raises without a GPU),
-the host core on ``cpu``.  Everything else is host logic over Context.
+the host core on ``cpu``.  So do the chains of every batched map
+(_map_many: csrc/chain_dp.cu on ``cuda``, the native chain core on
+``cpu``).  Everything else is host logic over Context.
 With ``cuda`` the stages run in this process; with ``cpu`` at -t > 1 they
 fan out over spawn pools as in the JAX package.  The JAX package's
 work-steal split between pool and device (HybridDrain, find_bsj.py:556) is
@@ -69,16 +71,25 @@ class _SSWRes:
         self.ref_end = re_
 
 
-def _map_many(ctx, seqs):
-    """Map a list of sequences through the aligner's batched map when it
-    has one (models/aligner.py::map_batch, identical hits to map()), else
-    per-read."""
+def _map_many(ctx, seqs, device):
+    """Map a list of sequences on ``device`` (a torch.device).  On the card
+    every list, a single sequence too, goes through the aligner's batched
+    map, so each chain runs on csrc/chain_dp.cu (a single sequence keeps all
+    its anchors, as map() does, so its hits equal the host route's); on the
+    CPU a list of several through map_batch on the host chain core
+    (models/aligner.py::map_batch, identical hits to map()), one sequence
+    through map()."""
+    if device.type == 'cuda':
+        if not seqs:
+            return []
+        return ctx.aligner.map_batch(
+            seqs, max_anchors=8192 if len(seqs) > 1 else None, device=device)
     if len(seqs) > 1 and hasattr(ctx.aligner, 'map_batch'):
-        return ctx.aligner.map_batch(seqs)
+        return ctx.aligner.map_batch(seqs, device=device)
     return [ctx.aligner.map(s) for s in seqs]
 
 
-def find_bsj_batch(ctx, ccs_list, init_hits_list=None):
+def find_bsj_batch(ctx, ccs_list, device, init_hits_list=None):
     """Lockstep-batched find_bsj (reference loop find_bsj.py:139-179;
     SURVEY.md §7.3): all reads advance through the rotate+remap iteration
     together, one batched map per round, with per-read done-masks -- the
@@ -89,12 +100,13 @@ def find_bsj_batch(ctx, ccs_list, init_hits_list=None):
     it; None when the final rotation was never aligned, i.e. the
     first-round revert to junction 0 -- callers map those themselves).
     ``init_hits_list`` optionally supplies precomputed map(ccs*2) hits
-    (the scan pass already has them from its filters)."""
+    (the scan pass already has them from its filters).  The maps run on
+    ``device`` (a torch.device, see _map_many)."""
     n = len(ccs_list)
     results = [(None, None, None)] * n
 
     if init_hits_list is None:
-        init_hits_list = _map_many(ctx, [s * 2 for s in ccs_list])
+        init_hits_list = _map_many(ctx, [s * 2 for s in ccs_list], device)
 
     state = {}
     active = []
@@ -116,7 +128,8 @@ def find_bsj_batch(ctx, ccs_list, init_hits_list=None):
         # deterministic, so this matches the reference's re-map exactly)
         need = [t for t, i in enumerate(active)
                 if state[i]['junc'] not in state[i]['cache']]
-        fresh = _map_many(ctx, [seqs[t] for t in need]) if need else []
+        fresh = (_map_many(ctx, [seqs[t] for t in need], device) if need
+                 else [])
         for t, hits in zip(need, fresh):
             st = state[active[t]]
             st['cache'][st['junc']] = hits
@@ -159,13 +172,13 @@ def find_bsj_batch(ctx, ccs_list, init_hits_list=None):
     return results
 
 
-def _final_circ_hits(ctx, items):
+def _final_circ_hits(ctx, items, device):
     """Fill in map() hits for (circ, junc, hits) tuples whose final
     rotation was never aligned inside find_bsj_batch."""
     missing = [t for t, (circ, _junc, hits) in enumerate(items)
                if circ is not None and hits is None]
     if missing:
-        fresh = _map_many(ctx, [items[t][0] for t in missing])
+        fresh = _map_many(ctx, [items[t][0] for t in missing], device)
         for t, hits in zip(missing, fresh):
             items[t] = (items[t][0], items[t][1], hits)
     return items
@@ -351,7 +364,8 @@ def scan_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
     # one combined batched map for both filter alignments (raw read and
     # doubled CCS): map_batch is per-row exact, so fusing the lists only
     # merges device dispatches, never changes a row's hits
-    both = _map_many(ctx, [c[3] for c in chunk] + [c[2] * 2 for c in chunk])
+    both = _map_many(ctx, [c[3] for c in chunk] + [c[2] * 2 for c in chunk],
+                     device)
     raw_hits_all, ccs2_hits_all = both[:len(chunk)], both[len(chunk):]
 
     survivors = []
@@ -383,9 +397,9 @@ def scan_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
         reads_cnt['ccs_mapped'] += 1
         survivors.append(ci)
 
-    bsj = find_bsj_batch(ctx, [chunk[ci][2] for ci in survivors],
+    bsj = find_bsj_batch(ctx, [chunk[ci][2] for ci in survivors], device,
                          [ccs2_hits_all[ci] for ci in survivors])
-    bsj = _final_circ_hits(ctx, bsj)
+    bsj = _final_circ_hits(ctx, bsj, device)
 
     final = []
     for ci, (circ, junc, circ_hits) in zip(survivors, bsj):
@@ -579,7 +593,7 @@ def recover_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
     reads_cnt = defaultdict(int)
     ret = []
 
-    ccs2_hits_all = _map_many(ctx, [c[2] * 2 for c in chunk])
+    ccs2_hits_all = _map_many(ctx, [c[2] * 2 for c in chunk], device)
 
     survivors = []
     for ci, (read_id, segments, ccs, raw) in enumerate(chunk):
@@ -593,9 +607,9 @@ def recover_ccs_chunk(ctx, chunk, is_canonical, cfg=DEFAULT.call,
         reads_cnt['ccs_mapped'] += 1
         survivors.append(ci)
 
-    bsj = find_bsj_batch(ctx, [chunk[ci][2] for ci in survivors],
+    bsj = find_bsj_batch(ctx, [chunk[ci][2] for ci in survivors], device,
                          [ccs2_hits_all[ci] for ci in survivors])
-    bsj = _final_circ_hits(ctx, bsj)
+    bsj = _final_circ_hits(ctx, bsj, device)
 
     final = []
     for ci, (circ, junc, circ_hits) in zip(survivors, bsj):
@@ -671,10 +685,13 @@ def recover_ccs_reads(ctx, short_reads, is_canonical, out_dir, prefix,
     return reads_count
 
 
-def scan_raw_chunk(ctx, chunk, is_canonical, circ_reads, cfg=DEFAULT.call):
+def scan_raw_chunk(ctx, chunk, is_canonical, circ_reads, cfg=DEFAULT.call,
+                   device='cuda'):
     """Partial-BSJ scan over raw reads without a CCS (find_bsj.py:499-620),
     batch-first: the whole-chunk raw maps, the lockstep BSJ rotation and
-    the final circular re-maps each run as one batched device program."""
+    the final circular re-maps each chain as one batched launch on
+    ``device``."""
+    device = resolve_device(device)
     reads_cnt = defaultdict(int)
     ret = []
     short_reads = []
@@ -688,7 +705,7 @@ def scan_raw_chunk(ctx, chunk, is_canonical, circ_reads, cfg=DEFAULT.call):
             continue
         todo.append((read_id, seq))
 
-    raw_maps = _map_many(ctx, [seq for _, seq in todo])
+    raw_maps = _map_many(ctx, [seq for _, seq in todo], device)
 
     # geometry gate (1-hit / 2-hit chimera checks) -> which reads need the
     # rotation loop, and the head/tail context their junction checks use
@@ -718,8 +735,8 @@ def scan_raw_chunk(ctx, chunk, is_canonical, circ_reads, cfg=DEFAULT.call):
                 continue
             pending.append((read_id, seq, raw_hits, (head, tail)))
 
-    bsj = find_bsj_batch(ctx, [seq for _, seq, _, _ in pending])
-    bsj = _final_circ_hits(ctx, bsj)
+    bsj = find_bsj_batch(ctx, [seq for _, seq, _, _ in pending], device)
+    bsj = _final_circ_hits(ctx, bsj, device)
 
     for (read_id, seq, raw_hits, head_tail), (circ, junc, circ_maps) \
             in zip(pending, bsj):
@@ -807,7 +824,8 @@ def scan_raw_chunk(ctx, chunk, is_canonical, circ_reads, cfg=DEFAULT.call):
 
 def _raw_worker_chunk(payload):
     chunk, is_canonical, circ_reads, cfg = payload
-    return scan_raw_chunk(_WORKER_CTX, chunk, is_canonical, circ_reads, cfg)
+    return scan_raw_chunk(_WORKER_CTX, chunk, is_canonical, circ_reads, cfg,
+                          'cpu')
 
 
 def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
@@ -818,8 +836,8 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
     threads > 1 uses the same
     spawn-pool pattern as scan_ccs_reads (the reference pools this pass
     too, find_bsj.py:662); results drain in submission order.  The pass
-    aligns with the host aligner only (no SW), so ``device`` only decides
-    whether a pool may be used."""
+    runs no SW: ``device`` decides where its chains run and whether a pool
+    may be used."""
     from ciri_long_tpu_torch.io.fastx import read_fastx
 
     device = resolve_device(device)
@@ -857,7 +875,7 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
                     tmp_cnt, tmp_ret, tmp_short = next(result_iter)
                 else:
                     tmp_cnt, tmp_ret, tmp_short = scan_raw_chunk(
-                        ctx, chunk, is_canonical, circ_reads, cfg)
+                        ctx, chunk, is_canonical, circ_reads, cfg, device)
                 for key, value in tmp_cnt.items():
                     reads_cnt[key] += value
                 short_reads += tmp_short

@@ -11,7 +11,7 @@
   ``recover_ccs_reads``, serial and on a -t 2 spawn pool) on the
   tests/test_recover.py world;
 - the entry points' default device, 'cuda', which raises without a GPU
-  (``call``'s and ``collapse``'s);
+  (``call``'s, the chaining's and the tandem screen's, and ``collapse``'s);
 - the aligner state carried across: the port's GenomeAligner built from the
   JAX index (``from_arrays``) and from the JAX package's on-disk
   tmp/minidx + tmp/gcodes caches maps exactly as the JAX aligner does.
@@ -39,7 +39,10 @@ from ciri_long_tpu_torch.pipeline import find_bsj as tfb
 from ciri_long_tpu_torch.tools.world import _write_fasta
 from ciri_long_tpu_torch.tools.world import skill_world as skill_world_files
 from ciri_long_tpu_torch.cli.main import main as cli_main
+from ciri_long_tpu_torch.ops.chain import chain_extract_batch
 from ciri_long_tpu_torch.ops.edit import edit_distance_batch
+from ciri_long_tpu_torch.ops.period import screen_keep
+from ciri_long_tpu_torch.pipeline.find_ccs import find_ccs_reads
 from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
 from ciri_long_tpu_torch.pipeline.collapse import correct_reads
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
@@ -49,6 +52,9 @@ from tests.test_poa import mutate
 torch.set_num_threads(1)
 
 S, E = 20_000, 20_520
+# call's summary on --device cpu: every kernel of its path, none launched
+CPU_KERNELS = {'sw_score_ends': 0, 'chain_dp': 0, 'chain_extract': 0,
+               'screen_keep': 0}
 
 
 @pytest.fixture(scope='module')
@@ -101,7 +107,7 @@ def test_call_matches_jax_on_skill_world(skill_runs):
              tf['vtest.cand_circ.fa'].decode().splitlines()
              if ln.startswith('>')]
     assert heads == ['chr1:20001-20520'] * 10
-    assert summary['kernels'] == {'sw_score_ends': 0}   # cpu: no launches
+    assert summary['kernels'] == CPU_KERNELS   # cpu: no launches
     assert set(summary['timing']) == {'ccs', 'scan_ccs', 'recover_ccs',
                                       'scan_raw'}
 
@@ -124,7 +130,7 @@ def test_each_package_resumes_from_the_others_tmp(skill_runs, first, second):
     assert (out / 'vtest.cand_circ.fa').read_bytes() == \
         (src / 'vtest.cand_circ.fa').read_bytes()
     if second == 'port':
-        assert _outputs(out)[2]['kernels'] == {'sw_score_ends': 0}
+        assert _outputs(out)[2]['kernels'] == CPU_KERNELS
     LAUNCHES['sw_score_ends'] = 0
 
 
@@ -322,11 +328,17 @@ def test_recover_ccs_reads_pool_matches_serial(recover_world):
     lambda: sw_traceback_batch([np.zeros(4, np.int8)], [np.zeros(4, np.int8)]),
     lambda: correct_reads(None, []),
     lambda: cli_main(['collapse', '-i', 'unused.lst', '-o', 'unused']),
+    lambda: tfb.scan_raw_chunk(None, [], True, {}),
+    lambda: GenomeAligner.map_batch(None, []),
+    lambda: chain_extract_batch(np.zeros(1, np.int64), [], [], [], 30.0, 15),
+    lambda: find_ccs_reads('unused.fa', 'unused', 'p'),
+    lambda: screen_keep(np.full((1, 512), 5, np.int8), [0], 256),
 ], ids=['sw_align_batch', 'sw_align_batch_submit', 'sw_window_align',
         'sw_window_align_many', 'align_clip_segments_batch',
         'scan_ccs_chunk', 'scan_ccs_reads', 'recover_ccs_chunk',
         'recover_ccs_reads', 'scan_raw_reads', 'edit_distance_batch',
-        'sw_traceback_batch', 'correct_reads', 'collapse'])
+        'sw_traceback_batch', 'correct_reads', 'collapse', 'scan_raw_chunk',
+        'map_batch', 'chain_extract_batch', 'find_ccs_reads', 'screen_keep'])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no ``device`` the port's entry points ask for 'cuda', which
     raises where no GPU is visible instead of running on the host."""
@@ -366,7 +378,8 @@ def test_aligner_state_carried_across(tmp_path, rng):
         for f in ('codes', 'pos', 'strand', 'buckets'):
             np.testing.assert_array_equal(getattr(al.index, f),
                                           getattr(jal.index, f))
-        got = [[_hit_key(h) for h in hits] for hits in al.map_batch(seqs)]
+        got = [[_hit_key(h) for h in hits]
+               for hits in al.map_batch(seqs, device='cpu')]
         assert got == want
         assert [[_hit_key(h) for h in al.map(s)] for s in seqs] == \
             [[_hit_key(h) for h in jal.map(s)] for s in seqs]

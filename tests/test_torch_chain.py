@@ -1,0 +1,308 @@
+"""The port's chaining (ops/chain.py, X2) against the JAX package on the CPU.
+
+- A: ``chain_dp_plain`` bit-equal (f and pre) to the JAX package's host
+  ``GenomeAligner._chain_dp`` in the form this tree has: the native core
+  (std::log2 table) when ``ciri_long_tpu._chaincore`` is built, else its
+  numpy twin (np.log2); the plain DP takes the matching table.  Random rows
+  of tests/test_chain_device.py's generator and tools/chain_cases.py's edge
+  rows: contig changes, both gap directions, g over 65 535, gaps at exactly
+  max_gap_r and max_gap_q, A = 1, 2, 64, 65 and 8192, tied candidates and
+  tied scores.
+- B: ``chain_extract_plain`` equal to the JAX ``backtrack_chains`` on the
+  same (f, pre), truncation and short-path rejects included.
+- C: the JAX package's float32 device program (``chain_extract_batch`` run
+  on the CPU) against the port's float64 chains.
+- D: the port's ``map_batch`` on its card branch (the CUDA call replaced by
+  the plain route) against its host route and the JAX ``map_batch``, with
+  the host chain core made to fail; ``_map_many`` on the card sends a single
+  read through it too, every anchor kept.
+"""
+
+import ctypes
+import ctypes.util
+
+import numpy as np
+import pytest
+import torch
+
+from ciri_long_tpu.io.genome import Genome as JaxGenome
+from ciri_long_tpu.models.aligner import GenomeAligner as JaxAligner
+from ciri_long_tpu.ops import chain as jchain
+from ciri_long_tpu_torch.io.genome import Genome
+from ciri_long_tpu_torch.models import aligner as taligner
+from ciri_long_tpu_torch.models.aligner import GenomeAligner
+from ciri_long_tpu_torch.ops import chain as tchain
+from ciri_long_tpu_torch.pipeline import find_bsj as tfb
+from ciri_long_tpu_torch.tools import chain_cases as cases
+from ciri_long_tpu_torch.tools.world import _write_fasta
+from tests.test_chain_device import _random_anchor_batch
+from tests.test_pipeline_call import make_rolling_read, rand_seq
+from tests.test_poa import mutate
+
+torch.set_num_threads(1)
+
+K = 15
+GAP_R, GAP_Q = 200_000, 5_000
+N_TABLE = tchain.table_size(GAP_R, GAP_Q)
+
+
+def _jax_table():
+    """log2(g + 1) as the JAX package's host _chain_dp takes it here."""
+    try:
+        from ciri_long_tpu import _chaincore  # noqa: F401
+    except ImportError:
+        return np.log2(np.arange(N_TABLE, dtype=np.float64) + 1.0)
+    libm = ctypes.CDLL(ctypes.util.find_library('m'))
+    libm.log2.argtypes = [ctypes.c_double]
+    libm.log2.restype = ctypes.c_double
+    return np.array([libm.log2(g + 1.0) for g in range(N_TABLE)])
+
+
+@pytest.fixture(scope='module')
+def jal():
+    return JaxAligner(JaxGenome.from_dict({'c': 'ACGT' * 500}))
+
+
+def _plain_dp(rows, table, k=K):
+    offs, r, q, c = cases.csr(rows)
+    f, pre = tchain.chain_dp_plain(
+        torch.from_numpy(offs), *(torch.from_numpy(x.astype(np.int32))
+                                  for x in (r, q, c)),
+        torch.from_numpy(table), k, 64, GAP_R, GAP_Q)
+    return offs, f.numpy(), pre.numpy()
+
+
+def test_chain_dp_plain_bit_equal_to_jax_host(jal, rng):
+    """Case A: f and pre bit-equal to the JAX host _chain_dp on random and
+    edge rows (tools/chain_cases.py; the float64 host route is the
+    arbiter)."""
+    rows = cases.random_rows(rng, 8, 512) + cases.edge_rows(rng)
+    offs, f, pre = _plain_dp(cases.local(rows), _jax_table())
+    for b, (r, q, c) in enumerate(rows):
+        fj, pj = jal._chain_dp(r, q, c, GAP_R, GAP_Q)
+        lo, hi = offs[b], offs[b + 1]
+        assert np.array_equal(f[lo:hi].view(np.int64), fj.view(np.int64)), b
+        assert np.array_equal(pre[lo:hi], pj), b
+    # the edges were reached: a chain across the contig change refused;
+    # both gap directions; g past the native table and max_gap_r taken, one
+    # past it refused; max_gap_q taken, one past it refused; ties of the
+    # diagonal resolved to the smallest j
+    pre_of = [jal._chain_dp(*rows[t], GAP_R, GAP_Q)[1] for t in range(19)]
+    c = rows[8][2]
+    assert c.any() and not c.all()
+    assert all(c[j] == c[i] for i, j in enumerate(pre_of[8]) if j >= 0)
+    steps = np.diff(rows[9][1]) - np.diff(rows[9][0])
+    assert (steps > 0).any() and (steps <= 0).any()
+    assert pre_of[10][40:].tolist() == [39, 40, -1]
+    assert pre_of[11][40] == 39 and pre_of[11][-1] == -1
+    assert [len(rows[t][0]) for t in range(12, 17)] == [1, 2, 64, 65, 8192]
+    assert pre_of[17][3:].tolist() == list(range(200 - 3))
+
+
+def _backtrack_rows(rng, B, A, round_f=False):
+    rs, qs, cs, val = _random_anchor_batch(rng, B, A)
+    f, pre = jchain.chain_scores_batch(rs, qs, cs, val, 15)
+    f = np.asarray(f).astype(np.float64)
+    if round_f:
+        f = np.round(f)                  # exact ties everywhere
+    pre = np.asarray(pre)
+    n = val.sum(axis=1)
+    offs = np.zeros(B + 1, np.int64)
+    offs[1:] = np.cumsum(n)
+    fc = np.concatenate([f[b, :n[b]] for b in range(B)])
+    pc = np.concatenate([pre[b, :n[b]] for b in range(B)]).astype(np.int32)
+    return f, pre, val, offs, fc, pc
+
+
+def _assert_same_chains(got, want, exact=True):
+    assert len(got) == len(want)
+    for b, (gc, wc) in enumerate(zip(got, want)):
+        assert len(gc) == len(wc), (b, len(gc), len(wc))
+        for (gi, gs), (wi, ws) in zip(gc, wc):
+            np.testing.assert_array_equal(gi, wi)
+            assert gs == ws if exact else abs(gs - ws) < 1e-3
+
+
+@pytest.mark.parametrize('min_anchors,max_chains,round_f', [
+    (3, 10, False), (8, 2, False), (3, 10, True), (1, 127, True)])
+def test_chain_extract_plain_equals_jax_backtrack(rng, min_anchors,
+                                                  max_chains, round_f):
+    """Case B: the greedy on the same (f, pre) as the JAX backtrack_chains,
+    with truncation (small max_chains), short-path rejects (high
+    min_anchors) and exact ties (f rounded)."""
+    f, pre, val, offs, fc, pc = _backtrack_rows(rng, 6, 256, round_f)
+    want = jchain.backtrack_chains(f, pre, val, 30.0, min_anchors,
+                                   max_chains)
+    cid, scores, nch = tchain.chain_extract_plain(
+        torch.from_numpy(offs), torch.from_numpy(fc), torch.from_numpy(pc),
+        30.0, min_anchors, max_chains)
+    got = tchain.decode_chain_ids(offs, cid.numpy(), scores.numpy(),
+                                  nch.numpy())
+    _assert_same_chains(got, want)
+    assert sum(len(c) for c in want) > 0
+
+
+def test_chain_extract_batch_matches_jax_float32_program(rng):
+    """Case C: JAX's float32 device program (chain_extract_batch on the
+    CPU) against the port's float64 chains.  The float64 host route is the
+    arbiter: the two may differ only on rows whose float32 and float64
+    candidate orders differ (pre or the stable descending-f order of the
+    candidates), so the test finds those rows by recomputing both, compares
+    every other row chain for chain, and asserts that at these sizes no
+    row's orders differ."""
+    B, A, min_score = 8, 512, 30.0
+    rs, qs, cs, val = _random_anchor_batch(rng, B, A)
+    packed, jscores, jnch = jchain.chain_extract_batch(
+        rs, qs, cs, val, min_score, 15, max_chains=10, min_anchors=3)
+    want = jchain.decode_chains(packed, jscores, jnch)
+    f32, pre32 = (np.asarray(x) for x in
+                  jchain.chain_scores_batch(rs, qs, cs, val, 15))
+    rows = [(rs[b][val[b]], qs[b][val[b]], cs[b][val[b]]) for b in range(B)]
+    offs, r, q, c = cases.csr(rows)
+    out = tchain.chain_extract_batch(offs, r, q, c, min_score, 15,
+                                     min_anchors=3, device='cpu')
+    got = tchain.decode_chain_ids(offs, *out)
+    _offs, f64, pre64 = _plain_dp(rows, tchain.log2_table(N_TABLE), k=15)
+    differ = []
+    for b in range(B):
+        n = int(val[b].sum())
+        lo = offs[b]
+        a32, a64 = f32[b, :n], f64[lo:lo + n]
+        o32 = [i for i in np.argsort(-a32, kind='stable') if a32[i] >= min_score]
+        o64 = [i for i in np.argsort(-a64, kind='stable') if a64[i] >= min_score]
+        if o32 != o64 or not np.array_equal(pre32[b, :n], pre64[lo:lo + n]):
+            differ.append(b)
+            continue
+        _assert_same_chains([got[b]], [want[b]], exact=False)
+    assert differ == []
+
+
+def _world(rng, tmp_path):
+    chr1 = rand_seq(rng, 40_000)
+    _write_fasta(tmp_path / 'g.fa', 'chr1', chr1)
+    seqs = [mutate(rng, chr1[st:st + 700], sub=0.03)
+            for st in (100, 5000, 12_345, 29_000)]
+    seqs.append(chr1[8000:8400] + chr1[20_000:20_500])     # two hits
+    seqs.append(rand_seq(rng, 300))                         # no hit
+    unit = chr1[30_000:30_420]
+    seqs += [make_rolling_read(rng, unit, copies=3.0 + 0.4 * i,
+                               rot=37 * i, noise=0.03) for i in range(4)]
+    return tmp_path / 'g.fa', seqs
+
+
+def _hit_key(h):
+    return (h.ctg, h.strand, h.q_st, h.q_en, h.r_st, h.r_en, h.mlen, h.blen,
+            list(h.cigar), h.is_primary, h.mapq, float(h.score))
+
+
+def _card_branch(monkeypatch):
+    """The port's card route with the CUDA call replaced by the plain
+    version, and the host chain core made to fail.  Returns the calls."""
+    calls = []
+    real = tchain.chain_extract_batch
+
+    def fake(*args, device, **kw):
+        assert device.type == 'cuda'
+        calls.append(len(args[0]) - 1)
+        return real(*args, device='cpu', **kw)
+
+    def host_core(*_a, **_k):
+        raise AssertionError('the card route reached the host chain core')
+
+    monkeypatch.setattr(taligner, 'resolve_device',
+                        lambda d: torch.device('cuda', 0))
+    monkeypatch.setattr(tchain, 'chain_extract_batch', fake)
+    monkeypatch.setattr(tchain, 'backtrack_chains', host_core)
+    monkeypatch.setattr(GenomeAligner, '_chain_dp', host_core)
+    return calls
+
+
+def test_map_batch_card_branch_matches_host_and_jax(rng, tmp_path,
+                                                    monkeypatch):
+    """Case D: the card branch's hits equal the host route's and the JAX
+    map_batch's; one chain_extract_batch serves every row, and the host
+    chain core is never reached."""
+    ref, seqs = _world(rng, tmp_path)
+    jal = JaxAligner(JaxGenome(str(ref)))
+    al = GenomeAligner(Genome(str(ref)))
+    want = [[_hit_key(h) for h in hits] for hits in jal.map_batch(seqs)]
+    host = [[_hit_key(h) for h in hits]
+            for hits in al.map_batch(seqs, device='cpu')]
+    calls = _card_branch(monkeypatch)
+    card = [[_hit_key(h) for h in hits]
+            for hits in al.map_batch(seqs, device='cuda')]
+    assert card == host == want
+    assert sum(len(w) for w in want) >= 8
+    assert len(calls) == 1 and calls[0] >= len(seqs)
+
+
+def test_map_many_takes_the_card_for_one_read(rng, tmp_path, monkeypatch):
+    """On the card _map_many sends a single read through map_batch too, with
+    every anchor kept (map()'s rows); its hits equal the CPU route's
+    (map())."""
+    ref, seqs = _world(rng, tmp_path)
+    al = GenomeAligner(Genome(str(ref)))
+    ctx = type('Ctx', (), {'aligner': al})()
+    want = [tfb._map_many(ctx, [s], torch.device('cpu')) for s in seqs]
+    seen = []
+    real = GenomeAligner.map_batch
+
+    def spy(self, batch, max_anchors=8192, device='cuda'):
+        seen.append(max_anchors)
+        return real(self, batch, max_anchors, device)
+
+    calls = _card_branch(monkeypatch)
+    monkeypatch.setattr(GenomeAligner, 'map_batch', spy)
+    got = [tfb._map_many(ctx, [s], torch.device('cuda', 0)) for s in seqs]
+    assert [[_hit_key(h) for h in hits[0]] for hits in got] == \
+        [[_hit_key(h) for h in hits[0]] for hits in want]
+    assert seen == [None] * len(seqs)
+    assert len(calls) >= len(seqs) - 1      # the 300-base read may have none
+    assert tfb._map_many(ctx, [], torch.device('cuda', 0)) == []
+
+
+def test_extract_plan_layout():
+    """Rows up to SMEM_ROW share a power-of-two shared-memory cap; longer
+    rows get their own power-of-two regions of global scratch."""
+    cap, goff, slots = tchain.extract_plan([1, 5, 64, 65], 'cpu')
+    assert (cap, goff.tolist(), slots) == (128, [-1] * 4, 0)
+    cap, goff, slots = tchain.extract_plan(
+        [3, tchain.SMEM_ROW, tchain.SMEM_ROW + 1, 20_000], 'cpu')
+    assert cap == tchain.SMEM_ROW
+    assert goff.tolist() == [-1, -1, 0, 16384]
+    assert slots == 16384 + 32768
+    assert tchain.extract_plan([0], 'cpu')[0] == 1
+
+
+def test_log2_table_is_the_host_routes(monkeypatch):
+    """The CPU route's table follows the port's host chain core: libm's
+    log2 when the native core is built, np.log2 for its numpy twin."""
+    import sys
+
+    import ciri_long_tpu_torch
+    monkeypatch.delattr(ciri_long_tpu_torch, '_chaincore', raising=False)
+    monkeypatch.setitem(sys.modules, 'ciri_long_tpu_torch._chaincore', None)
+    tchain._TABLES.clear()
+    t = tchain.log2_table(70_000)
+    assert np.array_equal(t, np.log2(np.arange(70_000) + 1.0))
+    monkeypatch.setitem(sys.modules, 'ciri_long_tpu_torch._chaincore',
+                        object())
+    tchain._TABLES.clear()
+    t = tchain.log2_table(1025)
+    libm = ctypes.CDLL(ctypes.util.find_library('m'))
+    libm.log2.argtypes = [ctypes.c_double]
+    libm.log2.restype = ctypes.c_double
+    assert t.tolist() == [libm.log2(g + 1.0) for g in range(1025)]
+    tchain._TABLES.clear()
+
+
+@pytest.mark.parametrize('offs', [[1, 3, 5], [0, 4, 3, 5], [0, 2, 4],
+                                  [0, 3, 6]],
+                         ids=['start', 'decreasing', 'short', 'past_end'])
+def test_chain_extract_batch_refuses_bad_offsets(offs):
+    """Row offsets that do not run from 0 to N without decreasing would send
+    both kernels outside their columns: refused before any launch."""
+    r = np.arange(5, dtype=np.int32)
+    with pytest.raises(ValueError, match='offsets'):
+        tchain.chain_extract_batch(np.array(offs), r, r, np.zeros(5), 30.0,
+                                   15, device='cpu')

@@ -6,7 +6,10 @@ csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu, one launch a
 probe and all six in one) and collapse's edit distance, SW with traceback
 and POA graph alignment (csrc/edit_distance.cu, csrc/sw_traceback.cu,
 csrc/poa_align.cu and its round loop, alone and from threads at once),
-with ``collapse --device cuda`` raising when a kernel cannot be built.  Marked
+with ``collapse --device cuda`` raising when a kernel cannot be built, and
+call's chaining DP and extraction and tandem screen (csrc/chain_dp.cu,
+also against the native chain core once ``setup.py build_ext --inplace``
+has built it, and csrc/screen_keep.cu).  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -726,3 +729,202 @@ def test_poa_rejects_bad_inputs(dev):
         poa_batch.poa_align_batch_cuda(args[0], args[1].long(), *args[2:])
     with pytest.raises(ValueError):
         poa_batch.poa_align_batch_cuda(args[0], args[1][:, :-1], *args[2:])
+
+
+# call's chaining (csrc/chain_dp.cu, X2) and tandem screen
+# (csrc/screen_keep.cu, X3)
+
+GAPS = (200_000, 5_000)
+
+
+def _chain_rows(seed):
+    from ciri_long_tpu_torch.tools import chain_cases
+    rng = np.random.default_rng(seed)
+    return (chain_cases.random_rows(rng, 40, 600)
+            + chain_cases.edge_rows(rng) + [chain_cases.long_row(rng)])
+
+
+def _chain_on_card(dev, rows, k=15):
+    from ciri_long_tpu_torch.ops import chain
+    from ciri_long_tpu_torch.tools import chain_cases
+    offs, r, q, c = chain_cases.csr(chain_cases.local(rows))
+    cols = [torch.from_numpy(x.astype(np.int32)).to(dev) for x in (r, q, c)]
+    offs_d = torch.from_numpy(offs).to(dev)
+    return offs, offs_d, cols, chain.chain_dp_cuda(offs_d, *cols, k)
+
+
+def test_chain_dp_matches_plain(dev):
+    """The DP kernel bit-equal (f and pre) to the plain version under the
+    same table, on random rows, every edge row and a row of 20 000
+    anchors."""
+    from ciri_long_tpu_torch.ops import chain
+    before = LAUNCHES['chain_dp']
+    offs, offs_d, cols, (f, pre) = _chain_on_card(dev, _chain_rows(21))
+    table = chain.card_log2_table(chain.table_size(*GAPS), dev)
+    fp, pp = chain.chain_dp_plain(offs_d, *cols, table, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(f.view(torch.int64), fp.view(torch.int64))
+    assert torch.equal(pre, pp)
+    assert LAUNCHES['chain_dp'] == before + 1
+
+
+def test_chain_dp_matches_native_core(dev):
+    """f and pre bit-equal to the port's native chain core
+    (native/chaincore.cpp, built by ``setup.py build_ext --inplace``) row
+    by row, and the card's log2 table equal to libm's."""
+    from ciri_long_tpu_torch.ops import chain
+    from ciri_long_tpu_torch.tools import chain_cases
+    core = pytest.importorskip('ciri_long_tpu_torch._chaincore')
+    rows = _chain_rows(22)
+    offs, _o, _c, (f, pre) = _chain_on_card(dev, rows)
+    f, pre = f.cpu().numpy(), pre.cpu().numpy()
+    for b, (r, q, c) in enumerate(chain_cases.local(rows)):
+        fb, pb = core.chain(r, q, c, 15, 64, *GAPS)
+        lo, hi = offs[b], offs[b + 1]
+        assert np.frombuffer(fb, np.float64).tobytes() == f[lo:hi].tobytes()
+        assert np.array_equal(np.frombuffer(pb, np.int64), pre[lo:hi])
+    n = chain.table_size(*GAPS)
+    card = chain.card_log2_table(n, dev).cpu().numpy()
+    assert card.tobytes() == chain._libm_log2_table(n).tobytes()
+
+
+@pytest.mark.parametrize('min_anchors,max_chains', [(3, 10), (8, 2),
+                                                    (1, 127)])
+def test_chain_extract_matches_plain_and_host(dev, min_anchors, max_chains):
+    """The extraction kernel equal to the plain version and to the host
+    backtrack_chains row by row, shared-memory rows and the global-scratch
+    row alike."""
+    from ciri_long_tpu_torch.ops import chain
+    offs, offs_d, _cols, (f, pre) = _chain_on_card(dev, _chain_rows(23))
+    plan = chain.extract_plan(np.diff(offs), dev)
+    assert plan[2] > 0                       # the 20 000-anchor row
+    before = LAUNCHES['chain_extract']
+    got = chain.chain_extract_cuda(offs_d, f, pre, 30.0, min_anchors,
+                                   max_chains, plan)
+    want = chain.chain_extract_plain(offs_d.cpu(), f.cpu(), pre.cpu(), 30.0,
+                                     min_anchors, max_chains)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert LAUNCHES['chain_extract'] == before + 1
+    chains = chain.decode_chain_ids(offs, *(t.cpu().numpy() for t in got))
+    fc, pc = f.cpu().numpy(), pre.cpu().numpy()
+    for b in range(len(offs) - 1):
+        lo, hi = offs[b], offs[b + 1]
+        host = chain.backtrack_chains(fc[None, lo:hi], pc[None, lo:hi],
+                                      np.ones((1, hi - lo), bool), 30.0,
+                                      min_anchors, max_chains)[0]
+        assert len(host) == len(chains[b])
+        for (hi_, hs), (gi, gs) in zip(host, chains[b]):
+            assert np.array_equal(hi_, gi) and hs == gs
+    assert sum(len(c) for c in chains) > 40
+
+
+def test_chain_extract_batch_on_the_card(dev):
+    """The numpy entry point on the card equals it on the CPU (where the
+    plain version takes log2_table), and refuses positions past int32."""
+    from ciri_long_tpu_torch.ops import chain
+    from ciri_long_tpu_torch.tools import chain_cases
+    rows = _chain_rows(24)[:45]
+    offs, r, q, c = chain_cases.csr(chain_cases.local(rows))
+    got = chain.chain_extract_batch(offs, r, q, c, 30.0, 15, device='cuda')
+    want = chain.chain_extract_batch(offs, r, q, c, 30.0, 15, device='cpu')
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match='int32'):
+        chain.chain_extract_batch(offs, r + 2 ** 31, q, c, 30.0, 15,
+                                  device='cuda')
+
+
+def test_chain_kernels_reject_bad_inputs(dev):
+    from ciri_long_tpu_torch.ops import chain
+    offs, offs_d, cols, (f, pre) = _chain_on_card(dev, _chain_rows(25)[:3])
+    with pytest.raises(TypeError):
+        chain.chain_dp_cuda(offs_d, cols[0].long(), *cols[1:], 15)
+    with pytest.raises(ValueError):
+        chain.chain_dp_cuda(offs_d.cpu(), *cols, 15)
+    with pytest.raises(ValueError, match='window'):
+        chain.chain_dp_cuda(offs_d, *cols, 15, window=32)
+    plan = chain.extract_plan(np.diff(offs), dev)
+    with pytest.raises(ValueError, match='int8'):
+        chain.chain_extract_cuda(offs_d, f, pre, 30.0, 3, 200, plan)
+    with pytest.raises(ValueError, match='another launch'):
+        chain.chain_extract_cuda(offs_d, f, pre, 30.0, 3, 10,
+                                 chain.extract_plan([5], dev))
+    r, q, c = (x.cpu().numpy() for x in cols)
+    with pytest.raises(ValueError, match='offsets'):
+        chain.chain_extract_batch(offs[::-1], r, q, c, 30.0, 15,
+                                  device='cuda')
+
+
+@pytest.mark.parametrize('b', [512, 1024, 2048, 4096])
+def test_screen_keep_matches_plain(dev, b):
+    """csrc/screen_keep.cu equal to the plain screen on each bucket's
+    reads (tandem, random, N-poisoned, a period between L / 2 and b / 2, a
+    read under 2 * MIN_PERIOD), at the bucket's lag range and, padded to
+    the widest bucket, at each read's own."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    rng = np.random.default_rng(b)
+    mat, lens = chain_cases.pad(chain_cases.bucket_reads(rng, b), b)
+    wide, _ = chain_cases.pad(chain_cases.bucket_reads(
+        np.random.default_rng(b), b) + [rng.integers(0, 4, 4096)], 4096)
+    wide_lens = np.append(lens, 4096).astype(np.int32)
+    for m, n, lags in ((mat, lens, np.full(len(lens), b // 2)),
+                       (wide, wide_lens,
+                        [period.screen_bucket(int(x)) // 2
+                         for x in wide_lens])):
+        args = [torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
+                for x, dt in ((m, np.int8), (n, np.int32),
+                              (lags, np.int32))]
+        before = LAUNCHES['screen_keep']
+        got = period.screen_keep_cuda(*args)
+        want = period.screen_keep_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert want.any() and not want.all()
+        assert LAUNCHES['screen_keep'] == before + 1
+
+
+def test_screen_keep_rejects_bad_inputs(dev):
+    from ciri_long_tpu_torch.ops import period
+    reads = torch.full((2, 512), 5, dtype=torch.int8, device=dev)
+    lens = torch.tensor([100, 200], dtype=torch.int32, device=dev)
+    lags = torch.tensor([256, 256], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='W <='):
+        period.screen_keep_cuda(
+            torch.full((2, 5000), 5, dtype=torch.int8, device=dev), lens,
+            lags)
+    with pytest.raises(TypeError):
+        period.screen_keep_cuda(reads, lens.long(), lags)
+    with pytest.raises(ValueError):
+        period.screen_keep_cuda(reads, lens[:1], lags)
+
+
+def test_call_stages_chain_and_screen_on_the_card(dev, tmp_path):
+    """On the verification world: map_batch on the card gives the host
+    route's hits, and find_ccs_reads on the card the CPU route's files,
+    each having launched its kernels."""
+    from ciri_long_tpu_torch.io.fastx import read_fastx
+    from ciri_long_tpu_torch.io.genome import Genome
+    from ciri_long_tpu_torch.models.aligner import GenomeAligner
+    from ciri_long_tpu_torch.pipeline.find_ccs import find_ccs_reads
+    from ciri_long_tpu_torch.tools.world import skill_world
+    skill_world(str(tmp_path))
+    reads = [s for _, s in read_fastx(str(tmp_path / 'reads.fa'))]
+    al = GenomeAligner(Genome(str(tmp_path / 'genome.fa')))
+    before = dict(LAUNCHES)
+    key = [[(h.ctg, h.strand, h.q_st, h.q_en, h.r_st, h.r_en, h.mlen,
+             h.cigar, h.mapq, h.score) for h in hits]
+           for hits in al.map_batch(reads, device='cuda')]
+    assert key == [[(h.ctg, h.strand, h.q_st, h.q_en, h.r_st, h.r_en,
+                     h.mlen, h.cigar, h.mapq, h.score) for h in hits]
+                   for hits in al.map_batch(reads, device='cpu')]
+    out = [find_ccs_reads(str(tmp_path / 'reads.fa'), str(tmp_path / d),
+                          'p', device=d) for d in ('cuda', 'cpu')]
+    assert out[0] == out[1]
+    for name in ('p.ccs.fa', 'p.raw.fa'):
+        assert (tmp_path / 'cuda' / 'tmp' / name).read_bytes() == \
+            (tmp_path / 'cpu' / 'tmp' / name).read_bytes()
+    for name in ('chain_dp', 'chain_extract', 'screen_keep'):
+        assert LAUNCHES[name] == before[name] + 1
