@@ -47,10 +47,21 @@ and exits non-zero if any phase fails (none is caught and skipped):
    native chain core (f and pre bit for bit, row by row) and to the host
    backtrack_chains (chains row by row), the first three and the largest
    also to chain_dp_plain and chain_extract_plain, every screen_keep launch
-   to screen_keep_plain (one ``kernel_vs_plain`` line each), the card's
-   rates for a chaining candidate and a screen compare (csrc/op_rate.cu),
-   and each kernel's largest launch timed (``call_kernel_time``: a CUDA
-   graph's replay, the plain version's wall, the bound);
+   to screen_keep_plain (one ``kernel_vs_plain`` line each), then the
+   case list of tools/chain_cases.py (``dp_cases`` rows, all in one launch
+   and each alone, against chain_dp_plain and the native chain core;
+   ``screen_launches`` against screen_keep_plain, each read on the route
+   screen_routes_plain gives it), the card's rates for a chaining
+   candidate and a screen compare and the DP's serial step
+   (csrc/op_rate.cu), and each kernel's largest launch timed
+   (``call_kernel_time``: a CUDA graph's replay, the plain version's wall,
+   the bound, the DP's ``serial_bound_ms``, the screen's reads on its lag
+   route) beside its launches of the run summed and its slowest, from CUDA
+   events around each launch in the run (``call_device_ms``,
+   ``slowest_ms``) and from a graph's replay of each recorded launch; the
+   largest launches' inputs go to build/chip_smoke/call_x_inputs.pt (what
+   ``python3 -m ciri_long_tpu_torch.tools.call_x_ab`` times in two
+   checkouts);
 5. the kernel-probe path: the SW variant harness
    (``python -m ciri_long_tpu_torch.misc.kexp``) for the row, wave and
    chain (C = 2, 4) families at the bench shape and the int16 probes
@@ -121,9 +132,10 @@ and exits non-zero if any phase fails (none is caught and skipped):
    checkouts).
 
 The ten CUDA sources build in parallel (one nvcc each) beside the native
-host cores.  Then the card's ``nvidia-smi`` name and power limit, the
-kernels line (sw_score_ends's entry also has ``main_ms`` and
-``main_bound_ms`` at 128x54x16384, its collapse launches and device
+host cores (one extension at a time).  Then the card's ``nvidia-smi`` name
+and power limit, the kernels line (sw_score_ends's entry also has
+``main_ms`` and ``main_bound_ms`` at 128x54x16384, its collapse launches
+and device
 time and, for the cohort's wavefront launches, ``wave_device_ms`` summed
 over them, ``wave_ms`` and ``wave_bound_ms`` at the largest, and the
 wavefront's plans and times by rows a lane there and at the bench shape;
@@ -136,8 +148,11 @@ bound of one DP cell an update, the measure of a cell-by-cell design, and
 poa_align's device time summed over the cohort's launches and its phase-7
 numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them; chain_dp's,
 chain_extract's and screen_keep's those of their largest launch in phase
-4b, with its size, screen_keep's bound its equal k-mer pairs and its
-``window_bound_ms`` the brute-force (window, lag) measure), and last
+4b, with its size, their summed and slowest launches of call's run
+(``call_device_ms``, ``slowest_ms``, ``replay_device_ms``,
+``replay_slowest_ms``), chain_dp's ``serial_bound_ms``, screen_keep's
+bound its equal k-mer pairs, its ``window_bound_ms`` the brute-force
+(window, lag) measure and ``lag_route_reads``), and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -155,6 +170,10 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
 WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
+X_INPUTS = os.path.join(WORK, 'call_x_inputs.pt')
+# a spin before each recorded X2/X3 launch of call's run (~0.5 ms), longer
+# than a wrapper's host work
+X_SPIN_CYCLES = 1_000_000
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
@@ -271,10 +290,12 @@ def phase_build(torch):
     dev = resolve_device('cuda')
     smi = nvidia_smi()
     t0 = time.perf_counter()
+    # one extension at a time: the two packages' twins of a core compile
+    # to the same object file, and a parallel build_ext can link one
+    # while the other rewrites it (a core without its PyInit)
     native = subprocess.Popen(
-        [sys.executable, 'setup.py', 'build_ext', '--inplace', '-j',
-         str(os.cpu_count() or 1)], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        [sys.executable, 'setup.py', 'build_ext', '--inplace'], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         _build.build_all(SOURCES)
         kernel_s = time.perf_counter() - t0
@@ -513,11 +534,31 @@ def _modules():
                 find_bsj=find_bsj, aligner=GenomeAligner)
 
 
-def _recording_x(torch, seen):
+def _warm_x_kernels(torch, dev):
+    """One launch of each X2/X3 wrapper on a tiny input before call's run,
+    so that the run's events hold neither a kernel's first load (CUDA loads
+    kernels lazily, at their first launch) nor a library's load or a
+    table's upload (call's chaining takes the default gaps)."""
+    from ciri_long_tpu_torch.ops import chain, period
+    offs = torch.tensor([0, 2], dtype=torch.int64, device=dev)
+    col = torch.tensor([0, 20], dtype=torch.int32, device=dev)
+    f, pre = chain.chain_dp_cuda(offs, col, col, torch.zeros_like(col), 15)
+    chain.chain_extract_cuda(offs, f, pre, 30.0, 3, 10,
+                             chain.extract_plan([2], dev))
+    one = torch.tensor([64], dtype=torch.int32, device=dev)
+    period.screen_keep_cuda(torch.zeros((1, 64), dtype=torch.int8,
+                                        device=dev), one, one // 2)
+    torch.cuda.synchronize(dev)
+
+
+def _recording_x(torch, seen, events):
     """Wrap X2's and X3's wrappers (CALL_X) so that each launch keeps CPU
     copies of its inputs and outputs in ``seen`` (lists by kernel name; the
-    extraction's plan is left out, extract_plan remakes it); returns the
-    undo."""
+    extraction's plan is left out, extract_plan remakes it) and the CUDA
+    events recorded on the launch's stream just before and after it in
+    ``events`` (the stream held by a spin of X_SPIN_CYCLES first, so that
+    the host has queued the launch when the first event is reached and the
+    pair holds the card's time alone); returns the undo."""
     mods = _modules()
     originals = []
     for name, (mod, attr) in CALL_X.items():
@@ -526,7 +567,12 @@ def _recording_x(torch, seen):
         originals.append((module, attr, kernel))
 
         def recorder(*args, _kernel=kernel, _name=name):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(X_SPIN_CYCLES)
+            pair[0].record()
             out = _kernel(*args)
+            pair[1].record()
+            events[_name].append(pair)
             keep = args[:6] if _name == 'chain_extract' else args
             seen[_name].append((
                 tuple(a.cpu() if torch.is_tensor(a) else a for a in keep),
@@ -584,6 +630,7 @@ def phase_call(torch, dev, smi):
     # their arguments, and X2's and X3's outputs)
     seen = []
     x_seen = {name: [] for name in CALL_X}
+    x_events = {name: [] for name in CALL_X}
     kernel = sw.sw_score_ends_cuda
 
     def recorder(query, ref_, params):
@@ -591,7 +638,8 @@ def phase_call(torch, dev, smi):
         return kernel(query, ref_, params)
 
     sw.sw_score_ends_cuda = recorder
-    undo_x = _recording_x(torch, x_seen)
+    _warm_x_kernels(torch, dev)
+    undo_x = _recording_x(torch, x_seen, x_events)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -660,7 +708,10 @@ def phase_call(torch, dev, smi):
         err = max([err] + list(compare(
             torch, dev, q.cpu().numpy(), r.cpu().numpy(), params,
             'main path launch {}'.format(t), routes_).values()))
-    return launches, err, seen, x_seen
+    torch.cuda.synchronize(dev)
+    x_ms = {name: [a.elapsed_time(b) for a, b in pairs]
+            for name, pairs in x_events.items()}
+    return launches, err, seen, x_seen, x_ms
 
 
 def phase_call_time(torch, dev, smi, seen):
@@ -834,7 +885,92 @@ def check_chain(torch, dev, x_seen):
     return errs, plain_ms, big
 
 
-def phase_call_kernels(torch, dev, smi, x_seen):
+def check_edge_cases(torch, dev):
+    """Phase 4b's case list: tools/chain_cases.py's dp_cases rows (all in
+    one launch, then each alone) through the DP kernel against
+    chain_dp_plain and the native chain core, and its screen_launches
+    through csrc/screen_keep.cu against screen_keep_plain, each read on the
+    route screen_routes_plain gives it; one kernel_vs_plain line a case.
+    Returns {kernel: max err}."""
+    import numpy as np
+    from ciri_long_tpu_torch import _chaincore
+    from ciri_long_tpu_torch.ops import chain, period
+    from ciri_long_tpu_torch.tools import chain_cases
+
+    gaps = (200_000, chain.MAX_GAP_Q)
+    table = chain.card_log2_table(chain.table_size(*gaps), dev)
+    named = chain_cases.dp_cases(np.random.default_rng(41), *gaps)
+    errs = {'chain_dp': 0, 'screen_keep': 0}
+    for case in ['all'] + list(named):
+        rows = chain_cases.local(list(named.values()) if case == 'all'
+                                 else [named[case]])
+        offs, r, q, c = chain_cases.csr(rows)
+        d = [torch.from_numpy(offs).to(dev)] + [
+            torch.from_numpy(x.astype(np.int32)).to(dev) for x in (r, q, c)]
+        f, pre = chain.chain_dp_cuda(*d, 15, 64, *gaps)
+        fp, pp = chain.chain_dp_plain(*d, table, 15, 64, *gaps)
+        f, pre = f.cpu().numpy(), pre.cpu().numpy()
+        native = 0
+        for b, (rb, qb, cb) in enumerate(rows):
+            fb, pb = _chaincore.chain(rb, qb, cb, 15, 64, *gaps)
+            lo, hi = offs[b], offs[b + 1]
+            native += (_bits_differ(f[lo:hi], np.frombuffer(fb, np.float64))
+                       + _bits_differ(pre[lo:hi],
+                                      np.frombuffer(pb, np.int64)))
+        differ = {'plain': _bits_differ(f, fp.cpu().numpy())
+                  + _bits_differ(pre, pp.cpu().numpy()), 'native': native}
+        emit('kernel_vs_plain', case='dp_cases ' + case, kernel='chain_dp',
+             rows=len(rows), anchors=int(offs[-1]), differ=differ,
+             max_abs_err=max(differ.values()))
+        errs['chain_dp'] = max(errs['chain_dp'], *differ.values())
+    for case, (mat, lens, lags) in chain_cases.screen_launches(
+            np.random.default_rng(43)).items():
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in (mat, lens, lags)]
+        routes = torch.zeros(len(mat), dtype=torch.uint8, device=dev)
+        keep = period.screen_keep_cuda(*args, routes=routes).cpu()
+        want = period.screen_keep_plain(*args).cpu()
+        routes = routes.cpu().numpy().astype(bool)
+        differ = {'plain': int((keep != want).sum()),
+                  'routes': int((routes != period.screen_routes_plain(
+                      mat, lags)).sum())}
+        emit('kernel_vs_plain', case='screen_launches ' + case,
+             kernel='screen_keep', reads=len(mat), width=int(mat.shape[1]),
+             lag_route=int(routes.sum()), kept=int(keep.sum()),
+             differ=differ, max_abs_err=max(differ.values()))
+        errs['screen_keep'] = max(errs['screen_keep'], *differ.values())
+    if any(errs.values()):
+        raise AssertionError('edge cases disagree: {}'.format(errs))
+    return errs
+
+
+def _screen_lag_reads(torch, dev, args):
+    """How many reads of a recorded screen launch take csrc/screen_keep.cu's
+    lag route (the launch made again with ``routes``)."""
+    from ciri_long_tpu_torch.ops import period
+    d = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    routes = torch.zeros(len(args[0]), dtype=torch.uint8, device=dev)
+    period.screen_keep_cuda(*d, routes=routes)
+    return int(routes.sum())
+
+
+def _replay_ms(torch, dev, name, args):
+    """Device ms of one recorded X2/X3 launch: a CUDA graph's replay of 3
+    launches (the extraction's plan made first)."""
+    from ciri_long_tpu_torch.misc.kexp import time_launches
+    from ciri_long_tpu_torch.ops import chain, period
+    d = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+    if name == 'chain_dp':
+        fn = lambda: chain.chain_dp_cuda(*d)                    # noqa: E731
+    elif name == 'chain_extract':
+        plan = chain.extract_plan((args[0][1:] - args[0][:-1]).numpy(), dev)
+        fn = lambda: chain.chain_extract_cuda(*d, plan)          # noqa: E731
+    else:
+        fn = lambda: period.screen_keep_cuda(*d)                 # noqa: E731
+    return time_launches(fn, 3, dev, graph=True)
+
+
+def phase_call_kernels(torch, dev, smi, x_seen, x_ms):
     """Phase 4b: phase 4's X2 and X3 launches against their references
     (check_chain; screen_keep against the plain version on every launch),
     then each kernel at its largest launch: a CUDA graph's replay of 10
@@ -844,9 +980,19 @@ def phase_call_kernels(torch, dev, smi, x_seen):
     within each read's lag range at the screen's compare rate, or its
     bytes; bytes at 3.35 TB/s).  The screen's (window, lag) pairs, the work
     of the kernel's brute-force design, give ``window_bound_ms`` beside it
-    as a design measure.  Returns {kernel: numbers for the kernels line}."""
+    as a design measure; the DP's ``serial_bound_ms``, its longest row's
+    steps at csrc/op_rate.cu's serial step, is another.  Each kernel's
+    launches of phase 4 summed and their slowest: from the CUDA events
+    around each launch in the run (``call_device_ms``, ``slowest_ms``) and
+    from a CUDA graph's replay of each recorded launch
+    (``replay_device_ms``, ``replay_slowest_ms``).  The screen's launch is
+    made again with ``routes`` to count its reads on the lag route; then
+    check_edge_cases.  The largest launches' inputs go to
+    X_INPUTS (what tools/call_x_ab.py times in two checkouts).  Returns
+    {kernel: numbers for the kernels line}."""
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
-                                               recurrence_rate, time_launches)
+                                               recurrence_rate, serial_step_s,
+                                               time_launches)
     from ciri_long_tpu_torch.ops import chain, period
 
     errs, plain_ms, big = check_chain(torch, dev, x_seen)
@@ -869,9 +1015,13 @@ def phase_call_kernels(torch, dev, smi, x_seen):
         errs['screen_keep'] = max(errs['screen_keep'], err)
     if errs['screen_keep']:
         raise AssertionError('screen_keep disagrees with the plain version')
+    for name, err in check_edge_cases(torch, dev).items():
+        errs[name] = max(errs[name], err)
 
     rates = {k: recurrence_rate(dev, k) for k in ('chain_dp', 'screen_keep')}
-    emit('cell_rate', call_updates_per_s=rates, card=smi)
+    step_s = serial_step_s(dev)
+    emit('cell_rate', call_updates_per_s=rates, serial_step_s=step_s,
+         card=smi)
     numbers = {}
     (offs, r, q, c, k, window, gr, gq), (f, pre) = x_seen['chain_dp'][big]
     d = [x.to(dev) for x in (offs, r, q, c)]
@@ -882,6 +1032,7 @@ def phase_call_kernels(torch, dev, smi, x_seen):
                          10, dev, graph=True),
         bound=max((cands / rates['chain_dp'], 'operations'),
                   ((24 * N + 8 * (R + 1)) / HBM_BYTES_PER_S, 'bytes')),
+        serial_bound_ms=int((offs[1:] - offs[:-1]).max()) * step_s * 1e3,
         rows=R, anchors=N, candidates=cands,
         longest=int((offs[1:] - offs[:-1]).max()))
     (offs, f, pre, ms_, ma, mc), _out = x_seen['chain_extract'][big]
@@ -903,12 +1054,21 @@ def phase_call_kernels(torch, dev, smi, x_seen):
                   ((B * W + 9 * B + 8 * int(args[2].max()))
                    / HBM_BYTES_PER_S, 'bytes')),
         window_bound_ms=pairs[sbig] / rates['screen_keep'] * 1e3,
-        reads=int(B), width=int(W), pairs=pairs[sbig], equal_pairs=equal)
+        reads=int(B), width=int(W), pairs=pairs[sbig], equal_pairs=equal,
+        lag_route_reads=_screen_lag_reads(torch, dev, args))
+    os.makedirs(WORK, exist_ok=True)
+    torch.save({'chain_dp': x_seen['chain_dp'][big][0],
+                'chain_extract': x_seen['chain_extract'][big][0],
+                'screen_keep': scr[sbig][0]}, X_INPUTS)
     for name, n in numbers.items():
         bound_s, by = n.pop('bound')
+        replay = [_replay_ms(torch, dev, name, args)
+                  for args, _ in x_seen[name]]
         n.update(max_abs_err=errs[name], plain_ms=plain_ms[name],
                  bound_ms=bound_s * 1e3, bound_by=by,
-                 launches_recorded=len(x_seen[name]))
+                 launches_recorded=len(x_seen[name]),
+                 call_device_ms=sum(x_ms[name]), slowest_ms=max(x_ms[name]),
+                 replay_device_ms=sum(replay), replay_slowest_ms=max(replay))
         emit('call_kernel_time', kernel=name, card=smi, **n)
     return numbers
 
@@ -1828,10 +1988,11 @@ def main():
     dev, smi = phase_build(torch)
     errs = phase_kernel(torch, dev)
     phase_time(torch, dev, smi)
-    call_launches, call_err, seen, x_seen = phase_call(torch, dev, smi)
+    call_launches, call_err, seen, x_seen, x_ms = phase_call(torch, dev,
+                                                             smi)
     launches = call_launches['sw_score_ends']
     phase_call_time(torch, dev, smi, seen)
-    x_numbers = phase_call_kernels(torch, dev, smi, x_seen)
+    x_numbers = phase_call_kernels(torch, dev, smi, x_seen, x_ms)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)

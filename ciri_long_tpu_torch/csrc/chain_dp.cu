@@ -19,7 +19,8 @@
 // in float64, with lg = log2(g + 1) from a table the host fills with
 // std::log2 (chain_log2_table), the libm call whose values the native core
 // uses.  Every add, subtract and multiply is an explicit round-to-nearest
-// intrinsic, so nvcc contracts nothing into an FMA.  The native core is
+// intrinsic, so nvcc contracts nothing into an FMA; pen_of takes the max in
+// int32 and 0.5*g + 0.5*lg as 0.5*(g + lg), bit-equal.  The native core is
 // built by g++ under -march=native, whose only contractions there are
 // 2.0*k and 0.5*g, both exact.  dr and dq are taken in contig-local int32:
 // a candidate shares its contig, so they equal the global differences.
@@ -33,25 +34,42 @@
 // anchor (-1 none), scores [R, max_chains] float64 (the start's f), nch [R].
 //
 // Design:
-//   chain_dp_kernel       one warp a row, serial over its anchors.  Lane l
-//                         scores window slots l and l + 32 (j = i - 64 + l
-//                         and i - 32 + l), whose f it holds in registers
-//                         (the window shifts by one shuffle a step, lane 31
-//                         taking the new f).  Only f feeds the next step:
-//                         each step first turns its two candidates into
-//                         order-preserving 64-bit keys, then computes the
-//                         next step's admissibility, alpha and pen (loads
-//                         of the window's anchors through the read-only
-//                         cache, the log2 table) while two __reduce_max_sync
-//                         give the largest key and two ballots the smallest
-//                         j holding it.  The anchors' own r, q, ctg come a
-//                         chunk of 32 ahead.  Bound: a row's steps are
-//                         serial, each a chain of warp-collective operations
-//                         (~0.4 us on an H100; issuing the loads a step
-//                         later or earlier did not move it), and rows run
-//                         side by side, so a launch takes about its longest
-//                         row's steps, far above its operations bound (the
-//                         candidates at op_rate.cu's float64 rate).
+//   chain_dp_kernel       one warp a row, serial over its anchors, every
+//                         lane holding the same f of the step before.
+//                         Only the newest candidate j = i - 1 of step i
+//                         needs the f the step before just made, so the
+//                         serial path of a step is that candidate's two
+//                         float64 adds, one compare with the best of the
+//                         older window (j <= i - 2, known a step earlier,
+//                         already set against k) and the selects; no warp
+//                         collective sits between two steps' f.  The
+//                         older window is reduced by pushes: lane l owns
+//                         the steps t = l and l + 32 (mod 64) ahead of the
+//                         current one and keeps, for each, the largest
+//                         cand (f[j] + alpha) - pen over the j pushed so
+//                         far with the smallest j (a strict > as j rises);
+//                         step i pushes its f into the 62 steps i + 2 ..
+//                         i + 64 (the one reaching i + 64 starts it
+//                         afresh), and the owner of step i + 1 broadcasts
+//                         that step's best (read before step i's pushes,
+//                         which do not touch it) and its newest
+//                         candidate's alpha and pen.  The terms of every
+//                         candidate (admissibility, alpha, the log2 entry,
+//                         loaded only for an admissible pair) are loaded
+//                         AHEAD steps before their push, where pen is
+//                         formed, so a load from L2 has that long to
+//                         arrive; the anchors of the owned steps come a
+//                         chunk of 32 ahead.  Steps run in branch-free
+//                         bodies of AHEAD (bitwise predicates, so that
+//                         nvcc selects rather than branches on a compare);
+//                         f and pre leave through the lanes a chunk at a
+//                         time.  Bound: a row's steps are serial and rows
+//                         run side by side, so a launch takes its longest
+//                         row's steps; a step issues ~150 instructions
+//                         (two candidates a lane, the broadcasts, the
+//                         serial path) and a lone warp takes ~0.13 us for
+//                         it on an H100, against csrc/op_rate.cu's serial
+//                         step of ~0.018 us.
 //   chain_extract_kernel  one block a row.  Candidates are compacted into
 //                         (f's bits, index) keys, bitonic-sorted by the
 //                         block (f is >= k > 0, so its bits order as its
@@ -70,48 +88,112 @@ namespace {
 
 constexpr int WINDOW = 64;                 // predecessors a step (CHAIN_WINDOW)
 constexpr int DP_WARPS = 4;                // rows a block of the DP
+constexpr int AHEAD = 8;                   // steps a candidate's terms lead
+                                           // its push (divides 32)
 constexpr int EXT_THREADS = 256;
 constexpr int SMEM_ROW = 8192;             // longest row sorted in smem
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(WINDOW == 64, "two slots of a warp's lanes own a window");
+static_assert(32 % AHEAD == 0, "a chunk starts at a queue entry 0");
 
-// An order-preserving 64-bit key of a double that is not NaN or -0.0
-// (cand is never -0.0: f + alpha > 0), above 0, the key of "no candidate".
-__device__ __forceinline__ uint64_t order_key(double x) {
-    const uint64_t b = static_cast<uint64_t>(__double_as_longlong(x));
-    return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+// The f-independent terms of candidate j (anchor rj, qj, cj) of anchor t
+// (rt, qt, ct), as loaded AHEAD steps before their push: the log2 entry
+// (+inf when j is not admissible, so that pen and -cand are too), alpha,
+// dq, and g = |dr - dq| when dr < dq, else -1.  pen_of forms pen at the
+// push, so that the table's load has those steps to arrive before an
+// instruction waits on it.
+struct Term {
+    double lgv;
+    int alpha, dq, g;
+};
+
+__device__ __forceinline__ Term term_of(const double* __restrict__ lg, int rj,
+                                        int qj, int cj, int rt, int qt,
+                                        int ct, int k, int max_gap_r,
+                                        int max_gap_q) {
+    const int dr = rt - rj;
+    const int dq = qt - qj;
+    // 0 < dr <= max_gap_r, 0 < dq <= max_gap_q, one contig
+    const bool ok = (static_cast<unsigned>(dr) - 1u <
+                     static_cast<unsigned>(max_gap_r)) &
+                    (static_cast<unsigned>(dq) - 1u <
+                     static_cast<unsigned>(max_gap_q)) &
+                    (cj == ct);
+    Term t;
+    t.lgv = INFINITY;
+    if (ok) t.lgv = __ldg(lg + abs(dr - dq));
+    t.alpha = min(min(dq, dr), k);
+    t.dq = dq;
+    t.g = dr < dq ? dq - dr : -1;
+    return t;
 }
 
-__device__ __forceinline__ double from_key(uint64_t key) {
-    return __longlong_as_double(static_cast<long long>(
-        (key >> 63) ? (key & 0x7fffffffffffffffull) : ~key));
-}
-
-// The f-independent terms of candidate j of anchor (ri, qi, ci): whether
-// it is admissible, alpha and pen.  Branch-free, so that the compiler may
-// overlap its loads with the step before's reduction.
-__device__ __forceinline__ void terms(const int* __restrict__ rr,
-                                      const int* __restrict__ qq,
-                                      const int* __restrict__ cc,
-                                      const double* __restrict__ lg, int j,
-                                      int ri, int qi, int ci, int k,
-                                      double two_k, int max_gap_r,
-                                      int max_gap_q, bool& ok, double& alpha,
-                                      double& pen) {
-    const int jj = max(j, 0);
-    const int dr = ri - __ldg(rr + jj);
-    const int dq = qi - __ldg(qq + jj);
-    ok = j >= 0 && dr > 0 && dq > 0 && dq <= max_gap_q && dr <= max_gap_r &&
-         __ldg(cc + jj) == ci;
-    const int g = ok ? abs(dr - dq) : 0;
-    const double lgv = __ldg(lg + g);
-    alpha = static_cast<double>(min(min(dq, dr), k));
+// pen of a term, bit-equal to the native core's
+//   skip = 0.1 * max(0.0, dq - 2.0 * k)
+//   pen  = dr >= dq ? lg + skip : 0.5 * g + 0.5 * lg + skip
+// with fewer float64 operations: dq - 2k and the max are exact in int32,
+// and 0.5 * g + 0.5 * lg rounds as 0.5 * (g + lg) does (halving is exact
+// and commutes with rounding; lg >= 1 here).  Each remaining add and
+// multiply is an explicit round-to-nearest intrinsic.
+__device__ __forceinline__ double pen_of(const Term& t, int two_k) {
     const double skip = __dmul_rn(
-        0.1, fmax(0.0, __dsub_rn(static_cast<double>(dq), two_k)));
-    pen = dr >= dq ? __dadd_rn(lgv, skip)
-                   : __dadd_rn(
-                         __dadd_rn(__dmul_rn(0.5, static_cast<double>(g)),
-                                   __dmul_rn(0.5, lgv)),
-                         skip);
+        0.1, static_cast<double>(max(t.dq, two_k) - two_k));
+    const double half =
+        __dmul_rn(0.5, __dadd_rn(static_cast<double>(t.g), t.lgv));
+    return __dadd_rn(t.g < 0 ? t.lgv : half, skip);
+}
+
+__device__ __forceinline__ void load_anchor(const int* __restrict__ rr,
+                                            const int* __restrict__ qq,
+                                            const int* __restrict__ cc,
+                                            int a, int n, int& r, int& q,
+                                            int& c) {
+    // past the row: a dummy no candidate admits (dr <= 0 from any anchor)
+    r = a < n ? __ldg(rr + a) : 0;
+    q = a < n ? __ldg(qq + a) : 0;
+    c = a < n ? __ldg(cc + a) : 0;
+}
+
+// Step v of the terms' side, AHEAD steps before step v itself: lane
+// (v & 31)'s slot (v >> 5) & 1 holds anchor v until now; it broadcasts it
+// (the j of every candidate pushed at step v), takes its next step v + 64
+// from the prefetched anchors, and every lane loads the terms of pair
+// (v, t) for the step t each of its slots owns at step v.
+struct Terms {
+    int rt[2], qt[2], ct[2];       // the anchors of the owned steps
+    int rp, qp, cp, rn, qn, cn;    // prefetched: this chunk's next, the next
+};
+
+// at the first step v of a chunk (v > 0): the prefetched anchors move up
+__device__ __forceinline__ void next_chunk(Terms& st, int v, int lane, int n,
+                                           const int* __restrict__ rr,
+                                           const int* __restrict__ qq,
+                                           const int* __restrict__ cc) {
+    st.rp = st.rn;
+    st.qp = st.qn;
+    st.cp = st.cn;
+    load_anchor(rr, qq, cc, v + 96 + lane, n, st.rn, st.qn, st.cn);
+}
+
+__device__ __forceinline__ void terms_step(
+    Terms& st, int v, int lane, const double* __restrict__ lg, int k,
+    int max_gap_r, int max_gap_q, Term* out) {
+    const int src = v & 31;
+    const int sv = (v >> 5) & 1;
+    const int rj = __shfl_sync(FULL, sv ? st.rt[1] : st.rt[0], src);
+    const int qj = __shfl_sync(FULL, sv ? st.qt[1] : st.qt[0], src);
+    const int cj = __shfl_sync(FULL, sv ? st.ct[1] : st.ct[0], src);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {          // its slot moves to step v + 64
+        const bool moves = (lane == src) & (sv == s);
+        st.rt[s] = moves ? st.rp : st.rt[s];
+        st.qt[s] = moves ? st.qp : st.qt[s];
+        st.ct[s] = moves ? st.cp : st.ct[s];
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+        out[s] = term_of(lg, rj, qj, cj, st.rt[s], st.qt[s], st.ct[s], k,
+                         max_gap_r, max_gap_q);
 }
 
 __global__ void __launch_bounds__(DP_WARPS * 32)
@@ -132,81 +214,100 @@ chain_dp_kernel(const int64_t* __restrict__ offs, const int* __restrict__ r,
     double* fo = f + base;
     int* po = pre + base;
     const double kd = static_cast<double>(k);
-    const double two_k = __dmul_rn(2.0, kd);
+    const int two_k = 2 * k;
 
-    // anchors 32c + lane of the current chunk c and of the next one
-    int ra = 0, qa = 0, ca = 0, rn = 0, qn = 0, cn = 0;
-    if (lane < n) {
-        ra = __ldg(rr + lane);
-        qa = __ldg(qq + lane);
-        ca = __ldg(cc + lane);
-    }
-    if (32 + lane < n) {
-        rn = __ldg(rr + 32 + lane);
-        qn = __ldg(qq + 32 + lane);
-        cn = __ldg(cc + 32 + lane);
-    }
-    // the window of step i: f[i - 64 + lane] and f[i - 32 + lane], and the
-    // terms of those two candidates (none at step 0)
-    double fw0 = 0.0, fw1 = 0.0, al0 = 0.0, al1 = 0.0, pe0 = 0.0, pe1 = 0.0;
-    bool ok0 = false, ok1 = false;
-    for (int i = 0; i < n; ++i) {
-        const uint64_t k0 =
-            ok0 ? order_key(__dsub_rn(__dadd_rn(fw0, al0), pe0)) : 0;
-        const uint64_t k1 =
-            ok1 ? order_key(__dsub_rn(__dadd_rn(fw1, al1), pe1)) : 0;
-        // the window's shift and the next step's terms need no f of this
-        // step: they overlap its reduction
-        const double d0 = __shfl_down_sync(FULL, fw0, 1);
-        const double d1 = __shfl_down_sync(FULL, fw1, 1);
-        const double w1 = __shfl_sync(FULL, fw1, 0);
-        const int i1 = i + 1;
-        const int t1 = i1 & 31;
-        if (t1 == 0) {
-            ra = rn;
-            qa = qn;
-            ca = cn;
-            const int a = i1 + 32 + lane;
+    // slot s of lane l owns the steps t = l + 32 s (mod 64); before step 0
+    // they are steps l and l + 32, and chunk c's resets take l + 32 (c + 2)
+    Terms st;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+        load_anchor(rr, qq, cc, lane + 32 * s, n, st.rt[s], st.qt[s],
+                    st.ct[s]);
+    load_anchor(rr, qq, cc, lane + 64, n, st.rp, st.qp, st.cp);
+    load_anchor(rr, qq, cc, lane + 96, n, st.rn, st.qn, st.cn);
+    // the terms of steps i .. i + AHEAD - 1, queued by step mod AHEAD
+    Term tq[AHEAD][2];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u)
+        terms_step(st, u, lane, lg, k, max_gap_r, max_gap_q, tq[u]);
+
+    // each slot's best so far (value, j) for the step it owns
+    double bv[2] = {-INFINITY, -INFINITY};
+    int bj[2] = {-1, -1};
+    // step i's newest candidate's terms and its older window's best,
+    // already set against k (k, -1 when nothing beats it)
+    double al_c = 0.0, pe_c = INFINITY, old_v = kd, f_prev = 0.0;
+    int old_j = -1;
+    double f_out = 0.0;                    // f[i] and pre[i] in lane i & 31
+    int p_out = -1;
+    // bodies of AHEAD steps without a branch (steps past n run on the
+    // dummies past the row and store nothing); a chunk of 32 steps starts
+    // and ends at a body's edge
+    int i0 = 0;
+    for (; i0 < n; i0 += AHEAD) {
+        const bool chunk_end = ((i0 + AHEAD) & 31) == 0;
+        if (chunk_end)
+            next_chunk(st, i0 + AHEAD, lane, n, rr, qq, cc);
+#pragma unroll
+        for (int u = 0; u < AHEAD; ++u) {
+            const int i = i0 + u;
+            double pen[2];
+#pragma unroll
+            for (int s = 0; s < 2; ++s) pen[s] = pen_of(tq[u][s], two_k);
+            // step i + 1's owner: its older window's best, read before
+            // this step's pushes (complete since step i - 1; step i does
+            // not push into it), and its newest candidate's terms
+            const int src = (i + 1) & 31;
+            const int s1 = ((i + 1) >> 5) & 1;
+            const double bo = __shfl_sync(FULL, s1 ? bv[1] : bv[0], src);
+            const int jo = __shfl_sync(FULL, s1 ? bj[1] : bj[0], src);
+            const int al_n = __shfl_sync(
+                FULL, s1 ? tq[u][1].alpha : tq[u][0].alpha, src);
+            const double pe_n = __shfl_sync(FULL, s1 ? pen[1] : pen[0], src);
+            // the serial path
+            const double c = __dsub_rn(__dadd_rn(f_prev, al_c), pe_c);
+            const bool take = c > old_v;
+            const double fi = take ? c : old_v;
+            const int pi = take ? i - 1 : old_j;
+            f_prev = fi;
+            const bool mine = lane == (i & 31);
+            f_out = mine ? fi : f_out;
+            p_out = mine ? pi : p_out;
+            // push j = i into the steps each slot owns: t = i + d
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+                const int d = (lane + 32 * s - i) & 63;
+                const double cand = __dsub_rn(
+                    __dadd_rn(fi, static_cast<double>(tq[u][s].alpha)),
+                    pen[s]);
+                // d == 0: its step was i, now i + 64.  Bitwise, so that
+                // nvcc selects instead of branching on the compare
+                const bool up = (d == 0) | ((d >= 2) & (cand > bv[s]));
+                bv[s] = up ? cand : bv[s];
+                bj[s] = up ? i : bj[s];
+            }
+            al_c = static_cast<double>(al_n);
+            pe_c = pe_n;
+            old_v = bo > kd ? bo : kd;
+            old_j = bo > kd ? jo : -1;
+            // the terms of step i + AHEAD take this step's queue entry
+            terms_step(st, i + AHEAD, lane, lg, k, max_gap_r, max_gap_q,
+                       tq[u]);
+        }
+        if (chunk_end) {
+            const int a = i0 + AHEAD - 32 + lane;
             if (a < n) {
-                rn = __ldg(rr + a);
-                qn = __ldg(qq + a);
-                cn = __ldg(cc + a);
+                fo[a] = f_out;
+                po[a] = p_out;
             }
         }
-        const int ri = __shfl_sync(FULL, ra, t1);
-        const int qi = __shfl_sync(FULL, qa, t1);
-        const int ci = __shfl_sync(FULL, ca, t1);
-        bool nok0, nok1;
-        double nal0, nal1, npe0, npe1;
-        terms(rr, qq, cc, lg, i1 - WINDOW + lane, ri, qi, ci, k, two_k,
-              max_gap_r, max_gap_q, nok0, nal0, npe0);
-        terms(rr, qq, cc, lg, i1 - 32 + lane, ri, qi, ci, k, two_k,
-              max_gap_r, max_gap_q, nok1, nal1, npe1);
-
-        // the largest key, then the smallest j holding it
-        const uint64_t km = k0 > k1 ? k0 : k1;
-        const unsigned hi = __reduce_max_sync(FULL, (unsigned)(km >> 32));
-        const unsigned lo = __reduce_max_sync(
-            FULL, (unsigned)(km >> 32) == hi ? (unsigned)km : 0u);
-        const uint64_t best = (static_cast<uint64_t>(hi) << 32) | lo;
-        const bool take = best != 0 && from_key(best) > kd;
-        const double fi = take ? from_key(best) : kd;
-        const unsigned b0 = __ballot_sync(FULL, k0 == best);
-        const unsigned b1 = __ballot_sync(FULL, k1 == best);
-        if (lane == 0) {
-            fo[i] = fi;
-            po[i] = !take ? -1
-                          : b0 ? i - WINDOW + __ffs(b0) - 1
-                               : i - 32 + __ffs(b1) - 1;
+    }
+    if (i0 & 31) {                         // the last chunk, if partial
+        const int a = (i0 & ~31) + lane;
+        if (a < n) {
+            fo[a] = f_out;
+            po[a] = p_out;
         }
-        fw0 = lane == 31 ? w1 : d0;
-        fw1 = lane == 31 ? fi : d1;
-        ok0 = nok0;
-        ok1 = nok1;
-        al0 = nal0;
-        al1 = nal1;
-        pe0 = npe0;
-        pe1 = npe1;
     }
 }
 

@@ -50,6 +50,17 @@
 //   kind 5, one lag of one window of the tandem pre-screen
 //     (csrc/screen_keep.cu): the lag's range test, the k-mer compare and the
 //     count's add.
+//
+// serial_step_launch times a latency, not a rate: one warp runs the step
+// of the chaining DP that no design can take off its serial path, the
+// newest candidate against the best of the older window,
+//   c = (f + alpha) - pen                two float64 round-to-nearest adds
+//   f = c > best ? c : best              a compare and a select
+// with each step's alpha, pen and best known before it (computed from
+// the step count, off the chain), so only f -> f is dependent.  The caller
+// divides the launch's time by its steps: the least time a step of a row
+// takes, whatever the window's other candidates cost (csrc/chain_dp.cu's
+// serial bound).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -328,7 +339,31 @@ screen_rate_kernel(int steps, int q, int* out) {
     if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
 }
 
+__global__ void serial_step_kernel(int steps, double* out) {
+    double f = 15.0;
+    int pre = -1;
+#pragma unroll 8
+    for (int t = 0; t < steps; ++t) {
+        const double alpha = static_cast<double>((t & 7) + 1);
+        const double pen = __dmul_rn(alpha, 0.375);
+        const double best = static_cast<double>(t >> 2) + 15.0;
+        const double c = __dsub_rn(__dadd_rn(f, alpha), pen);
+        const bool take = c > best;
+        f = take ? c : best;
+        pre = take ? t - 1 : pre;
+    }
+    if (f == -1.0 || pre == 0x7fffffff) out[0] = f;  // keeps the chain live
+}
+
 }  // namespace
+
+// One warp running ``steps`` dependent steps of serial_step_kernel (see
+// above).  Launches on ``stream`` and returns cudaGetLastError().
+extern "C" int serial_step_launch(int steps, void* out, void* stream) {
+    serial_step_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        steps, static_cast<double*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry point for ctypes: ``blocks`` blocks of THREADS threads, each
 // running CHAINS cells for ``steps`` updates (a multiple of 4), in the DPX

@@ -74,6 +74,8 @@ _CELL_RATE_SYMBOLS = {
     'recurrence_rate_launch': ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 2,
                                ctypes.c_int),
     'cell_rate_block_cells': ([], ctypes.c_int),
+    'serial_step_launch': ([ctypes.c_int] + [ctypes.c_void_p] * 2,
+                           ctypes.c_int),
 }
 # recurrence_rate's kinds: the updates of collapse's kernels, the edit
 # distance's by its bit-parallel word (32 rows of one column) and, to
@@ -116,6 +118,28 @@ def recurrence_rate(device, kernel):
     at one lag), from csrc/op_rate.cu's register-only loop of that
     update: the operations bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])
+
+
+def serial_step_s(device, steps=1 << 16):
+    """Seconds of one step of the chaining DP's serial path (a float64 add
+    and subtract, a compare and a select, each step's inputs but f known
+    before it): csrc/op_rate.cu's one-warp chain of ``steps`` such steps,
+    over five launches between CUDA events.  A row of n anchors takes at
+    least n of them: the DP's serial bound."""
+    from ciri_long_tpu_torch.ops import _build
+
+    lib = _build.load('op_rate.cu', _CELL_RATE_SYMBOLS)
+    out = torch.zeros(1, dtype=torch.float64, device=device)
+
+    def launch():
+        with torch.cuda.device(device):
+            rc = lib.serial_step_launch(steps, out.data_ptr(),
+                                        _stream(device))
+        if rc != 0:
+            raise RuntimeError('serial_step_launch failed: cudaError '
+                               '{}'.format(rc))
+
+    return time_launches(launch, 5, device) * 1e-3 / steps
 
 
 def cell_rate(device, dpx):

@@ -14,7 +14,9 @@ changes which reads get one.
   ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
   bucket's b // 2: the support windows clip there, so L // 2 would be
   another function);
-- ``screen_keep_cuda``: csrc/screen_keep.cu, one block a read;
+- ``screen_keep_cuda``: csrc/screen_keep.cu, one block a read, which counts
+  only the pairs of equal k-mers (sorted hash keys) or, for a
+  low-complexity read, every lag; ``screen_routes_plain`` says which;
 - ``screen_keep``: numpy in, numpy out, on ``device``.
 
 The support windows [ceil(0.94 l - 4), floor(1.06 l + 4)] come from numpy's
@@ -36,6 +38,11 @@ PAD = 5
 SCREEN_BUCKETS = (512, 1024, 2048, 4096)
 SCREEN_MAX_LEN = SCREEN_BUCKETS[-1]    # csrc/screen_keep.cu's MAX_W
 MAX_LAG = SCREEN_MAX_LEN // 2
+# csrc/screen_keep.cu's route rule: keys of POS_BITS of window position
+# under a hash of the k-mer id, THREADS a block, WALK_CAP keys a thread
+POS_BITS = 13
+THREADS = 256
+WALK_CAP = 256
 
 
 def screen_bucket(n):
@@ -74,6 +81,47 @@ def tandem_counts_plain(reads, max_lag, k=11):
     for d in range(1, min(max_lag, W - 1) + 1):
         eq = (kid[:, :W - d] == kid[:, d:]) & vk[:, :W - d] & vk[:, d:]
         out[:, d - 1] = eq.sum(dim=1, dtype=torch.int32)
+    return out
+
+
+def screen_keys(row, k=11):
+    """csrc/screen_keep.cu's sorted keys of one read's codes (numpy int
+    [W]): hash(kid) << POS_BITS | i for each valid window i, the hash
+    Fibonacci hashing of the k-mer id to 32 - POS_BITS bits; uint64 values
+    of 32 bits, ascending."""
+    x = np.asarray(row).astype(np.int64)
+    n = len(x) - k + 1
+    if n <= 0:
+        return np.zeros(0, np.uint64)
+    ok = x < 4
+    kid = np.zeros(n, np.int64)
+    valid = np.ones(n, bool)
+    for j in range(k):
+        kid = kid * 4 + np.where(ok[j:j + n], x[j:j + n], 0)
+        valid &= ok[j:j + n]
+    pos = np.nonzero(valid)[0].astype(np.uint64)
+    h = ((kid[valid].astype(np.uint64) * np.uint64(2654435761))
+         & np.uint64(0xffffffff)) >> np.uint64(POS_BITS)
+    return np.sort((h << np.uint64(POS_BITS)) | pos)
+
+
+def screen_routes_plain(reads, max_lag, k=11):
+    """Which route csrc/screen_keep.cu takes for each read (numpy reads
+    [B, W], max_lag an int or [B] ints): True for the lag route.  Thread t
+    of the block walks, for each sorted key s = t, t + THREADS, ..., the
+    keys in (key_s, key_s + M]; a read whose walk passes WALK_CAP keys in
+    some thread is low-complexity and counts every lag.  Returns bool
+    [B]."""
+    reads = np.asarray(reads)
+    lags = np.broadcast_to(np.asarray(max_lag, np.int64), (len(reads),))
+    out = np.zeros(len(reads), bool)
+    for b, (row, M) in enumerate(zip(reads, lags)):
+        keys = screen_keys(row, k)
+        ends = np.searchsorted(keys, keys + np.uint64(M), 'right')
+        walk = ends - np.arange(1, len(keys) + 1)
+        per_thread = np.bincount(np.arange(len(keys)) % THREADS, walk,
+                                 minlength=THREADS)
+        out[b] = bool((per_thread > WALK_CAP).any())
     return out
 
 
@@ -117,7 +165,7 @@ def screen_keep_plain(reads, lengths, max_lag, k=11, min_period=30,
 _SYMBOLS = {
     'screen_keep_launch': ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                           + [ctypes.c_float] + [ctypes.c_void_p] * 2,
+                           + [ctypes.c_float] + [ctypes.c_void_p] * 3,
                            ctypes.c_int),
 }
 _WINDOWS = {}
@@ -134,11 +182,13 @@ def card_windows(device):
 
 
 def screen_keep_cuda(reads, lengths, max_lag, k=11, min_period=30,
-                     min_units=2.0):
+                     min_units=2.0, routes=None):
     """csrc/screen_keep.cu on CUDA tensors: reads int8 [B, W] (W <=
     SCREEN_MAX_LEN), lengths and max_lag int32 [B] (each in 1..MAX_LAG),
-    contiguous, on one device.  Same output as screen_keep_plain.  Raises
-    on anything else and when the launch is refused."""
+    contiguous, on one device.  Same output as screen_keep_plain; a
+    ``routes`` uint8 [B] tensor on the device, if given, gets each read's
+    route (1 the lag route, 0 the pair route; screen_routes_plain).
+    Raises on anything else and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     tensors = (reads, lengths, max_lag)
@@ -158,6 +208,12 @@ def screen_keep_cuda(reads, lengths, max_lag, k=11, min_period=30,
                          .format([tuple(t.shape) for t in tensors]))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('screen_keep_cuda needs contiguous inputs')
+    if routes is not None and (routes.device != dev
+                               or routes.dtype != torch.uint8
+                               or tuple(routes.shape) != (B,)
+                               or not routes.is_contiguous()):
+        raise ValueError('screen_keep_cuda: routes must be a contiguous '
+                         'uint8 [B] tensor on the reads\' device')
     W = reads.shape[1]
     if W > SCREEN_MAX_LEN or not 1 <= k <= 15:
         raise ValueError('screen_keep_cuda takes W <= {} and k in 1..15 (got '
@@ -170,6 +226,7 @@ def screen_keep_cuda(reads, lengths, max_lag, k=11, min_period=30,
             reads.data_ptr(), B, W, lengths.data_ptr(), max_lag.data_ptr(),
             lo_raw.data_ptr(), hi_raw.data_ptr(), int(k), int(min_period),
             float(min_units), keep.data_ptr(),
+            None if routes is None else routes.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('screen_keep launch failed: cudaError {} (B={}, '

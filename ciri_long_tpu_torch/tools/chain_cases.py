@@ -71,6 +71,45 @@ def edge_rows(rng):
     return rows
 
 
+def dp_cases(rng, gap_r=200_000, gap_q=5_000, k=15):
+    """{name: row} at the edges of csrc/chain_dp.cu's schedule: rows of 0,
+    1, 2, 64 and 65 anchors; one of 9 000 (over SMEM_ROW); anchors copied
+    40 and 70 times in a row, so that a step's candidates tie across its
+    whole window (the newest, the one a step older, the window's far end
+    at 64 back) and the smallest j must win; a step whose only candidate
+    scores exactly k (taken by no one); contig changes inside a row; gaps
+    of max_gap_r and max_gap_q less one, exactly, and plus one, each behind
+    a 40-anchor chain."""
+    cases = {'empty': _row([], [])}
+    for A in (1, 2, 64, 65, 9_000):
+        r = np.sort(rng.integers(0, 40 * A + 10, A))
+        cases['anchors_{}'.format(A)] = _row(
+            r, (r // 4 + rng.integers(-30, 30, A)).clip(0))
+    for m in (40, 70):
+        d = np.repeat(20 * np.arange(12, dtype=np.int64), m)
+        cases['copies_{}'.format(m)] = _row(d, d, True)
+    # (0, 0) then (2, 1): alpha = 1, pen = log2(2) = 1, cand = k + 1 - 1
+    unit = np.array([0, 2], np.int64)
+    r = np.concatenate([unit + 40 * t for t in range(30)])
+    q = np.concatenate([np.array([0, 1]) + 40 * t for t in range(30)])
+    cases['cand_is_k'] = _row(r, q, True)
+    r = np.sort(rng.integers(CONTIG - 3_000, CONTIG + 3_000, 300))
+    r = np.concatenate([r, r + CONTIG])
+    cases['contig_changes'] = _row(r, np.sort(rng.integers(0, 9_000, 600)))
+    base = 15 * np.arange(40, dtype=np.int64)
+    for name, gap in (('gap_r', gap_r), ('gap_q', gap_q)):
+        for delta in (-1, 0, 1):
+            jump = gap + delta
+            if name == 'gap_r':
+                r = np.append(base, base[-1] + jump)
+                q = np.append(base, base[-1] + 15)
+            else:
+                r = np.append(base, base[-1] + jump + 20)
+                q = np.append(base, base[-1] + jump)
+            cases['{}_{:+d}'.format(name, delta)] = _row(r, q, True)
+    return cases
+
+
 def long_row(rng, A=20_000):
     """One row longer than the extraction's shared-memory rows
     (ops/chain.py::SMEM_ROW), the route through global scratch."""
@@ -117,6 +156,58 @@ def bucket_reads(rng, b, min_period=30):
     if b == 512:
         reads.append(tandem(rng, 2 * min_period - 1, min_period))
     return reads
+
+
+def low_complexity_reads(rng, L=4_000):
+    """{name: codes} the screen's pair route must hand to its lag route or
+    count exactly all the same: a poly-A, a di- and a trinucleotide repeat,
+    a perfect repeat of period 50, each L long, a read of L Ns and one whose
+    every eleventh code is N (no valid 11-mer), and a random read with a
+    poly-A tail of 120."""
+    out = {'poly_a': np.zeros(L, np.int8)}
+    for name, p in (('dinucleotide', 2), ('trinucleotide', 3),
+                    ('period_50', 50)):
+        out[name] = tandem(rng, L, p)
+    out['all_n'] = np.full(L, 4, np.int8)
+    x = rng.integers(0, 4, L).astype(np.int8)
+    x[::11] = 4
+    out['no_valid_window'] = x
+    out['poly_a_tail'] = np.concatenate([rng.integers(0, 4, L - 120),
+                                         np.zeros(120)]).astype(np.int8)
+    return out
+
+
+def screen_launches(rng):
+    """{name: (reads int8 [B, W], lengths int32 [B], max_lag int32 [B])}:
+    screen launches at the kernel's edges.  Each low_complexity_reads read
+    beside a random and a tandem read at width 4 096 and lag range 2 048;
+    every bucket's reads at random lag ranges in one launch of width 4 096;
+    reads shorter than k = 11 at width 10; a width (100) that is no
+    multiple of 16; and 16 384 reads of 60-512 codes at width 512."""
+    out = {}
+    for name, x in low_complexity_reads(rng).items():
+        reads = [x, rng.integers(0, 4, 3_000).astype(np.int8),
+                 tandem(rng, 3_500, 240, noise=0.02)]
+        mat, lens = pad(reads, 4096)
+        out[name] = (mat, lens, np.full(3, 2048, np.int32))
+    reads = [x for b in (512, 1024, 2048, 4096) for x in bucket_reads(rng, b)]
+    mat, lens = pad(reads, 4096)
+    out['mixed_lags'] = (mat, lens, rng.integers(1, 2049, len(reads))
+                         .astype(np.int32))
+    reads = [rng.integers(0, 4, L).astype(np.int8) for L in range(0, 11)]
+    mat, lens = pad(reads, 10)
+    out['short_width'] = (mat, lens, np.full(len(reads), 5, np.int32))
+    reads = [tandem(rng, int(L), 30 + t % 20, noise=0.02) if t % 2
+             else rng.integers(0, 4, int(L)).astype(np.int8)
+             for t, L in enumerate(rng.integers(60, 101, 40))]
+    mat, lens = pad(reads, 100)
+    out['width_100'] = (mat, lens, np.full(len(reads), 50, np.int32))
+    reads = [tandem(rng, int(L), int(rng.integers(30, 200)), noise=0.03)
+             if t % 3 == 0 else rng.integers(0, 4, int(L)).astype(np.int8)
+             for t, L in enumerate(rng.integers(60, 513, 16_384))]
+    mat, lens = pad(reads, 512)
+    out['many_reads'] = (mat, lens, np.full(len(reads), 256, np.int32))
+    return out
 
 
 def pad(reads, W):

@@ -16,6 +16,13 @@
   the plain route) against its host route and the JAX ``map_batch``, with
   the host chain core made to fail; ``_map_many`` on the card sends a single
   read through it too, every anchor kept.
+- E: csrc/chain_dp.cu's schedule emulated lane by lane (``emulate_dp``: the
+  older window reduced by pushes into the steps each lane owns, the terms
+  queued AHEAD steps, the newest candidate set against that best last)
+  bit-equal to ``chain_dp_plain`` and to the JAX host ``_chain_dp`` on
+  random rows, the edge rows and tools/chain_cases.py's ``dp_cases``
+  (ties across the whole window, a candidate scoring exactly k, empty and
+  one-anchor rows, gaps at the limits less one, at and past them).
 """
 
 import ctypes
@@ -97,6 +104,111 @@ def test_chain_dp_plain_bit_equal_to_jax_host(jal, rng):
     assert pre_of[11][40] == 39 and pre_of[11][-1] == -1
     assert [len(rows[t][0]) for t in range(12, 17)] == [1, 2, 64, 65, 8192]
     assert pre_of[17][3:].tolist() == list(range(200 - 3))
+
+
+DP_AHEAD = 8          # csrc/chain_dp.cu's AHEAD
+
+
+def _dp_term(lg, j, t, k, gap_r, gap_q):
+    """csrc/chain_dp.cu's term_of and pen_of for anchors j and t, in its
+    float64 operations (skip from an int32 max, 0.5 * (g + lg) for the
+    core's 0.5 * g + 0.5 * lg): (alpha, pen), pen inf where j is not
+    admissible."""
+    (rj, qj, cj), (rt, qt, ct) = j, t
+    dr, dq = rt - rj, qt - qj
+    ok = 0 < dr <= gap_r and 0 < dq <= gap_q and cj == ct
+    g = abs(dr - dq) if ok else 0
+    lgv = np.float64(lg[g])
+    skip = np.float64(0.1) * np.float64(max(dq, 2 * k) - 2 * k)
+    lt = lgv if dr >= dq else np.float64(0.5) * (np.float64(g) + lgv)
+    return min(dq, dr, k), (float(lt + skip) if ok else np.inf)
+
+
+def emulate_dp(r, q, c, lg, k=K, gap_r=GAP_R, gap_q=GAP_Q):
+    """csrc/chain_dp.cu's chain_dp_kernel on one row, lane by lane, in
+    float64: (f, pre).  Slot s of lane l owns the steps t = l + 32 s (mod
+    64); step i's f comes from its newest candidate (i - 1, whose terms
+    its owner broadcast) against the best of the older window, which lane
+    (i & 31)'s slot pushed up as each f arrived (strict >, so the smallest
+    j keeps a tie) and broadcast a step earlier; the terms of each push were
+    made DP_AHEAD steps before it from the anchors the slots held then."""
+    n = len(r)
+    row = [(int(a), int(b), int(x)) for a, b, x in zip(r, q, c)]
+
+    def anchor(a):
+        return row[a] if a < n else (0, 0, 0)
+
+    held = [[anchor(l + 32 * s) for s in range(2)] for l in range(32)]
+    pref = [[anchor(l + 64) for l in range(32)],
+            [anchor(l + 96) for l in range(32)]]
+
+    def terms_step(v):
+        if v % 32 == 0 and v > 0:
+            pref[0], pref[1] = pref[1], [anchor(v + 96 + l)
+                                         for l in range(32)]
+        held[v & 31][(v >> 5) & 1] = pref[0][v & 31]
+        j = anchor(v)
+        return ([[_dp_term(lg, j, held[l][s], k, gap_r, gap_q)
+                  for s in range(2)] for l in range(32)],
+                _dp_term(lg, j, anchor(v + 1), k, gap_r, gap_q))
+
+    queue = [terms_step(u) for u in range(DP_AHEAD)]
+    best = [[(-np.inf, -1)] * 2 for _ in range(32)]
+    al_c, pe_c, old, f_prev = 0, np.inf, (float(k), -1), 0.0
+    f = np.zeros(n)
+    pre = np.zeros(n, np.int64)
+    for i in range(n):
+        u = i % DP_AHEAD
+        terms, newest = queue[u]
+        bo = best[(i + 1) & 31][((i + 1) >> 5) & 1]
+        cand = (f_prev + al_c) - pe_c
+        f[i], pre[i] = (cand, i - 1) if cand > old[0] else old
+        f_prev = f[i]
+        for lane in range(32):
+            for s in range(2):
+                d = (lane + 32 * s - i) & 63
+                alpha, pen = terms[lane][s]
+                cand = (f[i] + alpha) - pen
+                if d == 0 or (d >= 2 and cand > best[lane][s][0]):
+                    best[lane][s] = (cand, i)
+        al_c, pe_c = newest
+        old = bo if bo[0] > k else (float(k), -1)
+        queue[u] = terms_step(i + DP_AHEAD)
+    return f, pre
+
+
+@pytest.mark.parametrize('group', ['random', 'edges', 'dp_cases'])
+def test_dp_kernel_schedule_bit_equal(jal, rng, group):
+    """Case E: the kernel's schedule (emulate_dp) bit-equal, f and pre, to
+    chain_dp_plain and to the JAX host _chain_dp row by row."""
+    if group == 'random':
+        rows = cases.random_rows(rng, 6, 600)
+    elif group == 'edges':
+        rows = cases.edge_rows(rng)
+    else:
+        named = cases.dp_cases(rng, GAP_R, GAP_Q, K)
+        rows = list(named.values())
+    table = _jax_table()
+    offs, f, pre = _plain_dp(cases.local(rows), table)
+    for b, (r, q, c) in enumerate(cases.local(rows)):
+        fe, pe = emulate_dp(r, q, c, table)
+        lo, hi = offs[b], offs[b + 1]
+        assert fe.tobytes() == f[lo:hi].tobytes(), b
+        assert np.array_equal(pe, pre[lo:hi]), b
+        if len(r):
+            fj, pj = jal._chain_dp(*rows[b], GAP_R, GAP_Q)
+            assert fe.tobytes() == fj.tobytes(), b
+            assert np.array_equal(pe, pj), b
+    if group == 'dp_cases':
+        # the planted ties went to the window's smallest j: its far end (64
+        # back) while the copies fill it, else the first copy; k itself is
+        # no take
+        f70, p70 = emulate_dp(*cases.local([named['copies_70']])[0], table)
+        assert p70[140] == 140 - 64 and p70[141] == 141 - 64
+        f40, p40 = emulate_dp(*cases.local([named['copies_40']])[0], table)
+        assert p40[40] == 0 and p40[79] == 79 - 64 and p40[80] == 40
+        fk, pk = emulate_dp(*cases.local([named['cand_is_k']])[0], table)
+        assert pk[1] == -1 and fk[1] == float(K)
 
 
 def _backtrack_rows(rng, B, A, round_f=False):

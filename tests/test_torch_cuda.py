@@ -9,7 +9,8 @@ csrc/poa_align.cu and its round loop, alone and from threads at once),
 with ``collapse --device cuda`` raising when a kernel cannot be built, and
 call's chaining DP and extraction and tandem screen (csrc/chain_dp.cu,
 also against the native chain core once ``setup.py build_ext --inplace``
-has built it, and csrc/screen_keep.cu).  Marked
+has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
+csrc/screen_keep.cu, with its route per read, on its ``screen_launches``).  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -886,6 +887,66 @@ def test_screen_keep_matches_plain(dev, b):
         assert LAUNCHES['screen_keep'] == before + 1
 
 
+DP_CASES = ('all', 'empty', 'anchors_1', 'anchors_2', 'anchors_64',
+            'anchors_65', 'anchors_9000', 'copies_40', 'copies_70',
+            'cand_is_k', 'contig_changes', 'gap_r_-1', 'gap_r_+0',
+            'gap_r_+1', 'gap_q_-1', 'gap_q_+0', 'gap_q_+1')
+
+
+@pytest.mark.parametrize('case', DP_CASES)
+def test_chain_dp_edge_rows(dev, case):
+    """The DP kernel on each of tools/chain_cases.py's dp_cases rows alone
+    and on all of them in one launch: f and pre bit-equal to the plain
+    version and, once built, to the native chain core row by row."""
+    from ciri_long_tpu_torch.ops import chain
+    from ciri_long_tpu_torch.tools import chain_cases
+    named = chain_cases.dp_cases(np.random.default_rng(31), *GAPS)
+    rows = list(named.values()) if case == 'all' else [named[case]]
+    offs, offs_d, cols, (f, pre) = _chain_on_card(dev, rows)
+    table = chain.card_log2_table(chain.table_size(*GAPS), dev)
+    fp, pp = chain.chain_dp_plain(offs_d, *cols, table, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(f.view(torch.int64), fp.view(torch.int64))
+    assert torch.equal(pre, pp)
+    try:
+        from ciri_long_tpu_torch import _chaincore as core
+    except ImportError:
+        return
+    f, pre = f.cpu().numpy(), pre.cpu().numpy()
+    for b, (r, q, c) in enumerate(chain_cases.local(rows)):
+        fb, pb = core.chain(r, q, c, 15, 64, *GAPS)
+        lo, hi = offs[b], offs[b + 1]
+        assert np.frombuffer(fb, np.float64).tobytes() == f[lo:hi].tobytes()
+        assert np.array_equal(np.frombuffer(pb, np.int64), pre[lo:hi])
+
+
+SCREEN_CASES = ('poly_a', 'dinucleotide', 'trinucleotide', 'period_50',
+                'all_n', 'no_valid_window', 'poly_a_tail', 'mixed_lags',
+                'short_width', 'width_100', 'many_reads')
+
+
+@pytest.mark.parametrize('case', SCREEN_CASES)
+def test_screen_keep_edge_launches(dev, case):
+    """csrc/screen_keep.cu equal to the plain screen on each of
+    tools/chain_cases.py's screen launches (low-complexity reads, reads all
+    N or with no valid window, reads under k, a width no multiple of 16,
+    mixed lag ranges, 16 384 reads), each read on the route
+    screen_routes_plain gives it."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    mat, lens, lags = chain_cases.screen_launches(
+        np.random.default_rng(37))[case]
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (mat, lens, lags)]
+    routes = torch.full((len(mat),), 7, dtype=torch.uint8, device=dev)
+    got = period.screen_keep_cuda(*args, routes=routes)
+    want = period.screen_keep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(routes.cpu().numpy().astype(bool),
+                          period.screen_routes_plain(mat, lags))
+
+
 def test_screen_keep_rejects_bad_inputs(dev):
     from ciri_long_tpu_torch.ops import period
     reads = torch.full((2, 512), 5, dtype=torch.int8, device=dev)
@@ -899,6 +960,10 @@ def test_screen_keep_rejects_bad_inputs(dev):
         period.screen_keep_cuda(reads, lens.long(), lags)
     with pytest.raises(ValueError):
         period.screen_keep_cuda(reads, lens[:1], lags)
+    with pytest.raises(ValueError, match='routes'):
+        period.screen_keep_cuda(reads, lens, lags,
+                                routes=torch.zeros(2, dtype=torch.int32,
+                                                   device=dev))
 
 
 def test_call_stages_chain_and_screen_on_the_card(dev, tmp_path):

@@ -11,7 +11,14 @@ package on the CPU.
 - ``find_ccs_reads`` on the card route (the CUDA call replaced by the plain
   version) screens every read the JAX package would (not those under
   2 * MIN_PERIOD or over SCREEN_MAX_LEN) and writes the same tmp/*.ccs.fa,
-  tmp/*.raw.fa and counters as the CPU route and as the JAX package.
+  tmp/*.raw.fa and counters as the CPU route and as the JAX package;
+- csrc/screen_keep.cu's sort-and-count emulated (``emulate_screen``: the
+  sorted hash keys, the route rule, the pair route's walk with its k-mer
+  check, the lag route's count) equal to ``tandem_counts_plain`` and JAX's
+  ``tandem_counts``, and its election to ``screen_keep_plain`` and JAX's
+  ``screen_keep``, on tools/chain_cases.py's screen launches: random,
+  tandem and N-poisoned reads, low-complexity reads (which take the lag
+  route), reads under k, a width no multiple of 16, mixed lag ranges.
 """
 
 import numpy as np
@@ -145,6 +152,94 @@ def test_find_ccs_reads_card_route_matches_cpu_and_jax(rng, tmp_path,
     assert len(screened) == 20
     assert sum(not k for _, k in screened) >= 6     # the linear reads
     assert jres[1] >= 10
+
+
+def emulate_screen(row, M, k=11):
+    """csrc/screen_keep.cu's counts for one read (codes [W], lag range M):
+    (cnt int64 [M], lag route).  The pair route walks each sorted key's
+    successors up to key + M and counts the pairs whose k-mer ids (not
+    only hashes) are equal; the lag route counts every window at every
+    lag."""
+    x = np.asarray(row).astype(np.int64)
+    W = len(x)
+    kid = np.full(W + M + 1, -1, np.int64)
+    n = W - k + 1
+    if n > 0:
+        ok = x < 4
+        ids = np.zeros(n, np.int64)
+        valid = np.ones(n, bool)
+        for j in range(k):
+            ids = ids * 4 + np.where(ok[j:j + n], x[j:j + n], 0)
+            valid &= ok[j:j + n]
+        kid[:n] = np.where(valid, ids, -1)
+    lag = bool(tperiod.screen_routes_plain(row[None], M, k)[0])
+    cnt = np.zeros(M + 1, np.int64)
+    if lag:
+        for d in range(1, M + 1):
+            cnt[d] = ((kid[:W] >= 0) & (kid[:W] == kid[d:W + d])).sum()
+    else:
+        keys = tperiod.screen_keys(row, k)
+        pos = (keys & ((1 << tperiod.POS_BITS) - 1)).astype(np.int64)
+        for s_, key in enumerate(keys):
+            for s2 in range(s_ + 1, len(keys)):
+                if keys[s2] > key + np.uint64(M):
+                    break
+                if kid[pos[s2]] == kid[pos[s_]]:
+                    cnt[pos[s2] - pos[s_]] += 1
+    return cnt[1:], lag
+
+
+def _elect(cnt, L, M):
+    """The kernel's election on counts cnt [M] (the contract at the head of
+    csrc/screen_keep.cu)."""
+    cs = np.concatenate([[0], np.cumsum(cnt)])
+    lo_raw, hi_raw = tperiod.support_windows(M)
+    lo = np.clip(lo_raw, 1, M + 1)
+    hi = np.clip(hi_raw, 0, M)
+    sup = cs[hi] - cs[lo - 1]
+    lags = np.arange(1, M + 1)
+    valid = (lags >= MIN_PERIOD) & (np.float32(lags) * np.float32(2.0)
+                                    <= np.float32(L))
+    return bool((valid & (sup >= 8) & (20 * sup >= L)).any())
+
+
+LAG_ROUTE = ('poly_a', 'dinucleotide', 'trinucleotide', 'period_50')
+
+
+@pytest.mark.parametrize('case', ['poly_a', 'dinucleotide', 'trinucleotide',
+                                  'period_50', 'all_n', 'no_valid_window',
+                                  'poly_a_tail', 'mixed_lags', 'short_width',
+                                  'width_100', 'many_reads'])
+def test_screen_kernel_schedule_exact(case):
+    """The kernel's sort-and-count (emulate_screen) exact to the plain
+    counts and JAX's tandem_counts, its election to screen_keep_plain and
+    JAX's screen_keep; the low-complexity reads take the lag route, random
+    and noisy tandem reads the pair route."""
+    mat, lens, lags = cases.screen_launches(np.random.default_rng(13))[case]
+    if case == 'many_reads':
+        mat, lens, lags = mat[:200], lens[:200], lags[:200]
+    M = int(lags.max())
+    want = np.asarray(jperiod.tandem_counts(mat, M, 11))
+    plain = tperiod.tandem_counts_plain(torch.from_numpy(mat), M, 11).numpy()
+    keep = tperiod.screen_keep_plain(torch.from_numpy(mat),
+                                     torch.from_numpy(lens),
+                                     torch.from_numpy(lags)).numpy()
+    routes = []
+    for b in range(len(mat)):
+        m = int(lags[b])
+        cnt, lag = emulate_screen(mat[b], m)
+        assert np.array_equal(cnt, want[b, :m]), b
+        assert np.array_equal(cnt, plain[b, :m]), b
+        assert _elect(cnt, int(lens[b]), m) == keep[b], b
+        routes.append(lag)
+    if len(mat) == 3:       # a low_complexity_reads read, random, tandem
+        assert routes == [case in LAG_ROUTE, False, False]
+    else:                   # perfect repeats of short periods may take it
+        assert routes.count(False) > len(routes) // 2
+    if len(set(lags.tolist())) == 1:
+        jkeep = np.asarray(jperiod.screen_keep(mat, lens, M, 11, MIN_PERIOD,
+                                               2.0))
+        assert np.array_equal(keep, jkeep)
 
 
 def _seqs(path):
