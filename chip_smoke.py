@@ -16,7 +16,11 @@ and exits non-zero if any phase fails (none is caught and skipped):
    all-PAD rows and SWParams(1,1,1,1): (score, q_end, r_end), and for
    sw_score_ends the five sw_align_batch fields; then sw_score_ends's
    routes on tools/sw_cases.py's tile cases at the main path's
-   64x28x16384 and 128x54x16384 and at 37x33x5000, and on its wavefront
+   64x28x16384 and 128x54x16384 and at 37x33x5000, its tile edge cases
+   (the R boundaries of the tiles' schedule, references cut inside, at
+   the end of, at the start of and before a tile's window, twins in two
+   tiles and in neighbouring query rows) and a fused round of mixed real
+   lengths under one padded 96x54x16384 shape, and on its wavefront
    cases (every real query length at an edge of the wavefront's schedule
    against references of 1, 63, 64, 65 and 130 columns, N, mid-row PAD,
    all-PAD rows, equal-score twins across warps), under three SWParams;
@@ -43,12 +47,18 @@ and exits non-zero if any phase fails (none is caught and skipped):
    middle three) and BSJ recall/precision
    against the simulated truth; then both SW routes against the plain
    version on the inputs the cuda run gave the kernel, and both timed on
-   them; then (4b) every X2 launch of the cuda run held to the port's
+   them, the launches split by route (``call_sw_route``: the tiled route's
+   summed device time and its largest launch's ms, plain ms and bound;
+   its inputs saved to build/chip_smoke/call_tiled_inputs.pt); then (4b)
+   every X2 launch of the cuda run held to the port's
    native chain core (f and pre bit for bit, row by row) and to the host
    backtrack_chains (chains row by row), the first three and the largest
    also to chain_dp_plain and chain_extract_plain, every screen_keep launch
    to screen_keep_plain (one ``kernel_vs_plain`` line each), then the
-   case list of tools/chain_cases.py (``dp_cases`` rows, all in one launch
+   case list of tools/chain_cases.py (``extract_cases`` through the
+   extraction kernel against chain_extract_plain: tied f, short paths,
+   max_chains reached, no candidate, rows over SMEM_ROW, a chain 8 192
+   deep, brooms; ``dp_cases`` rows, all in one launch
    and each alone, against chain_dp_plain and the native chain core;
    ``screen_launches`` against screen_keep_plain, each read on the route
    screen_routes_plain gives it), the card's rates for a chaining
@@ -59,9 +69,9 @@ and exits non-zero if any phase fails (none is caught and skipped):
    route) beside its launches of the run summed and its slowest, from CUDA
    events around each launch in the run (``call_device_ms``,
    ``slowest_ms``) and from a graph's replay of each recorded launch; the
-   largest launches' inputs go to build/chip_smoke/call_x_inputs.pt (what
-   ``python3 -m ciri_long_tpu_torch.tools.call_x_ab`` times in two
-   checkouts);
+   largest launches' inputs and every extraction launch's go to
+   build/chip_smoke/call_x_inputs.pt (what ``python3 -m
+   ciri_long_tpu_torch.tools.call_x_ab`` times in two checkouts);
 5. the kernel-probe path: the SW variant harness
    (``python -m ciri_long_tpu_torch.misc.kexp``) for the row, wave and
    chain (C = 2, 4) families at the bench shape and the int16 probes
@@ -73,7 +83,7 @@ and exits non-zero if any phase fails (none is caught and skipped):
    the bound at 512x1024x4096, 512x1024x1024, the main path's 64x28x16384
    and 128x54x16384, and 4096x32x128 (sw_score_ends routed and by each
    route that takes the shape; at the main path's shapes also the tiled
-   route at tiles of one and two halos beside the rule's four; at the
+   route at tiles of one, two and eight halos beside the rule's; at the
    wavefront's shapes also the wavefront at 1, 2 and 4 query rows a lane,
    ``wave_rows``; at every shape the chain at C = 2 and 4 by each R of
    1, 2 and 4, ``chain_rows``, and the row scan at each width W,
@@ -126,17 +136,18 @@ and exits non-zero if any phase fails (none is caught and skipped):
    beforehand) and, at its largest launch, its time, the plain version's
    and the bound, after that launch's check against the plain version;
    the SW launches split by route as in phase 7, the largest wavefront
-   launch also at 1, 2 and 4 query rows a lane, and the wavefront launches'
-   inputs saved to build/chip_smoke/cohort_wave_inputs.pt (what
-   ``python3 -m ciri_long_tpu_torch.tools.wave_ab`` times in two
-   checkouts).
+   launch also at 1, 2 and 4 query rows a lane, and the wavefront and
+   tiled launches' inputs saved to build/chip_smoke/cohort_wave_inputs.pt
+   and cohort_tiled_inputs.pt (what ``python3 -m
+   ciri_long_tpu_torch.tools.wave_ab`` times in two checkouts).
 
 The ten CUDA sources build in parallel (one nvcc each) beside the native
 host cores (one extension at a time).  Then the card's ``nvidia-smi`` name
 and power limit, the kernels line (sw_score_ends's entry also has
 ``main_ms`` and ``main_bound_ms`` at 128x54x16384, its collapse launches
-and device
-time and, for the cohort's wavefront launches, ``wave_device_ms`` summed
+and device time, ``tiled``: the tiled route's launches, summed device time
+and largest launch (ms, plain ms, bound) on call and on both collapse
+worlds, and, for the cohort's wavefront launches, ``wave_device_ms`` summed
 over them, ``wave_ms`` and ``wave_bound_ms`` at the largest, and the
 wavefront's plans and times by rows a lane there and at the bench shape;
 sw_rowscan's and sw_chain's entries also have their ms at every phase-5
@@ -170,6 +181,9 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, 'build', 'chip_smoke')
 WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
+# the tiled route's launches of call and of the cohort's collapse
+TILED_INPUTS = {'call': os.path.join(WORK, 'call_tiled_inputs.pt'),
+                'cohort': os.path.join(WORK, 'cohort_tiled_inputs.pt')}
 X_INPUTS = os.path.join(WORK, 'call_x_inputs.pt')
 # a spin before each recorded X2/X3 launch of call's run (~0.5 ms), longer
 # than a wrapper's host work
@@ -181,7 +195,12 @@ SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'screen_keep.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
-TILE_RULES = (1, 2)        # tile widths in halos timed beside the rule's
+# the tiles' schedule edges: (padded Lq, the rows' real query lengths) at
+# Lr 16 384, each R of the rule (1 to 32 rows, 2 to 64, then 4) and two
+# strips at R = 4, beside tools/sw_cases.py's TILE_SPECIAL rows
+TILE_EDGES = ((32, (1, 31, 32)), (33, (1, 32, 33)), (64, (33, 63, 64)),
+              (65, (1, 64, 65)), (129, (65, 127, 128, 129)))
+TILE_RULES = (1, 2, 8)     # tile widths in halos timed beside the rule's
 # query rows a lane of the wavefront timed at the bench shape and at
 # collapse's largest wavefront launch
 WAVE_R_TIMED = (1, 2, 4)
@@ -420,18 +439,37 @@ def wave_cases():
 
 def tile_cases():
     """(label, q, r, params) of phase 2's tile cases: tools/sw_cases.py's
-    rows planted around the tile edges _tile_plan gives each shape."""
+    rows planted around the tile edges _tile_plan gives each shape; its
+    tile_edge_cases at TILE_EDGES (the R boundaries, references cut inside,
+    at the end of, at the start of and before a tile's window, twins in two
+    tiles and in neighbouring query rows); a fused round of mixed real
+    lengths under one padded shape; each under three SWParams."""
     import numpy as np
     from ciri_long_tpu_torch.ops.sw import SWParams, _tile_plan
     from ciri_long_tpu_torch.tools.sw_cases import tile_cases as make
+    from ciri_long_tpu_torch.tools.sw_cases import tile_edge_cases
 
     rng = np.random.default_rng(4)
     cases = []
-    for B, Lq, Lr in TILE_CASES:
-        for params in (SWParams(*p) for p in TILE_PARAMS):
+    for params in (SWParams(*p) for p in TILE_PARAMS):
+        for B, Lq, Lr in TILE_CASES:
             q, r = make(rng, B, Lq, Lr, _tile_plan(Lq, Lr, params)[0],
                         params)
             cases.append(('tile cases', q, r, params))
+        for Lq, lqs in TILE_EDGES:
+            q, r = tile_edge_cases(rng, lqs, Lq, 16384,
+                                   *_tile_plan(Lq, 16384, params))
+            cases.append(('tile edges Lq {}'.format(Lq), q, r, params))
+        q = np.full((96, 54), 5, np.int8)
+        r = np.full((96, 16384), 5, np.int8)
+        for b in range(96):
+            lq, lr = rng.integers(1, 55), rng.integers(1, 16385)
+            q[b, :lq] = rng.integers(0, 5, lq)
+            r[b, :lr] = rng.integers(0, 5, lr)
+            at = int(rng.integers(0, max(1, lr - lq)))
+            n = min(lq, lr - at)          # a copy of the query inside lr
+            r[b, at:at + n] = q[b, :n]
+        cases.append(('tile fused round of mixed lengths', q, r, params))
     return cases
 
 
@@ -716,11 +754,16 @@ def phase_call(torch, dev, smi):
 
 def phase_call_time(torch, dev, smi, seen):
     """Both routes of sw_score_ends on each input the main path gave it
-    (a CUDA graph's replay of 10 launches each), summed over the launches.
-    Returns {route name: ms}."""
-    from ciri_long_tpu_torch.misc.kexp import gcups
+    (a CUDA graph's replay of 10 launches each), summed over the launches;
+    then the launches split by route as collapse's are (sw_route_split,
+    ``call_sw_route`` lines: the tiled route's summed device time and its
+    largest launch's ms, plain ms and bound), and the tiled launches'
+    inputs saved to TILED_INPUTS['call'].  Returns ({route name: ms},
+    {route: fields})."""
+    from ciri_long_tpu_torch.misc.kexp import gcups, peak_cell_rate
 
     total = {}
+    routed = []
     for t, (q, r, params) in enumerate(seen):
         times = {name: gcups(fn, q, r, params, 10, graph=True)[1]
                  for name, fn in sw_routes(q.shape[1], r.shape[1], params)}
@@ -728,8 +771,12 @@ def phase_call_time(torch, dev, smi, seen):
              Lr=int(r.shape[1]), params=list(params), ms=times, card=smi)
         for name, ms in times.items():
             total[name] = total.get(name, 0.0) + ms
+        routed.append(times['sw_score_ends'])
     emit('call_sw_time', launches=len(seen), total_ms=total, card=smi)
-    return total
+    split = sw_route_split(torch, dev, smi, 'call', seen, routed,
+                           peak_cell_rate(dev), line='call_sw_route')
+    save_route_inputs(torch, seen, 'tiled', TILED_INPUTS['call'])
+    return total, split
 
 
 def _dp_candidates(offs, window=64):
@@ -886,9 +933,12 @@ def check_chain(torch, dev, x_seen):
 
 
 def check_edge_cases(torch, dev):
-    """Phase 4b's case list: tools/chain_cases.py's dp_cases rows (all in
-    one launch, then each alone) through the DP kernel against
-    chain_dp_plain and the native chain core, and its screen_launches
+    """Phase 4b's case list: tools/chain_cases.py's extract_cases (tied f,
+    short paths, max_chains reached, no candidate, rows over SMEM_ROW, a
+    chain 8 192 deep, brooms) through the extraction kernel against
+    chain_extract_plain, its dp_cases rows (all in one launch, then each
+    alone) through the DP kernel against chain_dp_plain and the native
+    chain core, and its screen_launches
     through csrc/screen_keep.cu against screen_keep_plain, each read on the
     route screen_routes_plain gives it; one kernel_vs_plain line a case.
     Returns {kernel: max err}."""
@@ -900,7 +950,23 @@ def check_edge_cases(torch, dev):
     gaps = (200_000, chain.MAX_GAP_Q)
     table = chain.card_log2_table(chain.table_size(*gaps), dev)
     named = chain_cases.dp_cases(np.random.default_rng(41), *gaps)
-    errs = {'chain_dp': 0, 'screen_keep': 0}
+    errs = {'chain_dp': 0, 'chain_extract': 0, 'screen_keep': 0}
+    for case, (rows, ms_, ma, mc) in chain_cases.extract_cases(
+            np.random.default_rng(42)).items():
+        offs, f, pre = chain_cases.extract_csr(rows)
+        d = [torch.from_numpy(x).to(dev) for x in (offs, f, pre)]
+        got = chain.chain_extract_cuda(*d, ms_, ma, mc,
+                                       chain.extract_plan(np.diff(offs), dev))
+        want = chain.chain_extract_plain(*(torch.from_numpy(x)
+                                           for x in (offs, f, pre)),
+                                         ms_, ma, mc)
+        differ = {'plain': sum(_bits_differ(a.cpu().numpy(), b.numpy())
+                               for a, b in zip(got, want))}
+        emit('kernel_vs_plain', case='extract_cases ' + case,
+             kernel='chain_extract', rows=len(rows), anchors=int(offs[-1]),
+             chains=int(want[2].sum()), differ=differ,
+             max_abs_err=max(differ.values()))
+        errs['chain_extract'] = max(errs['chain_extract'], *differ.values())
     for case in ['all'] + list(named):
         rows = chain_cases.local(list(named.values()) if case == 'all'
                                  else [named[case]])
@@ -1059,6 +1125,7 @@ def phase_call_kernels(torch, dev, smi, x_seen, x_ms):
     os.makedirs(WORK, exist_ok=True)
     torch.save({'chain_dp': x_seen['chain_dp'][big][0],
                 'chain_extract': x_seen['chain_extract'][big][0],
+                'chain_extract_all': [a for a, _ in x_seen['chain_extract']],
                 'screen_keep': scr[sbig][0]}, X_INPUTS)
     for name, n in numbers.items():
         bound_s, by = n.pop('bound')
@@ -1771,14 +1838,14 @@ def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
 
 
 def sw_route_split(torch, dev, smi, label, args_list, times, rate,
-                   rows_timed=False):
+                   rows_timed=False, line='collapse_sw_route'):
     """A collapse run's SW launches by route (tiled where ops/sw.py::
     _tile_plan gives a plan, wave elsewhere): per route the launches, their
     summed device time (``times``: each recorded launch's graph replay) and,
     at the route's largest launch (by cells), its shapes, ms, plain ms and
     bound at ``rate`` cells/s, and with ``rows_timed`` the wavefront's
-    largest launch at each R (wave_rows).  One JSON line a route; returns
-    {route: fields}."""
+    largest launch at each R (wave_rows).  One JSON line a route, named
+    ``line``; returns {route: fields}."""
     from ciri_long_tpu_torch.misc.kexp import time_launches
     from ciri_long_tpu_torch.ops.sw import _tile_plan
 
@@ -1803,8 +1870,7 @@ def sw_route_split(torch, dev, smi, label, args_list, times, rate,
                 bound_ms=bound_ms, bound_by=bound_by,
                 bound_share=bound_ms / ms)
         split[route] = fields
-        emit('collapse_sw_route', world=label, route=route, card=smi,
-             **fields)
+        emit(line, world=label, route=route, card=smi, **fields)
         if route == 'wave' and mine and rows_timed:
             fields['wave_rows'] = wave_rows(
                 torch, dev, smi, label + ' largest wave launch', big[0],
@@ -1815,7 +1881,8 @@ def sw_route_split(torch, dev, smi, label, args_list, times, rate,
 
 def phase_collapse(torch, dev, smi, world_ref):
     """Phase 7: collapse on phase 4's cand_circ.fa, then its sub-cluster POA
-    and its SW launches by route; ({name: max err}, the POA's fields)."""
+    and its SW launches by route; ({name: max err}, the POA's fields,
+    {route: fields})."""
     from ciri_long_tpu_torch.misc.kexp import peak_cell_rate, recurrence_rate
 
     root = os.path.join(WORK, 'collapse_call_world')
@@ -1828,11 +1895,11 @@ def phase_collapse(torch, dev, smi, world_ref):
                      recurrence_rate(dev, 'poa_align'))
     errs['poa_align'] = poa['max_abs_err']
     sw_args = seen['sw_score_ends']
-    sw_route_split(torch, dev, smi, 'call', sw_args,
-                   [_time_recorded(torch, dev, 'sw_score_ends', a, 3)
-                    for a in sw_args], peak_cell_rate(dev))
+    split = sw_route_split(torch, dev, smi, 'call', sw_args,
+                           [_time_recorded(torch, dev, 'sw_score_ends', a, 3)
+                            for a in sw_args], peak_cell_rate(dev))
     return errs, dict(poa, launches=fields['launches']['poa_align'],
-                      device_ms=fields['poa_device_ms'])
+                      device_ms=fields['poa_device_ms']), split
 
 
 def _time_recorded(torch, dev, name, args, n_iter):
@@ -1898,15 +1965,16 @@ def launch_bound(name, args, rates, torch):
         (bytes_ms, 'bytes')
 
 
-def save_wave_inputs(torch, args_list):
-    """The cohort's wavefront launches (query, ref, params), on the host, to
-    WAVE_INPUTS: the inputs ciri_long_tpu_torch/tools/wave_ab.py times in
-    two checkouts."""
+def save_route_inputs(torch, args_list, route, path):
+    """The SW launches (query, ref, params) of ``route`` ('wave' or
+    'tiled', as ops/sw.py::_tile_plan routes them), on the host, to
+    ``path``: the inputs ciri_long_tpu_torch/tools/wave_ab.py times in two
+    checkouts."""
     from ciri_long_tpu_torch.ops.sw import _tile_plan
 
     torch.save([(a[0].cpu(), a[1].cpu(), tuple(a[2])) for a in args_list
-                if _tile_plan(a[0].shape[1], a[1].shape[1], a[2]) is None],
-               WAVE_INPUTS)
+                if (_tile_plan(a[0].shape[1], a[1].shape[1], a[2]) is None)
+                == (route == 'wave')], path)
 
 
 def phase_collapse_full(torch, dev, smi):
@@ -1946,7 +2014,9 @@ def phase_collapse_full(torch, dev, smi):
         if name == 'sw_score_ends':
             routes = sw_route_split(torch, dev, smi, 'cohort', args_list,
                                     times, rates[name], rows_timed=True)
-            save_wave_inputs(torch, args_list)
+            save_route_inputs(torch, args_list, 'wave', WAVE_INPUTS)
+            save_route_inputs(torch, args_list, 'tiled',
+                              TILED_INPUTS['cohort'])
         big = args_list[max(range(len(work)), key=work.__getitem__)]
         bound_ms, bound_by = launch_bound(name, big, rates, torch)
         largest[name] = dict(
@@ -1991,13 +2061,13 @@ def main():
     call_launches, call_err, seen, x_seen, x_ms = phase_call(torch, dev,
                                                              smi)
     launches = call_launches['sw_score_ends']
-    phase_call_time(torch, dev, smi, seen)
+    _, call_routes = phase_call_time(torch, dev, smi, seen)
     x_numbers = phase_call_kernels(torch, dev, smi, x_seen, x_ms)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
     collapse_errs = phase_collapse_kernels(torch, dev)
-    call_errs, call_poa = phase_collapse(
+    call_errs, call_poa, call_world_routes = phase_collapse(
         torch, dev, smi, os.path.join(WORK, 'world', 'genome.fa'))
     for name, err in call_errs.items():
         collapse_errs[name] = max(collapse_errs.get(name, 0), err)
@@ -2052,6 +2122,13 @@ def main():
                     bench_plan=list(_wave_plan(*BENCH)),
                     bench_rows_ms=bench['wave_rows'])
 
+    def tiled_fields(tiled):
+        """The tiled route on one world: its launches, their summed device
+        time and, at the largest, its shapes, ms, plain ms and bound."""
+        return {k: tiled.get(k) for k in ('launches', 'device_ms', 'shape',
+                                          'params', 'ms', 'plain_ms',
+                                          'bound_ms', 'bound_by')}
+
     def family_err(prefix):
         return max(err for name, err in errs.items()
                    if name.startswith(prefix))
@@ -2070,6 +2147,11 @@ def main():
              collapse_routes={k: full_fields['routes'][k]
                               for k in ('wave', 'tiled')},
              collapse_device_ms=full['sw_score_ends']['device_ms'],
+             tiled={'call': tiled_fields(call_routes['tiled']),
+                    'call_world_collapse': tiled_fields(
+                        call_world_routes['tiled']),
+                    'cohort_collapse': tiled_fields(
+                        full['sw_score_ends']['routes']['tiled'])},
              **wave_fields(full['sw_score_ends']['routes']['wave'])),
         dict(entry('sw_rowscan', probe_launches['sw_rowscan'],
                    family_err('sw_rowscan'), bench['sw_rowscan']),

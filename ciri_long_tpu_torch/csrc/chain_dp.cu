@@ -70,16 +70,51 @@
 //                         serial path) and a lone warp takes ~0.13 us for
 //                         it on an H100, against csrc/op_rate.cu's serial
 //                         step of ~0.018 us.
-//   chain_extract_kernel  one block a row.  Candidates are compacted into
-//                         (f's bits, index) keys, bitonic-sorted by the
-//                         block (f is >= k > 0, so its bits order as its
-//                         value), then one thread walks the greedy over a
-//                         shared-memory used mask and predecessor copy.
-//                         Rows up to SMEM_ROW anchors keep everything in
-//                         shared memory; a longer row (a single read's map
-//                         is not truncated) sorts and walks in global
-//                         scratch the wrapper gives it.
+//   chain_extract_kernel  one block a row, no sort and no serial walk.
+//                         The greedy's used set is always closed under
+//                         pre (a walk marks the path from its candidate up
+//                         to the first used anchor, above which all is
+//                         used).  So anchor v is consumed by owner(v), the
+//                         first candidate in greedy order whose path up
+//                         the pre forest passes through v (the first of
+//                         the candidates at or below v): no earlier
+//                         candidate reaches v, nor any anchor between it
+//                         and owner(v), so owner(v)'s walk starts and
+//                         reaches v.  Hence a candidate c walks iff
+//                         owner(c) = c, its path is the anchors it owns,
+//                         it is a chain iff it owns >= min_anchors, and
+//                         its id is the count of chains before it in
+//                         greedy order (those past max_chains write
+//                         nothing, as the serial loop never reaches
+//                         them).  The block finds owner(v) in two
+//                         doubling passes up the pre forest, each a few
+//                         rounds of one block barrier: every v with
+//                         ancestor a = anc[v] folds its value into a's by
+//                         an atomic nobody waits for, then anc[v] =
+//                         anc[anc[v]] (ping-pong rows), until no ancestor
+//                         is left (ceil(log2(depth + 1)) rounds).  Pass 1
+//                         takes top[v], the largest f (as an order-keeping
+//                         64-bit key) of the candidates at or below v (f
+//                         >= min_score); pass 2 the smallest index of
+//                         those whose f is top[v], moving a value only
+//                         between equal tops (every anchor on the path
+//                         from such a candidate up to v has that top).
+//                         After round t a value covers at least the
+//                         candidates within 2^(t+1) - 1 steps below (it is
+//                         folded in place: a value read early in a round
+//                         is one of the round before, read late it covers
+//                         more, and every value is one of a candidate
+//                         below), so the passes end with own[v] =
+//                         owner(v).  Then a count of each owner's anchors
+//                         (shared atomics), the chains' list, their ids
+//                         (a warp counts the chains before each one) and
+//                         the ids written out.  Rows up to SMEM_ROW
+//                         anchors keep the keys, owners, counts and
+//                         ancestors in shared memory; a longer row (a
+//                         single read's map is not truncated) keeps them
+//                         in global scratch the wrapper gives it.
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -91,7 +126,7 @@ constexpr int DP_WARPS = 4;                // rows a block of the DP
 constexpr int AHEAD = 8;                   // steps a candidate's terms lead
                                            // its push (divides 32)
 constexpr int EXT_THREADS = 256;
-constexpr int SMEM_ROW = 8192;             // longest row sorted in smem
+constexpr int SMEM_ROW = 8192;             // longest row kept in smem
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(WINDOW == 64, "two slots of a warp's lanes own a window");
 static_assert(32 % AHEAD == 0, "a chunk starts at a queue entry 0");
@@ -311,130 +346,169 @@ chain_dp_kernel(const int64_t* __restrict__ offs, const int* __restrict__ r,
     }
 }
 
-// (key, index) before (key2, index2) in the greedy's order: descending f,
-// ascending index
-__device__ __forceinline__ bool before(uint64_t ka, uint32_t ia, uint64_t kb,
-                                       uint32_t ib) {
-    return ka > kb || (ka == kb && ia < ib);
+// f as a 64-bit key whose unsigned order is f's (the sign bit flipped for
+// f >= 0, every bit for f < 0); 0 is below every key of a number.
+__device__ __forceinline__ unsigned long long f_key(double f) {
+    const unsigned long long b =
+        static_cast<unsigned long long>(__double_as_longlong(f));
+    return b >> 63 ? ~b : b | (1ull << 63);
 }
 
-template <typename IdxT, typename PreT>
-__device__ void extract_row(int n, const double* __restrict__ fr,
-                            uint64_t* key, IdxT* idx, const PreT* pre_w,
-                            uint8_t* used, int8_t* cid_w, int* n_cand,
-                            double min_score, int min_anchors, int max_chains,
-                            double* scores_row, int* nch_row) {
+// One doubling pass over the pre forest: rounds until no anchor has an
+// ancestor left, anc[v] = anc[anc[v]] each round (ping-pong rows, one block
+// barrier a round), ``fold(v, a)`` folding v's value into its ancestor a
+// (an atomic whose result no one waits for).  Returns the row the last
+// round wrote, free for other use.
+template <typename AncT, typename Fold>
+__device__ __forceinline__ AncT* doubling(int n, AncT* anc_a, AncT* anc_b,
+                                          bool any, Fold fold) {
+    AncT* cur = anc_a;
+    AncT* nxt = anc_b;
+    any = __syncthreads_or(any);
+    while (any) {
+        any = false;
+        for (int v = threadIdx.x; v < n; v += EXT_THREADS) {
+            const int a = cur[v];
+            int a2 = -1;
+            if (a >= 0) {
+                fold(v, a);
+                a2 = cur[a];
+            }
+            nxt[v] = static_cast<AncT>(a2);
+            any |= a2 >= 0;
+        }
+        any = __syncthreads_or(any);
+        AncT* t = cur;
+        cur = nxt;
+        nxt = t;
+    }
+    return nxt;
+}
+
+// One row of n anchors: f and pre (the row's, global), the ancestor
+// ping-pong rows anc_a / anc_b, the subtree keys ``top``, the owners
+// ``own`` and counts ``cnt`` (n each).  Writes the row's cid, scores and
+// nch.
+template <typename AncT>
+__device__ void extract_row(int n, const double* __restrict__ f,
+                            const int* __restrict__ pre, AncT* anc_a,
+                            AncT* anc_b, unsigned long long* top, int* own,
+                            int* cnt, int* n_chains, double min_score,
+                            int min_anchors, int max_chains,
+                            int8_t* __restrict__ cid,
+                            double* __restrict__ scores_row,
+                            int* __restrict__ nch_row) {
     const int tid = threadIdx.x;
-    for (int a = tid; a < n; a += EXT_THREADS) {
-        const double fa = fr[a];
-        if (fa >= min_score) {
-            const int p = atomicAdd(n_cand, 1);
-            key[p] = static_cast<uint64_t>(__double_as_longlong(fa));
-            idx[p] = static_cast<IdxT>(a);
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    // pass 1: top[v] = the largest f key of the candidates at or below v
+    bool any = false;
+    for (int v = tid; v < n; v += EXT_THREADS) {
+        const int p = pre[v];
+        const double fv = f[v];
+        anc_a[v] = static_cast<AncT>(p);
+        top[v] = fv >= min_score ? f_key(fv) : 0ull;
+        any |= p >= 0;
+    }
+    doubling(n, anc_a, anc_b, any, [&](int v, int a) {
+        const unsigned long long k = top[v];
+        if (k) atomicMax(top + a, k);
+    });
+    // pass 2: own[v] = the smallest index among the candidates at or below
+    // v whose key is top[v]; the path from such a candidate up to v holds
+    // top = top[v] all the way, so a value moves only between equal tops
+    any = false;
+    for (int v = tid; v < n; v += EXT_THREADS) {
+        const int p = pre[v];
+        const double fv = f[v];
+        anc_a[v] = static_cast<AncT>(p);
+        own[v] = fv >= min_score && f_key(fv) == top[v] ? v : INT_MAX;
+        cnt[v] = 0;
+        any |= p >= 0;
+    }
+    AncT* list = doubling(n, anc_a, anc_b, any, [&](int v, int a) {
+        const int c = own[v];
+        if (c != INT_MAX && top[v] == top[a]) atomicMin(own + a, c);
+    });
+    for (int v = tid; v < n; v += EXT_THREADS) {
+        const int c = own[v];
+        if (c != INT_MAX) atomicAdd(cnt + c, 1);
+    }
+    __syncthreads();
+    // the chains: candidates that own themselves and >= min_anchors
+    // anchors, listed in ``list``; cnt of every owner becomes -1 (no chain)
+    // or -2 (a chain, its id set below)
+    for (int c = tid; c < n; c += EXT_THREADS) {
+        if (own[c] != c) continue;
+        const bool chain = cnt[c] >= min_anchors;
+        cnt[c] = chain ? -2 : -1;
+        if (chain) list[atomicAdd(n_chains, 1)] = static_cast<AncT>(c);
+    }
+    __syncthreads();
+    // a chain's id: the chains before it in greedy order (f descending,
+    // index ascending), counted by a warp
+    const int nc = *n_chains;
+    for (int t = warp; t < nc; t += EXT_THREADS / 32) {
+        const int c = list[t];
+        const unsigned long long kc = top[c];
+        int before = 0;
+        for (int u = lane; u < nc; u += 32) {
+            const int d = list[u];
+            const unsigned long long kd = top[d];
+            before += kd > kc || (kd == kc && d < c);
+        }
+        const int id = __reduce_add_sync(FULL, before);
+        if (lane == 0) {
+            cnt[c] = id < max_chains ? id : -1;
+            if (id < max_chains) scores_row[id] = f[c];
         }
     }
     __syncthreads();
-    const int nc = *n_cand;
-    int P = 1;
-    while (P < nc) P <<= 1;
-    for (int p = nc + tid; p < P; p += EXT_THREADS) {
-        key[p] = 0;                        // +0.0: after every candidate
-        idx[p] = static_cast<IdxT>(~0u);
+    for (int v = tid; v < n; v += EXT_THREADS) {
+        const int c = own[v];
+        cid[v] = static_cast<int8_t>(c != INT_MAX ? cnt[c] : -1);
     }
-    __syncthreads();
-    for (int size = 2; size <= P; size <<= 1) {
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-            for (int p = tid; p < P; p += EXT_THREADS) {
-                const int o = p ^ stride;
-                if (o > p) {
-                    const uint64_t kp = key[p], ko = key[o];
-                    const uint32_t ip = static_cast<uint32_t>(idx[p]);
-                    const uint32_t io = static_cast<uint32_t>(idx[o]);
-                    const bool fwd = (p & size) == 0;
-                    if (fwd ? before(ko, io, kp, ip) : before(kp, ip, ko, io)) {
-                        key[p] = ko;
-                        key[o] = kp;
-                        idx[p] = static_cast<IdxT>(io);
-                        idx[o] = static_cast<IdxT>(ip);
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
-    if (tid == 0) {
-        int nch = 0;
-        for (int t = 0; t < nc && nch < max_chains; ++t) {
-            const int a = static_cast<int>(idx[t]);
-            if (used[a]) continue;
-            int plen = 0;
-            for (int v = a; v >= 0 && !used[v]; v = pre_w[v]) {
-                used[v] = 1;
-                ++plen;
-            }
-            if (plen < min_anchors) continue;
-            int v = a;
-            for (int s = 0; s < plen; ++s) {
-                cid_w[v] = static_cast<int8_t>(nch);
-                v = pre_w[v];
-            }
-            scores_row[nch] = fr[a];
-            ++nch;
-        }
-        *nch_row = nch;
-    }
-    __syncthreads();
+    if (tid == 0) *nch_row = min(nc, max_chains);
 }
 
-// goff[b]: row b's offset into the global scratch (next power of two of
-// its length a row), or -1 for a row that fits shared memory.  Dynamic
-// shared memory: SMEM_ROW-capped keys (8 bytes), indices (2), predecessors
-// (2), used (1) and ids (1) a slot, sized by the wrapper for the launch's
-// longest shared-memory row.
+// goff[b]: row b's offset into the global scratch (at least its length),
+// or -1 for a row that fits shared memory.  Dynamic shared memory: the
+// subtree keys (8 bytes), owners and counts (4 each) and two ancestor
+// rows (2 each) a slot, sized by the wrapper for the launch's longest
+// shared-memory row.
 __global__ void __launch_bounds__(EXT_THREADS)
 chain_extract_kernel(const int64_t* __restrict__ offs,
                      const double* __restrict__ f, const int* __restrict__ pre,
                      int R, int cap, double min_score, int min_anchors,
                      int max_chains, const int64_t* __restrict__ goff,
-                     uint64_t* gkey, int* gidx, uint8_t* gused,
-                     int8_t* __restrict__ cid, double* __restrict__ scores,
-                     int* __restrict__ nch) {
+                     int* gscratch, int8_t* __restrict__ cid,
+                     double* __restrict__ scores, int* __restrict__ nch) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int n_cand;
+    __shared__ int n_chains;
     const int row = blockIdx.x;
     const int tid = threadIdx.x;
     const int64_t base = offs[row];
     const int n = static_cast<int>(offs[row + 1] - base);
-    if (tid == 0) n_cand = 0;
+    if (tid == 0) n_chains = 0;
     const int64_t g = goff[row];
+    double* scores_row = scores + (int64_t)row * max_chains;
     if (g < 0) {
-        uint64_t* key = reinterpret_cast<uint64_t*>(smem);
-        uint16_t* idx = reinterpret_cast<uint16_t*>(key + cap);
-        int16_t* pre_s = reinterpret_cast<int16_t*>(idx + cap);
-        uint8_t* used = reinterpret_cast<uint8_t*>(pre_s + cap);
-        int8_t* cid_s = reinterpret_cast<int8_t*>(used + cap);
-        for (int a = tid; a < n; a += EXT_THREADS) {
-            pre_s[a] = static_cast<int16_t>(pre[base + a]);
-            used[a] = 0;
-            cid_s[a] = -1;
-        }
-        __syncthreads();
-        extract_row<uint16_t, int16_t>(
-            n, f + base, key, idx, pre_s, used, cid_s, &n_cand, min_score,
-            min_anchors, max_chains, scores + (int64_t)row * max_chains,
-            nch + row);
-        for (int a = tid; a < n; a += EXT_THREADS) cid[base + a] = cid_s[a];
+        unsigned long long* top = reinterpret_cast<unsigned long long*>(smem);
+        int* own = reinterpret_cast<int*>(top + cap);
+        int* cnt = own + cap;
+        int16_t* anc_a = reinterpret_cast<int16_t*>(cnt + cap);
+        int16_t* anc_b = anc_a + cap;
+        extract_row<int16_t>(n, f + base, pre + base, anc_a, anc_b, top, own,
+                             cnt, &n_chains, min_score, min_anchors,
+                             max_chains, cid + base, scores_row, nch + row);
     } else {
-        uint8_t* used = gused + g;
-        for (int a = tid; a < n; a += EXT_THREADS) {
-            used[a] = 0;
-            cid[base + a] = -1;
-        }
-        __syncthreads();
-        extract_row<int, int>(n, f + base, gkey + g, gidx + g, pre + base,
-                              used, cid + base, &n_cand, min_score,
-                              min_anchors, max_chains,
-                              scores + (int64_t)row * max_chains, nch + row);
+        // six int rows of the row's slots: the keys (two ints a slot),
+        // owners, counts and the ancestors twice
+        int* s = gscratch + 6 * g;
+        extract_row<int>(n, f + base, pre + base, s + 4 * n, s + 5 * n,
+                         reinterpret_cast<unsigned long long*>(s), s + 2 * n,
+                         s + 3 * n, &n_chains, min_score, min_anchors,
+                         max_chains, cid + base, scores_row, nch + row);
     }
 }
 
@@ -466,18 +540,18 @@ extern "C" int chain_dp_launch(const void* offs, const void* r, const void* q,
 }
 
 // One block a row; rows with goff[b] < 0 must hold at most ``cap`` anchors
-// (a power of two up to SMEM_ROW, which ops/chain.py::SMEM_ROW mirrors).
+// (a power of two up to SMEM_ROW, which ops/chain.py::SMEM_ROW mirrors),
+// the others have 6 * (their slots) ints of ``gscratch`` from 6 * goff[b].
 extern "C" int chain_extract_launch(const void* offs, const void* f,
                                     const void* pre, int R, int cap,
                                     double min_score, int min_anchors,
                                     int max_chains, const void* goff,
-                                    void* gkey, void* gidx, void* gused,
-                                    void* cid, void* scores, void* nch,
-                                    void* stream) {
+                                    void* gscratch, void* cid, void* scores,
+                                    void* nch, void* stream) {
     if (R == 0) return 0;
     if (cap < 1 || cap > SMEM_ROW || (cap & (cap - 1)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = cap * 14;             // see chain_extract_kernel
+    const int smem = cap * 20;             // see chain_extract_kernel
     cudaError_t err = cudaFuncSetAttribute(
         chain_extract_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
@@ -487,8 +561,7 @@ extern "C" int chain_extract_launch(const void* offs, const void* f,
         static_cast<const int64_t*>(offs), static_cast<const double*>(f),
         static_cast<const int*>(pre), R, cap, min_score, min_anchors,
         max_chains, static_cast<const int64_t*>(goff),
-        static_cast<uint64_t*>(gkey), static_cast<int*>(gidx),
-        static_cast<uint8_t*>(gused), static_cast<int8_t*>(cid),
+        static_cast<int*>(gscratch), static_cast<int8_t*>(cid),
         static_cast<double*>(scores), static_cast<int*>(nch));
     return static_cast<int>(cudaGetLastError());
 }

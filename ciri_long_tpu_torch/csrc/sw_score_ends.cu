@@ -80,14 +80,10 @@
 //   >), then a lane's rows, the lanes (shuffles) and the block's warps
 //   (shared memory) are folded.
 //
-// Route 2, reference tiles (sw_tile_kernel + sw_tile_merge_kernel), for a
-// short query against a long reference: one warp per (row, tile), over
-// ``sweep`` (a one-warp sweep: lane t owns query row i = 32*s + t of
-// strip s, H, F and the reference code of the row above come from lane t-1
-// by __shfl_up_sync, lane 0 takes the row above from an int2 (H, F) handoff
-// row written by lane 31 of the previous strip, fetched 32 columns at a time
-// one chunk ahead).  Tile k owns columns [k*T, min((k+1)*T, Lr)) and sweeps
-// from max(0, k*T - halo) with the usual zero border, halo = Lq +
+// Route 2, reference tiles (sw_tile_kernel<R> + sw_tile_merge_kernel), for
+// a short query against a long reference: one warp per (row, tile).  Tile k
+// owns columns [k*T, min((k+1)*T, Lr)) and sweeps the window [max(0, k*T -
+// halo), min((k+1)*T, Lr)) with the usual zero border, halo = Lq +
 // floor(Lq*match/gE) + 1.  A positive local alignment covers at most Lq
 // diagonal steps and fewer than Lq*match/gE gap columns (each costs >= gE,
 // since gO >= gE, and the matches bring at most Lq*match), so the optimum
@@ -95,17 +91,45 @@
 // there is exact; elsewhere a tile's H never exceeds the true H (its border
 // is 0 <= H, NEG <= E).  So each tile may report its best over all its
 // columns, and the best record under the contract's order is the answer.
-// The handoff row lives in dynamic shared memory, (T + halo) int2 per warp,
-// and only for queries of more than one strip.  The merge runs one warp per
-// row over the [B, n_tiles] records.
+//
+//   Step body.  A tile's warp is the wavefront's with K = 1 on its window:
+//   strips of 32*R query rows (R from the query's length, ops/sw.py::
+//   _tile_rows), wave_chunk's branch-free 32-step chunks over the
+//   [code][row][thread] score table with M = H - gO, masked only in a
+//   strip's first chunk and the chunks that reach past the window's real
+//   width, and a handoff row between strips, (T + halo) int2 a warp in
+//   dynamic shared memory, only for a query of more than one strip.  The
+//   first strip's row above is the border, so it shuffles none in; a
+//   row's best is one packed key a cell (one max instead of a compare and
+//   two selects; the plan keeps |M| < 2^16 and the window under 2^15
+//   steps).
+//   Real lengths.  The warp first finds the row's real query length lq and
+//   its window's real width lr (one past the window's last code in 0..4,
+//   by ballots from the window's end) and sweeps only those strips and
+//   columns.  A window that holds no code in 0..4 (it starts at or past
+//   the row's real reference length, or lies in a PAD run) does no sweep
+//   and writes the empty record.  That is exact by the wavefront's argument
+//   applied to the window as its own DP: a cut cell (a row i >= lq, or a
+//   column past the window's last real code) has a poisoned diagonal, so a
+//   positive H there comes from a gap out of a cell above or to the left;
+//   following those moves back reaches a kept cell whose H is at least as
+//   high and that comes first in the contract's order, and no kept cell
+//   reads a cut one.  So the tile's record, the first maximum of its kept
+//   cells, is the first maximum of its whole window, and the halo argument
+//   above holds for it unchanged.
+//   The best.  Each row keeps its first maximum along j (strict >); a
+//   lane's rows and the lanes are folded on the whole (score, j, i) with
+//   ``before``, so the record is the tile's first cell in the contract's
+//   order whatever the rows a lane.  The merge runs one warp per row over
+//   the [B, n_tiles] records in the same order.
 //
 // Bound: the DP is latency- and integer-ALU-bound: O(B*Lq*Lr) cell updates
 // of at least 7 integer instructions (csrc/op_rate.cu) against O(B*(Lq+Lr))
 // bytes of codes.  The wavefront issues about 9 instructions a cell and
 // 10 a step shared by a lane's R cells (4 shuffles, 2 selects, the code
 // load, its table offset, the ring or handoff store), and fills the card
-// with B*K warps; the tiles give B*ceil(Lr/T) warps of (T + halo + 31)
-// steps a strip, 6 shuffles a step, for a halo overhead of halo/T columns.
+// with B*K warps; the tiles spend the same a step, over B*ceil(Lr/T) warps
+// of (lr + 31) steps a strip, for a halo overhead of halo/T columns.
 
 #include <climits>
 #include <cstdint>
@@ -114,29 +138,15 @@
 namespace {
 
 constexpr int NEG = -(1 << 28);
-constexpr int WARPS_PER_BLOCK = 4;  // the tiles' and the merge's blocks
+constexpr int MERGE_WARPS = 4;     // the merge's rows a block
 constexpr int MAX_SMEM = 232448;  // shared memory a Hopper block may have
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WAVE_WARPS = 8;     // the wavefront's warps a block (K * P)
 constexpr int WAVE_THREADS = WAVE_WARPS * 32;
 constexpr int RING = 128;         // ring columns between two warps
-
-// Chunk c of the row above (H, F) and of the reference codes, one column per
-// lane.  Columns past W read as the empty border (H 0, F NEG, code PAD).
-// ``edge`` is written by the sweep, so it is not declared __restrict__: no
-// read-only cache path may serve it.
-__device__ __forceinline__ void load_chunk(const int2* edge,
-                                           const int8_t* __restrict__ ref,
-                                           int col, int W, bool first,
-                                           int2& up, int& code) {
-    if (col < W) {
-        code = ref[col];
-        up = first ? make_int2(0, NEG) : edge[col];
-    } else {
-        code = 5;
-        up = make_int2(0, NEG);
-    }
-}
+constexpr int PACK_D = 1 << 15;   // steps a packed best tells apart
+constexpr int TILE_WARPS = 4;     // the tiles' (row, tile) warps a block
+constexpr int TILE_THREADS = TILE_WARPS * 32;
 
 // (score, i, j) ordered as the contract orders the best cell: higher score,
 // then smaller j, then smaller i.
@@ -157,96 +167,6 @@ __device__ __forceinline__ void fold_lanes(int& best, int& best_i,
             best_j = oj;
         }
     }
-}
-
-// One warp sweeps query qr [Lq] against reference columns rr [0, W), the
-// handoff row ``edge`` (W int2) between strips.  Returns in lane 0 the best
-// positive cell (score, i, j) with j local to rr, or (0, -1, INT_MAX).
-// The tiled route's sweep.
-__device__ __forceinline__ void sweep(const int8_t* __restrict__ qr, int Lq,
-                                      const int8_t* __restrict__ rr, int W,
-                                      int match, int mismatch, int gap_open,
-                                      int gap_extend, int2* edge, int& best,
-                                      int& best_i, int& best_j) {
-    const int lane = threadIdx.x & 31;
-    best = 0;
-    best_i = -1;
-    best_j = INT_MAX;
-    const int n_strips = (Lq + 31) / 32;
-    for (int s = 0; s < n_strips; ++s) {
-        const int i = s * 32 + lane;
-        const bool row_ok = i < Lq;
-        const int qc = row_ok ? qr[i] : 5;
-        const bool first = s == 0;
-        const bool hand_off = lane == 31 && s + 1 < n_strips;
-        // this strip's best: j rises along the sweep, so the first cell at
-        // the strip's maximum has its smallest j; rows past Lq never win
-        int s_best = row_ok ? 0 : INT_MAX, s_j = INT_MAX;
-
-        int2 cur_up, nxt_up;
-        int cur_code, nxt_code;
-        load_chunk(edge, rr, lane, W, first, cur_up, cur_code);
-        load_chunk(edge, rr, 32 + lane, W, first, nxt_up, nxt_code);
-
-        int H_left = 0, E_left = NEG;         // H[i][j-1], E[i][j-1]
-        int out_H = 0, out_F = NEG, out_code = 5;  // this lane's last cell
-        int diag = 0;                         // H[i-1][j-1]
-        const int steps = W + 31;
-        for (int d = 0; d < steps; ++d) {
-            const int m = d & 31;
-            if (m == 0 && d > 0) {
-                cur_up = nxt_up;
-                cur_code = nxt_code;
-                load_chunk(edge, rr, d + 32 + lane, W, first, nxt_up,
-                           nxt_code);
-            }
-            const int l0_H = __shfl_sync(FULL, cur_up.x, m);
-            const int l0_F = __shfl_sync(FULL, cur_up.y, m);
-            const int l0_code = __shfl_sync(FULL, cur_code, m);
-            int up_H = __shfl_up_sync(FULL, out_H, 1);
-            int up_F = __shfl_up_sync(FULL, out_F, 1);
-            int rc = __shfl_up_sync(FULL, out_code, 1);
-            if (lane == 0) {
-                up_H = l0_H;
-                up_F = l0_F;
-                rc = l0_code;
-            }
-            const int j = d - lane;
-            int H = 0, F = NEG;  // column -1 border, seen by lane t+1
-            if (j >= 0 && j < W) {
-                int sc;
-                if (qc >= 5 || rc >= 5) {
-                    sc = NEG;
-                } else if (qc == 4 || rc == 4) {
-                    sc = 0;
-                } else {
-                    sc = qc == rc ? match : -mismatch;
-                }
-                const int E = max(E_left - gap_extend, H_left - gap_open);
-                F = max(up_F - gap_extend, up_H - gap_open);
-                H = max(max(diag + sc, E), max(F, 0));
-                H_left = H;
-                E_left = E;
-                if (H > s_best) {
-                    s_best = H;
-                    s_j = j;
-                }
-                if (hand_off) edge[j] = make_int2(H, F);
-            }
-            diag = up_H;
-            out_H = H;
-            out_F = F;
-            out_code = rc;
-        }
-        if (row_ok && s_best > 0 &&
-            before(s_best, i, s_j, best, best_i, best_j)) {
-            best = s_best;
-            best_i = i;
-            best_j = s_j;
-        }
-        __syncwarp();  // lane 31's handoff row is complete for lane 0
-    }
-    fold_lanes(best, best_i, best_j);
 }
 
 __device__ __forceinline__ void write_ends(int row, int best, int best_i,
@@ -278,7 +198,7 @@ struct WaveLane {
 // Where a step's values go: the lane's score table row for code 0, the
 // reference row shifted by the lane, and lane 31's ring and handoff rows.
 struct WaveIO {
-    const int* tab;          // + (code * R + u) * WAVE_THREADS: s + gO
+    const int* tab;          // + (code * R + u) * TH: s + gO
     const int8_t* rr_lane;   // column j = d - lane at rr_lane[d]
     int2* ring_out;
     int2* edge;
@@ -289,14 +209,17 @@ struct WaveIO {
 // One step d of the sweep: lane t computes column j = d - t of its R rows.
 // MASKED: some lane's column lies outside [0, lr), where the cell is the
 // border (M = -gO, E = F = NEG) and no code is read.  (tM, tF): the row
-// above the strip at column d, for lane 0.
-template <int R, bool MASKED>
+// above the strip at column d, for lane 0.  TH: the threads of the block's
+// score table.  PACK: each row's best is one key, bm = max(m * 2^15 +
+// (2^15 - 1 - d)) (the largest M, then the smallest d; bd unused), which
+// needs |M| < 2^16 and d < 2^15 (pack_best / unpack_best).
+template <int R, bool MASKED, int TH, bool PACK = false>
 __device__ __forceinline__ void wave_step(WaveLane<R>& st, const WaveIO& io,
                                           int d, int tM, int tF) {
     const int j = d - io.lane;
     const bool cell = !MASKED || (unsigned)j < (unsigned)io.lr;
     const int code = cell ? (int)io.rr_lane[d] : 5;
-    const int* t = io.tab + min((unsigned)code, 5u) * (R * WAVE_THREADS);
+    const int* t = io.tab + min((unsigned)code, 5u) * (R * TH);
     int upM = __shfl_up_sync(FULL, st.out_M, 1);
     int upF = __shfl_up_sync(FULL, st.out_F, 1);
     if (io.lane == 0) {
@@ -311,14 +234,16 @@ __device__ __forceinline__ void wave_step(WaveLane<R>& st, const WaveIO& io,
         const int left = st.M[u];
         int e = max(st.E[u] - io.gE, left);
         int f = max(fu - io.gE, mu);
-        const int h = max(max(dg + t[u * WAVE_THREADS], e), max(f, 0));
+        const int h = max(max(dg + t[u * TH], e), max(f, 0));
         int m = h + io.MB;
         if (MASKED) {
             m = cell ? m : io.MB;
             e = cell ? e : NEG;
             f = cell ? f : NEG;
         }
-        if (m > st.bm[u]) {
+        if (PACK) {
+            st.bm[u] = max(st.bm[u], m * PACK_D + (PACK_D - 1 - d));
+        } else if (m > st.bm[u]) {
             st.bm[u] = m;
             st.bd[u] = d;
         }
@@ -335,15 +260,16 @@ __device__ __forceinline__ void wave_step(WaveLane<R>& st, const WaveIO& io,
 }
 
 // A chunk's 32 steps, a fixed loop without branches; ``top`` holds the row
-// above the strip at columns 32c + lane.
-template <int R, bool MASKED>
+// above the strip at columns 32c + lane, or with BORDER the strip is the
+// query's first and the row above is the zero border (no shuffles).
+template <int R, bool MASKED, int TH, bool BORDER = false, bool PACK = false>
 __device__ __forceinline__ void wave_chunk(WaveLane<R>& st, const WaveIO& io,
                                            int c, int2 top) {
 #pragma unroll 8
     for (int kk = 0; kk < 32; ++kk) {
-        const int tM = __shfl_sync(FULL, top.x, kk);
-        const int tF = __shfl_sync(FULL, top.y, kk);
-        wave_step<R, MASKED>(st, io, c * 32 + kk, tM, tF);
+        const int tM = BORDER ? io.MB : __shfl_sync(FULL, top.x, kk);
+        const int tF = BORDER ? NEG : __shfl_sync(FULL, top.y, kk);
+        wave_step<R, MASKED, TH, PACK>(st, io, c * 32 + kk, tM, tF);
     }
 }
 
@@ -468,9 +394,9 @@ sw_wave_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
                     nxt = load_edge(io.edge, c * 32 + 32 + lane, lr, border);
                 }
                 if (c > 0 && c * 32 + 31 < lr)
-                    wave_chunk<R, false>(st, io, c, cur);
+                    wave_chunk<R, false, WAVE_THREADS>(st, io, c, cur);
                 else
-                    wave_chunk<R, true>(st, io, c, cur);
+                    wave_chunk<R, true, WAVE_THREADS>(st, io, c, cur);
             }
             if (K > 1) __syncthreads();  // the ring's columns are written
         }
@@ -509,38 +435,137 @@ sw_wave_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
     write_ends(row, best, best_i, best_j, out_score, out_qend, out_rend);
 }
 
-// One warp per (row, tile); ``edge_cols`` int2 of dynamic shared memory per
-// warp (0 for a one-strip query).  Writes records[row][tile] = (score, i, j)
-// with j global, (0, -1, INT_MAX) when the tile has no positive cell.
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+// One past the last code in 0..4 of x[0, n), by one ballot a 32-code chunk
+// from the end (0 when there is none).
+__device__ __forceinline__ int real_length(const int8_t* __restrict__ x,
+                                           int n, int lane) {
+    for (int hi = n; hi > 0; hi -= 32) {
+        const int at = hi - 32 + lane;
+        const unsigned m =
+            __ballot_sync(FULL, at >= 0 && (unsigned)x[at] < 5u);
+        if (m) return hi - 32 + (32 - __clz(m));
+    }
+    return 0;
+}
+
+// One warp per (row, tile), blockDim.x / 32 <= TILE_WARPS of them a block
+// (the score table is laid out for TILE_THREADS); ``edge_cols`` int2 of
+// dynamic shared memory a warp for the handoff row (0 for a one-strip
+// query).  Writes records[row][tile] = (score, i, j) with j global,
+// (0, -1, INT_MAX) when the tile has no positive cell.
+template <int R>
+__global__ void __launch_bounds__(TILE_THREADS)
 sw_tile_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ r,
                int B, int Lq, int Lr, int match, int mismatch, int gap_open,
                int gap_extend, int T, int halo, int n_tiles, int edge_cols,
                int3* __restrict__ records) {
-    extern __shared__ int2 edges[];
+    extern __shared__ __align__(16) unsigned char dyn[];
+    __shared__ int sc_tab[6 * R * TILE_THREADS];  // [code][row][thread]
     const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
     const int w = blockIdx.x * (blockDim.x >> 5) + warp;  // B*n_tiles < 2^31
     if (w >= B * n_tiles) return;  // whole warps leave together
     const int row = w / n_tiles;
     const int tile = w - row * n_tiles;
     const int start = max(0, tile * T - halo);
-    const int end = min(tile * T + T, Lr);
-    int best, best_i, best_j;
-    sweep(q + (size_t)row * Lq, Lq, r + (size_t)row * Lr + start,
-          end - start, match, mismatch, gap_open, gap_extend,
-          edges + warp * edge_cols, best, best_i, best_j);
-    if ((threadIdx.x & 31) == 0)
+    const int8_t* qr = q + (size_t)row * Lq;
+    const int8_t* rr = r + (size_t)row * Lr + start;
+    const int lq = real_length(qr, Lq, lane);
+    const int lr = real_length(rr, min(tile * T + T, Lr) - start, lane);
+
+    constexpr int SR = 32 * R;                  // query rows a strip
+    const int strips = lr > 0 ? (lq + SR - 1) / SR : 0;
+    const int chunks = (lr + 31 + 31) >> 5;     // a strip's lr + 31 steps
+    const int MB = -gap_open;                   // M of the border (H = 0)
+    const int2 border = make_int2(MB, NEG);
+    WaveIO io;
+    io.tab = sc_tab + threadIdx.x;
+    io.rr_lane = rr - lane;
+    io.ring_out = nullptr;
+    io.edge = reinterpret_cast<int2*>(dyn) + (size_t)warp * edge_cols;
+    io.to_ring = false;
+    io.lane = lane;
+    io.lr = lr;
+    io.gE = gap_extend;
+    io.MB = MB;
+    int* tab = sc_tab + threadIdx.x;
+
+    int best = 0, best_i = -1, best_j = INT_MAX;
+    for (int s = 0; s < strips; ++s) {
+        const int i0 = s * SR + lane * R;       // this lane's first row
+        io.to_edge = lane == 31 && s + 1 < strips;
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+            const int i = i0 + u;
+            const unsigned qc = i < lq ? (unsigned)(int)qr[i] : 5u;
+#pragma unroll
+            for (int c = 0; c < 6; ++c)
+                tab[(c * R + u) * TILE_THREADS] =
+                    (qc >= 5u || c == 5 ? NEG
+                     : qc == 4u || c == 4 ? 0
+                     : (int)qc == c ? match : -mismatch) + gap_open;
+        }
+        WaveLane<R> st;
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+            st.M[u] = MB;
+            st.E[u] = NEG;
+            st.bm[u] = MB * PACK_D + (PACK_D - 1);  // (MB, step 0)
+            st.bd[u] = 0;
+        }
+        st.out_M = MB;
+        st.out_F = NEG;
+        st.dgM = MB;
+        int2 cur = border, nxt = border;  // the row above the strip
+        if (s > 0) {
+            cur = load_edge(io.edge, lane, lr, border);
+            nxt = load_edge(io.edge, 32 + lane, lr, border);
+        }
+        for (int c = 0; c < chunks; ++c) {
+            if (s > 0 && c > 0) {
+                cur = nxt;
+                nxt = load_edge(io.edge, c * 32 + 32 + lane, lr, border);
+            }
+            const bool inner = c > 0 && c * 32 + 31 < lr;
+            if (s > 0 && inner)
+                wave_chunk<R, false, TILE_THREADS, false, true>(st, io, c,
+                                                                 cur);
+            else if (s > 0)
+                wave_chunk<R, true, TILE_THREADS, false, true>(st, io, c,
+                                                                cur);
+            else if (inner)
+                wave_chunk<R, false, TILE_THREADS, true, true>(st, io, c,
+                                                                cur);
+            else
+                wave_chunk<R, true, TILE_THREADS, true, true>(st, io, c,
+                                                               cur);
+        }
+        __syncwarp();  // the handoff row is complete
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+            const int i = i0 + u;
+            const int sc = (st.bm[u] >> 15) - MB;  // PACK_D = 2^15
+            const int j = PACK_D - 1 - (st.bm[u] & (PACK_D - 1)) - lane;
+            if (i < lq && sc > 0 && before(sc, i, j, best, best_i, best_j)) {
+                best = sc;
+                best_i = i;
+                best_j = j;
+            }
+        }
+    }
+    fold_lanes(best, best_i, best_j);
+    if (lane == 0)
         records[w] = best > 0 ? make_int3(best, best_i, start + best_j)
                               : make_int3(0, -1, INT_MAX);
 }
 
 // One warp per row: the best of its n_tiles records, in the contract's order.
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
 sw_tile_merge_kernel(const int3* __restrict__ records, int B, int n_tiles,
                      int* __restrict__ out_score, int* __restrict__ out_qend,
                      int* __restrict__ out_rend) {
     const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+    const int row = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
     if (row >= B) return;
     int best = 0, best_i = -1, best_j = INT_MAX;
     for (int t = lane; t < n_tiles; t += 32) {
@@ -592,6 +617,36 @@ int wave_launch(const void* q, const void* r, int B, int Lq, int Lr,
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int R>
+int tile_launch(const void* q, const void* r, int B, int Lq, int Lr,
+                int match, int mismatch, int gap_open, int gap_extend, int T,
+                int halo, int n_tiles, int edge_cols, void* records,
+                cudaStream_t stream) {
+    static int max_dyn = -1;  // as wave_launch: the block's limit less the
+    if (max_dyn < 0) {        // static table
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, sw_tile_kernel<R>);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const int room = MAX_SMEM - (int)attr.sharedSizeBytes;
+        err = cudaFuncSetAttribute(
+            sw_tile_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            room);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        max_dyn = room;
+    }
+    const long long warp_bytes = (long long)edge_cols * sizeof(int2);
+    if (warp_bytes > max_dyn) return static_cast<int>(cudaErrorInvalidValue);
+    int warps = TILE_WARPS;
+    if (warp_bytes * warps > max_dyn) warps = (int)(max_dyn / warp_bytes);
+    const int tiles = B * n_tiles;
+    sw_tile_kernel<R><<<blocks_for(tiles, warps), warps * 32,
+                        (size_t)(warp_bytes * warps), stream>>>(
+        static_cast<const int8_t*>(q), static_cast<const int8_t*>(r), B, Lq,
+        Lr, match, mismatch, gap_open, gap_extend, T, halo, n_tiles,
+        edge_cols, static_cast<int3*>(records));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on ``stream`` and returns
@@ -630,45 +685,53 @@ extern "C" int sw_wave_launch(const void* q, const void* r, int B, int Lq,
     }
 }
 
-// Tiles of T owned columns swept from halo columns before them.
-// ``records`` holds B * ceil(Lr / T) int3.  Returns cudaErrorInvalidValue
-// when one warp's handoff row does not fit a block's shared memory, or
-// when there are 2^31 (row, tile) warps or more.
+// Tiles of T owned columns swept from halo columns before them, R query
+// rows a lane (1, 2 or 4).  ``records`` holds B * ceil(Lr / T) int3.
+// Returns cudaErrorInvalidValue when one warp's handoff row does not fit a
+// block's shared memory beside the score table, when a packed best could
+// overflow (Lq * match or gap_open of 2^16 or more, T + halo + 62 of 2^15
+// or more), or when there are 2^31 (row, tile) warps or more.
 extern "C" int sw_tiles_launch(const void* q, const void* r, int B, int Lq,
                                int Lr, int match, int mismatch, int gap_open,
-                               int gap_extend, int T, int halo,
+                               int gap_extend, int R, int T, int halo,
                                void* records, void* score, void* q_end,
                                void* r_end, void* stream) {
     if (B <= 0) return 0;
-    if (T <= 0 || halo < 0 || Lr <= 0)
+    if (T <= 0 || halo < 0 || Lr <= 0 || Lq < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int n_tiles = (Lr + T - 1) / T;
     if ((long long)B * n_tiles > INT_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int edge_cols = Lq > 32 ? T + halo : 0;
-    const long long warp_bytes = (long long)edge_cols * sizeof(int2);
-    if (warp_bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-    int warps = WARPS_PER_BLOCK;
-    if (warp_bytes * warps > MAX_SMEM) warps = (int)(MAX_SMEM / warp_bytes);
-    const int smem = (int)(warp_bytes * warps);
-    static int smem_opted = 48 * 1024;  // the default a block may have
-    if (smem > smem_opted) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            sw_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            MAX_SMEM);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        smem_opted = MAX_SMEM;
+    // the packed best: |M| < 2^16 (M <= Lq * match - gO) and a window
+    // under PACK_D steps (lr + 62 at most)
+    if ((long long)Lq * match >= (1 << 16) || gap_open >= (1 << 16) ||
+        T + halo + 62 >= PACK_D)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int edge_cols = Lq > 32 * R ? T + halo : 0;
+    int rc;
+    switch (R) {
+        case 1:
+            rc = tile_launch<1>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                gap_extend, T, halo, n_tiles, edge_cols,
+                                records, st);
+            break;
+        case 2:
+            rc = tile_launch<2>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                gap_extend, T, halo, n_tiles, edge_cols,
+                                records, st);
+            break;
+        case 4:
+            rc = tile_launch<4>(q, r, B, Lq, Lr, match, mismatch, gap_open,
+                                gap_extend, T, halo, n_tiles, edge_cols,
+                                records, st);
+            break;
+        default:
+            return static_cast<int>(cudaErrorInvalidValue);
     }
-    sw_tile_kernel<<<blocks_for(B * n_tiles, warps), warps * 32,
-                     smem, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(r), B, Lq,
-        Lr, match, mismatch, gap_open, gap_extend, T, halo, n_tiles,
-        edge_cols, static_cast<int3*>(records));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sw_tile_merge_kernel<<<blocks_for(B, WARPS_PER_BLOCK),
-                           WARPS_PER_BLOCK * 32, 0, st>>>(
+    if (rc != 0) return rc;
+    sw_tile_merge_kernel<<<blocks_for(B, MERGE_WARPS), MERGE_WARPS * 32, 0,
+                           st>>>(
         static_cast<const int3*>(records), B, n_tiles,
         static_cast<int*>(score), static_cast<int*>(q_end),
         static_cast<int*>(r_end));

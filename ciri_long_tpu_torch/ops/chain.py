@@ -35,7 +35,7 @@ from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 
 CHAIN_WINDOW = 64      # predecessors a step (models/aligner.py::CHAIN_WINDOW)
 MAX_GAP_Q = 5000       # the query gap map_batch chains under
-SMEM_ROW = 8192        # csrc/chain_dp.cu: longest row sorted in shared memory
+SMEM_ROW = 8192        # csrc/chain_dp.cu: longest row kept in shared memory
 
 
 def _libm_log2_table(n):
@@ -182,7 +182,7 @@ _SYMBOLS = {
                         + [ctypes.c_void_p] * 3, ctypes.c_int),
     'chain_extract_launch': ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                              + [ctypes.c_double] + [ctypes.c_int] * 2
-                             + [ctypes.c_void_p] * 8, ctypes.c_int),
+                             + [ctypes.c_void_p] * 6, ctypes.c_int),
 }
 _CARD_TABLES = {}
 
@@ -254,7 +254,7 @@ def chain_dp_cuda(offs, r, q, ctg, k, window=CHAIN_WINDOW,
 def extract_plan(lens, device):
     """The extraction kernel's layout for row lengths ``lens`` (host ints),
     so that nothing is read back from the card: (cap, goff int64 [R] on
-    ``device``, scratch slots).  Rows up to SMEM_ROW anchors sort in shared
+    ``device``, scratch slots).  Rows up to SMEM_ROW anchors work in shared
     memory sized for the longest of them (a power of two); a longer row
     gets its own power-of-two region of global scratch (goff, -1 for none)."""
     pow2 = np.array([1 << max(0, int(n) - 1).bit_length() for n in lens],
@@ -270,8 +270,9 @@ def extract_plan(lens, device):
 def chain_extract_cuda(offs, f, pre, min_score, min_anchors, max_chains,
                        plan):
     """The extraction kernel of csrc/chain_dp.cu on CUDA tensors (offs int64
-    [R + 1], f float64 [N], pre int32 [N]): one block a row, laid out by
-    ``plan``, extract_plan over the row lengths.  Same output as
+    [R + 1], f float64 [N], pre int32 [N]): one block a row, each anchor's
+    owner found by doubling up the pre forest, laid out by ``plan``,
+    extract_plan over the row lengths.  Same output as
     chain_extract_plain.  Raises on anything else and when the launch is
     refused."""
     _check_csr('chain_extract_cuda', offs, (f, pre),
@@ -285,9 +286,9 @@ def chain_extract_cuda(offs, f, pre, min_score, min_anchors, max_chains,
     R = len(offs) - 1
     if goff.device != dev or goff.dtype != torch.int64 or len(goff) != R:
         raise ValueError('chain_extract_cuda: plan for another launch')
-    gkey = torch.empty(max(slots, 1), dtype=torch.int64, device=dev)
-    gidx = torch.empty(max(slots, 1), dtype=torch.int32, device=dev)
-    gused = torch.empty(max(slots, 1), dtype=torch.uint8, device=dev)
+    # a long row's subtree keys (two ints a slot), owners, counts and
+    # ancestors (twice)
+    scratch = torch.empty(6 * max(slots, 1), dtype=torch.int32, device=dev)
     cid = torch.empty(n, dtype=torch.int8, device=dev)
     scores = torch.zeros((R, max_chains), dtype=torch.float64, device=dev)
     nch = torch.empty(R, dtype=torch.int32, device=dev)
@@ -295,9 +296,9 @@ def chain_extract_cuda(offs, f, pre, min_score, min_anchors, max_chains,
         rc = _lib().chain_extract_launch(
             offs.data_ptr(), f.data_ptr(), pre.data_ptr(), R, cap,
             float(min_score), int(min_anchors), int(max_chains),
-            goff.data_ptr(), gkey.data_ptr(), gidx.data_ptr(),
-            gused.data_ptr(), cid.data_ptr(), scores.data_ptr(),
-            nch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            goff.data_ptr(), scratch.data_ptr(), cid.data_ptr(),
+            scores.data_ptr(), nch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('chain_extract launch failed: cudaError {} (R={}, '
                            'N={}, cap={})'.format(rc, R, n, cap))

@@ -118,19 +118,21 @@ _SW_SYMBOLS = {
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11
         + [ctypes.c_void_p] * 5, ctypes.c_int),
     'sw_tiles_launch': (
-        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 5, ctypes.c_int),
 }
 
 # The tiled route's rule: a tile owns the smallest multiple of 32 columns
 # that is at least TILE_MIN_COLS and TILE_HALOS halos, and the route is
 # taken when the reference holds at least two such tiles.  Four halos beat
-# one and two at the main path's shapes on the H100 (PERF.md section 6).
+# one, two and eight at both main-path shapes on the H100 with the
+# wavefront's step body in the tiles (PERF.md section 6).
 TILE_MIN_COLS = 256
 TILE_HALOS = 4
-# shared memory a Hopper block may opt into (dynamic); one tile warp's
-# (H, F) handoff row of T + halo int2 must fit it
+# shared memory a Hopper block may opt into; one tile warp's (H, F)
+# handoff row of T + halo int2 must fit it beside the score table
 BLOCK_SMEM = 232448
+TILE_WARPS = 4         # csrc/sw_score_ends.cu: (row, tile) warps a block
 
 
 # The wavefront's rule (sw_wave_kernel): R query rows a lane, a block of
@@ -157,6 +159,15 @@ class WavePlan(NamedTuple):
     edge: str
 
 
+def _lane_rows(Lq, rows):
+    """Query rows a lane, R: ``rows``, halved while a strip of half as
+    many rows (32 R / 2) still holds the whole query."""
+    R = rows
+    while R > 1 and 32 * (R // 2) >= Lq:
+        R //= 2
+    return R
+
+
 def _wave_static_bytes(R):
     """sw_wave_kernel<R>'s static shared memory, with room to spare: the
     rings, the score table ([6 codes][R rows][256 threads] int32) and the
@@ -174,9 +185,7 @@ def _wave_plan(B, Lq, Lr, rows=WAVE_ROWS):
     fewer when their handoff rows would not fit its shared memory.  The
     handoff row is needed only when a row has more than K strips, and lives
     in shared memory when it fits beside the static arrays."""
-    R = rows
-    while R > 1 and 32 * (R // 2) >= Lq:
-        R //= 2
+    R = _lane_rows(Lq, rows)
     strips = max(1, -(-Lq // (32 * R)))
     K = max(1, min(WAVE_WARPS, strips, -(-WAVE_FILL // max(B, 1))))
     P = WAVE_WARPS if K == 1 else 1
@@ -200,17 +209,38 @@ def _tile_halo(Lq, params: SWParams):
     return Lq + (Lq * params.match) // params.gap_extend + 1
 
 
+def _tile_rows(Lq):
+    """Query rows a lane of the tiled route for a query of Lq codes: the
+    wavefront's WAVE_ROWS, halved while half as many still hold it in one
+    strip (R = 1 up to 32 rows, 2 up to 64, else 4)."""
+    return _lane_rows(Lq, WAVE_ROWS)
+
+
+def _tile_static_bytes(R):
+    """sw_tile_kernel<R>'s static shared memory, with room to spare: the
+    score table, [6 codes][R rows][TILE_WARPS * 32 threads] int32."""
+    return 6 * R * TILE_WARPS * 32 * 4 + 512
+
+
 def _tile_plan(Lq, Lr, params: SWParams, halos=TILE_HALOS):
     """(T, halo) of the tiled route for a [*, Lq] x [*, Lr] call, or None
     for the wavefront.  A tile owns T columns and sweeps from _tile_halo
     columns before them, so the optimum ending in an owned column lies
     whole in the tile.  ``halos`` is the tile width in halos (the rule's
-    constant; other values only to time other widths)."""
+    constant; other values only to time other widths).  The launch takes
+    _tile_rows(Lq) query rows a lane; None too where a row's packed best
+    could overflow (Lq * match or gap_open of 2^16 or more), which sends
+    such calls to the wavefront."""
     if params.match < 1 or params.gap_extend < 1:
         return None
     halo = _tile_halo(Lq, params)
     T = -(-max(TILE_MIN_COLS, halos * halo) // 32) * 32
-    if Lr < 2 * T or (T + halo) * 8 > BLOCK_SMEM:
+    room = BLOCK_SMEM - _tile_static_bytes(_tile_rows(Lq))
+    if Lr < 2 * T or (T + halo) * 8 > room:
+        return None
+    # a row's best packed in an int32: |M| < 2^16, under 2^15 steps
+    if (Lq * params.match >= 1 << 16 or params.gap_open >= 1 << 16
+            or T + halo + 62 >= 1 << 15):
         return None
     return T, halo
 
@@ -260,7 +290,7 @@ def _launch(query, ref, params, route, plan):
         scratch = (torch.empty((B, Lr, 2), dtype=torch.int32, device=dev)
                    if plan.edge == 'global' else None)
     else:
-        fn, args = lib.sw_tiles_launch, plan
+        fn, args = lib.sw_tiles_launch, (_tile_rows(Lq), *plan)
         scratch = torch.empty((B, -(-Lr // plan[0]), 3), dtype=torch.int32,
                               device=dev)
     with torch.cuda.device(dev):
@@ -291,7 +321,8 @@ def sw_score_ends_wave_cuda(query: torch.Tensor, ref: torch.Tensor,
 def sw_score_ends_tiled_cuda(query: torch.Tensor, ref: torch.Tensor,
                              params: SWParams, plan=None):
     """The tiled route of csrc/sw_score_ends.cu (one warp per row and
-    tile), forced, with ``plan`` = (T, halo) or by default _tile_plan's.
+    tile, _tile_rows(Lq) query rows a lane), forced, with ``plan`` = (T,
+    halo) or by default _tile_plan's.
     Raises where _tile_plan gives no plan, as on anything
     sw_score_ends_cuda refuses."""
     check_cuda_codes('sw_score_ends_tiled_cuda', query, ref, params)

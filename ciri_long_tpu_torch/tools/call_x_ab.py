@@ -13,7 +13,9 @@ turns: DIR, this checkout, this checkout, DIR.  Each run builds its own
 kernels and times, as a CUDA graph's replay of 10 launches
 (kexp.time_launches; every wrapper has kept its signature since the first
 checkout that had it), ``chain_dp_cuda``, ``chain_extract_cuda`` and
-``screen_keep_cuda`` on FILE's launches, then ``screen_keep_cuda`` on each
+``screen_keep_cuda`` on FILE's launches, ``chain_extract_cuda`` on every
+extraction launch of call's run summed (FILE's ``chain_extract_all``, 3
+launches each), then ``screen_keep_cuda`` on each
 launch of SCREEN_CASES: SCREEN_READS reads of SCREEN_WIDTH codes each, a
 poly-A, a dinucleotide and a trinucleotide repeat, a perfect tandem repeat
 of period 50, random codes and all N (seed 0, made here with numpy, the
@@ -89,6 +91,13 @@ def time_tree(tree, inputs):
         .numpy(), dev)
     out['chain_extract_ms'] = time_launches(
         lambda: chain.chain_extract_cuda(*ext, plan), 10, dev, graph=True)
+    total = 0.0
+    for args in saved.get('chain_extract_all', ()):
+        a = on_card(args)
+        p = chain.extract_plan((args[0][1:] - args[0][:-1]).numpy(), dev)
+        total += time_launches(lambda: chain.chain_extract_cuda(*a, p), 3,
+                               dev, graph=True)
+    out['chain_extract_call_ms'] = total
     scr = on_card(saved['screen_keep'])
     out['screen_keep_ms'] = time_launches(
         lambda: period.screen_keep_cuda(*scr), 10, dev, graph=True)

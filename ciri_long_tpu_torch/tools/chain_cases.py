@@ -110,6 +110,78 @@ def dp_cases(rng, gap_r=200_000, gap_q=5_000, k=15):
     return cases
 
 
+def forest(rng, n, root_p=0.1, f_lo=15, f_hi=60, ints=False):
+    """A synthetic (f float64 [n], pre int32 [n]) row for the extraction:
+    pre[v] a random anchor of the 64 before v (-1 with probability
+    ``root_p``, and for v = 0), f uniform in [f_lo, f_hi) (integers with
+    ``ints``, so that many tie)."""
+    pre = np.full(n, -1, np.int32)
+    for v in range(1, n):
+        if rng.random() >= root_p:
+            pre[v] = v - int(rng.integers(1, min(64, v) + 1))
+    f = (rng.integers(f_lo, f_hi, n).astype(np.float64) if ints
+         else rng.uniform(f_lo, f_hi, n))
+    return f, pre
+
+
+def extract_cases(rng):
+    """{name: (rows [(f, pre)], min_score, min_anchors, max_chains)} at the
+    edges of csrc/chain_dp.cu's extraction: integer f tied everywhere;
+    paths shorter than min_anchors (roots every few anchors), which still
+    consume their anchors; rows of many disjoint chains that reach
+    max_chains; a row with no candidate and an empty row; a row of 9 000
+    anchors (over SMEM_ROW) and one of exactly SMEM_ROW; one chain 8 192
+    deep (pre = v - 1) whose every anchor is a candidate; brooms, where
+    many candidate tips hang off one trunk and share its ancestors; and
+    min_anchors 1 with 127 chains."""
+    cases = {}
+    cases['tied_f'] = ([forest(rng, n, 0.05, 20, 40, True)
+                        for n in (31, 200, 700)], 30.0, 3, 10)
+    cases['short_paths'] = ([forest(rng, n, 0.4) for n in (100, 600)],
+                            30.0, 3, 10)
+    chains = []
+    for m in (40, 60):
+        pre = np.arange(-1, 5 * m - 1, dtype=np.int32)
+        pre[::5] = -1                       # m chains of 5
+        f = rng.uniform(15, 60, 5 * m)
+        f[4::5] += 100                      # each chain's tip first
+        chains.append((f, pre))
+    cases['max_chains'] = (chains, 30.0, 3, 14)
+    f, pre = forest(rng, 300)
+    cases['no_candidate'] = ([(f, pre), (np.zeros(0), np.zeros(0, np.int32))],
+                             100.0, 3, 10)
+    cases['over_smem_row'] = ([forest(rng, 9_000, 0.02),
+                               forest(rng, 8_192, 0.02)], 30.0, 3, 10)
+    deep = np.arange(-1, 8_191, dtype=np.int32)
+    cases['deep_chain'] = ([(np.linspace(30, 9000, 8_192), deep)], 30.0, 3,
+                           10)
+    brooms = []
+    for n in (500, 3_000):
+        pre = np.full(n, -1, np.int32)
+        f = rng.uniform(15, 25, n)
+        trunk = 0
+        for v in range(1, n):
+            if rng.random() < 0.3:          # the trunk grows
+                pre[v], trunk = trunk, v
+            else:                           # a tip off a recent trunk node
+                pre[v] = max(trunk - int(rng.integers(0, 8)), v - 64)
+                f[v] = rng.uniform(30, 90)
+        brooms.append((f, pre))
+    cases['brooms'] = (brooms, 30.0, 3, 10)
+    cases['one_anchor_chains'] = ([forest(rng, 800, 0.3)], 30.0, 1, 127)
+    return cases
+
+
+def extract_csr(rows):
+    """(offs int64 [R + 1], f float64 [N], pre int32 [N]) of (f, pre)
+    rows."""
+    offs = np.zeros(len(rows) + 1, np.int64)
+    offs[1:] = np.cumsum([len(f) for f, _ in rows])
+    f = np.concatenate([f for f, _ in rows]).astype(np.float64)
+    pre = np.concatenate([p for _, p in rows]).astype(np.int32)
+    return offs, f, pre
+
+
 def long_row(rng, A=20_000):
     """One row longer than the extraction's shared-memory rows
     (ops/chain.py::SMEM_ROW), the route through global scratch."""

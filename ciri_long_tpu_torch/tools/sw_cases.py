@@ -8,6 +8,16 @@ equal-score twins in two tiles (the smaller r_end must win), N and PAD
 runs at tile edges, all-PAD references and queries, random codes with PAD
 suffixes, and a copy across the last, partial tile's edge.
 
+``tile_edge_cases`` makes the rows that hold the tiles' schedule (each
+tile's warp over strips of 32*R query rows, cut to its window's real
+width): one row for each real query length asked for, a copy of the query
+planted at a tile edge, every other row cut by a PAD suffix; references
+whose real length ends inside a tile's window, at a window's end, at its
+start and before it (the later tiles do no sweep); all-PAD rows, N rows
+and a mid-row PAD; equal-score twins in two tiles and, from a homopolymer
+one code longer in the query than in the reference, in neighbouring query
+rows (two lanes' rows, or one lane's R rows).
+
 ``wave_cases`` makes the rows that hold the wavefront route (a block of K
 warps per row, each over strips of 32*R query rows, each row swept only to
 its real lengths): one row for every real query length in ``WAVE_LQ`` (the
@@ -40,6 +50,9 @@ WAVE_LQ = tuple(sorted(
 # two, and a few chunks
 WAVE_LR = (1, 63, 64, 65, 130)
 WAVE_SPECIAL = ('mid_pad', 'pad_query', 'pad_ref', 'twins', 'n_rows')
+TILE_SPECIAL = ('lr_inside', 'lr_at_end', 'lr_at_start', 'lr_before',
+                'pad_ref', 'pad_query', 'n_rows', 'mid_pad', 'twins_tiles',
+                'twins_rows')
 CHAIN_KINDS = ('last_col', 'first_col', 'pad_ref', 'pad_query', 'twins',
                'n_rows', 'random')
 
@@ -116,6 +129,64 @@ def tile_cases(rng, B, Lq, Lr, T, params):
             r[b, int(rng.integers(Lr // 2, Lr + 1)):] = PAD
         elif kind == 'last_edge' and Lq <= Lr:
             _place(r[b], edges[-1] - Lq // 2, q[b])
+    return q, r
+
+
+def tile_edge_cases(rng, lqs, Lq, Lr, T, halo):
+    """[B, Lq] queries and [B, Lr] references, int8 codes: one row for each
+    real query length of ``lqs`` (random codes 0-4, PAD past it; the query
+    copied across a tile edge k*T; every other row with a random reference
+    PAD suffix), then one row of each TILE_SPECIAL kind at the full length.
+    The window of tile k is [max(0, k*T - halo), min((k+1)*T, Lr))."""
+    rows = len(lqs) + len(TILE_SPECIAL)
+    q = np.full((rows, Lq), PAD, np.int8)
+    r = rng.integers(0, 5, (rows, Lr)).astype(np.int8)
+    tiles = -(-Lr // T)
+    for b, lq in enumerate(lqs):
+        q[b, :lq] = rng.integers(0, 5, lq)
+        e = T * int(rng.integers(1, tiles))
+        _place(r[b], e - int(rng.integers(0, lq)), q[b, :lq])
+        if b % 2:
+            r[b, int(rng.integers(1, Lr + 1)):] = PAD
+    for t, kind in enumerate(TILE_SPECIAL):
+        b = len(lqs) + t
+        q[b] = rng.integers(0, 5, Lq)
+        k = int(rng.integers(1, tiles - 1)) if tiles > 2 else 1
+        start, end = max(0, k * T - halo), min((k + 1) * T, Lr)
+        cut = {'lr_inside': (start + end) // 2, 'lr_at_end': end,
+               'lr_at_start': start,
+               'lr_before': max(1, start - int(rng.integers(1, T)))}.get(kind)
+        if cut is not None:
+            _place(r[b], cut - Lq, q[b])
+            r[b, cut:] = PAD
+        elif kind == 'pad_ref':
+            r[b] = PAD
+        elif kind == 'pad_query':
+            q[b] = PAD
+        elif kind == 'n_rows':
+            q[b] = N
+            r[b] = N
+            q[b, ::5] = rng.integers(0, 4, len(q[b, ::5]))
+            r[b, ::3] = rng.integers(0, 4, len(r[b, ::3]))
+        elif kind == 'mid_pad':
+            _place(r[b], end - Lq // 2, q[b])
+            q[b, Lq // 2] = PAD
+            r[b, end - 1] = PAD
+        elif kind == 'twins_tiles':
+            m = max(1, min(24, Lq, T // 2))
+            motif = rng.integers(0, 4, m).astype(np.int8)
+            q[b] = N
+            r[b] = N
+            _place(q[b], Lq - m, motif)
+            _place(r[b], k * T - m // 2, motif)
+            _place(r[b], (k + 1) * T + T // 2, motif)
+        elif kind == 'twins_rows':
+            m = max(1, min(8, Lq - 3))
+            q[b] = N
+            r[b] = N
+            run = min(m + 3, Lq)
+            q[b, Lq - run:] = 0
+            _place(r[b], k * T, np.zeros(m, np.int8))
     return q, r
 
 

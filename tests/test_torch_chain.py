@@ -23,6 +23,18 @@
   random rows, the edge rows and tools/chain_cases.py's ``dp_cases``
   (ties across the whole window, a candidate scoring exactly k, empty and
   one-anchor rows, gaps at the limits less one, at and past them).
+- F: csrc/chain_dp.cu's extraction emulated (``emulate_extract``: each
+  anchor's owner, the first candidate in greedy order at or below it in
+  the pre forest, by two doubling passes, the largest f below each anchor
+  and then the smallest index with that f, whose folds run in a random
+  order as the block's threads race; the owners' counts; the chains and
+  their ids by counting) equal to ``chain_extract_plain``, the JAX
+  ``backtrack_chains`` and, on DP rows, the JAX ``chain_extract_batch``,
+  on tools/chain_cases.py's ``extract_cases`` (tied f, short paths,
+  max_chains reached, no candidate, rows over SMEM_ROW, a chain 8 192
+  deep, brooms of candidates sharing ancestors); and the invariant it
+  rests on, the serial greedy's used set closed under pre after every
+  walk.
 """
 
 import ctypes
@@ -235,13 +247,99 @@ def _assert_same_chains(got, want, exact=True):
             assert gs == ws if exact else abs(gs - ws) < 1e-3
 
 
+def _f_keys(f):
+    """csrc/chain_dp.cu's f_key: float64 as uint64 in f's order (the sign
+    bit flipped for f >= 0, every bit for f < 0)."""
+    b = np.asarray(f, np.float64).view(np.uint64)
+    neg = (b >> np.uint64(63)).astype(bool)
+    return np.where(neg, ~b, b | np.uint64(1 << 63))
+
+
+def _doubling(pre, fold, rng):
+    """One doubling pass: each round folds every v into its ancestor
+    anc[v] (``fold(v, a)``, in place, in a random order of v as the
+    block's threads race) and sets anc[v] = anc[anc[v]] from the round
+    before, until no anchor has an ancestor left.  Returns the rounds."""
+    n = len(pre)
+    anc = np.asarray(pre, np.int64).copy()
+    rounds = 0
+    while (anc >= 0).any():
+        nxt = np.full(n, -1)
+        for v in rng.permutation(n):
+            a = anc[v]
+            if a >= 0:
+                fold(v, a)
+                nxt[v] = anc[a]
+        anc = nxt
+        rounds += 1
+    return rounds
+
+
+def emulate_extract(f, pre, min_score, min_anchors, max_chains, rng):
+    """csrc/chain_dp.cu's chain_extract_kernel on one row: (cid int8 [n],
+    scores [max_chains], nch, rounds).  Pass 1 folds top[v], the largest f
+    key of the candidates (f >= min_score) at or below v, up the pre
+    forest by doubling; pass 2 folds own[v], the smallest index of those
+    candidates whose key is top[v], only between anchors of equal top.
+    Then each owner's anchors are counted, the owners of themselves with
+    at least min_anchors are the chains, a chain's id is the count of
+    chains before it in greedy order (top descending, index ascending),
+    and ids past max_chains write nothing."""
+    n = len(f)
+    cand = np.asarray(f) >= min_score
+    key = _f_keys(f)
+    top = np.where(cand, key, np.uint64(0))
+
+    def fold_top(v, a):
+        top[a] = max(top[a], top[v])
+
+    rounds = _doubling(pre, fold_top, rng)
+    none = n + 1
+    own = np.where(cand & (key == top), np.arange(n), none)
+
+    def fold_own(v, a):
+        if own[v] != none and top[v] == top[a]:
+            own[a] = min(own[a], own[v])
+
+    assert _doubling(pre, fold_own, rng) == rounds
+    cnt = np.bincount(own[own != none], minlength=n)
+    chains = [c for c in range(n) if own[c] == c and cnt[c] >= min_anchors]
+    ids = {}
+    scores = np.zeros(max_chains)
+    for c in chains:
+        i = sum(top[d] > top[c] or (top[d] == top[c] and d < c)
+                for d in chains)
+        if i < max_chains:
+            ids[c] = i
+            scores[i] = f[c]
+    cid = np.array([ids.get(o, -1) for o in own], np.int8)
+    return cid, scores, min(len(chains), max_chains), rounds
+
+
+def _emulated(offs, f, pre, min_score, min_anchors, max_chains, seed=0):
+    """emulate_extract over CSR rows, in chain_extract_plain's outputs."""
+    rng = np.random.default_rng(seed)
+    R = len(offs) - 1
+    cid = np.full(len(f), -1, np.int8)
+    scores = np.zeros((R, max_chains))
+    nch = np.zeros(R, np.int32)
+    rounds = []
+    for b in range(R):
+        lo, hi = offs[b], offs[b + 1]
+        cid[lo:hi], scores[b], nch[b], rd = emulate_extract(
+            f[lo:hi], pre[lo:hi], min_score, min_anchors, max_chains, rng)
+        rounds.append(rd)
+    return cid, scores, nch, rounds
+
+
 @pytest.mark.parametrize('min_anchors,max_chains,round_f', [
     (3, 10, False), (8, 2, False), (3, 10, True), (1, 127, True)])
 def test_chain_extract_plain_equals_jax_backtrack(rng, min_anchors,
                                                   max_chains, round_f):
     """Case B: the greedy on the same (f, pre) as the JAX backtrack_chains,
     with truncation (small max_chains), short-path rejects (high
-    min_anchors) and exact ties (f rounded)."""
+    min_anchors) and exact ties (f rounded); the kernel's schedule
+    (emulate_extract, case F) gives the same outputs."""
     f, pre, val, offs, fc, pc = _backtrack_rows(rng, 6, 256, round_f)
     want = jchain.backtrack_chains(f, pre, val, 30.0, min_anchors,
                                    max_chains)
@@ -252,6 +350,127 @@ def test_chain_extract_plain_equals_jax_backtrack(rng, min_anchors,
                                   nch.numpy())
     _assert_same_chains(got, want)
     assert sum(len(c) for c in want) > 0
+    emul = _emulated(offs, fc, pc, 30.0, min_anchors, max_chains)
+    for a, b in zip(emul, (cid, scores, nch)):
+        assert np.array_equal(a, b.numpy())
+
+
+def _padded(rows):
+    """(f, pre, valid) [R, A] of (f, pre) rows, for the JAX greedy."""
+    A = max(1, max(len(fr) for fr, _ in rows))
+    f = np.zeros((len(rows), A))
+    pre = np.full((len(rows), A), -1, np.int64)
+    valid = np.zeros((len(rows), A), bool)
+    for b, (fr, pr) in enumerate(rows):
+        f[b, :len(fr)] = fr
+        pre[b, :len(pr)] = pr
+        valid[b, :len(fr)] = True
+    return f, pre, valid
+
+
+@pytest.mark.parametrize('case', list(cases.extract_cases(
+    np.random.default_rng(0))))
+def test_extract_kernel_schedule_equal(case):
+    """Case F: the extraction's schedule equals chain_extract_plain and the
+    JAX backtrack_chains on each extract_cases case, in the rounds the
+    deepest path asks (ceil(log2(depth + 1)))."""
+    rows, min_score, min_anchors, max_chains = cases.extract_cases(
+        np.random.default_rng(7))[case]
+    offs, f, pre = cases.extract_csr(rows)
+    want = tchain.chain_extract_plain(
+        torch.from_numpy(offs), torch.from_numpy(f), torch.from_numpy(pre),
+        min_score, min_anchors, max_chains)
+    *emul, rounds = _emulated(offs, f, pre, min_score, min_anchors,
+                              max_chains, seed=len(case))
+    for a, b in zip(emul, want):
+        assert np.array_equal(a, b.numpy())
+    got = tchain.decode_chain_ids(offs, *(x.numpy() for x in want))
+    _assert_same_chains(got, jchain.backtrack_chains(
+        *_padded(rows), min_score, min_anchors, max_chains))
+    for (fr, pr), rd in zip(rows, rounds):
+        depth = np.zeros(len(pr), np.int64)
+        for v, p in enumerate(pr):
+            depth[v] = depth[p] + 1 if p >= 0 else 0
+        assert rd == int(depth.max(initial=0)).bit_length()
+    if case == 'max_chains':
+        assert (want[2] == max_chains).all()
+        assert ((want[0] >= 0).sum() == 5 * max_chains * len(rows))
+    if case == 'no_candidate':
+        assert (want[2] == 0).all() and (want[0] == -1).all()
+    if case == 'over_smem_row':
+        assert len(rows[0][0]) > tchain.SMEM_ROW
+
+
+def test_extract_schedule_on_dp_rows_matches_jax_program(rng):
+    """Case F on the DP's own rows: the schedule on the port's float64 (f,
+    pre) equals the JAX chain_extract_batch (its float32 device program,
+    run on the CPU), row by row where the two DPs give the same candidate
+    order and predecessors (case C's rule, none differ here): the chains'
+    anchors exact, their scores within the float32 program's rounding
+    (relative 1e-5; its f sums up to ~700 float32 adds)."""
+    B, A, min_score = 8, 512, 30.0
+    rs, qs, cs, val = _random_anchor_batch(rng, B, A)
+    packed, jscores, jnch = jchain.chain_extract_batch(
+        rs, qs, cs, val, min_score, 15, max_chains=10, min_anchors=3)
+    want = jchain.decode_chains(packed, jscores, jnch)
+    rows = [(rs[b][val[b]], qs[b][val[b]], cs[b][val[b]]) for b in range(B)]
+    offs, f64, pre64 = _plain_dp(rows, tchain.log2_table(N_TABLE), k=15)
+    cid, scores, nch, _ = _emulated(offs, f64, pre64, min_score, 3, 10)
+    got = tchain.decode_chain_ids(offs, cid, scores, nch)
+    assert [len(c) for c in got] == [len(c) for c in want]
+    for gc, wc in zip(got, want):
+        for (gi, gs), (wi, ws) in zip(gc, wc):
+            np.testing.assert_array_equal(gi, wi)
+            assert abs(gs - ws) <= 1e-5 * abs(ws)
+    assert sum(len(c) for c in want) > 0
+
+
+@pytest.mark.parametrize('group', ['random', 'extract_cases'])
+def test_greedy_used_set_is_ancestor_closed(rng, group):
+    """The invariant the extraction kernel rests on: after every walk of
+    the serial greedy, each used anchor's predecessor is used (or -1), and
+    each walk consumes exactly the anchors whose first candidate below
+    them in greedy order is the walk's own."""
+    if group == 'random':
+        f, pre, val, offs, fc, pc = _backtrack_rows(rng, 6, 256, True)
+        rows = [(fc[offs[b]:offs[b + 1]], pc[offs[b]:offs[b + 1]])
+                for b in range(6)]
+        params = [(30.0, 3)] * 6
+    else:
+        named = cases.extract_cases(np.random.default_rng(3))
+        rows = [row for rs, *_ in named.values() for row in rs]
+        params = [(ms, ma) for rs, ms, ma, _ in named.values() for _ in rs]
+    walks = 0
+    for (fr, pr), (min_score, _) in zip(rows, params):
+        n = len(fr)
+        used = np.zeros(n, bool)
+        owner = np.full(n, -1)
+        for c in np.argsort(-fr, kind='stable'):
+            if fr[c] < min_score:
+                break
+            v = c
+            while v >= 0 and owner[v] < 0:
+                owner[v] = c
+                v = pr[v]
+            while v >= 0:                  # mark first candidates below
+                v = pr[v]
+        for c in np.argsort(-fr, kind='stable'):
+            if fr[c] < min_score:
+                break
+            if used[c]:
+                continue
+            path = []
+            v = c
+            while v >= 0 and not used[v]:
+                used[v] = True
+                path.append(v)
+                v = pr[v]
+            walks += 1
+            mine = used & (pr >= 0)
+            assert used[pr[mine]].all()
+            assert sorted(path) == np.flatnonzero(owner == c).tolist()
+    assert walks > 50
+
 
 
 def test_chain_extract_batch_matches_jax_float32_program(rng):

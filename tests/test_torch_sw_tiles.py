@@ -9,7 +9,15 @@ that scores each tile's slice with the port's plain ``sw_score_ends`` and
 merges the records equals the JAX package's ``sw_score_ends`` (XLA on the
 CPU) on tools/sw_cases.py's rows, at a small T and at the plan's own T.
 A halo of Lq/2 fails on some row, so the rows reach into the halo.
-Integer DP: tolerance 0.
+
+``emulate_tiles`` runs the kernel's own schedule: each tile's window is a
+row of the wavefront's emulation (tests/test_torch_sw_wave.py::
+emulate_wave) with one warp, R query rows a lane, chunks masked at the
+window's edges, the window cut to its real width (a window with no code in
+0..4 does no sweep) and the best folded on the whole (score, j, i); the
+records are merged in the contract's order.  It equals JAX on
+tools/sw_cases.py's tile_edge_cases at every real query length 1-65 and at
+the edges of 32 R rows, under three SWParams.  Integer DP: tolerance 0.
 """
 
 import functools
@@ -20,7 +28,9 @@ import torch
 
 from ciri_long_tpu.ops import sw as jsw
 from ciri_long_tpu_torch.ops import sw as tsw
-from ciri_long_tpu_torch.tools.sw_cases import tile_cases
+from ciri_long_tpu_torch.tools.sw_cases import (TILE_SPECIAL,
+                                                tile_edge_cases, tile_cases)
+from tests.test_torch_sw_wave import emulate_wave, real_lengths
 
 torch.set_num_threads(1)
 
@@ -78,6 +88,7 @@ def _case(Lq, params, T):
     ((4, 8192, 16384), BIG),           # K3
     ((64, 28, 16384), (1, 1, 1, 0)),   # gap_extend 0
     ((64, 28, 16384), (0, 1, 1, 1)),   # match 0
+    ((8, 400, 8192), (200, 1, 1000, 1000)),  # Lq * match over 2^16
 ])
 def test_tile_plan_leaves_other_shapes_to_the_wavefront(shape, params):
     _, Lq, Lr = shape
@@ -129,3 +140,105 @@ def test_a_short_halo_fails():
             got = _tile_emulation(q, r, params, SMALL_T, Lq // 2)
             wrong += int((np.stack(got) != np.stack(want)).any(axis=0).sum())
     assert wrong > 0
+
+
+def emulate_tiles(q, r, params, T, halo, R):
+    """(score, q_end, r_end) of the tiled route's schedule with R rows a
+    lane, and the number of windows that did no sweep: every (row, tile)
+    window PAD-padded to the widest (the cut to its real width makes the
+    padding inert) and swept by emulate_wave with K = 1, the records (j
+    global, none as (0, -1, INT_MAX)) merged by score desc, r_end asc,
+    q_end asc."""
+    B, Lr = r.shape
+    owned = range(0, Lr, T)
+    starts = [max(0, k - halo) for k in owned]
+    ends = [min(k + T, Lr) for k in owned]
+    n = len(starts)
+    win = np.full((B * n, max(e - s for s, e in zip(starts, ends))), 5,
+                  np.int8)
+    for t, (lo, hi) in enumerate(zip(starts, ends)):
+        win[t::n, :hi - lo] = r[:, lo:hi]
+    s, i, j = emulate_wave(np.repeat(q, n, 0), win,
+                           np.tile(params, (B * n, 1)), R, 1)
+    j = np.where(s > 0, j + np.tile(starts, B), NO_J)
+    s, i, j = (x.reshape(B, n).astype(np.int64) for x in (s, i, j))
+    out = []
+    for b in range(B):
+        best, neg_j, neg_i = max(zip(s[b], -j[b], -i[b]))
+        out.append((best, -neg_i, -neg_j) if best > 0 else (0, -1, -1))
+    skipped = int((real_lengths(win) == 0).sum())
+    return [np.array(col, np.int32) for col in zip(*out)], skipped
+
+
+# (R, the query's padded length, its rows' real lengths): each R at the
+# lengths the rule gives it (1-32, 33-64, 65 on), the edges of 32 R rows
+# and, at R = 4, a query of two strips; short rows under each shape too
+SCHEDULES = [(1, 32, tuple(range(1, 33))),
+             (2, 64, tuple(range(33, 65)) + (1, 31, 32)),
+             (4, 129, (65, 127, 128, 129, 1, 33, 64, 96))]
+
+
+@pytest.mark.parametrize('params', PARAMS)
+@pytest.mark.parametrize('R,Lq,lqs', SCHEDULES)
+def test_tile_schedule_matches_jax(R, Lq, lqs, params):
+    """The kernel's schedule equals JAX on tile_edge_cases: real lengths
+    under one padded shape, references cut inside, at the end of, at the
+    start of and before a tile's window, all-PAD, N and mid-row PAD rows,
+    twins in two tiles and in neighbouring query rows."""
+    p = tsw.SWParams(*params)
+    assert tsw._tile_rows(Lq) == R
+    halo = tsw._tile_halo(Lq, p)
+    Lr = halo + 3 * SMALL_T + 37
+    rng = np.random.default_rng(100 * R + sum(params))
+    q, r = tile_edge_cases(rng, lqs, Lq, Lr, SMALL_T, halo)
+    got, skipped = emulate_tiles(q, r, np.array(params), SMALL_T, halo, R)
+    want = _jax(q, r, params)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert skipped > 0
+    assert sorted(set(real_lengths(q[:len(lqs)]))) == sorted(set(lqs))
+    special = dict(zip(TILE_SPECIAL, range(len(lqs), len(q))))
+    for kind in ('lr_inside', 'lr_at_start', 'lr_before', 'pad_ref'):
+        assert real_lengths(r[special[kind]:special[kind] + 1])[0] < Lr
+    s, i, j = want
+    b = special['twins_tiles']
+    m = min(24, Lq, SMALL_T // 2)
+    assert (s[b], j[b]) == (m * p.match,
+                          SMALL_T * (j[b] // SMALL_T) + m - m // 2 - 1)
+    b = special['twins_rows']
+    m = max(1, min(8, Lq - 3))
+    assert (s[b], i[b]) == (m * p.match, Lq - min(m + 3, Lq) + m - 1)
+
+
+@pytest.mark.parametrize('Lq,R', [(1, 1), (28, 1), (32, 1), (33, 2),
+                                  (54, 2), (64, 2), (65, 4), (300, 4)])
+def test_tile_rows_rule(Lq, R):
+    """R query rows a lane: the wavefront's rule, halved while half as many
+    rows still hold the query in one strip; the plan's handoff row fits a
+    block beside that R's score table."""
+    assert tsw._tile_rows(Lq) == R
+    p = tsw.SWParams(*CLIP)
+    plan = tsw._tile_plan(Lq, 1 << 20, p)
+    T, halo = plan
+    assert (T + halo) * 8 + tsw._tile_static_bytes(R) <= tsw.BLOCK_SMEM
+
+
+def test_packed_best_is_the_first_maximum():
+    """The tiles' packed best (csrc/sw_score_ends.cu, PACK): the largest
+    int32 key m * 2^15 + (2^15 - 1 - d) over a row's steps is its largest
+    M at the smallest step d, as the strict > of the unpacked best gives,
+    for any M in [-2^16, 2^16) (what _tile_plan allows) and d < 2^15."""
+    rng = np.random.default_rng(5)
+    for t in range(300):
+        n = int(rng.integers(1, 2000))
+        top = 1 << 16
+        near = int(rng.integers(-top + 3, top - 3))   # ties at one value
+        m = (rng.integers(-top, top, n) if t % 2
+             else rng.integers(-3, 3, n) + near)
+        d = np.sort(rng.choice(1 << 15, n, replace=False))
+        key = m.astype(np.int64) * (1 << 15) + ((1 << 15) - 1 - d)
+        assert key.min() >= -2 ** 31 and key.max() < 2 ** 31
+        k = key.max()
+        first = int(np.argmax(m == m.max()))
+        assert (k >> 15, (1 << 15) - 1 - (k & ((1 << 15) - 1))) == \
+            (m.max(), d[first])
