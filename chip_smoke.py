@@ -36,21 +36,35 @@ and exits non-zero if any phase fails (none is caught and skipped):
    wall, each launch fed by the previous one's scores);
 4. ``call`` end to end on a seeded 2 Mb world (16 loci, depth 60, 240
    linear reads), ``--device cuda`` then ``--device cpu``: the launch
-   counts of its four kernels (sw_score_ends, X2's chain_dp and
-   chain_extract, X3's screen_keep: all > 0 on cuda, all 0 in the cpu
-   summary) and the route of each SW launch (every launch whose shape
-   ops/sw.py::_tile_plan accepts must take the tiled route),
-   byte-identical cand_circ.fa, equal counters, reads/s, per-stage seconds,
-   each route's wall split (``call_split``, from a third and fourth run
-   with those parts timed: the screen, CCS detection, anchors, chaining,
-   selection and stitching, the clips' SW, and map_batch / map around the
-   middle three) and BSJ recall/precision
+   counts of its five kernels (sw_score_ends, X2's chain_dp and
+   chain_extract, X3's screen_keep, X4's nw_traceback: all > 0 on cuda,
+   all 0 in the cpu summary), the route of each SW launch (every launch
+   whose shape ops/sw.py::_tile_plan accepts must take the tiled route),
+   the center-star pairs aligned on the host (ROUTES['nw_host']: 0 on
+   cuda, > 0 on cpu), byte-identical cand_circ.fa, tmp/*.ccs.fa and
+   tmp/*.raw.fa, equal counters, reads/s, per-stage seconds, each route's
+   wall split (``call_split``, from a third and fourth run with those parts
+   timed: the screen, CCS detection and within it the tandem detection, the
+   center-star polish (on cpu 0: the native center star aligns inside the
+   vote) and the column vote, anchors, chaining, selection and stitching,
+   the clips' SW, and map_batch / map around the middle three) and BSJ
+   recall/precision
    against the simulated truth; then both SW routes against the plain
    version on the inputs the cuda run gave the kernel, and both timed on
    them, the launches split by route (``call_sw_route``: the tiled route's
    summed device time and its largest launch's ms, plain ms and bound;
    its inputs saved to build/chip_smoke/call_tiled_inputs.pt); then (4b)
-   every X2 launch of the cuda run held to the port's
+   every X4 launch of the cuda run held pair by pair to the port's
+   native NW core at its bands (scores and cigar), the first three and the
+   largest also to nw_traceback_plain (out, runs and planes), every batch's
+   (score, cigar) to the native banded_global_cigar, then
+   tools/nw_cases.py's cases along their band ladders (all in one batch,
+   also with the rows forced to global scratch, and each alone: every
+   launch against the plain version, the results against the native
+   core), and the largest launch timed (``call_kernel_time``, kernel
+   nw_traceback: a CUDA graph's replay, the plain version's wall, the
+   bound from csrc/op_rate.cu's NW cell rate or the bytes, the launches of
+   the run summed); every X2 launch held to the port's
    native chain core (f and pre bit for bit, row by row) and to the host
    backtrack_chains (chains row by row), the first three and the largest
    also to chain_dp_plain and chain_extract_plain, every screen_keep launch
@@ -128,7 +142,9 @@ and exits non-zero if any phase fails (none is caught and skipped):
    largest launch, its shapes, ms, plain ms and bound;
 8. ``collapse`` at full size, the cohort of benchmarks/collapse_bench.py's
    defaults (4000 reads of 16 loci on a 2 Mb genome, seed 0; its ``call``
-   first), the checks of phase 7 and the walls; the card's rate for each
+   first, on cuda and on cpu: byte-identical tmp/*.ccs.fa, tmp/*.raw.fa and
+   cand_circ.fa, equal counters, X4's launches and escalated pairs, no
+   pair on the host), the checks of phase 7 and the walls; the card's rate for each
    kernel's update (csrc/op_rate.cu: the SW cell, the traceback cell, the
    edit distance's 32-row word and, for comparison, its DP cell); each
    kernel's device time summed over the launches the cuda run made (a CUDA
@@ -141,7 +157,7 @@ and exits non-zero if any phase fails (none is caught and skipped):
    and cohort_tiled_inputs.pt (what ``python3 -m
    ciri_long_tpu_torch.tools.wave_ab`` times in two checkouts).
 
-The ten CUDA sources build in parallel (one nvcc each) beside the native
+The eleven CUDA sources build in parallel (one nvcc each) beside the native
 host cores (one extension at a time).  Then the card's ``nvidia-smi`` name
 and power limit, the kernels line (sw_score_ends's entry also has
 ``main_ms`` and ``main_bound_ms`` at 128x54x16384, its collapse launches
@@ -158,12 +174,14 @@ phase 8, with their route counts, edit_distance's ``cell_bound_ms`` the
 bound of one DP cell an update, the measure of a cell-by-cell design, and
 poa_align's device time summed over the cohort's launches and its phase-7
 numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them; chain_dp's,
-chain_extract's and screen_keep's those of their largest launch in phase
-4b, with its size, their summed and slowest launches of call's run
-(``call_device_ms``, ``slowest_ms``, ``replay_device_ms``,
-``replay_slowest_ms``), chain_dp's ``serial_bound_ms``, screen_keep's
-bound its equal k-mer pairs, its ``window_bound_ms`` the brute-force
-(window, lag) measure and ``lag_route_reads``), and last
+chain_extract's, screen_keep's and nw_traceback's those of their largest
+launch in phase 4b, with its size (nw_traceback's also its escalated
+pairs and its launches on the cohort's call), their summed and slowest
+launches of call's run (``call_device_ms``, ``slowest_ms``,
+``replay_device_ms``, ``replay_slowest_ms``), chain_dp's
+``serial_bound_ms``, screen_keep's bound its equal k-mer pairs, its
+``window_bound_ms`` the brute-force (window, lag) measure and
+``lag_route_reads``), and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -185,6 +203,7 @@ WAVE_INPUTS = os.path.join(WORK, 'cohort_wave_inputs.pt')
 TILED_INPUTS = {'call': os.path.join(WORK, 'call_tiled_inputs.pt'),
                 'cohort': os.path.join(WORK, 'cohort_tiled_inputs.pt')}
 X_INPUTS = os.path.join(WORK, 'call_x_inputs.pt')
+NW_INPUTS = os.path.join(WORK, 'call_nw_inputs.pt')
 # a spin before each recorded X2/X3 launch of call's run (~0.5 ms), longer
 # than a wrapper's host work
 X_SPIN_CYCLES = 1_000_000
@@ -192,7 +211,7 @@ CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
            'sw_traceback.cu', 'poa_align.cu', 'chain_dp.cu',
-           'screen_keep.cu')
+           'screen_keep.cu', 'nw_traceback.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 # the tiles' schedule edges: (padded Lq, the rows' real query lengths) at
@@ -236,16 +255,28 @@ REPLACES = {
     'screen_keep': ('ciri_long_tpu/ops/period.py:138 screen_keep, with :90 '
                     '_tandem_counts_impl and :32 _chunked_lag_sum, an XLA '
                     'program (X3)'),
+    'nw_traceback': ('ciri_long_tpu/ops/nw_tb_batch.py:53 _build_kernel '
+                     '(forward :67, walk :177), :305 nw_traceback_submit, '
+                     ':400 nw_traceback_collect, an XLA program (X4)'),
 }
-# call's kernels of X2 and X3: (module, wrapper) recorded in phase 4
+# call's kernels of X2, X3 and X4: (module, wrapper) recorded in phase 4
 CALL_X = {'chain_dp': ('chain', 'chain_dp_cuda'),
           'chain_extract': ('chain', 'chain_extract_cuda'),
-          'screen_keep': ('period', 'screen_keep_cuda')}
-# the parts of call's wall (phase 4, both routes): the screen, the anchors,
-# the chaining (the card's batch, the host core's rows, or map()'s chain),
-# the selection and stitching, the SW of the clips, and map_batch / map
-# around the three middle ones (ms summed over calls)
-CALL_PARTS = (('find_ccs', {'screen': ('device_screen',)}),
+          'screen_keep': ('period', 'screen_keep_cuda'),
+          'nw_traceback': ('nw_tb_batch', 'nw_traceback_cuda')}
+# the parts of call's wall (phase 4, both routes): the screen; the CCS
+# detection's tandem detection, center-star polish (on cuda the staging,
+# launches and waits of ops/nw_tb_batch.py; on cpu none: the native center
+# star aligns inside the vote) and column vote (center_star_consensus;
+# on cpu also the alignments); the anchors, the chaining (the card's batch,
+# the host core's rows, or map()'s chain), the selection and stitching, the
+# SW of the clips, and map_batch / map around the three middle ones (s
+# summed over calls and threads)
+CALL_PARTS = (('find_ccs', {'screen': ('device_screen',),
+                            'tandem_detection': ('detect_units',),
+                            'polish': ('nw_traceback_submit',
+                                       'nw_traceback_collect')}),
+              ('ccs', {'vote': ('center_star_consensus',)}),
               ('aligner', {'anchors': ('_anchors',),
                            'chain': ('_device_chains', '_host_chains',
                                      '_chain'),
@@ -566,10 +597,11 @@ def run_call(device, world, out_dir):
 
 def _modules():
     from ciri_long_tpu_torch.models.aligner import GenomeAligner
-    from ciri_long_tpu_torch.ops import chain, period
+    from ciri_long_tpu_torch.ops import ccs, chain, nw_tb_batch, period
     from ciri_long_tpu_torch.pipeline import find_bsj, find_ccs
     return dict(chain=chain, period=period, find_ccs=find_ccs,
-                find_bsj=find_bsj, aligner=GenomeAligner)
+                find_bsj=find_bsj, aligner=GenomeAligner, ccs=ccs,
+                nw_tb_batch=nw_tb_batch)
 
 
 def _warm_x_kernels(torch, dev):
@@ -577,7 +609,8 @@ def _warm_x_kernels(torch, dev):
     so that the run's events hold neither a kernel's first load (CUDA loads
     kernels lazily, at their first launch) nor a library's load or a
     table's upload (call's chaining takes the default gaps)."""
-    from ciri_long_tpu_torch.ops import chain, period
+    import numpy as np
+    from ciri_long_tpu_torch.ops import chain, nw_tb_batch, period
     offs = torch.tensor([0, 2], dtype=torch.int64, device=dev)
     col = torch.tensor([0, 20], dtype=torch.int32, device=dev)
     f, pre = chain.chain_dp_cuda(offs, col, col, torch.zeros_like(col), 15)
@@ -586,6 +619,8 @@ def _warm_x_kernels(torch, dev):
     one = torch.tensor([64], dtype=torch.int32, device=dev)
     period.screen_keep_cuda(torch.zeros((1, 64), dtype=torch.int8,
                                         device=dev), one, one // 2)
+    nw_tb_batch.nw_traceback_batch([np.zeros(8, np.int8)],
+                                   [np.ones(9, np.int8)], device=dev)
     torch.cuda.synchronize(dev)
 
 
@@ -613,7 +648,7 @@ def _recording_x(torch, seen, events):
             events[_name].append(pair)
             keep = args[:6] if _name == 'chain_extract' else args
             seen[_name].append((
-                tuple(a.cpu() if torch.is_tensor(a) else a for a in keep),
+                tuple(_on(a, 'cpu', torch) for a in keep),
                 tuple(o.cpu() for o in out) if isinstance(out, tuple)
                 else out.cpu()))
             return out
@@ -624,6 +659,51 @@ def _recording_x(torch, seen, events):
         for module, attr, kernel in originals:
             setattr(module, attr, kernel)
     return undo
+
+
+def _on(a, dev, torch):
+    """A recorded argument on ``dev``: a tensor, an NW launch plan (its
+    tensors), or anything else as it is."""
+    if torch.is_tensor(a):
+        return a.to(dev)
+    if hasattr(a, 'geom'):
+        return a._replace(geom=a.geom.to(dev), offs=a.offs.to(dev))
+    return a
+
+
+def _recording_nw(batches):
+    """Wrap find_ccs's nw_traceback_submit and nw_traceback_collect so that
+    each batch of the run appends (qs, rs, results) to ``batches``; returns
+    the undo."""
+    from ciri_long_tpu_torch.pipeline import find_ccs
+    submit = find_ccs.nw_traceback_submit
+    collect = find_ccs.nw_traceback_collect
+
+    def submitted(qs, rs, *args, **kw):
+        h = submit(qs, rs, *args, **kw)
+        h.recorded = (list(qs), list(rs))
+        return h
+
+    def collected(h):
+        out = collect(h)
+        batches.append((*h.recorded, list(out)))
+        return out
+
+    find_ccs.nw_traceback_submit = submitted
+    find_ccs.nw_traceback_collect = collected
+
+    def undo():
+        find_ccs.nw_traceback_submit = submit
+        find_ccs.nw_traceback_collect = collect
+    return undo
+
+
+def _same_ccs(root, a, b, prefix):
+    """Whether two runs of call under ``root`` wrote the same tmp/*.ccs.fa
+    and tmp/*.raw.fa."""
+    return all(Path(root, a, 'tmp', prefix + ext).read_bytes()
+               == Path(root, b, 'tmp', prefix + ext).read_bytes()
+               for ext in ('.ccs.fa', '.raw.fa'))
 
 
 def _timed_call(device, world, out_dir):
@@ -678,6 +758,8 @@ def phase_call(torch, dev, smi):
     sw.sw_score_ends_cuda = recorder
     _warm_x_kernels(torch, dev)
     undo_x = _recording_x(torch, x_seen, x_events)
+    batches = []
+    undo_nw = _recording_nw(batches)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -688,9 +770,11 @@ def phase_call(torch, dev, smi):
     finally:
         sw.sw_score_ends_cuda = kernel
         undo_x()
+        undo_nw()
     t0 = time.perf_counter()
     cpu = run_call('cpu', world, os.path.join(WORK, 'out_cpu'))
     cpu_s = time.perf_counter() - t0
+    cpu_routes = dict(ROUTES)
     # the wall split, each route from a run of its own
     _, gpu_split_s, gpu_parts = _timed_call('cuda', world,
                                             os.path.join(WORK, 'split_cuda'))
@@ -699,6 +783,7 @@ def phase_call(torch, dev, smi):
 
     cand = [Path(WORK, d, 'smoke.cand_circ.fa').read_bytes()
             for d in ('out_cuda', 'out_cpu')]
+    ccs_same = _same_ccs(WORK, 'out_cuda', 'out_cpu', 'smoke')
     counters = [{k: v for k, v in s.items() if k not in ('timing', 'kernels')}
                 for s in (gpu, cpu)]
     recall, precision, n_called = bsj_accuracy(
@@ -711,7 +796,10 @@ def phase_call(torch, dev, smi):
          launch_shapes=shapes,
          summary_kernels=gpu['kernels'],
          cpu_summary_kernels=cpu['kernels'], cand_identical=cand[0] == cand[1],
-         cand_bytes=len(cand[0]), counters_equal=counters[0] == counters[1],
+         cand_bytes=len(cand[0]), ccs_identical=ccs_same,
+         nw_pairs=sum(len(qs) for qs, _, _ in batches),
+         cpu_nw_host=cpu_routes['nw_host'],
+         counters_equal=counters[0] == counters[1],
          counters=counters[0], cuda_wall_s=gpu_s,
          cuda_reads_per_s=n_reads / gpu_s, cpu_wall_s=cpu_s,
          cpu_reads_per_s=n_reads / cpu_s, cuda_timing=gpu['timing'],
@@ -725,7 +813,13 @@ def phase_call(torch, dev, smi):
         raise AssertionError('call did not go through its kernels: '
                              '{}'.format(launches))
     if any(len(x_seen[k]) != launches[k] for k in CALL_X):
-        raise AssertionError('X2/X3 launches and recorded inputs differ')
+        raise AssertionError('X2/X3/X4 launches and recorded inputs differ')
+    if routes['nw_host'] != 0 or cpu_routes['nw_host'] <= 0 \
+            or not batches:
+        raise AssertionError('the center-star pairs did not all go to the '
+                             'card: cuda {} cpu {} host pairs, {} batches'
+                             .format(routes['nw_host'],
+                                     cpu_routes['nw_host'], len(batches)))
     planned = sum(tiled for *_, tiled in shapes)
     sw_routes_ = {k: routes[k] for k in ('tiled', 'wave')}
     if (len(seen) != launches['sw_score_ends'] or planned == 0
@@ -735,7 +829,7 @@ def phase_call(torch, dev, smi):
     if cpu['kernels'] != {k: 0 for k in CALL_KERNELS}:
         raise AssertionError('the --device cpu summary counts launches: '
                              '{}'.format(cpu['kernels']))
-    if cand[0] != cand[1] or counters[0] != counters[1]:
+    if cand[0] != cand[1] or counters[0] != counters[1] or not ccs_same:
         raise AssertionError('call differs between --device cuda and cpu')
     if not cand[0] or recall <= 0:
         raise AssertionError('call found no BSJ of the simulated truth')
@@ -749,7 +843,7 @@ def phase_call(torch, dev, smi):
     torch.cuda.synchronize(dev)
     x_ms = {name: [a.elapsed_time(b) for a, b in pairs]
             for name, pairs in x_events.items()}
-    return launches, err, seen, x_seen, x_ms
+    return launches, err, seen, x_seen, x_ms, batches, routes['nw_escalate']
 
 
 def phase_call_time(torch, dev, smi, seen):
@@ -1162,6 +1256,193 @@ def sw_kernels(Lq, Lr, params):
         ('sw_rowscan', sw_rowscan_cuda),
         ('sw_chain C=2', lambda q, r, p: sw_chain_cuda(q, r, p, 2)),
         ('sw_chain C=4', lambda q, r, p: sw_chain_cuda(q, r, p, 4))]
+
+
+def _nw_cells(launch):
+    """Cells of both passes of an X4 launch: (n + 1) x (W + W2) a pair."""
+    g = launch.geom.cpu().numpy().astype('int64')
+    return int(((g[:, 0] + 1) * (g[:, 3] - g[:, 2] + g[:, 5] - g[:, 4] + 2))
+               .sum())
+
+
+def _nw_native_differ(q, r, launch, out, runs, scores):
+    """The pairs of a recorded X4 launch whose traceback band's score and
+    cigar or check band's score differ from the port's native core at the
+    same bands (native/nwcore.cpp::nw_banded; None there where the band
+    holds no path)."""
+    import numpy as np
+    from ciri_long_tpu_torch import _nwcore
+    from ciri_long_tpu_torch.ops.nw_tb_batch import HALF_NEG
+    from ciri_long_tpu_torch.ops.traceback import _decode_cigar_u32
+
+    g = launch.geom.numpy().astype(np.int64)
+    o = launch.offs.numpy()
+    out, runs = out.numpy(), runs.numpy().view(np.uint32)
+    qn, rn = q.numpy().view(np.uint8), r.numpy().view(np.uint8)
+    differ = 0
+    for k, (n, m, lo, hi, lo2, hi2) in enumerate(g):
+        qb = qn[o[k, 0]:o[k, 0] + n].tobytes()
+        rb = rn[o[k, 1]:o[k, 1] + m].tobytes()
+        shift = max(0, m - n)
+        x = _nwcore.nw_banded(qb, rb, int(hi - shift), *scores)
+        y = _nwcore.nw_banded(qb, rb, int(hi2 - shift), *scores)
+        s1, s2, cnt = (int(v) for v in out[k])
+        end = o[k, 3] + n + m
+        cigar = [(int(e) >> 4, int(e) & 15) for e in runs[end - cnt:end]] \
+            if cnt >= 0 else None
+        same = (x is not None and (int(x[0]), _decode_cigar_u32(x[1]))
+                == (s1, cigar)) and \
+            (int(y[0]) == s2 if y is not None else s2 <= HALF_NEG)
+        differ += not same
+    return differ
+
+
+def check_nw(torch, dev, x_seen, batches):
+    """Every recorded X4 launch of phase 4 held to the port's native core at
+    its bands, pair by pair (_nw_native_differ), the first X_PLAIN_FIRST and
+    the largest (by cells) also to nw_launch_plain on the card (out, runs
+    and planes, element by element); every batch's (score, cigar) to the
+    port's native banded_global_cigar.  Returns (max err, the plain
+    version's wall on the largest launch, its index)."""
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.ops.traceback import banded_global_cigar
+
+    rec = x_seen['nw_traceback']
+    cells = [_nw_cells(args[2]) for args, _ in rec]
+    big = max(range(len(rec)), key=cells.__getitem__)
+    plain_at = sorted(set(range(min(X_PLAIN_FIRST, len(rec)))) | {big})
+    err, plain_ms = 0, None
+    for t, ((q, r, launch, *scores), out) in enumerate(rec):
+        differ = {'native': _nw_native_differ(q, r, launch, *out[:2],
+                                              scores)}
+        if t in plain_at:
+            d = [_on(a, dev, torch) for a in (q, r, launch)]
+            ms, want = _wall_ms(torch, dev, lambda: ntb.nw_launch_plain(
+                *d, *scores))
+            differ['plain'] = sum(int((a != b.cpu()).sum())
+                                  for a, b in zip(out, want))
+            if t == big:
+                plain_ms = ms
+        emit('kernel_vs_plain', case='call launch {}'.format(t),
+             kernel='nw_traceback', pairs=len(launch.pairs), cells=cells[t],
+             warps=launch.warps, wcap=launch.wcap,
+             rows_global=launch.rows_global, differ=differ,
+             max_abs_err=max(differ.values()))
+        err = max(err, *differ.values())
+    final = sum(res != banded_global_cigar(q, r)
+                for qs, rs, results in batches
+                for q, r, res in zip(qs, rs, results))
+    emit('nw_batches', batches=len(batches),
+         pairs=sum(len(qs) for qs, _, _ in batches),
+         differ={'native_final': final})
+    err = max(err, final)
+    if err:
+        raise AssertionError('X4 disagrees with its references')
+    return err, plain_ms, big
+
+
+def check_nw_cases(torch, dev):
+    """tools/nw_cases.py's cases through nw_traceback_batch on the card,
+    all in one batch (the rows where the plan puts them, then forced to
+    global scratch) and each alone: every launch of the band ladder against
+    nw_launch_plain (out, runs and planes), the batch's (score, cigar)
+    against the port's native banded_global_cigar; one kernel_vs_plain line
+    a case.  Returns the max err."""
+    import functools
+    import numpy as np
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.ops.traceback import banded_global_cigar
+    from ciri_long_tpu_torch.tools.nw_cases import nw_cases
+    from ciri_long_tpu_torch.utils.dispatch import ROUTES
+
+    named = nw_cases(np.random.default_rng(44))
+    kernel, plan = ntb.nw_traceback_cuda, ntb.nw_plan
+    err = 0
+    for case, rows in ([('all', None), ('all', 'global')]
+                       + [(name, None) for name in named]):
+        pairs = ([p for ps in named.values() for p in ps] if case == 'all'
+                 else named[case])
+        differ = {'plain': 0}
+        placed = []
+
+        def checked(q, r, launch, *scores):
+            got = kernel(q, r, launch, *scores)
+            want = ntb.nw_launch_plain(q, r, launch, *scores)
+            differ['plain'] += sum(int((a != b).sum())
+                                   for a, b in zip(got, want))
+            placed.append(launch.rows_global)
+            return got
+
+        escalated = ROUTES['nw_escalate']
+        ntb.nw_traceback_cuda = checked
+        ntb.nw_plan = functools.partial(plan, rows=rows)
+        try:
+            res = ntb.nw_traceback_batch([q for q, _ in pairs],
+                                         [r for _, r in pairs], device=dev)
+        finally:
+            ntb.nw_traceback_cuda, ntb.nw_plan = kernel, plan
+        differ['native'] = sum(res[t] != banded_global_cigar(q, r)
+                               for t, (q, r) in enumerate(pairs))
+        differ['rows'] = sum(g != (rows == 'global') for g in placed)
+        emit('kernel_vs_plain', case='nw_cases {}{}'.format(
+            case, ' rows global' if rows else ''), kernel='nw_traceback',
+            pairs=len(pairs), launches=len(placed),
+            escalated=ROUTES['nw_escalate'] - escalated, differ=differ,
+            max_abs_err=max(differ.values()))
+        err = max(err, *differ.values())
+    if err:
+        raise AssertionError('X4 disagrees on tools/nw_cases.py')
+    return err
+
+
+def phase_call_nw(torch, dev, smi, x_seen, x_ms, batches, escalated):
+    """Phase 4b's X4: check_nw and check_nw_cases, then the largest launch
+    of phase 4 timed (a CUDA graph's replay of 10 launches) beside the plain
+    version's wall and the bound, the larger of its cells (both passes) at
+    csrc/op_rate.cu's NW cell rate and its bytes (the codes read, the plan,
+    the planes, runs and scores written) at 3.35 TB/s; its launches of
+    phase 4 summed and their slowest, from the CUDA events around each
+    launch in the run and from a graph's replay of each recorded launch.
+    The largest launch's inputs go to NW_INPUTS.  Returns the numbers for
+    the kernels line."""
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
+                                               recurrence_rate, time_launches)
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+
+    err, plain_ms, big = check_nw(torch, dev, x_seen, batches)
+    err = max(err, check_nw_cases(torch, dev))
+    rate = recurrence_rate(dev, 'nw_traceback')
+    emit('cell_rate', nw_cells_per_s=rate, card=smi)
+    rec = x_seen['nw_traceback']
+
+    def timed(args, n_iter):
+        q, r, launch, *scores = args
+        d = [_on(a, dev, torch) for a in (q, r, launch)]
+        return time_launches(lambda: ntb.nw_traceback_cuda(*d, *scores),
+                             n_iter, dev, graph=True)
+
+    args = rec[big][0]
+    launch = args[2]
+    g = launch.geom.numpy().astype('int64')
+    cells = _nw_cells(launch)
+    nbytes = (int(g[:, 0].sum() + g[:, 1].sum()) + (24 + 32 + 12) * len(g)
+              + launch.plane_bytes + 4 * launch.run_entries)
+    replay = [timed(a, 3) for a, _ in rec]
+    numbers = dict(
+        ms=timed(args, 10), plain_ms=plain_ms, max_abs_err=err,
+        pairs=len(g), cells=cells, longest=int(g[:, 0].max()),
+        wcap=launch.wcap, warps=launch.warps, plane_bytes=launch.plane_bytes,
+        launches_recorded=len(rec), escalated_pairs=escalated,
+        call_device_ms=sum(x_ms['nw_traceback']),
+        slowest_ms=max(x_ms['nw_traceback']), replay_device_ms=sum(replay),
+        replay_slowest_ms=max(replay))
+    numbers['bound_ms'], numbers['bound_by'] = max(
+        (cells / rate * 1e3, 'operations'),
+        (nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'))
+    os.makedirs(WORK, exist_ok=True)
+    torch.save(args, NW_INPUTS)
+    emit('call_kernel_time', kernel='nw_traceback', card=smi, **numbers)
+    return numbers
 
 
 def phase_probe_path():
@@ -1979,19 +2260,43 @@ def save_route_inputs(torch, args_list, route, path):
 
 def phase_collapse_full(torch, dev, smi):
     """Phase 8: collapse at full size on the cohort of
-    benchmarks/collapse_bench.py's defaults.  Returns ({name: max err},
-    {name: the largest launch's numbers}, the phase's fields)."""
+    benchmarks/collapse_bench.py's defaults, its ``call`` first on both
+    routes (byte-identical tmp/*.ccs.fa, tmp/*.raw.fa and cand_circ.fa; X4's
+    launches and escalated pairs on cuda, no pair aligned on the host
+    there).  Returns ({name: max err}, {name: the largest launch's
+    numbers}, the phase's fields, with ``cohort_nw``)."""
     from ciri_long_tpu_torch.cli.main import main
     from ciri_long_tpu_torch.misc.kexp import peak_cell_rate, recurrence_rate
     from ciri_long_tpu_torch.tools.world import cohort_world
+    from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
 
     root = os.path.join(WORK, 'cohort')
     ref, reads, n_reads = cohort_world(os.path.join(root, 'world'), **COHORT)
-    t0 = time.perf_counter()
-    main(['call', '-i', reads, '-o', os.path.join(root, 'call'), '-r', ref,
-          '-p', 'cohort', '-t', '1', '--device', 'cuda'])
-    call_s = time.perf_counter() - t0
-    emit('cohort_call', n_reads=n_reads, wall_s=call_s, cohort=COHORT)
+    walls = {}
+    for device, out in (('cuda', 'call'), ('cpu', 'call_cpu')):
+        t0 = time.perf_counter()
+        main(['call', '-i', reads, '-o', os.path.join(root, out), '-r', ref,
+              '-p', 'cohort', '-t', '1', '--device', device])
+        walls[device] = time.perf_counter() - t0
+        if device == 'cuda':
+            cohort_nw = dict(launches=LAUNCHES['nw_traceback'],
+                             escalated_pairs=ROUTES['nw_escalate'],
+                             host_pairs=ROUTES['nw_host'])
+    cohort_nw['cpu_host_pairs'] = ROUTES['nw_host']
+    counters = [{k: v for k, v in json.loads(
+        Path(root, d, 'cohort.json').read_text()).items()
+        if k not in ('timing', 'kernels')} for d in ('call', 'call_cpu')]
+    same = _same_ccs(root, 'call', 'call_cpu', 'cohort') and (
+        Path(root, 'call', 'cohort.cand_circ.fa').read_bytes()
+        == Path(root, 'call_cpu', 'cohort.cand_circ.fa').read_bytes()) \
+        and counters[0] == counters[1]
+    emit('cohort_call', n_reads=n_reads, wall_s=walls['cuda'],
+         cpu_wall_s=walls['cpu'], identical=same, counters=counters[0],
+         nw=cohort_nw, cohort=COHORT)
+    if not same or cohort_nw['launches'] <= 0 or cohort_nw['host_pairs']:
+        raise AssertionError('the cohort\'s call differs between cuda and '
+                             'cpu, or its polish left the card: '
+                             '{}'.format(cohort_nw))
     seen, fields, poa_calls = run_collapse(
         torch, 'cohort', ref, os.path.join(root, 'call',
                                            'cohort.cand_circ.fa'), root)
@@ -2044,6 +2349,7 @@ def phase_collapse_full(torch, dev, smi):
          cuda_calls_s=fields['cuda_calls_s'],
          cpu_calls_s=fields['cpu_calls_s'], card=smi)
     largest['sw_score_ends']['routes'] = routes
+    fields['cohort_nw'] = cohort_nw
     return errs, largest, fields
 
 
@@ -2058,11 +2364,13 @@ def main():
     dev, smi = phase_build(torch)
     errs = phase_kernel(torch, dev)
     phase_time(torch, dev, smi)
-    call_launches, call_err, seen, x_seen, x_ms = phase_call(torch, dev,
-                                                             smi)
+    (call_launches, call_err, seen, x_seen, x_ms, nw_batches,
+     nw_escalated) = phase_call(torch, dev, smi)
     launches = call_launches['sw_score_ends']
     _, call_routes = phase_call_time(torch, dev, smi, seen)
     x_numbers = phase_call_kernels(torch, dev, smi, x_seen, x_ms)
+    x_numbers['nw_traceback'] = phase_call_nw(torch, dev, smi, x_seen, x_ms,
+                                              nw_batches, nw_escalated)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)
@@ -2195,10 +2503,13 @@ def main():
                  'launches', 'device_ms', 'ms', 'rows_ms', 'walk_ms',
                  'depth', 'plain_ms', 'bound_ms', 'bound_by', 'largest')}),
     ]
-    # call's X2 and X3 at their largest launch of phase 4, launched by it
+    # call's X2, X3 and X4 at their largest launch of phase 4, launched by
+    # it; X4's launches on the cohort's call beside them
+    x_numbers['nw_traceback']['cohort_call'] = full_fields['cohort_nw']
     for name, source in (('chain_dp', 'chain_dp.cu'),
                          ('chain_extract', 'chain_dp.cu'),
-                         ('screen_keep', 'screen_keep.cu')):
+                         ('screen_keep', 'screen_keep.cu'),
+                         ('nw_traceback', 'nw_traceback.cu')):
         n = dict(x_numbers[name])
         kernels.append(dict(
             entry(name, call_launches[name], n.pop('max_abs_err'),

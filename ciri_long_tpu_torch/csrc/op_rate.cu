@@ -50,6 +50,12 @@
 //   kind 5, one lag of one window of the tandem pre-screen
 //     (csrc/screen_keep.cu): the lag's range test, the k-mer compare and the
 //     count's add.
+//   kind 6, a cell of the center-star polish's banded NW
+//     (csrc/nw_traceback.cu): F = max(F_up - gE, H_up - gO) (a DPX add-max),
+//     the substitution (compare, select) and Ht = max(H_diag + s, F), g =
+//     Ht + gE c into the running prefix max, E = carry - gO - (c - 1) gE,
+//     H = max(Ht, E), and the 4-bit code: the case (H == E, H == F), the
+//     E-stay and F-stay compares, shifts and ors.
 //
 // serial_step_launch times a latency, not a rate: one warp runs the step
 // of the chaining DP that no design can take off its serial path, the
@@ -339,6 +345,47 @@ screen_rate_kernel(int steps, int q, int* out) {
     if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
 }
 
+__global__ void __launch_bounds__(THREADS)
+nw_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
+               int gap_extend, int* out) {
+    int h[CHAINS], hd[CHAINS], e[CHAINS], f[CHAINS], run[CHAINS];
+    unsigned acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        h[k] = threadIdx.x + k;
+        hd[k] = blockIdx.x + k;
+        e[k] = k;
+        f[k] = 2 * k + 1;
+        run[k] = -k;
+    }
+    const int nge = -gap_extend;
+    const int nmis = -mismatch;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+        const int ramp = t * gap_extend;
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int s = h[k] == q ? match : nmis;
+            const int fn = __viaddmax_s32(f[k], nge, h[k] - gap_open);
+            const int ht = max(hd[k] + s, fn);
+            const int en = run[k] - gap_open - ramp;
+            run[k] = max(run[k], ht + ramp);
+            const int hn = max(ht, en);
+            const int cs = hn == en ? 1 : hn == fn ? 2 : 3;
+            const bool estay = en == e[k] + nge;
+            const bool fstay = fn == f[k] + nge;
+            acc += (unsigned)(cs | (estay << 2) | (fstay << 3));
+            e[k] = en;
+            f[k] = fn;
+            hd[k] = h[k];
+            h[k] = hn;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= h[k] ^ e[k] ^ f[k] ^ run[k];
+    if (acc == 0x7fffffffu) out[0] = (int)acc;  // keeps the work live
+}
+
 __global__ void serial_step_kernel(int steps, double* out) {
     double f = 15.0;
     int pre = -1;
@@ -389,7 +436,8 @@ extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 // The same for the updates of collapse's kernels: ``kind`` 0 the edit
 // distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
 // distance's word, 3 the POA graph alignment's cell, 4 the chaining DP's
-// candidate, 5 the tandem screen's window and lag (see above).  Returns
+// candidate, 5 the tandem screen's window and lag, 6 the banded NW's cell
+// with its code (see above).  Returns
 // cudaErrorInvalidValue for another kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
@@ -411,6 +459,9 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
         chain_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
     else if (kind == 5)
         screen_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
+    else if (kind == 6)
+        nw_rate_kernel<<<blocks, THREADS, 0, st>>>(
+            steps, q, match, mismatch, gap_open, gap_extend, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

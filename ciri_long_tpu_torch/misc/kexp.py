@@ -83,7 +83,8 @@ _CELL_RATE_SYMBOLS = {
 # alignment's cell with one predecessor; call's chaining DP by its float64
 # candidate and the tandem screen by one window at one lag
 RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2,
-               'poa_align': 3, 'chain_dp': 4, 'screen_keep': 5}
+               'poa_align': 3, 'chain_dp': 4, 'screen_keep': 5,
+               'nw_traceback': 6}
 
 
 def _rate(device, launcher, form):
@@ -115,8 +116,9 @@ def recurrence_rate(device, kernel):
     and one column; 'sw_traceback', a cell; 'edit_cell', one DP cell of the
     edit distance; 'poa_align', a graph-alignment cell with one
     predecessor; 'chain_dp', a chaining candidate; 'screen_keep', a window
-    at one lag), from csrc/op_rate.cu's register-only loop of that
-    update: the operations bound of that kernel."""
+    at one lag; 'nw_traceback', a banded NW cell with its code), from
+    csrc/op_rate.cu's register-only loop of that update: the operations
+    bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])
 
 

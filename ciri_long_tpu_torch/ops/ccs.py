@@ -173,8 +173,9 @@ def _anchor_boundaries(km, pos, period: int, L: int):
 
 def star_rep_index(units):
     """Median-length representative index for center_star_consensus; the
-    batched pipeline path uses this to stage the unit-vs-rep alignment
-    jobs for one device dispatch (ops/nw_tb_batch.py)."""
+    card's route of pipeline/find_ccs.py uses this to stage the
+    unit-vs-rep alignments for one submit to this package's
+    ops/nw_tb_batch.py."""
     order = sorted(range(len(units)), key=lambda i: len(units[i]))
     return order[len(order) // 2]
 

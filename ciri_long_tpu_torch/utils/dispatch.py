@@ -36,10 +36,11 @@ _STATS = defaultdict(lambda: [0, 0.0])
 LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
             'int16_probe': 0, 'int16_probe_all': 0, 'edit_distance': 0,
             'sw_traceback': 0, 'poa_align': 0, 'chain_dp': 0,
-            'chain_extract': 0, 'screen_keep': 0}
+            'chain_extract': 0, 'screen_keep': 0, 'nw_traceback': 0}
 # the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
 # the int16 probes serve misc/kexp and misc/int16_probe)
-CALL_KERNELS = ('sw_score_ends', 'chain_dp', 'chain_extract', 'screen_keep')
+CALL_KERNELS = ('sw_score_ends', 'chain_dp', 'chain_extract', 'screen_keep',
+                'nw_traceback')
 COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback',
                     'poa_align')
 # kernel name -> ms of device time since the last reset_launches()
@@ -48,9 +49,15 @@ DEVICE_MS = {'poa_align': 0.0}
 # summary leaves this out): csrc/sw_score_ends.cu's wave and tiled
 # (ops/sw.py::_tile_plan), csrc/edit_distance.cu's thread and warp routes
 # (one launch may run both; ops/edit.py::edit_plan), csrc/sw_traceback.cu's
-# shared-memory and global routes (ops/sw_tb_batch.py::tb_plan)
+# shared-memory and global routes (ops/sw_tb_batch.py::tb_plan),
+# csrc/nw_traceback.cu's rows in shared memory or global scratch
+# (ops/nw_tb_batch.py::nw_plan); and, counted in pairs, not launches, the
+# center-star pairs that needed a wider band than their first
+# (``nw_escalate``) and those that CCS's polish aligned on the host
+# (``nw_host``: the native center star of the cpu route; 0 on the card)
 ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
-          'tb_smem': 0, 'tb_global': 0}
+          'tb_smem': 0, 'tb_global': 0, 'nw_smem': 0, 'nw_global': 0,
+          'nw_escalate': 0, 'nw_host': 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -67,6 +74,12 @@ def count_launch(name, *routes, times=1, device_ms=None):
             ROUTES[route] += times
         if device_ms is not None:
             DEVICE_MS[name] += device_ms
+
+
+def count_route(route, times=1):
+    """``times`` more in ROUTES[route] (locked, as count_launch)."""
+    with _LAUNCH_LOCK:
+        ROUTES[route] += times
 
 
 def reset_launches():

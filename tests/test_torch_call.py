@@ -54,7 +54,7 @@ torch.set_num_threads(1)
 S, E = 20_000, 20_520
 # call's summary on --device cpu: every kernel of its path, none launched
 CPU_KERNELS = {'sw_score_ends': 0, 'chain_dp': 0, 'chain_extract': 0,
-               'screen_keep': 0}
+               'screen_keep': 0, 'nw_traceback': 0}
 
 
 @pytest.fixture(scope='module')

@@ -10,7 +10,10 @@ with ``collapse --device cuda`` raising when a kernel cannot be built, and
 call's chaining DP and extraction and tandem screen (csrc/chain_dp.cu,
 also against the native chain core once ``setup.py build_ext --inplace``
 has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
-csrc/screen_keep.cu, with its route per read, on its ``screen_launches``).  Marked
+csrc/screen_keep.cu, with its route per read, on its ``screen_launches``),
+and the center-star polish's banded NW (csrc/nw_traceback.cu, along the
+band ladder on tools/nw_cases.py, its rows in shared and global memory,
+and under find_ccs_reads).  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -993,3 +996,82 @@ def test_call_stages_chain_and_screen_on_the_card(dev, tmp_path):
             (tmp_path / 'cpu' / 'tmp' / name).read_bytes()
     for name in ('chain_dp', 'chain_extract', 'screen_keep'):
         assert LAUNCHES[name] == before[name] + 1
+
+
+NW_CASES = ('all', 'one_base', 'band_covers_first', 'j0_edge', 'e_f_ties',
+            'long_gaps', 'n_codes', 'one_doubling', 'two_doublings',
+            'widest_longest', 'mixed')
+
+
+@pytest.mark.parametrize('rows', [None, 'global'])
+@pytest.mark.parametrize('case', NW_CASES)
+def test_nw_traceback_matches_plain(dev, case, rows, monkeypatch):
+    """csrc/nw_traceback.cu on tools/nw_cases.py's cases (all in one batch
+    and each alone), its rows where the plan puts them and forced to global
+    scratch, along each pair's band ladder: every launch's out, runs and
+    planes equal to nw_launch_plain's, and the batch's (score, cigar) equal
+    to the native banded_global_cigar once built."""
+    import functools
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.tools.nw_cases import nw_cases
+    named = nw_cases(np.random.default_rng(44))
+    pairs = ([p for ps in named.values() for p in ps] if case == 'all'
+             else named[case])
+    kernel = ntb.nw_traceback_cuda
+    seen = []
+
+    def checked(q, r, launch, *scores):
+        got = kernel(q, r, launch, *scores)
+        want = ntb.nw_launch_plain(q, r, launch, *scores)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, want, ('out', 'runs', 'planes')):
+            assert torch.equal(a, b), (name, (a != b).nonzero()[:5].tolist())
+        seen.append(launch.rows_global)
+        return got
+
+    monkeypatch.setattr(ntb, 'nw_traceback_cuda', checked)
+    monkeypatch.setattr(ntb, 'nw_plan', functools.partial(ntb.nw_plan,
+                                                          rows=rows))
+    res = ntb.nw_traceback_batch([q for q, _ in pairs], [r for _, r in pairs],
+                                 device='cuda')
+    assert seen and all(g == (rows == 'global') for g in seen)
+    try:
+        from ciri_long_tpu_torch import _nwcore  # noqa: F401
+    except ImportError:
+        return
+    from ciri_long_tpu_torch.ops.traceback import banded_global_cigar
+    for t, (q, r) in enumerate(pairs):
+        assert res[t] == banded_global_cigar(q, r), t
+
+
+def test_nw_traceback_rejects_bad_inputs(dev):
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    q = torch.zeros(10, dtype=torch.int8, device=dev)
+    (launch,) = ntb.nw_plan([10], [10], [16], [0], [0], dev)
+    with pytest.raises(TypeError):
+        ntb.nw_traceback_cuda(q.int(), q, launch)
+    with pytest.raises(ValueError, match='one CUDA device'):
+        ntb.nw_traceback_cuda(q.cpu(), q, launch)
+    with pytest.raises(ValueError, match='gap_open >= gap_extend'):
+        ntb.nw_traceback_cuda(q, q, launch, 2, 4, 1, 2)
+    bad = launch._replace(geom=launch.geom.long())
+    with pytest.raises(ValueError, match='nw_plan'):
+        ntb.nw_traceback_cuda(q, q, bad)
+
+
+def test_find_ccs_polishes_on_the_card(dev, tmp_path):
+    """find_ccs_reads on the card aligns every center-star pair there (no
+    pair on the host) and writes the CPU route's files."""
+    from ciri_long_tpu_torch.pipeline.find_ccs import find_ccs_reads
+    from ciri_long_tpu_torch.tools.world import skill_world
+    skill_world(str(tmp_path))
+    before, host = LAUNCHES['nw_traceback'], ROUTES['nw_host']
+    out = find_ccs_reads(str(tmp_path / 'reads.fa'), str(tmp_path / 'cuda'),
+                         'p', device='cuda')
+    assert LAUNCHES['nw_traceback'] > before
+    assert ROUTES['nw_host'] == host
+    assert out == find_ccs_reads(str(tmp_path / 'reads.fa'),
+                                 str(tmp_path / 'cpu'), 'p', device='cpu')
+    for name in ('p.ccs.fa', 'p.raw.fa'):
+        assert (tmp_path / 'cuda' / 'tmp' / name).read_bytes() == \
+            (tmp_path / 'cpu' / 'tmp' / name).read_bytes()

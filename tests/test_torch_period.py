@@ -8,8 +8,8 @@ package on the CPU.
   of L // 2 would give another answer);
 - soundness on tests/test_ccs_screen.py's fuzz generator: a read the screen
   drops gets no consensus from find_consensus;
-- ``find_ccs_reads`` on the card route (the CUDA call replaced by the plain
-  version) screens every read the JAX package would (not those under
+- ``find_ccs_reads`` on the card route (the CUDA calls replaced by the
+  plain versions) screens every read the JAX package would (not those under
   2 * MIN_PERIOD or over SCREEN_MAX_LEN) and writes the same tmp/*.ccs.fa,
   tmp/*.raw.fa and counters as the CPU route and as the JAX package;
 - csrc/screen_keep.cu's sort-and-count emulated (``emulate_screen``: the
@@ -27,6 +27,7 @@ import torch
 
 from ciri_long_tpu.ops import period as jperiod
 from ciri_long_tpu.pipeline.find_ccs import find_ccs_reads as jax_find_ccs
+from ciri_long_tpu_torch.ops import nw_tb_batch as tnw
 from ciri_long_tpu_torch.ops import period as tperiod
 from ciri_long_tpu_torch.ops.ccs import MIN_PERIOD, find_consensus
 from ciri_long_tpu_torch.pipeline import find_ccs as tfc
@@ -138,6 +139,13 @@ def test_find_ccs_reads_card_route_matches_cpu_and_jax(rng, tmp_path,
     monkeypatch.setattr(tfc, 'resolve_device',
                         lambda d: torch.device('cuda', 0))
     monkeypatch.setattr(tfc, 'screen_keep', fake)
+    # the card's route also polishes on the card (ops/nw_tb_batch.py): its
+    # uploads kept on the CPU, its kernel replaced by the plain version
+    monkeypatch.setattr(tnw, 'resolve_device',
+                        lambda d: torch.device('cuda', 0))
+    monkeypatch.setattr(tnw, 'upload', lambda arrays, device: [
+        torch.from_numpy(np.ascontiguousarray(x)) for x in arrays])
+    monkeypatch.setattr(tnw, 'nw_traceback_cuda', tnw.nw_launch_plain)
     outs['cuda'] = tfc.find_ccs_reads(str(reads_fa), str(tmp_path / 'cuda'),
                                       'p', device='cuda')
     assert outs['cuda'] == outs['cpu'] == jres
