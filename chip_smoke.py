@@ -59,12 +59,21 @@ and exits non-zero if any phase fails (none is caught and skipped):
    largest also to nw_traceback_plain (out, runs and planes), every batch's
    (score, cigar) to the native banded_global_cigar, then
    tools/nw_cases.py's cases along their band ladders (all in one batch,
-   also with the rows forced to global scratch, and each alone: every
-   launch against the plain version, the results against the native
-   core), and the largest launch timed (``call_kernel_time``, kernel
-   nw_traceback: a CUDA graph's replay, the plain version's wall, the
-   bound from csrc/op_rate.cu's NW cell rate or the bytes, the launches of
-   the run summed); every X2 launch held to the port's
+   under the plan and forced into each width class: C = 1, 2, 4, 8 with the
+   rows in registers, a block of warps a pass, the wide class with its rows
+   in global scratch; and each alone: every launch against the plain version,
+   the results against the native core), and the cases at bands narrow
+   enough for each register class, forced there, against the plain version
+   and the native core; every star read of the cuda run voted again by the
+   plain vote (``star_vote``: csrc/star_vote.cpp against
+   center_star_consensus on the same run entries); and the largest launch
+   timed (``call_kernel_time``, kernel nw_traceback: a CUDA graph's replay,
+   the plain version's wall, the bound from csrc/op_rate.cu's NW cell rate
+   or the bytes, its classes, its ``split`` by %globaltimer stamps a task:
+   the launch's span, the traceback passes' rows and walk and the check
+   passes' rows, each class's span and the resident warps an SM it allows;
+   the launches of the run summed, and call's launches by class,
+   ``call_routes``); every X2 launch held to the port's
    native chain core (f and pre bit for bit, row by row) and to the host
    backtrack_chains (chains row by row), the first three and the largest
    also to chain_dp_plain and chain_extract_plain, every screen_keep launch
@@ -157,8 +166,9 @@ and exits non-zero if any phase fails (none is caught and skipped):
    and cohort_tiled_inputs.pt (what ``python3 -m
    ciri_long_tpu_torch.tools.wave_ab`` times in two checkouts).
 
-The eleven CUDA sources build in parallel (one nvcc each) beside the native
-host cores (one extension at a time).  Then the card's ``nvidia-smi`` name
+The eleven CUDA sources and the host vote (csrc/star_vote.cpp) build in
+parallel (one nvcc or c++ each) beside the native host cores (one
+extension at a time).  Then the card's ``nvidia-smi`` name
 and power limit, the kernels line (sw_score_ends's entry also has
 ``main_ms`` and ``main_bound_ms`` at 128x54x16384, its collapse launches
 and device time, ``tiled``: the tiled route's launches, summed device time
@@ -176,7 +186,8 @@ poa_align's device time summed over the cohort's launches and its phase-7
 numbers, ``rows_ms``, ``walk_ms`` and ``depth`` among them; chain_dp's,
 chain_extract's, screen_keep's and nw_traceback's those of their largest
 launch in phase 4b, with its size (nw_traceback's also its escalated
-pairs and its launches on the cohort's call), their summed and slowest
+pairs, its classes, its split into passes and walk, call's launches by
+class and its launches on the cohort's call), their summed and slowest
 launches of call's run (``call_device_ms``, ``slowest_ms``,
 ``replay_device_ms``, ``replay_slowest_ms``), chain_dp's
 ``serial_bound_ms``, screen_keep's bound its equal k-mer pairs, its
@@ -211,7 +222,7 @@ CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
            'sw_traceback.cu', 'poa_align.cu', 'chain_dp.cu',
-           'screen_keep.cu', 'nw_traceback.cu')
+           'screen_keep.cu', 'nw_traceback.cu', 'star_vote.cpp')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 # the tiles' schedule edges: (padded Lq, the rows' real query lengths) at
@@ -267,15 +278,17 @@ CALL_X = {'chain_dp': ('chain', 'chain_dp_cuda'),
 # the parts of call's wall (phase 4, both routes): the screen; the CCS
 # detection's tandem detection, center-star polish (on cuda the staging,
 # launches and waits of ops/nw_tb_batch.py; on cpu none: the native center
-# star aligns inside the vote) and column vote (center_star_consensus;
-# on cpu also the alignments); the anchors, the chaining (the card's batch,
+# star aligns inside the vote) and column vote (on cuda the host C++ vote,
+# ops/star_vote.py; on cpu center_star_consensus, its alignments
+# included); the anchors, the chaining (the card's batch,
 # the host core's rows, or map()'s chain), the selection and stitching, the
 # SW of the clips, and map_batch / map around the three middle ones (s
 # summed over calls and threads)
 CALL_PARTS = (('find_ccs', {'screen': ('device_screen',),
                             'tandem_detection': ('detect_units',),
                             'polish': ('nw_traceback_submit',
-                                       'nw_traceback_collect')}),
+                                       'nw_traceback_collect_runs'),
+                            'vote': ('star_vote',)}),
               ('ccs', {'vote': ('center_star_consensus',)}),
               ('aligner', {'anchors': ('_anchors',),
                            'chain': ('_device_chains', '_host_chains',
@@ -667,17 +680,20 @@ def _on(a, dev, torch):
     if torch.is_tensor(a):
         return a.to(dev)
     if hasattr(a, 'geom'):
-        return a._replace(geom=a.geom.to(dev), offs=a.offs.to(dev))
+        return a._replace(geom=a.geom.to(dev), offs=a.offs.to(dev),
+                          tasks=a.tasks.to(dev))
     return a
 
 
-def _recording_nw(batches):
-    """Wrap find_ccs's nw_traceback_submit and nw_traceback_collect so that
-    each batch of the run appends (qs, rs, results) to ``batches``; returns
-    the undo."""
+def _recording_nw(batches, votes):
+    """Wrap find_ccs's nw_traceback_submit, nw_traceback_collect_runs and
+    star_vote so that each batch of the run appends (qs, rs, (score, cigar)
+    results) to ``batches`` and each vote (its StarBatch, copied, and the
+    consensus of each read) to ``votes``; returns the undo."""
     from ciri_long_tpu_torch.pipeline import find_ccs
     submit = find_ccs.nw_traceback_submit
-    collect = find_ccs.nw_traceback_collect
+    collect = find_ccs.nw_traceback_collect_runs
+    vote = find_ccs.star_vote
 
     def submitted(qs, rs, *args, **kw):
         h = submit(qs, rs, *args, **kw)
@@ -686,15 +702,23 @@ def _recording_nw(batches):
 
     def collected(h):
         out = collect(h)
-        batches.append((*h.recorded, list(out)))
+        batches.append((*h.recorded, [(int(out.score[t]), out.cigar(t))
+                                      for t in range(len(out.score))]))
+        return out
+
+    def voted(batch, *args, **kw):
+        out = vote(batch, *args, **kw)
+        votes.append((batch.copy(), [x.copy() for x in out]))
         return out
 
     find_ccs.nw_traceback_submit = submitted
-    find_ccs.nw_traceback_collect = collected
+    find_ccs.nw_traceback_collect_runs = collected
+    find_ccs.star_vote = voted
 
     def undo():
         find_ccs.nw_traceback_submit = submit
-        find_ccs.nw_traceback_collect = collect
+        find_ccs.nw_traceback_collect_runs = collect
+        find_ccs.star_vote = vote
     return undo
 
 
@@ -758,8 +782,8 @@ def phase_call(torch, dev, smi):
     sw.sw_score_ends_cuda = recorder
     _warm_x_kernels(torch, dev)
     undo_x = _recording_x(torch, x_seen, x_events)
-    batches = []
-    undo_nw = _recording_nw(batches)
+    batches, votes = [], []
+    undo_nw = _recording_nw(batches, votes)
     try:
         reset_launches()
         t0 = time.perf_counter()
@@ -812,8 +836,13 @@ def phase_call(torch, dev, smi):
             or gpu['kernels'] != launches:
         raise AssertionError('call did not go through its kernels: '
                              '{}'.format(launches))
-    if any(len(x_seen[k]) != launches[k] for k in CALL_X):
-        raise AssertionError('X2/X3/X4 launches and recorded inputs differ')
+    # an X4 call launches one kernel a width class of its plan
+    recorded = {k: len(x_seen[k]) for k in CALL_X}
+    recorded['nw_traceback'] = sum(len(args[2].classes)
+                                   for args, _ in x_seen['nw_traceback'])
+    if any(recorded[k] != launches[k] for k in CALL_X):
+        raise AssertionError('X2/X3/X4 launches and recorded inputs differ: '
+                             '{} {}'.format(recorded, launches))
     if routes['nw_host'] != 0 or cpu_routes['nw_host'] <= 0 \
             or not batches:
         raise AssertionError('the center-star pairs did not all go to the '
@@ -843,7 +872,8 @@ def phase_call(torch, dev, smi):
     torch.cuda.synchronize(dev)
     x_ms = {name: [a.elapsed_time(b) for a, b in pairs]
             for name, pairs in x_events.items()}
-    return launches, err, seen, x_seen, x_ms, batches, routes['nw_escalate']
+    return (launches, err, seen, x_seen, x_ms, batches, votes,
+            {k: v for k, v in routes.items() if k.startswith('nw_')})
 
 
 def phase_call_time(torch, dev, smi, seen):
@@ -1325,8 +1355,8 @@ def check_nw(torch, dev, x_seen, batches):
                 plain_ms = ms
         emit('kernel_vs_plain', case='call launch {}'.format(t),
              kernel='nw_traceback', pairs=len(launch.pairs), cells=cells[t],
-             warps=launch.warps, wcap=launch.wcap,
-             rows_global=launch.rows_global, differ=differ,
+             classes=[[c.route, c.C, c.count, c.warps]
+                      for c in launch.classes], differ=differ,
              max_abs_err=max(differ.values()))
         err = max(err, *differ.values())
     final = sum(res != banded_global_cigar(q, r)
@@ -1343,11 +1373,15 @@ def check_nw(torch, dev, x_seen, batches):
 
 def check_nw_cases(torch, dev):
     """tools/nw_cases.py's cases through nw_traceback_batch on the card,
-    all in one batch (the rows where the plan puts them, then forced to
-    global scratch) and each alone: every launch of the band ladder against
-    nw_launch_plain (out, runs and planes), the batch's (score, cigar)
-    against the port's native banded_global_cigar; one kernel_vs_plain line
-    a case.  Returns the max err."""
+    all in one batch under the plan and forced into each class
+    (ops/nw_tb_batch.py::FORCES: each register class, the block class, the
+    wide class with its rows in global scratch), and each alone: every
+    launch of the band ladder against nw_launch_plain (out, runs and
+    planes), the batch's (score, cigar) against the port's native
+    banded_global_cigar; then the cases at bands narrow enough for each
+    register class (C = 1 holds no first band), each class forced, against
+    nw_launch_plain and the native core at their bands.  One
+    kernel_vs_plain line a case.  Returns the max err."""
     import functools
     import numpy as np
     from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
@@ -1356,26 +1390,27 @@ def check_nw_cases(torch, dev):
     from ciri_long_tpu_torch.utils.dispatch import ROUTES
 
     named = nw_cases(np.random.default_rng(44))
+    every = [p for ps in named.values() for p in ps]
     kernel, plan = ntb.nw_traceback_cuda, ntb.nw_plan
     err = 0
-    for case, rows in ([('all', None), ('all', 'global')]
-                       + [(name, None) for name in named]):
-        pairs = ([p for ps in named.values() for p in ps] if case == 'all'
-                 else named[case])
+    for case, force in ([('all', f) for f in ntb.FORCES]
+                        + [(name, None) for name in named]):
+        pairs = every if case == 'all' else named[case]
         differ = {'plain': 0}
-        placed = []
+        routes = {}
 
         def checked(q, r, launch, *scores):
             got = kernel(q, r, launch, *scores)
             want = ntb.nw_launch_plain(q, r, launch, *scores)
             differ['plain'] += sum(int((a != b).sum())
                                    for a, b in zip(got, want))
-            placed.append(launch.rows_global)
+            for c in launch.classes:
+                routes[c.route] = routes.get(c.route, 0) + c.count
             return got
 
         escalated = ROUTES['nw_escalate']
         ntb.nw_traceback_cuda = checked
-        ntb.nw_plan = functools.partial(plan, rows=rows)
+        ntb.nw_plan = functools.partial(plan, force=force)
         try:
             res = ntb.nw_traceback_batch([q for q, _ in pairs],
                                          [r for _, r in pairs], device=dev)
@@ -1383,34 +1418,131 @@ def check_nw_cases(torch, dev):
             ntb.nw_traceback_cuda, ntb.nw_plan = kernel, plan
         differ['native'] = sum(res[t] != banded_global_cigar(q, r)
                                for t, (q, r) in enumerate(pairs))
-        differ['rows'] = sum(g != (rows == 'global') for g in placed)
+        if force in ('block', 'global'):
+            differ['classes'] = int(set(routes) != {'nw_' + force})
+        elif force is not None:
+            differ['classes'] = int('nw_c{}'.format(force) not in routes
+                                    and force != 1)
         emit('kernel_vs_plain', case='nw_cases {}{}'.format(
-            case, ' rows global' if rows else ''), kernel='nw_traceback',
-            pairs=len(pairs), launches=len(placed),
+            case, '' if force is None else ' force {}'.format(force)),
+            kernel='nw_traceback', pairs=len(pairs),
+            passes_by_route=routes,
             escalated=ROUTES['nw_escalate'] - escalated, differ=differ,
             max_abs_err=max(differ.values()))
+        err = max(err, *differ.values())
+    pairs = [p for p in every if len(p[0]) < 1000]
+    n = np.array([len(q) for q, _ in pairs])
+    m = np.array([len(r) for _, r in pairs])
+    q = torch.from_numpy(np.concatenate([x for x, _ in pairs])).to(dev)
+    r = torch.from_numpy(np.concatenate([y for _, y in pairs])).to(dev)
+    for C in ntb.REG_CLASSES:
+        band = np.maximum(0, (32 * C - 1 - np.abs(n - m)) // 4)
+        (launch,) = plan(n, m, band, np.cumsum(n) - n, np.cumsum(m) - m,
+                         dev, budget=1 << 40, force=C)
+        got = kernel(q, r, launch)
+        want = ntb.nw_launch_plain(q, r, launch)
+        differ = {'plain': sum(int((a != b).sum())
+                               for a, b in zip(got, want)),
+                  'native': _nw_native_differ(
+                      q.cpu(), r.cpu(), _on(launch, 'cpu', torch),
+                      got[0].cpu(), got[1].cpu(), (2, 4, 4, 2))}
+        routes = {c.route: c.count for c in launch.classes}
+        differ['classes'] = int('nw_c{}'.format(C) not in routes)
+        emit('kernel_vs_plain', case='nw_cases narrow C={}'.format(C),
+             kernel='nw_traceback', pairs=len(pairs),
+             passes_by_route=routes, differ=differ,
+             max_abs_err=max(differ.values()))
         err = max(err, *differ.values())
     if err:
         raise AssertionError('X4 disagrees on tools/nw_cases.py')
     return err
 
 
-def phase_call_nw(torch, dev, smi, x_seen, x_ms, batches, escalated):
-    """Phase 4b's X4: check_nw and check_nw_cases, then the largest launch
-    of phase 4 timed (a CUDA graph's replay of 10 launches) beside the plain
-    version's wall and the bound, the larger of its cells (both passes) at
-    csrc/op_rate.cu's NW cell rate and its bytes (the codes read, the plan,
-    the planes, runs and scores written) at 3.35 TB/s; its launches of
+def _nw_pairs(args):
+    """The pairs of one recorded X4 launch, free of its plan: the codes
+    (flat, each pair's at its offsets), lengths, traceback bands and
+    offsets, and the scores."""
+    import numpy as np
+    q, r, launch, *scores = args
+    g = launch.geom.numpy().astype(np.int64)
+    o = launch.offs.numpy()
+    return dict(q=q, r=r, n=g[:, 0], m=g[:, 1],
+                band=g[:, 3] - np.maximum(0, g[:, 1] - g[:, 0]),
+                q_off=o[:, 0], r_off=o[:, 1], scores=list(scores))
+
+
+def _nw_pairs_all(rec):
+    """The pairs of every first-band X4 launch of the run (each pair's band
+    |n - m| + FIRST_BAND) as one batch, as the parent's single megabatch
+    launched them."""
+    import numpy as np
+    import torch
+    from ciri_long_tpu_torch.ops.nw_tb_batch import FIRST_BAND
+
+    parts = [_nw_pairs(args) for args, _ in rec]
+    parts = [p for p in parts
+             if (p['band'] == np.abs(p['n'] - p['m']) + FIRST_BAND).all()]
+    qs, rs, q_off, r_off = [], [], [], []
+    at_q = at_r = 0
+    for p in parts:
+        qs.append(p['q'])
+        rs.append(p['r'])
+        q_off.append(p['q_off'] + at_q)
+        r_off.append(p['r_off'] + at_r)
+        at_q += len(p['q'])
+        at_r += len(p['r'])
+    cat = np.concatenate
+    return dict(q=torch.cat(qs), r=torch.cat(rs),
+                n=cat([p['n'] for p in parts]),
+                m=cat([p['m'] for p in parts]),
+                band=cat([p['band'] for p in parts]), q_off=cat(q_off),
+                r_off=cat(r_off), scores=parts[0]['scores'])
+
+
+def check_votes(votes):
+    """Every star read of the cuda run voted again by the plain version
+    (ops/star_vote.py::star_vote_plain, the port's center_star_consensus on
+    the same run entries): the reads whose consensus differs."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops.star_vote import star_vote_plain
+
+    reads = differ = 0
+    t0 = time.perf_counter()
+    for batch, out in votes:
+        want = star_vote_plain(batch)
+        reads += len(want)
+        differ += sum(not np.array_equal(a, b) for a, b in zip(out, want))
+    emit('star_vote', votes=len(votes), reads=reads, differ=differ,
+         plain_s=time.perf_counter() - t0)
+    if differ or not reads:
+        raise AssertionError('the host vote disagrees with its plain version '
+                             'on {} of {} reads'.format(differ, reads))
+
+
+def phase_call_nw(torch, dev, smi, x_seen, x_ms, batches, votes,
+                  routes):
+    """Phase 4b's X4: check_nw, check_nw_cases and the host vote on every
+    star read (check_votes), then the largest launch of phase 4 timed (a
+    CUDA graph's replay of 10 launches) beside the plain version's wall and
+    the bound, the larger of its cells (both passes) at csrc/op_rate.cu's
+    NW cell rate and its bytes (the codes read, the plan, the planes, runs
+    and scores written) at 3.35 TB/s,
+    and split by its stamps (tools/call_x_ab.py::nw_split); its launches of
     phase 4 summed and their slowest, from the CUDA events around each
     launch in the run and from a graph's replay of each recorded launch.
-    The largest launch's inputs go to NW_INPUTS.  Returns the numbers for
-    the kernels line."""
+    The pairs of call's first-band launches (codes, lengths, first band)
+    go to NW_INPUTS, for tools/call_x_ab.py to plan in each checkout: the
+    largest launch's, and all of them as one batch.
+    Returns the numbers for the kernels line."""
+    import numpy as np
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
                                                recurrence_rate, time_launches)
     from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.tools.call_x_ab import nw_split
 
     err, plain_ms, big = check_nw(torch, dev, x_seen, batches)
     err = max(err, check_nw_cases(torch, dev))
+    check_votes(votes)
     rate = recurrence_rate(dev, 'nw_traceback')
     emit('cell_rate', nw_cells_per_s=rate, card=smi)
     rec = x_seen['nw_traceback']
@@ -1424,23 +1556,29 @@ def phase_call_nw(torch, dev, smi, x_seen, x_ms, batches, escalated):
     args = rec[big][0]
     launch = args[2]
     g = launch.geom.numpy().astype('int64')
+    o = launch.offs.numpy()
     cells = _nw_cells(launch)
-    nbytes = (int(g[:, 0].sum() + g[:, 1].sum()) + (24 + 32 + 12) * len(g)
+    nbytes = (int(g[:, 0].sum() + g[:, 1].sum()) + (24 + 32 + 8) * len(g)
               + launch.plane_bytes + 4 * launch.run_entries)
     replay = [timed(a, 3) for a, _ in rec]
     numbers = dict(
         ms=timed(args, 10), plain_ms=plain_ms, max_abs_err=err,
         pairs=len(g), cells=cells, longest=int(g[:, 0].max()),
-        wcap=launch.wcap, warps=launch.warps, plane_bytes=launch.plane_bytes,
-        launches_recorded=len(rec), escalated_pairs=escalated,
+        widest=int(max((g[:, 3] - g[:, 2]).max(), (g[:, 5] - g[:, 4]).max())
+                   + 1),
+        classes=[[c.route, c.C, c.count, c.warps] for c in launch.classes],
+        plane_bytes=launch.plane_bytes, launches_recorded=len(rec),
+        call_routes=routes, escalated_pairs=routes['nw_escalate'],
         call_device_ms=sum(x_ms['nw_traceback']),
         slowest_ms=max(x_ms['nw_traceback']), replay_device_ms=sum(replay),
-        replay_slowest_ms=max(replay))
+        replay_slowest_ms=max(replay),
+        split=nw_split(torch, dev, *(_on(a, dev, torch) for a in args)))
     numbers['bound_ms'], numbers['bound_by'] = max(
         (cells / rate * 1e3, 'operations'),
         (nbytes / HBM_BYTES_PER_S * 1e3, 'bytes'))
     os.makedirs(WORK, exist_ok=True)
-    torch.save(args, NW_INPUTS)
+    torch.save(dict(largest=_nw_pairs(args), all=_nw_pairs_all(rec)),
+               NW_INPUTS)
     emit('call_kernel_time', kernel='nw_traceback', card=smi, **numbers)
     return numbers
 
@@ -2281,7 +2419,9 @@ def phase_collapse_full(torch, dev, smi):
         if device == 'cuda':
             cohort_nw = dict(launches=LAUNCHES['nw_traceback'],
                              escalated_pairs=ROUTES['nw_escalate'],
-                             host_pairs=ROUTES['nw_host'])
+                             host_pairs=ROUTES['nw_host'],
+                             routes={k: v for k, v in ROUTES.items()
+                                     if k.startswith('nw_')})
     cohort_nw['cpu_host_pairs'] = ROUTES['nw_host']
     counters = [{k: v for k, v in json.loads(
         Path(root, d, 'cohort.json').read_text()).items()
@@ -2364,13 +2504,13 @@ def main():
     dev, smi = phase_build(torch)
     errs = phase_kernel(torch, dev)
     phase_time(torch, dev, smi)
-    (call_launches, call_err, seen, x_seen, x_ms, nw_batches,
-     nw_escalated) = phase_call(torch, dev, smi)
+    (call_launches, call_err, seen, x_seen, x_ms, nw_batches, nw_votes,
+     nw_routes) = phase_call(torch, dev, smi)
     launches = call_launches['sw_score_ends']
     _, call_routes = phase_call_time(torch, dev, smi, seen)
     x_numbers = phase_call_kernels(torch, dev, smi, x_seen, x_ms)
     x_numbers['nw_traceback'] = phase_call_nw(torch, dev, smi, x_seen, x_ms,
-                                              nw_batches, nw_escalated)
+                                              nw_batches, nw_votes, nw_routes)
     probe_launches = phase_probe_path()
     probe_err = phase_probe_exact(torch, dev)
     sw, probes = phase_probe_time(torch, dev, smi)

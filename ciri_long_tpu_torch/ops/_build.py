@@ -1,8 +1,9 @@
-"""Build and load the CUDA kernels of ``csrc/`` at first use.
+"""Build and load the CUDA kernels and host sources of ``csrc/`` at first use.
 
-Each source is compiled by ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  Libraries go to ``build/ciri_torch_kernels/`` at the root of the
+Each ``.cu`` source is compiled by ``nvcc`` and each ``.cpp`` source (host
+code, no CUDA: csrc/star_vote.cpp) by the host compiler (``c++``) into a
+shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Libraries go to ``build/ciri_torch_kernels/`` at the root of the
 checkout, named by a hash of the source, the headers of ``csrc/`` and the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  A failed build raises.
@@ -23,6 +24,7 @@ CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'ciri_torch_kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+CXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-pthread']
 
 _LOCK = threading.Lock()
 _LIBS = {}
@@ -42,23 +44,35 @@ def _nvcc():
                        '(needed to build csrc/ kernels)')
 
 
+def _cxx():
+    for name in ('c++', 'g++'):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError('no host C++ compiler (c++ or g++) on PATH (needed '
+                       'to build csrc/ host sources)')
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` if its library is missing; returns the
     library path."""
     src = CSRC / source
+    host = src.suffix == '.cpp'
+    flags = CXX_FLAGS if host else NVCC_FLAGS
     text = src.read_bytes() + b''.join(
         h.read_bytes() for h in sorted(CSRC.glob('*.h')))
-    tag = hashlib.sha1(text + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(text + ' '.join(flags).encode()).hexdigest()[:12]
     lib = BUILD_DIR / '{}_{}.so'.format(src.stem, tag)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix('.so.tmp{}'.format(os.getpid()))
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
+    cmd = [_cxx() if host else _nvcc(), *flags, '-o', str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError('nvcc failed ({}) building {}:\n{}{}'.format(
-            proc.returncode, src, proc.stdout, proc.stderr))
+        raise RuntimeError('{} failed ({}) building {}:\n{}{}'.format(
+            os.path.basename(cmd[0]), proc.returncode, src, proc.stdout,
+            proc.stderr))
     os.replace(tmp, lib)
     BUILD_LOGS[source] = proc.stdout + proc.stderr
     return lib

@@ -376,9 +376,16 @@ def find_consensus(seq, k: int = K, star_cigars=None, det=None):
                     if (st, en) not in units and en - st >= 0.2 * period]
         poa_units = cons_units + [codes[st:en] for st, en in partials[:4]]
         cons, _ = poa(poa_units)
+    return consensus_result(segments, cons, as_str)
+
+
+def consensus_result(segments, cons, as_str):
+    """find_consensus's result from the read's segments and its consensus
+    codes: (None, None) under MIN_PERIOD codes, else the ';'-joined spans
+    and the consensus (decoded when ``as_str``).  The card's route of
+    pipeline/find_ccs.py ends its star reads here after the host vote."""
     if len(cons) < MIN_PERIOD:
         return None, None
-
     seg_str = ';'.join('{}-{}'.format(st, en) for st, en in segments)
     if as_str:
         return seg_str, decode_seq(cons)

@@ -19,9 +19,11 @@ On the card every kept read's center-star polish runs there too (ROADMAP
 X4): the tandem detection on the host (GIL-releasing C++, on the
 CIRI_SELECT_THREADS thread pool), then every unit-to-representative
 alignment of a megabatch of MEGA_CHUNK reads in one nw_traceback_submit
-(csrc/nw_traceback.cu under ops/nw_tb_batch.py's band ladder), every
-megabatch launched before any is read back, then the column votes
-(ops/ccs.py::center_star_consensus with the cigars injected).  Reads of
+(csrc/nw_traceback.cu under ops/nw_tb_batch.py's band ladder), read back
+after the next megabatch is launched, then the column votes of all its star
+reads in one call of the host C++ vote (ops/star_vote.py, csrc/
+star_vote.cpp, on the run entries where the kernel wrote them), on the
+thread pool while the next megabatch is detected and aligned.  Reads of
 fewer than 3 consensus units, or of fewer than 2 non-empty ones, take the
 host path (the POA).  The JAX package's gates on this route
 (CIRI_CCS_DEVICE, CIRI_CCS_HYBRID, low_rtt_device_ready) are not ported.
@@ -41,18 +43,22 @@ from ciri_long_tpu_torch.utils.dispatch import count_route, resolve_device
 from ciri_long_tpu_torch.utils.logger import ProgressBar
 from ciri_long_tpu_torch.utils.seq import encode_seq
 from ciri_long_tpu_torch.ops.ccs import (K, MAX_POA_UNITS, MIN_PERIOD,
-                                         MIN_UNITS, detect_units,
-                                         find_consensus, star_rep_index)
-from ciri_long_tpu_torch.ops.nw_tb_batch import (nw_traceback_collect,
+                                         MIN_UNITS, consensus_result,
+                                         detect_units, find_consensus,
+                                         star_rep_index)
+from ciri_long_tpu_torch.ops.nw_tb_batch import (nw_traceback_collect_runs,
                                                  nw_traceback_submit)
+from ciri_long_tpu_torch.ops.star_vote import star_batch, star_vote
 from ciri_long_tpu_torch.ops.period import (PAD, SCREEN_MAX_LEN,
                                             screen_bucket, screen_keep)
 
 CHUNK_SIZE = 250  # reference job granularity (find_ccs.py:62)
 SCREEN_BATCH = 16384  # reads a screen launch (<= 64 MiB of padded codes)
 # reads whose center-star alignments go out in one submit on the card
-# (the JAX package's megabatch, find_ccs.py:31)
-MEGA_CHUNK = 2500
+# (the JAX package's megabatch is 2 500, find_ccs.py:31; 500 gives a
+# sample's reads several, so that a megabatch's vote overlaps the next
+# one's detection and alignment)
+MEGA_CHUNK = 500
 
 
 def _star_units(codes, det):
@@ -96,7 +102,10 @@ def _ccs_prep(chunk, dets, device):
     """First half of the card's route (JAX find_ccs.py:56): stage every
     center-star alignment of the chunk's reads (each non-empty consensus
     unit against the median-length representative) and launch them on
-    ``device`` without waiting.  Returns (preps, handle) for _ccs_finish."""
+    ``device`` without waiting.  Returns (preps, handle) for _ccs_collect:
+    per read (id, seq, det, plan), plan None for the host path, else (its
+    units, the representative's index, each unit's pair in the submit, None
+    at the representative)."""
     preps = []
     qs, rs = [], []
     for (rid, seq), (codes, det) in zip(chunk, dets):
@@ -107,52 +116,71 @@ def _ccs_prep(chunk, dets, device):
         rep_i = star_rep_index(cu)
         jobs = []
         for ui, u in enumerate(cu):
-            if ui != rep_i:
-                jobs.append((ui, len(qs)))
-                qs.append(u)
-                rs.append(cu[rep_i])
-        preps.append((rid, seq, det, (len(cu), jobs)))
+            if ui == rep_i:
+                jobs.append(None)
+                continue
+            jobs.append(len(qs))
+            qs.append(u)
+            rs.append(cu[rep_i])
+        preps.append((rid, seq, det, (cu, rep_i, jobs)))
     return preps, (nw_traceback_submit(qs, rs, device=device) if qs
                    else None)
 
 
-def _ccs_finish(preps, handle):
-    """Second half (JAX find_ccs.py:93): read the cigars back and run the
-    column votes.  The votes run in this thread: they are Python under the
-    interpreter lock (ops/ccs.py::center_star_consensus with the cigars
-    injected), which threads would only contend for."""
-    cigars = nw_traceback_collect(handle) if handle is not None else []
+def _ccs_collect(preps, handle):
+    """Read the megabatch's alignments back (the band ladder's escalations
+    included) and stage its star reads for the vote: the StarBatch of their
+    units, representatives and run entries, which keeps the run buffers."""
+    runs = nw_traceback_collect_runs(handle) if handle is not None else None
+    plans = [plan for *_, plan in preps if plan is not None]
+    batch = star_batch(
+        [cu for cu, _, _ in plans], [rep_i for _, rep_i, _ in plans],
+        [[None if ji is None else (int(runs.addr[ji]), int(runs.count[ji]))
+          for ji in jobs] for _, _, jobs in plans])
+    return batch._replace(keep=(runs,))
+
+
+def _ccs_vote(preps, batch):
+    """Second half (JAX find_ccs.py:93): the column votes of every star read
+    in one call of the host C++ vote (no interpreter lock), then each read's
+    result as find_consensus gives it; the host path's reads through
+    find_consensus."""
+    cons = iter(star_vote(batch))
     out = []
     for rid, seq, det, plan in preps:
-        if plan is None:
+        if plan is not None:
+            out.append((rid, consensus_result(det[1], next(cons), True)))
+        else:
             out.append((rid, (None, None) if det is None
                         else find_consensus(seq, det=det)))
-            continue
-        U, jobs = plan
-        star = [None] * U
-        for ui, ji in jobs:
-            star[ui] = cigars[ji][1]
-        out.append((rid, find_consensus(seq, star_cigars=star, det=det)))
     return out
 
 
 def _ccs_device_all(work, device, prog, pool):
-    """The card's route (JAX find_ccs.py:141): every megabatch detected
-    (on ``pool`` when given: GIL-releasing C++) and its alignments launched
-    before any is read back, so the card aligns while the host detects the
-    next ones; then each megabatch's cigars collected and voted."""
+    """The card's route (JAX find_ccs.py:141): each megabatch detected (on
+    ``pool`` when given: GIL-releasing C++) and its alignments launched;
+    then the megabatch before it read back and voted, on ``pool`` while the
+    next one is detected and aligned.  Results in input order."""
     megas = [work[i:i + MEGA_CHUNK] for i in range(0, len(work), MEGA_CHUNK)]
-    pending = []
+    votes = []
+
+    def vote(preps, handle):
+        batch = _ccs_collect(preps, handle)
+        votes.append(pool.submit(_ccs_vote, preps, batch) if pool
+                     else _ccs_vote(preps, batch))
+
+    last = None
     for mi, mega in enumerate(megas):
         dets = list(pool.map(_detect, mega)) if pool else \
             [_detect(item) for item in mega]
-        pending.append(_ccs_prep(mega, dets, device))
-        prog.update(min(49, int(50 * (mi + 1) / max(1, len(megas)))))
-    results = []
-    for pi, (preps, handle) in enumerate(pending):
-        results.append(_ccs_finish(preps, handle))
-        prog.update(min(99, 50 + int(50 * (pi + 1) / max(1, len(pending)))))
-    return results
+        prepped = _ccs_prep(mega, dets, device)
+        if last is not None:
+            vote(*last)
+        last = prepped
+        prog.update(min(99, int(100 * (mi + 1) / max(1, len(megas)))))
+    if last is not None:
+        vote(*last)
+    return [v.result() if pool else v for v in votes]
 
 
 def device_screen(items, device):

@@ -1,7 +1,7 @@
-"""``call --device cuda`` of two checkouts, in turns on one card: the wall.
+"""``call`` of two checkouts, in turns on one card: the wall.
 
     python3 -m ciri_long_tpu_torch.tools.call_ab --other DIR
-        [--reads FILE --ref FILE] [--runs N]
+        [--reads FILE --ref FILE] [--runs N] [--devices cuda,cpu]
 
 DIR is another checkout of this repository (the parent commit, say,
 unpacked with ``git archive``); both must have their native host cores
@@ -10,10 +10,12 @@ world of chip_smoke.py's phase 4 (build/chip_smoke/world: 1 200 Nanopore
 reads of 16 loci on a 2 Mb genome).  Four runs, each a process of its own
 on the same card, in turns: DIR, this checkout, this checkout, DIR.  Each
 builds its kernels, runs ``call`` N times (default 2) through its CLI with
-``-t 1`` and reports the last: its wall, reads/s and its kernels' launch
-counts.  The four runs' cand_circ.fa must be byte-identical.  Prints one
-JSON line a run, then the means of the two checkouts and their ratio, with
-the card's name and power limit.
+``-t 1`` on each device of --devices (default cuda) and reports the last
+of each: its wall, reads/s and its kernels' launch counts (the first
+device's as ``wall_s``, ``reads_per_s``, the others' with the device's
+name before them, ``cpu_wall_s``).  The runs' cand_circ.fa must be
+byte-identical.  Prints one JSON line a run, then the means of the two
+checkouts and their ratio, with the card's name and power limit.
 """
 
 import argparse
@@ -30,7 +32,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 WORLD = os.path.join(HERE, 'build', 'chip_smoke', 'world')
 
 
-def run_tree(tree, reads, ref, out, runs):
+def run_tree(tree, reads, ref, out, runs, devices=('cuda',)):
     """One run: this process imports the port from ``tree``; returns the
     run's numbers."""
     script_dir = os.path.dirname(os.path.abspath(__file__))
@@ -45,23 +47,28 @@ def run_tree(tree, reads, ref, out, runs):
     if not os.path.abspath(cli.__file__).startswith(os.path.abspath(tree)):
         raise RuntimeError('imported {} instead of {}'.format(cli.__file__,
                                                               tree))
-    _build.build_all(sorted(p.name for p in _build.CSRC.glob('*.cu')))
+    _build.build_all(sorted(p.name for p in _build.CSRC.glob('*.cu'))
+                     + sorted(p.name for p in _build.CSRC.glob('*.cpp')))
     torch.cuda.init()
     with open(reads) as f:
         n_reads = sum(1 for ln in f if ln.startswith('>'))
-    for _ in range(runs):
-        dst = os.path.join(out, 'call')
-        shutil.rmtree(dst, ignore_errors=True)
-        t0 = time.perf_counter()
-        cli.main(['call', '-i', reads, '-o', dst, '-r', ref, '-p', 'ab',
-                  '-t', '1', '--device', 'cuda'])
-        wall = time.perf_counter() - t0
-    with open(os.path.join(dst, 'ab.json')) as f:
-        kernels = json.load(f)['kernels']
-    with open(os.path.join(dst, 'ab.cand_circ.fa'), 'rb') as f:
-        digest = hashlib.sha1(f.read()).hexdigest()
-    return dict(tree=tree, wall_s=wall, reads_per_s=n_reads / wall,
-                kernels=kernels, cand_circ=digest, card=nvidia_smi())
+    res = dict(tree=tree, card=nvidia_smi())
+    for k, device in enumerate(devices):
+        for _ in range(runs):
+            dst = os.path.join(out, 'call_' + device)
+            shutil.rmtree(dst, ignore_errors=True)
+            t0 = time.perf_counter()
+            cli.main(['call', '-i', reads, '-o', dst, '-r', ref, '-p', 'ab',
+                      '-t', '1', '--device', device])
+            wall = time.perf_counter() - t0
+        with open(os.path.join(dst, 'ab.json')) as f:
+            kernels = json.load(f)['kernels']
+        with open(os.path.join(dst, 'ab.cand_circ.fa'), 'rb') as f:
+            digest = hashlib.sha1(f.read()).hexdigest()
+        pre = '' if k == 0 else device + '_'
+        res.update({pre + 'wall_s': wall, pre + 'reads_per_s': n_reads / wall,
+                    pre + 'kernels': kernels, pre + 'cand_circ': digest})
+    return res
 
 
 def main(argv=None):
@@ -73,13 +80,17 @@ def main(argv=None):
     ap.add_argument('--ref', default=os.path.join(WORLD, 'genome.fa'))
     ap.add_argument('--runs', type=int, default=2,
                     help='call runs a process; the last is reported')
+    ap.add_argument('--devices', default='cuda',
+                    help='comma-separated devices of call, each timed in '
+                         'every run')
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     ap.add_argument('--out', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     reads, ref = os.path.abspath(args.reads), os.path.abspath(args.ref)
+    devices = tuple(args.devices.split(','))
     if args.tree:                          # one run, in its own process
         print(json.dumps(run_tree(args.tree, reads, ref, args.out,
-                                  args.runs)), flush=True)
+                                  args.runs, devices)), flush=True)
         return None
     other = os.path.abspath(args.other)
     runs = []
@@ -87,17 +98,19 @@ def main(argv=None):
         out = os.path.join(HERE, 'build', 'call_ab', str(k))
         cmd = [sys.executable, os.path.abspath(__file__), '--other', other,
                '--tree', tree, '--out', out, '--reads', reads, '--ref', ref,
-               '--runs', str(args.runs)]
+               '--runs', str(args.runs), '--devices', args.devices]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             raise RuntimeError('run in {} failed:\n{}'.format(
                 tree, proc.stderr[-4000:]))
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    if any(r['cand_circ'] != runs[0]['cand_circ'] for r in runs):
-        raise AssertionError('the checkouts wrote different cand_circ.fa')
+    digests = {v for r in runs for k, v in r.items()
+               if k.endswith('cand_circ')}
+    if len(digests) != 1:
+        raise AssertionError('the runs wrote different cand_circ.fa')
     summary = {}
-    for key in ('wall_s', 'reads_per_s'):
+    for key in [k for k in runs[0] if k.endswith(('wall_s', 'reads_per_s'))]:
         mine = (runs[1][key] + runs[2][key]) / 2
         theirs = (runs[0][key] + runs[3][key]) / 2
         summary[key] = dict(this=mine, other=theirs, ratio=mine / theirs)

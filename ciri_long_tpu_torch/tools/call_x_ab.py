@@ -1,9 +1,9 @@
-"""call's chaining and screen kernels of two checkouts timed in turns on one
-card: csrc/chain_dp.cu's DP and extraction (X2) and csrc/screen_keep.cu
-(X3).
+"""call's chaining, screen and polish kernels of two checkouts timed in turns
+on one card: csrc/chain_dp.cu's DP and extraction (X2), csrc/screen_keep.cu
+(X3) and csrc/nw_traceback.cu (X4).
 
     python3 -m ciri_long_tpu_torch.tools.call_x_ab --other DIR
-        [--inputs FILE]
+        [--inputs FILE] [--nw-inputs FILE]
 
 DIR is another checkout of this repository (the parent commit, say,
 unpacked with ``git archive``).  FILE holds call's largest launch of each
@@ -19,8 +19,19 @@ launches each), then ``screen_keep_cuda`` on each
 launch of SCREEN_CASES: SCREEN_READS reads of SCREEN_WIDTH codes each, a
 poly-A, a dinucleotide and a trinucleotide repeat, a perfect tandem repeat
 of period 50, random codes and all N (seed 0, made here with numpy, the
-same in both runs).  Prints one JSON line a run, then the means of the two
-checkouts and their ratio, with the card's name and power limit.
+same in both runs).  First X4 (build/chip_smoke/call_nw_inputs.pt, the
+default of --nw-inputs, written by chip_smoke.py: codes, lengths, bands
+and offsets, no plan): the pairs of call's largest nw_traceback launch
+(``nw_largest_ms``) and all the pairs of call's first-band launches as one
+batch (``nw_all_ms``, the parent's megabatch before megabatches of 500
+reads), each planned by the checkout's own ``nw_plan`` and launched by its
+own ``nw_traceback_cuda``, each launch of the plan timed as a CUDA graph's
+replay of 10 and summed, with the plan's shape, the resident warps an SM
+it allows and, where the checkout's wrapper takes stamps, its first
+launch split into passes and walk (``nw_split``).  Either input file may be
+absent; its part is then left out.  Prints one JSON line a run, then the
+means of the two checkouts and their ratio, with the card's name and power
+limit.
 """
 
 import argparse
@@ -32,6 +43,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 INPUTS = os.path.join(HERE, 'build', 'chip_smoke', 'call_x_inputs.pt')
+NW_INPUTS = os.path.join(HERE, 'build', 'chip_smoke', 'call_nw_inputs.pt')
+SMEM_SM = 233472               # an H100 SM's shared memory (bytes)
 SCREEN_READS = 1104            # call's screen launch on chip_smoke's world
 SCREEN_WIDTH = 4096
 SCREEN_CASES = ('poly_a', 'dinucleotide', 'trinucleotide', 'period_50',
@@ -61,7 +74,79 @@ def screen_case(name, B=SCREEN_READS, W=SCREEN_WIDTH, seed=0):
             np.full(B, W // 2, np.int32))
 
 
-def time_tree(tree, inputs):
+def nw_plan_shape(ntb, launch):
+    """A launch's plan and its resident warps an SM: the checkout's width
+    classes with the occupancy calculator's answer, or, for a plan of one
+    row width (a checkout before the classes), its warps and widest band
+    with the warps its blocks' shared memory lets an SM hold."""
+    if hasattr(launch, 'classes'):
+        return dict(classes=[[c.route, c.C, c.count, c.warps]
+                             for c in launch.classes],
+                    resident_warps=ntb.nw_occupancy(launch))
+    smem = launch.warps * ntb.ROW_INTS * 4 * launch.wcap
+    blocks = (min(32, 64 // launch.warps, SMEM_SM // (smem + 1024))
+              if not launch.rows_global else 64 // launch.warps)
+    return dict(warps=launch.warps, wcap=launch.wcap,
+                rows_global=launch.rows_global, block_smem=smem,
+                resident_warps=blocks * launch.warps)
+
+
+def nw_split(torch, dev, q, r, launch, *scores):
+    """One launch of csrc/nw_traceback.cu with %globaltimer stamps (a
+    checkout whose wrapper takes ``stamps=``): the launch's span, its
+    traceback passes' rows and walk and its check passes' rows (ms, the
+    longest and the mean), each class's span and tasks, and the resident
+    warps an SM of each class (ops/nw_tb_batch.py::nw_occupancy)."""
+    import numpy as np
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+
+    stamps = torch.zeros((2 * len(launch.pairs), 3), dtype=torch.int64,
+                         device=dev)
+    ntb.nw_traceback_cuda(q, r, launch, *scores, stamps=stamps)
+    torch.cuda.synchronize(dev)
+    st = stamps.cpu().numpy().astype(np.float64) * 1e-6
+    t0 = st[:, 0].min()
+    rows, walk = st[:, 1] - st[:, 0], st[:, 2] - st[:, 1]
+    tasks = launch.tasks.cpu().numpy()
+
+    def stat(x):
+        return {'max_ms': float(x.max()), 'mean_ms': float(x.mean())} \
+            if len(x) else None
+
+    classes = []
+    for c in launch.classes:
+        t = tasks[c.start:c.start + c.count]
+        classes.append(dict(route=c.route, C=c.C, tasks=c.count,
+                            warps=c.warps,
+                            span_ms=float(st[t, 2].max() - st[t, 0].min()),
+                            rows=stat(rows[t]),
+                            walk=stat(walk[t[t % 2 == 0]])))
+    return dict(span_ms=float(st[:, 2].max() - t0),
+                traceback_rows=stat(rows[0::2]), walk=stat(walk[0::2]),
+                check_rows=stat(rows[1::2]),
+                rows_end_ms=float(st[:, 1].max() - t0),
+                classes=classes, resident_warps=ntb.nw_occupancy(launch))
+
+
+def time_nw(torch, dev, pairs, time_launches):
+    """X4 in this checkout: recorded pairs planned and launched by its own
+    nw_plan and nw_traceback_cuda; (summed ms, plan shapes, the first
+    launch's split where the checkout has stamps)."""
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+
+    q, r = pairs['q'].to(dev), pairs['r'].to(dev)
+    launches = ntb.nw_plan(pairs['n'], pairs['m'], pairs['band'],
+                           pairs['q_off'], pairs['r_off'], dev)
+    total = 0.0
+    for launch in launches:
+        total += time_launches(lambda: ntb.nw_traceback_cuda(
+            q, r, launch, *pairs['scores']), 10, dev, graph=True)
+    split = (nw_split(torch, dev, q, r, launches[0], *pairs['scores'])
+             if hasattr(launches[0], 'classes') else None)
+    return total, [nw_plan_shape(ntb, x) for x in launches], split
+
+
+def time_tree(tree, inputs, nw_inputs=None):
     """One run: this process imports the port from ``tree``; returns the
     run's numbers."""
     script_dir = os.path.dirname(os.path.abspath(__file__))
@@ -77,6 +162,14 @@ def time_tree(tree, inputs):
                                                               tree))
     dev = torch.device('cuda')
     out = dict(tree=tree, card=nvidia_smi())
+    if nw_inputs and os.path.exists(nw_inputs):
+        saved = torch.load(nw_inputs, weights_only=False)
+        for key in ('largest', 'all'):
+            (out['nw_{}_ms'.format(key)], out['nw_{}_plan'.format(key)],
+             out['nw_{}_split'.format(key)]) = time_nw(
+                 torch, dev, saved[key], time_launches)
+    if not os.path.exists(inputs):
+        return out
     saved = torch.load(inputs)
 
     def on_card(args):
@@ -118,17 +211,23 @@ def main(argv=None):
     ap.add_argument('--inputs', default=INPUTS,
                     help="call's largest X2/X3 launches (torch.save of a "
                          'dict of argument tuples)')
+    ap.add_argument('--nw-inputs', default=NW_INPUTS,
+                    help="the pairs of call's largest X4 launch (torch.save "
+                         'of a dict: q, r, n, m, band, q_off, r_off, '
+                         'scores)')
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     inputs = os.path.abspath(args.inputs)
+    nw_inputs = os.path.abspath(args.nw_inputs)
     if args.tree:                          # one run, in its own process
-        print(json.dumps(time_tree(args.tree, inputs)), flush=True)
+        print(json.dumps(time_tree(args.tree, inputs, nw_inputs)),
+              flush=True)
         return None
     other = os.path.abspath(args.other)
     runs = []
     for tree in (other, HERE, HERE, other):
         cmd = [sys.executable, os.path.abspath(__file__), '--other', other,
-               '--tree', tree, '--inputs', inputs]
+               '--tree', tree, '--inputs', inputs, '--nw-inputs', nw_inputs]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               cwd=tree)
         if proc.returncode != 0:
@@ -138,7 +237,7 @@ def main(argv=None):
         print(json.dumps(runs[-1]), flush=True)
     summary = {}
     for key in runs[0]:
-        if not key.endswith('_ms'):
+        if not key.endswith('_ms') or key not in runs[3]:
             continue
         mine = (runs[1][key] + runs[2][key]) / 2
         theirs = (runs[0][key] + runs[3][key]) / 2

@@ -50,13 +50,17 @@ DEVICE_MS = {'poa_align': 0.0}
 # (ops/sw.py::_tile_plan), csrc/edit_distance.cu's thread and warp routes
 # (one launch may run both; ops/edit.py::edit_plan), csrc/sw_traceback.cu's
 # shared-memory and global routes (ops/sw_tb_batch.py::tb_plan),
-# csrc/nw_traceback.cu's rows in shared memory or global scratch
-# (ops/nw_tb_batch.py::nw_plan); and, counted in pairs, not launches, the
+# csrc/nw_traceback.cu's width classes, a kernel launch each: C = 1, 2, 4, 8
+# columns a lane with the rows in registers, a block of warps a pass
+# (nw_block), or the rows in global scratch (nw_global;
+# ops/nw_tb_batch.py::nw_plan); and, counted in
+# pairs, not launches, the
 # center-star pairs that needed a wider band than their first
 # (``nw_escalate``) and those that CCS's polish aligned on the host
 # (``nw_host``: the native center star of the cpu route; 0 on the card)
 ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
-          'tb_smem': 0, 'tb_global': 0, 'nw_smem': 0, 'nw_global': 0,
+          'tb_smem': 0, 'tb_global': 0, 'nw_c1': 0, 'nw_c2': 0, 'nw_c4': 0,
+          'nw_c8': 0, 'nw_block': 0, 'nw_global': 0,
           'nw_escalate': 0, 'nw_host': 0}
 
 

@@ -12,8 +12,10 @@ also against the native chain core once ``setup.py build_ext --inplace``
 has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
 csrc/screen_keep.cu, with its route per read, on its ``screen_launches``),
 and the center-star polish's banded NW (csrc/nw_traceback.cu, along the
-band ladder on tools/nw_cases.py, its rows in shared and global memory,
-and under find_ccs_reads).  Marked
+band ladder on tools/nw_cases.py in every width class: C = 1, 2, 4, 8 with
+the rows in registers, the wide classes with the rows in shared and global
+memory; with its %globaltimer stamps and in a CUDA graph) and its host vote
+under find_ccs_reads.  Marked
 ``cuda``; each test skips when no GPU is visible.  Imports only torch,
 numpy and the port (the card's machine has no JAX), so it runs there
 without the suite's conftest:
@@ -1003,14 +1005,17 @@ NW_CASES = ('all', 'one_base', 'band_covers_first', 'j0_edge', 'e_f_ties',
             'widest_longest', 'mixed')
 
 
-@pytest.mark.parametrize('rows', [None, 'global'])
+NW_FORCES = (None, 1, 2, 4, 8, 'block', 'global')
+
+
+@pytest.mark.parametrize('force', NW_FORCES)
 @pytest.mark.parametrize('case', NW_CASES)
-def test_nw_traceback_matches_plain(dev, case, rows, monkeypatch):
+def test_nw_traceback_matches_plain(dev, case, force, monkeypatch):
     """csrc/nw_traceback.cu on tools/nw_cases.py's cases (all in one batch
-    and each alone), its rows where the plan puts them and forced to global
-    scratch, along each pair's band ladder: every launch's out, runs and
-    planes equal to nw_launch_plain's, and the batch's (score, cigar) equal
-    to the native banded_global_cigar once built."""
+    and each alone), each pass in the class the plan gives it and forced
+    into each class, along each pair's band ladder: every launch's out, runs
+    and planes equal to nw_launch_plain's, and the batch's (score, cigar)
+    equal to the native banded_global_cigar once built."""
     import functools
     from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
     from ciri_long_tpu_torch.tools.nw_cases import nw_cases
@@ -1018,7 +1023,7 @@ def test_nw_traceback_matches_plain(dev, case, rows, monkeypatch):
     pairs = ([p for ps in named.values() for p in ps] if case == 'all'
              else named[case])
     kernel = ntb.nw_traceback_cuda
-    seen = []
+    seen = set()
 
     def checked(q, r, launch, *scores):
         got = kernel(q, r, launch, *scores)
@@ -1026,15 +1031,16 @@ def test_nw_traceback_matches_plain(dev, case, rows, monkeypatch):
         torch.cuda.synchronize()
         for a, b, name in zip(got, want, ('out', 'runs', 'planes')):
             assert torch.equal(a, b), (name, (a != b).nonzero()[:5].tolist())
-        seen.append(launch.rows_global)
+        seen.update(c.route for c in launch.classes)
         return got
 
     monkeypatch.setattr(ntb, 'nw_traceback_cuda', checked)
     monkeypatch.setattr(ntb, 'nw_plan', functools.partial(ntb.nw_plan,
-                                                          rows=rows))
+                                                          force=force))
     res = ntb.nw_traceback_batch([q for q, _ in pairs], [r for _, r in pairs],
                                  device='cuda')
-    assert seen and all(g == (rows == 'global') for g in seen)
+    if force in ('block', 'global'):
+        assert seen == {'nw_' + force}
     try:
         from ciri_long_tpu_torch import _nwcore  # noqa: F401
     except ImportError:
@@ -1042,6 +1048,57 @@ def test_nw_traceback_matches_plain(dev, case, rows, monkeypatch):
     from ciri_long_tpu_torch.ops.traceback import banded_global_cigar
     for t, (q, r) in enumerate(pairs):
         assert res[t] == banded_global_cigar(q, r), t
+
+
+@pytest.mark.parametrize('C', [1, 2, 4, 8])
+def test_nw_traceback_register_classes_at_narrow_bands(dev, C):
+    """Each register class launched on its own at bands narrow enough for
+    it (first bands are at least 33 wide, so C = 1 only runs here), with
+    the stamps: out, runs and planes equal to nw_launch_plain's, and every
+    task's stamps in order."""
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.tools.nw_cases import nw_cases
+    pairs = [p for ps in nw_cases(np.random.default_rng(44)).values()
+             for p in ps if len(p[0]) < 1000]
+    n = np.array([len(q) for q, _ in pairs])
+    m = np.array([len(r) for _, r in pairs])
+    band = np.maximum(0, (32 * C - 1 - np.abs(n - m)) // 4)
+    q = torch.from_numpy(np.concatenate([x for x, _ in pairs])).to(dev)
+    r = torch.from_numpy(np.concatenate([y for _, y in pairs])).to(dev)
+    (launch,) = ntb.nw_plan(n, m, band, np.cumsum(n) - n, np.cumsum(m) - m,
+                            dev, budget=1 << 40, force=C)
+    assert 'nw_c{}'.format(C) in {c.route for c in launch.classes}
+    stamps = torch.zeros((2 * len(pairs), 3), dtype=torch.int64, device=dev)
+    got = ntb.nw_traceback_cuda(q, r, launch, stamps=stamps)
+    want = ntb.nw_launch_plain(q, r, launch)
+    for a, b, name in zip(got, want, ('out', 'runs', 'planes')):
+        assert torch.equal(a, b), (name, (a != b).nonzero()[:5].tolist())
+    st = stamps.cpu().numpy()
+    assert (st[:, 0] > 0).all() and (np.diff(st, axis=1) >= 0).all()
+
+
+def test_nw_traceback_in_a_graph(dev):
+    """A launch of several classes (streams forked from the caller's and
+    joined back) captured in a CUDA graph and replayed: the same outputs."""
+    from ciri_long_tpu_torch.misc.kexp import time_launches
+    from ciri_long_tpu_torch.ops import nw_tb_batch as ntb
+    from ciri_long_tpu_torch.tools.nw_cases import nw_cases
+    pairs = nw_cases(np.random.default_rng(44))['mixed']
+    n = np.array([len(q) for q, _ in pairs])
+    m = np.array([len(r) for _, r in pairs])
+    q = torch.from_numpy(np.concatenate([x for x, _ in pairs])).to(dev)
+    r = torch.from_numpy(np.concatenate([y for _, y in pairs])).to(dev)
+    (launch,) = ntb.nw_plan(n, m, np.abs(n - m) + 16, np.cumsum(n) - n,
+                            np.cumsum(m) - m, dev)
+    assert len(launch.classes) > 1
+    outs = []
+    ms = time_launches(lambda: outs.append(ntb.nw_traceback_cuda(q, r,
+                                                                 launch)),
+                       3, dev, graph=True)
+    assert ms > 0
+    want = ntb.nw_launch_plain(q, r, launch)
+    for a, b in zip(outs[-1], want):
+        assert torch.equal(a, b)
 
 
 def test_nw_traceback_rejects_bad_inputs(dev):
@@ -1057,6 +1114,16 @@ def test_nw_traceback_rejects_bad_inputs(dev):
     bad = launch._replace(geom=launch.geom.long())
     with pytest.raises(ValueError, match='nw_plan'):
         ntb.nw_traceback_cuda(q, q, bad)
+    bad = launch._replace(tasks=launch.tasks[:1])
+    with pytest.raises(ValueError, match='nw_plan'):
+        ntb.nw_traceback_cuda(q, q, bad)
+    with pytest.raises(ValueError, match='stamps'):
+        ntb.nw_traceback_cuda(q, q, launch, stamps=torch.zeros(
+            (1, 3), dtype=torch.int64, device=dev))
+    bad = launch._replace(classes=tuple(c._replace(C=3)
+                                        for c in launch.classes))
+    with pytest.raises(RuntimeError, match='launch failed'):
+        ntb.nw_traceback_cuda(q, q, bad)
 
 
 def test_find_ccs_polishes_on_the_card(dev, tmp_path):
@@ -1070,6 +1137,7 @@ def test_find_ccs_polishes_on_the_card(dev, tmp_path):
                          'p', device='cuda')
     assert LAUNCHES['nw_traceback'] > before
     assert ROUTES['nw_host'] == host
+    assert sum(ROUTES['nw_c{}'.format(C)] for C in (1, 2, 4, 8)) > 0
     assert out == find_ccs_reads(str(tmp_path / 'reads.fa'),
                                  str(tmp_path / 'cpu'), 'p', device='cpu')
     for name in ('p.ccs.fa', 'p.raw.fa'):
