@@ -165,6 +165,28 @@ and exits non-zero if any phase fails (none is caught and skipped):
    tiled launches' inputs saved to build/chip_smoke/cohort_wave_inputs.pt
    and cohort_tiled_inputs.pt (what ``python3 -m
    ciri_long_tpu_torch.tools.wave_ab`` times in two checkouts).
+9. ``threads``: ``call`` and ``collapse`` at -t > 1, the host pool beside
+   the card (parallel/hybrid.py's drain): on the cohort ``call`` then
+   ``collapse`` at ``-t 4 --device cuda`` and ``-t 4 --device cpu``; on
+   the ``call`` world ``call`` at ``-t 2 --device cuda``, ``-t 4 --device
+   cuda`` and ``-t 4 --device cpu``, then ``collapse`` at -t 4 on both
+   devices.  Each run as a fresh process would start (the select core's
+   thread budget unset), its launch counts set to 0 before and read after.
+   Raises unless tmp/*.ccs.fa, tmp/*.raw.fa, cand_circ.fa and the
+   counters, and .info, .reads, .expression, .isoforms and the corrected
+   clusters and counters (tmp/*.corrected.pkl) equal the -t 1 cuda run's
+   of phases 4, 7 and 8; unless on cuda every kernel of ``call``
+   (sw_score_ends where the -t 1 run launched it) and of ``collapse``
+   launched, with no center-star pair on the host; and unless the card
+   took a chunk of every drained stage of 2 or more chunks (the runs'
+   ``hybrid <stage>: device stole X/Y chunks`` log lines; ``scan_ccs``
+   and ``collapse`` must have drained).  One ``threads`` line a world:
+   each run's wall, reads/s, launches, ``call``'s stage seconds, and each
+   drained stage's split of chunks (the log's line, and from the drain's
+   recorded deliveries the chunks whose result came first from the card
+   and from the pool, and when each side's last one came), then the
+   seconds THREADS scan workers take to start (``pool_start_s``), with the
+   card.
 
 The eleven CUDA sources and the host vote (csrc/star_vote.cpp) build in
 parallel (one nvcc or c++ each) beside the native host cores (one
@@ -303,6 +325,10 @@ CALL_PARTS = (('find_ccs', {'screen': ('device_screen',),
 X_PLAIN_FIRST = 3
 # benchmarks/collapse_bench.py's defaults
 COHORT = dict(reads=4000, genome_kb=2000, loci=16, seed=0)
+# phase 9's host workers: -t of each world's runs beside -t 1, and its
+# cuda runs' -t on the call world
+THREADS = 4
+CALL_WORLD_THREADS = (2, 4)
 COLLAPSE_FILES = ('info', 'reads', 'expression', 'isoforms')
 # the routes of collapse's two kernels (utils/dispatch.py::ROUTES)
 COLLAPSE_ROUTES = ('edit_thread', 'edit_warp', 'tb_smem', 'tb_global')
@@ -2490,7 +2516,240 @@ def phase_collapse_full(torch, dev, smi):
          cpu_calls_s=fields['cpu_calls_s'], card=smi)
     largest['sw_score_ends']['routes'] = routes
     fields['cohort_nw'] = cohort_nw
+    fields['n_reads'] = n_reads
     return errs, largest, fields
+
+
+def _stole(log):
+    """[(stage, chunks the card ran, chunks)] from a run's log lines
+    ``hybrid <stage>: device stole X/Y chunks``, in order."""
+    import re
+    out = []
+    with open(log) as f:
+        for ln in f:
+            m = re.search(r'hybrid (\w+): device stole (\d+)/(\d+) chunks',
+                          ln)
+            if m:
+                out.append((m.group(1), int(m.group(2)), int(m.group(3))))
+    return out
+
+
+def _recording_drains(drains):
+    """Record every HybridDrain the stages make: each delivery's chunk, its
+    seconds since the drain began, whether a stealer (the card) or the pool
+    gave it, and whether it came first.  Returns the undo."""
+    import threading
+    from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
+    from ciri_long_tpu_torch.pipeline import collapse, find_bsj
+
+    class Recorded(HybridDrain):
+        def __init__(self, *args, **kw):
+            self.t0 = time.perf_counter()
+            self.arrivals = []
+            super().__init__(*args, **kw)
+            drains.append(self)
+
+        def _deliver(self, ci, res):
+            self.arrivals.append((
+                ci, time.perf_counter() - self.t0,
+                threading.current_thread().name.startswith('ciri-hybrid'),
+                ci not in self._done and ci not in self._taken))
+            super()._deliver(ci, res)
+
+    saved = find_bsj.HybridDrain, collapse.HybridDrain
+    find_bsj.HybridDrain = collapse.HybridDrain = Recorded
+
+    def undo():
+        find_bsj.HybridDrain, collapse.HybridDrain = saved
+    return undo
+
+
+def _drain_fields(drain):
+    """A recorded drain's split: the chunks whose first result came from
+    the card and from the pool, and when the last of each came (seconds
+    since the drain began; the pool's first too)."""
+    first = [(t, card) for _, t, card, new in drain.arrivals if new]
+    card = [t for t, c in first if c]
+    pool = [t for t, c in first if not c]
+    return dict(chunks=len(drain._payloads),
+                card_chunks=len(card), pool_chunks=len(pool),
+                stolen=drain.stolen, raced=drain.raced,
+                card_last_s=max(card, default=None),
+                pool_first_s=min(pool, default=None),
+                pool_last_s=max(pool, default=None))
+
+
+def _cli_run(argv, out, prefix):
+    """One run of the CLI in this process, as a fresh process would start
+    (CIRI_SELECT_THREADS unset: the CLI sets it from -t), the launch counts
+    set to 0 just before it and read just after: its wall, launches,
+    routes, and each drained stage's split of chunks (the log's line and
+    the recorded deliveries)."""
+    from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES, ROUTES,
+                                                    reset_launches)
+
+    shutil.rmtree(out, ignore_errors=True)
+    saved = os.environ.pop('CIRI_SELECT_THREADS', None)
+    drains = []
+    undo = _recording_drains(drains)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        main(argv + ['-o', out, '-p', prefix])
+        wall = time.perf_counter() - t0
+        launches, routes = dict(LAUNCHES), dict(ROUTES)
+    finally:
+        undo()
+        os.environ.pop('CIRI_SELECT_THREADS', None)
+        if saved is not None:
+            os.environ['CIRI_SELECT_THREADS'] = saved
+    logged = _stole(os.path.join(out, prefix + '.log'))
+    if len(logged) != len(drains):
+        raise AssertionError('{} drains, {} logged'.format(len(drains),
+                                                           len(logged)))
+    stole = {stage: dict(_drain_fields(d), logged=[x, y])
+             for (stage, x, y), d in zip(logged, drains)}
+    return dict(wall_s=wall, launches=launches, routes=routes, stole=stole)
+
+
+def _pool_start_s(ref, index_cache):
+    """Seconds from spawning THREADS scan workers (find_bsj's pool, with
+    their genome and index from ``index_cache``) until each has run a task
+    (a 0.5 s sleep, taken off)."""
+    from ciri_long_tpu_torch.pipeline.find_bsj import _spawn_pool
+
+    t0 = time.perf_counter()
+    pool = _spawn_pool(THREADS, ref, None, False, index_cache)
+    try:
+        for r in [pool.apply_async(time.sleep, (0.5,))
+                  for _ in range(THREADS)]:
+            r.get(timeout=300)
+        return time.perf_counter() - t0 - 0.5
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def _call_outputs(out, prefix):
+    counters = {k: v for k, v in json.loads(Path(
+        out, prefix + '.json').read_text()).items()
+        if k not in ('timing', 'kernels')}
+    return counters, {name: Path(out, name).read_bytes() for name in (
+        'tmp/{}.ccs.fa'.format(prefix), 'tmp/{}.raw.fa'.format(prefix),
+        '{}.cand_circ.fa'.format(prefix))}
+
+
+def _collapse_outputs(out, prefix):
+    import pickle
+    with open(os.path.join(out, 'tmp', prefix + '.corrected.pkl'),
+              'rb') as f:
+        circ_num, corrected = pickle.load(f)
+    return (dict(circ_num), corrected), {
+        ext: Path(out, prefix + '.' + ext).read_bytes()
+        for ext in COLLAPSE_FILES}
+
+
+def _threads_world(smi, label, ref, reads, n_reads, call_t1, collapse_t1,
+                   root, prefix, cuda_threads):
+    """Phase 9 on one world: ``call`` at each -t of ``cuda_threads`` on
+    cuda and at THREADS on cpu, then ``collapse`` at THREADS on both, each
+    held to the -t 1 cuda run's outputs (``call_t1``, ``collapse_t1``:
+    (out dir, prefix) of phases 4, 7 and 8)."""
+    from ciri_long_tpu_torch.tools.world import sample_list
+    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS,
+                                                    COLLAPSE_KERNELS)
+
+    want_call = _call_outputs(*call_t1)
+    want_collapse = _collapse_outputs(*collapse_t1)
+    runs, failed = {}, []
+    calls = [(t, 'cuda') for t in cuda_threads] + [(THREADS, 'cpu')]
+    for t, device in calls:
+        name = 'call_t{}_{}'.format(t, device)
+        run = _cli_run(['call', '-i', reads, '-r', ref, '-t', str(t),
+                        '--device', device], os.path.join(root, name),
+                       prefix)
+        run['identical'] = _call_outputs(os.path.join(root, name),
+                                         prefix) == want_call
+        run['reads'] = n_reads
+        run['timing'] = json.loads(Path(
+            root, name, prefix + '.json').read_text())['timing']
+        runs[name] = run
+    for device in ('cuda', 'cpu'):
+        cand = os.path.join(root, 'call_t{}_{}'.format(THREADS, device),
+                            prefix + '.cand_circ.fa')
+        lst = sample_list(os.path.join(root, 'threads_{}.lst'.format(
+            device)), [('s1', cand)])
+        name = 'collapse_t{}_{}'.format(THREADS, device)
+        run = _cli_run(['collapse', '-i', lst, '-r', ref, '-t',
+                        str(THREADS), '--device', device],
+                       os.path.join(root, name), 'smoke')
+        run['identical'] = _collapse_outputs(os.path.join(root, name),
+                                             'smoke') == want_collapse
+        run['reads'] = n_reads
+        run['cand_reads'] = sum(1 for ln in open(cand)
+                                if ln.startswith('>'))
+        runs[name] = run
+    sw_t1 = json.loads(Path(call_t1[0], call_t1[1] + '.json').read_text())[
+        'kernels']['sw_score_ends']
+    for name, run in runs.items():
+        run['reads_per_s'] = run['reads'] / run['wall_s']
+        kernels = CALL_KERNELS if name.startswith('call') else \
+            COLLAPSE_KERNELS
+        run['launches'] = {k: run['launches'][k] for k in kernels}
+        run['nw_host'] = run.pop('routes')['nw_host']
+        if not run['identical']:
+            failed.append('{} differs from -t 1 cuda'.format(name))
+        if name.endswith('cuda'):
+            # the card's SW runs where a stolen chunk holds a clipped read:
+            # required where the -t 1 run launched it on this world
+            missed = [k for k, n in run['launches'].items() if n <= 0
+                      and not (k == 'sw_score_ends' and sw_t1 == 0)]
+            if missed or run['nw_host']:
+                failed.append('{} missed {} or aligned {} pairs on the '
+                              'host'.format(name, missed, run['nw_host']))
+            drained = 'scan' if name.startswith('call') else 'collapse'
+            if drained not in run['stole']:
+                failed.append('{}: no {} drain'.format(name, drained))
+            for stage, split in run['stole'].items():
+                stolen, chunks = split['logged']
+                if chunks >= 2 and stolen < 1:
+                    failed.append('{}: the card took no chunk of {}'.format(
+                        name, stage))
+        elif any(run['launches'].values()) or run['stole']:
+            failed.append('{} launched a kernel or drained'.format(name))
+    # how long THREADS workers take to start, each with the world's genome
+    # and index (the -t 1 cuda run's caches)
+    pool_start = _pool_start_s(ref, os.path.join(call_t1[0], 'tmp',
+                                                 'minidx'))
+    emit('threads', world=label, threads=THREADS, runs=runs,
+         pool_start_s=pool_start, card=smi)
+    if failed:
+        raise AssertionError('-t > 1 on the {} world: {}'.format(
+            label, '; '.join(failed)))
+    return runs
+
+
+def phase_threads(torch, smi, full_fields):
+    """Phase 9: -t > 1 on both worlds, the host pool beside the card;
+    {world: {run: fields}}."""
+    cohort = os.path.join(WORK, 'cohort')
+    reads = os.path.join(WORK, 'world', 'reads.fa')
+    with open(reads) as f:
+        n_call = sum(1 for ln in f if ln.startswith('>'))
+    return {
+        'cohort': _threads_world(
+            smi, 'cohort', os.path.join(cohort, 'world', 'genome.fa'),
+            os.path.join(cohort, 'world', 'reads.fa'),
+            full_fields['n_reads'], (os.path.join(cohort, 'call'), 'cohort'),
+            (os.path.join(cohort, 'collapse_cuda'), 'smoke'), cohort,
+            'cohort', (THREADS,)),
+        'call': _threads_world(
+            smi, 'call', os.path.join(WORK, 'world', 'genome.fa'), reads,
+            n_call, (os.path.join(WORK, 'out_cuda'), 'smoke'),
+            (os.path.join(WORK, 'collapse_call_world', 'collapse_cuda'),
+             'smoke'), os.path.join(WORK, 'threads_call_world'), 'smoke',
+            CALL_WORLD_THREADS)}
 
 
 def main():
@@ -2522,6 +2781,7 @@ def main():
     full_errs, full, full_fields = phase_collapse_full(torch, dev, smi)
     for name, err in full_errs.items():
         collapse_errs[name] = max(collapse_errs.get(name, 0), err)
+    threads = phase_threads(torch, smi, full_fields)
 
     bench = sw['bench']
     main = sw['main128']
@@ -2655,6 +2915,15 @@ def main():
             entry(name, call_launches[name], n.pop('max_abs_err'),
                   n.pop('ms'), n.pop('plain_ms'), n.pop('bound_ms'),
                   n.pop('bound_by')), source=CSRC + source, **n))
+    # each kernel of call and collapse: its launches in phase 9's -t 4
+    # cuda runs, on each world
+    for k in kernels:
+        k['threads_launches'] = {
+            '{} {}'.format(world, run): runs[run]['launches'][k['name']]
+            for world, runs in threads.items() for run in (
+                'call_t{}_cuda'.format(THREADS),
+                'collapse_t{}_cuda'.format(THREADS))
+            if k['name'] in runs[run]['launches']} or None
     print(smi)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

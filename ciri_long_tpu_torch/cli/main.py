@@ -8,8 +8,16 @@ the launch count of each hand-written kernel; the ``collapse`` subcommand
 with the same flags, tmp/ index, gcodes cache and tmp/{prefix}.corrected.pkl
 resume and the same .info, .reads, .expression and .isoforms files, its
 kernels' launch counts and poa_align's device time in its log.  ``--device {cuda,cpu}`` (default cuda)
-picks where the kernels run; asking for cuda without a GPU raises, and so
-does -t > 1 with cuda.
+picks where the kernels run; asking for cuda without a GPU raises.
+
+``-t N`` > 1 gives each stage N host workers: the CCS stage N threads (the
+cpu route a fork pool), the scan stages and collapse's correction a spawn
+pool of N host processes.  With cuda the main process works beside that
+pool on the card (parallel/hybrid.py::HybridDrain); the workers never touch
+it.  ``call`` spawns its scan pool before the CCS stage, so the workers'
+start-up overlaps it.  Spawn re-imports ``__main__``: a script that calls
+``call`` or ``collapse`` with -t > 1 needs the ``if __name__ ==
+'__main__':`` guard.
 """
 
 import json
@@ -17,11 +25,6 @@ import os
 import pickle
 import sys
 from collections import defaultdict
-
-THREADS_TODO = ('-t > 1 with --device cuda is not yet supported: the CCS '
-                'pools fork and CUDA does not survive a fork after '
-                'initialisation (ROADMAP.md queue 1, item 1); use -t 1 or '
-                '--device cpu')
 
 
 def _build_context(ref_fasta, gtf_idx, intron_idx, ss_idx, index_cache,
@@ -83,8 +86,6 @@ def call(args):
 
     device = resolve_device(args.device)
     reset_launches()          # the summary counts this run's launches only
-    if device.type == 'cuda' and args.threads > 1:
-        raise NotImplementedError(THREADS_TODO)
 
     if args.input is None or args.output is None:
         sys.exit('Please provide input and output file, run CIRI-long using '
@@ -125,13 +126,58 @@ def call(args):
     ctx = _build_context(ref_fasta, gtf_idx, intron_idx, ss_idx, index_cache,
                          build_threads=max(1, args.threads))
 
-    _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
-                 ref_fasta, idx_file, ctx, index_cache, device)
+    scan_pool = _prespawn_scan_pool(args, out_dir, prefix, ref_fasta,
+                                    idx_file, index_cache)
+    try:
+        _call_stages(args, logger, timer, reads_count, in_file, out_dir,
+                     prefix, ref_fasta, idx_file, ctx, index_cache, device,
+                     scan_pool)
+    finally:
+        if scan_pool is not None:
+            scan_pool.terminate()
+            scan_pool.join()
     return _finish_call(logger, timer, reads_count, out_dir, prefix)
 
 
+def _prespawn_scan_pool(args, out_dir, prefix, ref_fasta, idx_file,
+                        index_cache):
+    """The scan stages' spawn pool, started before the CCS stage (JAX
+    main.py:190-231): each worker's start-up (interpreter, torch, genome,
+    index) overlaps that stage, and the pool serves scan_ccs and scan_raw.
+    None at -t 1 and on a CCS resume (nothing to overlap, and every worker
+    holds the genome and index).  The workers start at nice +5, so that
+    their warm-up yields the cores to the CCS stage, when the renice back
+    is sure to succeed (root, or RLIMIT_NICE admits it).  Spawn is safe
+    after CUDA has initialised: each worker is a fresh interpreter."""
+    resuming_ccs = (not args.debug
+                    and os.path.exists('{}/tmp/{}.ccs.fa'.format(out_dir,
+                                                                 prefix))
+                    and os.path.exists('{}/tmp/{}.raw.fa'.format(out_dir,
+                                                                 prefix)))
+    if args.threads <= 1 or resuming_ccs:
+        return None
+    from ciri_long_tpu_torch.pipeline.find_bsj import _spawn_pool
+
+    nice_delta = 0
+    try:
+        import resource
+        cur = os.nice(0)
+        floor = 20 - resource.getrlimit(resource.RLIMIT_NICE)[0]
+        if os.geteuid() == 0 or floor <= cur:
+            os.nice(5)
+            nice_delta = 5
+    except (OSError, AttributeError):
+        pass
+    try:
+        return _spawn_pool(args.threads, ref_fasta, idx_file, False,
+                           index_cache)
+    finally:
+        if nice_delta:
+            os.nice(-nice_delta)
+
+
 def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
-                 ref_fasta, idx_file, ctx, index_cache, device):
+                 ref_fasta, idx_file, ctx, index_cache, device, scan_pool):
     from ciri_long_tpu_torch.context import Context
     from ciri_long_tpu_torch.models.aligner import GenomeAligner
     from ciri_long_tpu_torch.pipeline.find_bsj import (recover_ccs_reads,
@@ -164,7 +210,7 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
         tmp_cnt, short_seq = scan_ccs_reads(
             ctx, ccs_seq, is_canonical, out_dir, prefix,
             threads=args.threads, ref_fasta=ref_fasta, idx_file=idx_file,
-            index_cache=index_cache, device=device)
+            pool=scan_pool, index_cache=index_cache, device=device)
     for key, value in tmp_cnt.items():
         reads_count[key] += value
 
@@ -196,7 +242,7 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
         tmp_cnt, _short = scan_raw_reads(
             ctx, in_file, is_canonical, out_dir, prefix,
             threads=args.threads, ref_fasta=ref_fasta, idx_file=idx_file,
-            index_cache=index_cache, device=device)
+            pool=scan_pool, index_cache=index_cache, device=device)
     for key, value in tmp_cnt.items():
         reads_count[key] += value
     if device.type == 'cuda':
@@ -238,8 +284,6 @@ def collapse(args):
 
     device = resolve_device(args.device)
     reset_launches()          # the log counts this run's launches only
-    if device.type == 'cuda' and args.threads > 1:
-        raise NotImplementedError(THREADS_TODO)
 
     if args.input is None or args.output is None:
         sys.exit('Please provide input and output file, run CIRI-long using '
@@ -353,8 +397,8 @@ def main(argv=None):
                              help='Additional circRNA annotation in bed/gtf format, (optional)')
     call_parser.add_argument('-t', '--threads', dest='threads', metavar='INT',
                              type=int, default=1,
-                             help='Host worker processes (--device cpu only '
-                                  'above 1), (default: %(default)s)')
+                             help='Host workers; above 1 they work beside '
+                                  'the card, (default: %(default)s)')
     call_parser.add_argument('--device', dest='device', default='cuda',
                              choices=['cuda', 'cpu'],
                              help='Where the SW scorer runs, (default: '
@@ -382,8 +426,9 @@ def main(argv=None):
                                  help='Additional circRNA annotation in bed/gtf format, (optional)')
     collapse_parser.add_argument('-t', '--threads', dest='threads',
                                  metavar='INT', type=int, default=1,
-                                 help='Host worker processes (--device cpu '
-                                      'only above 1), (default: %(default)s)')
+                                 help='Host workers; above 1 they work '
+                                      'beside the card, (default: '
+                                      '%(default)s)')
     collapse_parser.add_argument('--device', dest='device', default='cuda',
                                  choices=['cuda', 'cpu'],
                                  help='Where the SW, edit-distance and '

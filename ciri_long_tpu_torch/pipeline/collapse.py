@@ -16,7 +16,11 @@ edit-distance, traceback and sub-cluster POA call:
     consensus of ``cluster_sequence`` runs its alignments on the card
     (ops/poa.py::poa_consensus_many: csrc/poa_align.cu, one launch a round
     from host C++ on the calling thread's own stream); the junction
-    consensus of ``correct_cluster`` stays a host ``poa`` call.
+    consensus of ``correct_cluster`` stays a host ``poa`` call.  With
+    threads > 1 a spawn pool of host workers takes chunks of clusters from
+    the front while DEVICE_THREADS stealer threads take them from the back
+    (parallel/hybrid.py::HybridDrain), every stealer's SW and edit jobs
+    fused through ONE shared DeviceFuser.
   * ``cpu``: the native host cores, clusters on host threads when the mean
     cluster holds >= 100 reads, and with threads > 1 a spawn pool of host
     workers.
@@ -64,6 +68,7 @@ from ciri_long_tpu_torch.ops.sw import (SWParams, SWResult, sw_align_batch,
 from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
 from ciri_long_tpu_torch.ops.traceback import cigar_to_string
 from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
+from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
 from ciri_long_tpu_torch.utils.dispatch import resolve_device
 from ciri_long_tpu_torch.utils.logger import ProgressBar
 from ciri_long_tpu_torch.utils.misc import (flatten, grouper,
@@ -411,6 +416,21 @@ _FUSER_TOTALS = [0, 0]            # fused rounds, fused jobs (telemetry)
 _FUSER_TOTALS_LOCK = threading.Lock()
 
 
+def _device_fuser(device):
+    """A DeviceFuser of the SW and edit-distance jobs on ``device``."""
+    return DeviceFuser({'sw': lambda jobs: _fused_sw(jobs, device),
+                        'edit': lambda jobs: _fused_edit(jobs, device)})
+
+
+def _close_fuser(fuser):
+    """Stop ``fuser`` and add its rounds and jobs to the totals that the
+    ``collapse fuser:`` log line reads."""
+    fuser.close()
+    with _FUSER_TOTALS_LOCK:
+        _FUSER_TOTALS[0] += fuser.rounds
+        _FUSER_TOTALS[1] += fuser.jobs
+
+
 def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
                   device='cuda'):
     """Correct every cluster of a chunk on ``device``.
@@ -430,11 +450,7 @@ def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
     if exec_threads > 1 and len(live) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
-        fuser = None
-        if device.type == 'cuda':
-            fuser = DeviceFuser({
-                'sw': lambda jobs: _fused_sw(jobs, device),
-                'edit': lambda jobs: _fused_edit(jobs, device)})
+        fuser = _device_fuser(device) if device.type == 'cuda' else None
 
         def run_one(c):
             if fuser is not None:
@@ -453,10 +469,7 @@ def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
                     results[i] = fut.result()
         finally:
             if fuser is not None:
-                fuser.close()
-                with _FUSER_TOTALS_LOCK:
-                    _FUSER_TOTALS[0] += fuser.rounds
-                    _FUSER_TOTALS[1] += fuser.jobs
+                _close_fuser(fuser)
     else:
         for i, cluster in live.items():
             results[i] = correct_cluster(ctx, cluster,
@@ -1084,8 +1097,10 @@ _COLLAPSE_CTX = None
 def _collapse_worker_init(ref_fasta, idx_file, gcache=None):
     """Spawn-pool initializer for the correction pass (the reference
     pools correct_chunk at collapse.py:848): the worker's own genome and
-    annotation indices, on the host."""
+    annotation indices, on the host (the card hidden from it, as in
+    find_bsj.py::_scan_worker_init)."""
     global _COLLAPSE_CTX
+    os.environ['CUDA_VISIBLE_DEVICES'] = ''
     from ciri_long_tpu_torch.annot.gtf import load_index
     from ciri_long_tpu_torch.context import Context
     from ciri_long_tpu_torch.io.genome import Genome
@@ -1105,23 +1120,46 @@ def _collapse_worker_chunk(payload):
     return correct_chunk(_COLLAPSE_CTX, chunk, max_cluster, device='cpu')
 
 
+def _spawn_pool(n, ref_fasta, idx_file, gcache):
+    """A spawn pool of ``n`` correction workers on the host."""
+    import multiprocessing
+    return multiprocessing.get_context('spawn').Pool(
+        n, _collapse_worker_init, (ref_fasta, idx_file, gcache))
+
+
+def _device_chunks(ctx, device):
+    """(run, fuser) for the stealers of a HybridDrain: ONE DeviceFuser
+    shared by every stealer thread (JAX collapse.py:1291-1305), so their
+    clusters' SW and edit jobs fuse across chunks; run(payload) corrects a
+    chunk on ``device`` with the calling thread registered with it."""
+    fuser = _device_fuser(device)
+
+    def run(payload):
+        chunk, max_cluster = payload
+        fuser.register()
+        try:
+            return correct_chunk(ctx, chunk, max_cluster, exec_threads=1,
+                                 device=device)
+        finally:
+            fuser.unregister()
+    return run, fuser
+
+
 def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
                   ref_fasta=None, idx_file=None, gcache=None, device='cuda'):
     """The cluster-correction pass (collapse.py:842-868) on ``device``.
 
     cuda: the clusters run on DEVICE_THREADS threads with their SW and
-    edit-distance jobs fused (correct_chunk); threads > 1 raises
-    NotImplementedError (the host pool beside the card waits for ROADMAP
-    queue 1 item 1).  cpu: serial, on host threads when the mean cluster
-    holds >= 100 reads (the hot work is GIL-released native POA/SW), or
-    with threads > 1 on a spawn pool of chunks.  Results drain in
-    submission order, so corrected_reads and the counters are identical
+    edit-distance jobs fused (correct_chunk); with threads > 1 a spawn pool
+    of host workers takes chunks from the front while DEVICE_THREADS
+    stealer threads run chunks on the card from the back, through one
+    shared fuser (HybridDrain).  cpu: serial, on host threads when the mean
+    cluster holds >= 100 reads (the hot work is GIL-released native
+    POA/SW), or with threads > 1 on a spawn pool of chunks.  Results drain
+    in chunk order, so corrected_reads and the counters are identical
     either way."""
     device = resolve_device(device)
     use_device = device.type == 'cuda'
-    if use_device and threads > 1:
-        from ciri_long_tpu_torch.cli.main import THREADS_TODO
-        raise NotImplementedError(THREADS_TODO)
 
     prog = ProgressBar()
     prog.update(0)
@@ -1145,19 +1183,26 @@ def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
     else:
         exec_threads = 1
 
-    pool = result_iter = None
+    pool = result_iter = drain = fuser = None
     if threads > 1 and ref_fasta is not None and len(chunks) > 1:
-        import multiprocessing
-        ctx_mp = multiprocessing.get_context('spawn')
-        pool = ctx_mp.Pool(min(threads, len(chunks)), _collapse_worker_init,
-                           (ref_fasta, idx_file, gcache))
-        result_iter = pool.imap(_collapse_worker_chunk,
-                                [(c, cfg.max_cluster) for c in chunks])
+        pool = _spawn_pool(min(threads, len(chunks)), ref_fasta, idx_file,
+                           gcache)
+        payloads = [(ci, (c, cfg.max_cluster)) for ci, c in enumerate(chunks)]
+        if use_device:
+            run, fuser = _device_chunks(ctx, device)
+            drain = HybridDrain(pool, getattr(pool, '_processes', threads),
+                                _collapse_worker_chunk, run, payloads,
+                                device_width=exec_threads)
+        else:
+            result_iter = pool.imap(_collapse_worker_chunk,
+                                    [p for _, p in payloads])
 
     done = 0
     try:
-        for chunk in chunks:
-            if result_iter is not None:
+        for ci, chunk in enumerate(chunks):
+            if drain is not None:
+                tmp_cluster, tmp_num = drain.result(ci)
+            elif result_iter is not None:
                 tmp_cluster, tmp_num = next(result_iter)
             else:
                 tmp_cluster, tmp_num = correct_chunk(
@@ -1168,11 +1213,18 @@ def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
                 circ_num[key] += tmp_num[key]
             done += len(chunk)
             prog.update(100 * done // max(1, n))
+        if drain is not None:
+            drain.join()
     finally:
         if pool is not None:
             pool.terminate()
             pool.join()
+        if fuser is not None:
+            _close_fuser(fuser)
     prog.update(100)
+    if drain is not None:
+        LOGGER.info('hybrid collapse: device stole %d/%d chunks'
+                    % (drain.stolen, len(chunks)))
     with _FUSER_TOTALS_LOCK:
         rounds, jobs = _FUSER_TOTALS
         _FUSER_TOTALS[0] = _FUSER_TOTALS[1] = 0

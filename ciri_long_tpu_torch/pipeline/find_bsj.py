@@ -13,10 +13,16 @@ resolved by utils/dispatch.py::resolve_device, which raises without a GPU),
 the host core on ``cpu``.  So do the chains of every batched map
 (_map_many: csrc/chain_dp.cu on ``cuda``, the native chain core on
 ``cpu``).  Everything else is host logic over Context.
-With ``cuda`` the stages run in this process; with ``cpu`` at -t > 1 they
-fan out over spawn pools as in the JAX package.  The JAX package's
-work-steal split between pool and device (HybridDrain, find_bsj.py:556) is
-not ported.
+At -t > 1 (with ``ref_fasta`` given) the stages fan their chunks over a
+spawn pool of host workers, each with its own Context, on the CPU route,
+as in the JAX package.  On ``cuda`` the main process works beside that
+pool: the JAX package's work-steal drain (parallel/hybrid.py::HybridDrain,
+find_bsj.py:556), the pool taking chunks from the front on the host while
+a stealer thread runs chunks from the back on the card.  The workers never
+touch the card (_scan_worker_init hides it from them).  The JAX package's
+gate on the drain (_scan_hybrid_enabled: CIRI_SCAN_HYBRID and a tunnel
+round-trip limit) is not ported: on ``cuda`` at -t > 1 the drain always
+runs.
 
 Output record format is byte-compatible with the reference
 (find_bsj.py:363-366):
@@ -24,6 +30,7 @@ Output record format is byte-compatible with the reference
   circ_seq
 """
 
+import logging
 import multiprocessing
 import os
 from collections import defaultdict
@@ -43,8 +50,11 @@ from ciri_long_tpu_torch.models.hits import (get_blocks, get_parital_blocks,
                                              remove_long_insert)
 from ciri_long_tpu_torch.ops.sw import (SWParams, sw_align_batch,
                                         sw_window_align_many)
+from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 from ciri_long_tpu_torch.utils.dispatch import resolve_device
+
+LOGGER = logging.getLogger('CIRI-long')
 
 CLIP_SW = SWParams(CLIP_SCORE.match, CLIP_SCORE.mismatch,
                    CLIP_SCORE.gap_open, CLIP_SCORE.gap_extend)
@@ -428,11 +438,14 @@ _WORKER_CTX = None
 
 def _scan_worker_init(ref_fasta, idx_file, short_mode=False,
                       index_cache=None):
-    """Spawn-pool initializer (``--device cpu`` at -t > 1): build a
-    per-worker Context from file paths in a clean interpreter.
-    ``short_mode`` selects the denser short-read index for the recovery
-    pass (reference BWA ont2d, find_bsj.py:457)."""
+    """Spawn-pool initializer (-t > 1): build a per-worker Context from
+    file paths in a clean interpreter.  ``short_mode`` selects the denser
+    short-read index for the recovery pass (reference BWA ont2d,
+    find_bsj.py:457).  The worker runs on the host: the card is hidden from
+    it before anything could reach CUDA, so a worker that asked for the
+    card would raise instead of opening a second context on it."""
     global _WORKER_CTX
+    os.environ['CUDA_VISIBLE_DEVICES'] = ''
     from ciri_long_tpu_torch.annot.gtf import load_index
     from ciri_long_tpu_torch.context import Context
     from ciri_long_tpu_torch.io.genome import Genome
@@ -460,11 +473,32 @@ def _spawn_pool(n, ref_fasta, idx_file, short_mode, index_cache):
                        (ref_fasta, idx_file, short_mode, index_cache))
 
 
-def _pooled(threads, device, ref_fasta):
-    """Whether a stage may fan out over a host worker pool: only on the
-    CPU (CUDA stages run in this process) with threads > 1."""
-    return (threads > 1 and ref_fasta is not None
-            and device.type == 'cpu')
+def _pooled(threads, ref_fasta):
+    """Whether a stage may fan out over a host worker pool: threads > 1,
+    with the reference's path for the workers' own Context."""
+    return threads > 1 and ref_fasta is not None
+
+
+def _pool_results(pool, threads, device, worker_fn, run_local, payloads):
+    """(get, drain) over ``payloads`` [(ci, payload)] on ``pool``: get(ci)
+    gives chunk ci's result, in chunk order.  On the CPU the pool runs every
+    chunk (imap, drain None); on the card the HybridDrain, the main process
+    running ``run_local`` on chunks from the back beside the pool."""
+    if device.type == 'cuda':
+        drain = HybridDrain(pool, getattr(pool, '_processes', threads),
+                            worker_fn, run_local, payloads)
+        return drain.result, drain
+    results = pool.imap(worker_fn, [p for _, p in payloads])
+    return (lambda ci: next(results)), None
+
+
+def _end_drain(drain, what, n):
+    """Wait for the drain's stealer (its errors fail the stage) and log the
+    card's share of the chunks."""
+    if drain is not None:
+        drain.join()
+        LOGGER.info('hybrid %s: device stole %d/%d chunks'
+                    % (what, drain.stolen, n))
 
 
 def _scan_worker_chunk(payload):
@@ -474,7 +508,8 @@ def _scan_worker_chunk(payload):
 
 def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
                    cfg=DEFAULT.call, threads=1, ref_fasta=None,
-                   idx_file=None, index_cache=None, device='cuda'):
+                   idx_file=None, pool=None, index_cache=None,
+                   device='cuda'):
     """Scan all CCS reads, write {prefix}.cand_circ.fa
     (find_bsj.py:328-372).
 
@@ -483,12 +518,16 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
     tmp/{prefix}.scan.progress; a rerun over the same input skips finished
     chunks after truncating any partial chunk's output.
 
-    On the CPU, threads > 1 (with ref_fasta given) fans pending chunks over
-    a SPAWN pool -- each worker builds its own Context in a clean
-    interpreter; results are consumed in submission order so the output
-    file and resume manifest are byte-identical to a serial run.  NOTE:
-    spawn re-imports __main__, so scripts that call the pipeline directly
-    need the standard ``if __name__ == '__main__':`` guard."""
+    threads > 1 (with ref_fasta given) fans pending chunks over a SPAWN
+    pool -- each worker builds its own Context in a clean interpreter and
+    runs on the host; on ``cuda`` the main process steals chunks from the
+    back for the card (HybridDrain).  ``pool`` is the CLI's pre-spawned pool
+    (its workers' start-up overlaps the CCS stage; it is shared with
+    scan_raw_reads and not terminated here).  Results are consumed in chunk
+    order so the output file and resume manifest are byte-identical to a
+    serial run.  NOTE: spawn re-imports __main__, so scripts that call the
+    pipeline directly need the standard ``if __name__ == '__main__':``
+    guard."""
     import json
     import zlib
 
@@ -538,13 +577,16 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
     pending = [(ci, chunk) for ci, chunk in all_chunks
                if ci not in done_chunks]
 
-    pool = result_iter = None
-    if _pooled(threads, device, ref_fasta) and len(pending) > 1:
+    own_pool = pool is None
+    if own_pool and _pooled(threads, ref_fasta) and len(pending) > 1:
         pool = _spawn_pool(min(threads, len(pending)), ref_fasta, idx_file,
                            False, index_cache)
-        result_iter = pool.imap(_scan_worker_chunk,
-                                [(chunk, is_canonical, cfg)
-                                 for _, chunk in pending])
+    get = drain = None
+    if pool is not None and len(pending) > 1:
+        get, drain = _pool_results(
+            pool, threads, device, _scan_worker_chunk,
+            lambda p: scan_ccs_chunk(ctx, p[0], p[1], p[2], device),
+            [(ci, (chunk, is_canonical, cfg)) for ci, chunk in pending])
 
     done = 0
     short_by_id = {it[0]: it for it in items}
@@ -559,8 +601,8 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
                                     rec['short_ids'] if rid in short_by_id]
                     done += len(chunk)
                     continue
-                if result_iter is not None:
-                    tmp_cnt, tmp_short, ret = next(result_iter)
+                if get is not None:
+                    tmp_cnt, tmp_short, ret = get(ci)
                 else:
                     tmp_cnt, tmp_short, ret = scan_ccs_chunk(
                         ctx, chunk, is_canonical, cfg, device)
@@ -577,8 +619,9 @@ def scan_ccs_reads(ctx, ccs_seq, is_canonical, out_dir, prefix,
                 manifest.flush()
                 done += len(chunk)
                 prog.update(100 * done // max(1, len(items)))
+        _end_drain(drain, 'scan', len(pending))
     finally:
-        if pool is not None:
+        if own_pool and pool is not None:
             pool.terminate()
             pool.join()
     prog.update(100)
@@ -642,10 +685,11 @@ def recover_ccs_reads(ctx, short_reads, is_canonical, out_dir, prefix,
                       cfg=DEFAULT.call, threads=1, ref_fasta=None,
                       idx_file=None, index_cache=None, device='cuda'):
     """Recovery pass over the short reads; appends to {prefix}.cand_circ.fa
-    (find_bsj.py:451-490).  On the CPU, threads > 1 fans chunks over a
-    spawn pool like the scan pass (the reference pools this pass at
-    find_bsj.py:462); workers build a short-mode aligner index.  Results
-    drain in submission order, so the output bytes match a serial run."""
+    (find_bsj.py:451-490).  threads > 1 fans chunks over a spawn pool like
+    the scan pass (the reference pools this pass at find_bsj.py:462), with
+    the card stealing from the back on ``cuda``; workers build a
+    short-mode aligner index.  Results drain in chunk order, so the output
+    bytes match a serial run."""
     device = resolve_device(device)
     prog = ProgressBar()
     prog.update(0)
@@ -654,19 +698,21 @@ def recover_ccs_reads(ctx, short_reads, is_canonical, out_dir, prefix,
     chunks = [short_reads[i:i + cfg.ccs_chunk_size]
               for i in range(0, len(short_reads), cfg.ccs_chunk_size)]
 
-    pool = result_iter = None
-    if _pooled(threads, device, ref_fasta) and len(chunks) > 1:
+    pool = get = drain = None
+    if _pooled(threads, ref_fasta) and len(chunks) > 1:
         pool = _spawn_pool(min(threads, len(chunks)), ref_fasta, idx_file,
                            True, index_cache)
-        result_iter = pool.imap(_recover_worker_chunk,
-                                [(c, is_canonical, cfg) for c in chunks])
+        get, drain = _pool_results(
+            pool, threads, device, _recover_worker_chunk,
+            lambda p: recover_ccs_chunk(ctx, p[0], p[1], p[2], device),
+            [(ci, (c, is_canonical, cfg)) for ci, c in enumerate(chunks)])
 
     n_done = 0
     try:
         with open('{}/{}.cand_circ.fa'.format(out_dir, prefix), 'a') as out:
             for ci, chunk in enumerate(chunks):
-                if result_iter is not None:
-                    tmp_cnt, ret = next(result_iter)
+                if get is not None:
+                    tmp_cnt, ret = get(ci)
                 else:
                     tmp_cnt, ret = recover_ccs_chunk(ctx, chunk,
                                                      is_canonical, cfg,
@@ -677,6 +723,7 @@ def recover_ccs_reads(ctx, short_reads, is_canonical, out_dir, prefix,
                     out.write('>{}\t{}\t{}\t{}\t{}\t{}\t{}\n{}\n'.format(*rec))
                 n_done += len(chunk)
                 prog.update(100 * n_done // max(1, len(short_reads)))
+        _end_drain(drain, 'recovery', len(chunks))
     finally:
         if pool is not None:
             pool.terminate()
@@ -830,14 +877,14 @@ def _raw_worker_chunk(payload):
 
 def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
                    cfg=DEFAULT.call, threads=1, ref_fasta=None,
-                   idx_file=None, index_cache=None, device='cuda'):
+                   idx_file=None, pool=None, index_cache=None,
+                   device='cuda'):
     """Partial-read pass over the raw reads; writes
-    {prefix}.low_confidence.fa (find_bsj.py:623-718).  On the CPU,
-    threads > 1 uses the same
-    spawn-pool pattern as scan_ccs_reads (the reference pools this pass
-    too, find_bsj.py:662); results drain in submission order.  The pass
-    runs no SW: ``device`` decides where its chains run and whether a pool
-    may be used."""
+    {prefix}.low_confidence.fa (find_bsj.py:623-718).  threads > 1 uses the
+    same spawn pool and, on ``cuda``, the same drain as scan_ccs_reads (the
+    reference pools this pass too, find_bsj.py:662); ``pool`` is the CLI's
+    pre-spawned one.  Results drain in chunk order.  The pass runs no SW:
+    ``device`` decides where its chains run."""
     from ciri_long_tpu_torch.io.fastx import read_fastx
 
     device = resolve_device(device)
@@ -857,22 +904,28 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
               for i in range(0, len(items), cfg.raw_chunk_size)]
 
     # spawn cost (~3 s/worker for interpreter + genome + index) only
-    # pays off with several chunks of raw work per worker
-    pool = result_iter = None
-    if _pooled(threads, device, ref_fasta) and len(chunks) >= 2 * threads:
+    # pays off with several chunks of raw work per worker -- unless the
+    # CLI already handed us its warm shared pool
+    own_pool = pool is None
+    if own_pool and _pooled(threads, ref_fasta) and \
+            len(chunks) >= 2 * threads:
         pool = _spawn_pool(min(threads, len(chunks)), ref_fasta, idx_file,
                            False, index_cache)
-        result_iter = pool.imap(_raw_worker_chunk,
-                                [(c, is_canonical, circ_reads, cfg)
-                                 for c in chunks])
+    get = drain = None
+    if pool is not None and len(chunks) > 1:
+        get, drain = _pool_results(
+            pool, threads, device, _raw_worker_chunk,
+            lambda p: scan_raw_chunk(ctx, p[0], p[1], p[2], p[3], device),
+            [(ci, (c, is_canonical, circ_reads, cfg))
+             for ci, c in enumerate(chunks)])
 
     n_done = 0
     try:
         with open('{}/{}.low_confidence.fa'.format(out_dir, prefix),
                   'w') as out:
             for ci, chunk in enumerate(chunks):
-                if result_iter is not None:
-                    tmp_cnt, tmp_ret, tmp_short = next(result_iter)
+                if get is not None:
+                    tmp_cnt, tmp_ret, tmp_short = get(ci)
                 else:
                     tmp_cnt, tmp_ret, tmp_short = scan_raw_chunk(
                         ctx, chunk, is_canonical, circ_reads, cfg, device)
@@ -883,8 +936,9 @@ def scan_raw_reads(ctx, in_file, is_canonical, out_dir, prefix,
                     out.write('>{}\t{}\t{}\t{}\t{}\t{}\t{}\n{}\n'.format(*rec))
                 n_done += len(chunk)
                 prog.update(min(99, 100 * n_done // max(1, len(items))))
+        _end_drain(drain, 'raw', len(chunks))
     finally:
-        if pool is not None:
+        if own_pool and pool is not None:
             pool.terminate()
             pool.join()
     prog.update(100)

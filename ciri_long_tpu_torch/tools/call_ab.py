@@ -2,6 +2,7 @@
 
     python3 -m ciri_long_tpu_torch.tools.call_ab --other DIR
         [--reads FILE --ref FILE] [--runs N] [--devices cuda,cpu]
+        [--threads T]
 
 DIR is another checkout of this repository (the parent commit, say,
 unpacked with ``git archive``); both must have their native host cores
@@ -10,8 +11,9 @@ world of chip_smoke.py's phase 4 (build/chip_smoke/world: 1 200 Nanopore
 reads of 16 loci on a 2 Mb genome).  Four runs, each a process of its own
 on the same card, in turns: DIR, this checkout, this checkout, DIR.  Each
 builds its kernels, runs ``call`` N times (default 2) through its CLI with
-``-t 1`` on each device of --devices (default cuda) and reports the last
-of each: its wall, reads/s and its kernels' launch counts (the first
+``-t T`` (default 1; above 1 a spawn pool of T host workers beside the
+card, which both checkouts must support) on each device of --devices
+(default cuda) and reports the last of each: its wall, reads/s and its kernels' launch counts (the first
 device's as ``wall_s``, ``reads_per_s``, the others' with the device's
 name before them, ``cpu_wall_s``).  The runs' cand_circ.fa must be
 byte-identical.  Prints one JSON line a run, then the means of the two
@@ -32,7 +34,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 WORLD = os.path.join(HERE, 'build', 'chip_smoke', 'world')
 
 
-def run_tree(tree, reads, ref, out, runs, devices=('cuda',)):
+def run_tree(tree, reads, ref, out, runs, devices=('cuda',), threads=1):
     """One run: this process imports the port from ``tree``; returns the
     run's numbers."""
     script_dir = os.path.dirname(os.path.abspath(__file__))
@@ -52,14 +54,14 @@ def run_tree(tree, reads, ref, out, runs, devices=('cuda',)):
     torch.cuda.init()
     with open(reads) as f:
         n_reads = sum(1 for ln in f if ln.startswith('>'))
-    res = dict(tree=tree, card=nvidia_smi())
+    res = dict(tree=tree, threads=threads, card=nvidia_smi())
     for k, device in enumerate(devices):
         for _ in range(runs):
             dst = os.path.join(out, 'call_' + device)
             shutil.rmtree(dst, ignore_errors=True)
             t0 = time.perf_counter()
             cli.main(['call', '-i', reads, '-o', dst, '-r', ref, '-p', 'ab',
-                      '-t', '1', '--device', device])
+                      '-t', str(threads), '--device', device])
             wall = time.perf_counter() - t0
         with open(os.path.join(dst, 'ab.json')) as f:
             kernels = json.load(f)['kernels']
@@ -83,6 +85,8 @@ def main(argv=None):
     ap.add_argument('--devices', default='cuda',
                     help='comma-separated devices of call, each timed in '
                          'every run')
+    ap.add_argument('--threads', type=int, default=1,
+                    help='call -t of every run')
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     ap.add_argument('--out', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -90,7 +94,8 @@ def main(argv=None):
     devices = tuple(args.devices.split(','))
     if args.tree:                          # one run, in its own process
         print(json.dumps(run_tree(args.tree, reads, ref, args.out,
-                                  args.runs, devices)), flush=True)
+                                  args.runs, devices, args.threads)),
+              flush=True)
         return None
     other = os.path.abspath(args.other)
     runs = []
@@ -98,7 +103,8 @@ def main(argv=None):
         out = os.path.join(HERE, 'build', 'call_ab', str(k))
         cmd = [sys.executable, os.path.abspath(__file__), '--other', other,
                '--tree', tree, '--out', out, '--reads', reads, '--ref', ref,
-               '--runs', str(args.runs), '--devices', args.devices]
+               '--runs', str(args.runs), '--devices', args.devices,
+               '--threads', str(args.threads)]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             raise RuntimeError('run in {} failed:\n{}'.format(

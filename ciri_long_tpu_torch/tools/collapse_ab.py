@@ -2,7 +2,7 @@
 wall and its POA seconds.
 
     python3 -m ciri_long_tpu_torch.tools.collapse_ab --other DIR
-        [--cand FILE --ref FILE] [--runs N]
+        [--cand FILE --ref FILE] [--runs N] [--threads T]
 
 DIR is another checkout of this repository (the parent commit, say,
 unpacked with ``git archive``); both must have their native host cores
@@ -11,11 +11,13 @@ cohort of chip_smoke.py's phase 8 (build/chip_smoke/cohort: its ``call``
 output and genome), the 4 000-read cohort of benchmarks/collapse_bench.py.
 Four runs, each a process of its own on the same card, in turns: DIR, this
 checkout, this checkout, DIR.  Each builds its kernels, runs ``collapse`` N
-times (default 2) through its CLI on one sample and reports the last: its
-wall, and the seconds its threads spent in the junction consensus
-(``pipeline/collapse.py``'s ``poa``) and in the sub-cluster consensus
-(``poa_consensus_many``), summed over the threads, and its kernels' launch
-counts.  The four runs' .info, .reads, .expression and .isoforms must be
+times (default 2) through its CLI on one sample with ``-t T`` (default 1;
+above 1 a spawn pool of T host workers beside the card, which both
+checkouts must support) and reports the last: its wall, and the seconds
+its threads spent in the junction consensus (``pipeline/collapse.py``'s
+``poa``) and in the sub-cluster consensus (``poa_consensus_many``), summed
+over the threads of the run's own process (not the pool's workers), and
+its kernels' launch counts.  The four runs' .info, .reads, .expression and .isoforms must be
 byte-identical.  Prints one JSON line a run, then the means of the two
 checkouts and their ratio, with the card's name and power limit.
 """
@@ -37,7 +39,7 @@ FILES = ('info', 'reads', 'expression', 'isoforms')
 POA_CALLS = {'poa_junction_s': 'poa', 'poa_subcluster_s': 'poa_consensus_many'}
 
 
-def run_tree(tree, cand, ref, out, runs):
+def run_tree(tree, cand, ref, out, runs, threads=1):
     """One run: this process imports the port from ``tree``; returns the
     run's numbers."""
     script_dir = os.path.dirname(os.path.abspath(__file__))
@@ -84,11 +86,11 @@ def run_tree(tree, cand, ref, out, runs):
         reset_launches()
         t0 = time.perf_counter()
         main(['collapse', '-i', lst, '-o', dst, '-r', ref, '-p', 'ab',
-              '-t', '1', '--device', 'cuda'])
+              '-t', str(threads), '--device', 'cuda'])
         wall = time.perf_counter() - t0
     digest = {ext: hashlib.sha1(open(os.path.join(
         dst, 'ab.' + ext), 'rb').read()).hexdigest() for ext in FILES}
-    return dict(tree=tree, wall_s=wall, **seconds,
+    return dict(tree=tree, threads=threads, wall_s=wall, **seconds,
                 launches=launch_counts(COLLAPSE_KERNELS), files=digest,
                 card=nvidia_smi())
 
@@ -104,13 +106,15 @@ def main(argv=None):
                                                   'genome.fa'))
     ap.add_argument('--runs', type=int, default=2,
                     help='collapse runs a process; the last is reported')
+    ap.add_argument('--threads', type=int, default=1,
+                    help='collapse -t of every run')
     ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     ap.add_argument('--out', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     cand, ref = os.path.abspath(args.cand), os.path.abspath(args.ref)
     if args.tree:                          # one run, in its own process
         print(json.dumps(run_tree(args.tree, cand, ref, args.out,
-                                  args.runs)), flush=True)
+                                  args.runs, args.threads)), flush=True)
         return None
     other = os.path.abspath(args.other)
     runs = []
@@ -118,7 +122,7 @@ def main(argv=None):
         out = os.path.join(HERE, 'build', 'collapse_ab', str(k))
         cmd = [sys.executable, os.path.abspath(__file__), '--other', other,
                '--tree', tree, '--out', out, '--cand', cand, '--ref', ref,
-               '--runs', str(args.runs)]
+               '--runs', str(args.runs), '--threads', str(args.threads)]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             raise RuntimeError('run in {} failed:\n{}'.format(

@@ -451,18 +451,6 @@ def test_correct_reads_pool_matches_serial(cohort):
     assert len(cs1) >= 3
 
 
-def test_threads_with_cuda_raise(monkeypatch, tmp_path):
-    from ciri_long_tpu_torch.cli.main import main
-
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
-    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        main(['collapse', '-i', 'x.lst', '-o', str(tmp_path / 'o'), '-r',
-              'g.fa', '-t', '2', '--device', 'cuda'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcl.correct_reads(None, [], threads=2, device='cuda')
-
-
 def test_corrected_pickle_loads_without_either_package(skill):
     """The resume file holds builtins only (counters, ids, sequences), so
     either package reads the other's."""

@@ -4,8 +4,7 @@ Neither ``ciri_long_tpu_torch`` nor ``chip_smoke.py`` imports ``jax`` or
 ``ciri_long_tpu`` in any form (the port keeps its own copies of the JAX-free
 leaf modules and loads the native cores built under its own name), and the
 port's ``call`` runs in a process where both are blocked.  Asking for
-``--device cuda`` without a GPU raises, and -t > 1 with cuda raises
-NotImplementedError.
+``--device cuda`` without a GPU raises.
 """
 
 import ast
@@ -148,16 +147,6 @@ def test_cuda_without_gpu_raises(monkeypatch):
     assert resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         resolve_device('meta')
-
-
-def test_threads_with_cuda_not_implemented(monkeypatch):
-    from ciri_long_tpu_torch.cli.main import main
-
-    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
-    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        main(['call', '-i', 'r.fa', '-o', 'out', '-r', 'g.fa', '-t', '4',
-              '--device', 'cuda'])
 
 
 def test_kernel_sources_ship_with_package():
