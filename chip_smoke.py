@@ -187,8 +187,30 @@ and exits non-zero if any phase fails (none is caught and skipped):
    and from the pool, and when each side's last one came), then the
    seconds THREADS scan workers take to start (``pool_start_s``), with the
    card.
+10. ``dist``: the multi-device scan and the last entry points.  The
+   lag-range tandem counts (csrc/tandem_counts.cu, the 'lag' axis's step
+   of parallel/mesh.py) against tandem_counts_plain on the card, exact
+   (``kernel_vs_plain`` lines): at the dry run's shapes, at phase 4's
+   screened reads (1 104 x 4 096) over 2 048 lags cut into 1, 2 and 4
+   ranges, and on edge reads (all PAD, N, under k, lags past the width);
+   then timed at both shapes (``tandem_counts_time``: a CUDA graph's
+   replay, the plain version's wall, the bound from its (window, lag)
+   pairs at csrc/op_rate.cu's screen-compare rate or its bytes).  Then
+   ``dryrun_multichip`` at every visible card (its tandem_counts and SW
+   launches: the kernels line's launches); ``call --dist mesh --device
+   cuda`` on the ``call`` world, whose files and counters must equal phase
+   4's -t 1 cuda run's, with all five kernels of ``call`` launched;
+   parallel/multihost_worker.py at one rank and at two ranks sharing
+   cuda:0 over gloo, each rank's psum and gather checks holding, its file's
+   md5 that of a serial scan_ccs_reads of the same demo world on the card
+   and its sw_score_ends launches > 0; ``tools/ssw_cli.py --cigar`` on
+   cuda printing what it prints on cpu; and ``call --profile`` on the
+   ``call`` world, its files equal to phase 4's and its Chrome trace
+   holding CUDA kernel events (counted by kernel function beside the
+   ``LAUNCHES`` of the traced stages, [2/4]..[4/4]; equal counts are
+   reported, not required).  One ``dist`` line.
 
-The eleven CUDA sources and the host vote (csrc/star_vote.cpp) build in
+The twelve CUDA sources and the host vote (csrc/star_vote.cpp) build in
 parallel (one nvcc or c++ each) beside the native host cores (one
 extension at a time).  Then the card's ``nvidia-smi`` name
 and power limit, the kernels line (sw_score_ends's entry also has
@@ -214,7 +236,8 @@ launches of call's run (``call_device_ms``, ``slowest_ms``,
 ``replay_device_ms``, ``replay_slowest_ms``), chain_dp's
 ``serial_bound_ms``, screen_keep's bound its equal k-mer pairs, its
 ``window_bound_ms`` the brute-force (window, lag) measure and
-``lag_route_reads``), and last
+``lag_route_reads``); tandem_counts's those of phase 10 at call's screened
+reads, with its numbers at the dry run's shape (``dryrun``), and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -244,7 +267,8 @@ CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
            'sw_traceback.cu', 'poa_align.cu', 'chain_dp.cu',
-           'screen_keep.cu', 'nw_traceback.cu', 'star_vote.cpp')
+           'screen_keep.cu', 'nw_traceback.cu', 'star_vote.cpp',
+           'tandem_counts.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 # the tiles' schedule edges: (padded Lq, the rows' real query lengths) at
@@ -291,6 +315,8 @@ REPLACES = {
     'nw_traceback': ('ciri_long_tpu/ops/nw_tb_batch.py:53 _build_kernel '
                      '(forward :67, walk :177), :305 nw_traceback_submit, '
                      ':400 nw_traceback_collect, an XLA program (X4)'),
+    'tandem_counts': ('ciri_long_tpu/ops/period.py:85 tandem_counts (X3 '
+                      'counts, lag ranges), an XLA program'),
 }
 # call's kernels of X2, X3 and X4: (module, wrapper) recorded in phase 4
 CALL_X = {'chain_dp': ('chain', 'chain_dp_cuda'),
@@ -2752,6 +2778,314 @@ def phase_threads(torch, smi, full_fields):
             CALL_WORLD_THREADS)}
 
 
+# phase 10: the kernel functions the profiler's trace names for each kernel
+# of call (a launch of the tiled SW route also runs sw_tile_merge_kernel,
+# not counted); the timeout of each worker process
+KERNEL_FUNCS = {'sw_score_ends': ('sw_wave_kernel', 'sw_tile_kernel'),
+                'chain_dp': ('chain_dp_kernel',),
+                'chain_extract': ('chain_extract_kernel',),
+                'screen_keep': ('screen_keep_kernel',),
+                'nw_traceback': ('nw_reg_kernel', 'nw_block_kernel',
+                                 'nw_wide_kernel'),
+                'tandem_counts': ('tandem_counts_kernel',)}
+WORKER_TIMEOUT_S = 300
+# call's screened reads cut into these many lag ranges
+LAG_SPLITS = (1, 2, 4)
+
+
+def _tandem_pairs(reads, lag_offset, max_lag, k=11):
+    """The (window, lag) pairs tandem_counts compares for these reads: for
+    each valid window i, the lags d in lag_offset + 1 .. lag_offset +
+    max_lag with i + d at or below the read's last valid window."""
+    import numpy as np
+    x = np.asarray(reads) < 4
+    W = x.shape[1]
+    total = 0
+    for row in x:
+        run = np.concatenate([[0], np.cumsum(row)])
+        i = np.arange(max(0, W - k + 1))
+        valid = i[run[i + k] - run[i] == k]
+        if len(valid):
+            room = valid[-1] - valid - lag_offset
+            total += int(np.clip(room, 0, max_lag).sum())
+    return total
+
+
+def _tandem_edge_reads(rng, W):
+    """Rows of width W: a tandem read, an N-poisoned one, a random one, a
+    read under k and an all-PAD row (PAD = 5 past each read)."""
+    import numpy as np
+    unit = rng.integers(0, 4, 37)
+    mat = np.full((5, W), 5, np.int8)
+    mat[0, :W - 3] = np.tile(unit, W // 37 + 1)[:W - 3]
+    mat[1, :W // 2] = np.tile(unit, W // 37 + 1)[:W // 2]
+    mat[1, 7:W // 2:41] = 4
+    mat[2, :W - 9] = rng.integers(0, 4, W - 9)
+    mat[3, :9] = rng.integers(0, 4, 9)
+    return mat
+
+
+def check_tandem_counts(torch, dev, smi, screened):
+    """Phase 10's kernel: csrc/tandem_counts.cu against tandem_counts_plain
+    on the card, exact, at the dry run's shapes (its lag ranges at 1 and 2
+    lag shards), at call's screened reads (``screened``, phase 4's screen
+    launch) at max_lag 2 048 cut into LAG_SPLITS ranges, and on edge reads
+    (all PAD, N, a read under k, lags past the width) at lag offsets; then
+    the kernel at call's shape and at the dry run's, timed: a CUDA graph's
+    replay of 10 launches, the plain version's wall, and the bound, its
+    (window, lag) pairs at csrc/op_rate.cu's screen-compare rate or its
+    bytes (the reads once, the counts once) at 3.35 TB/s.  Returns the
+    numbers of the kernels line."""
+    import numpy as np
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
+                                               recurrence_rate,
+                                               time_launches)
+    from ciri_long_tpu_torch.ops.period import (MAX_LAG, tandem_counts_cuda,
+                                                tandem_counts_plain)
+
+    rng = np.random.default_rng(0)
+    dry = rng.integers(0, 4, (8, 192)).astype(np.int8)
+    cases = [('dryrun 1x1', dry[:2], [(0, 32)]),
+             ('dryrun 4x2', dry, [(0, 32), (32, 32)])]
+    for parts in LAG_SPLITS:
+        w = MAX_LAG // parts
+        cases.append(('call screen, {} lag ranges'.format(parts), screened,
+                      [(t * w, w) for t in range(parts)]))
+    for W, ranges in ((120, [(0, 32), (32, 40), (96, 32)]),
+                      (4096, [(0, 2048), (2048, 2048), (4000, 200)])):
+        cases.append(('edge W={}'.format(W), _tandem_edge_reads(rng, W),
+                      ranges))
+    err = 0
+    for label, reads, ranges in cases:
+        x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        for offset, M in ranges:
+            got = tandem_counts_cuda(x, M, 11, offset)
+            want = tandem_counts_plain(x, M, 11, offset)
+            e = int((got.long() - want.long()).abs().max())
+            emit('kernel_vs_plain', kernel='tandem_counts', case=label,
+                 reads=int(x.shape[0]), width=int(x.shape[1]),
+                 lag_offset=offset, max_lag=M, nonzero=int((want > 0).sum()),
+                 max_abs_err=e)
+            err = max(err, e)
+    if err:
+        raise AssertionError('tandem_counts disagrees with the plain version')
+    rate = recurrence_rate(dev, 'screen_keep')
+    timed = {}
+    for label, reads, M in (('call', screened, MAX_LAG),
+                            ('dryrun', dry[:2], 32)):
+        x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        B, W = x.shape
+        pairs = _tandem_pairs(reads, 0, M)
+        bound = max((pairs / rate, 'operations'),
+                    ((B * W + 4 * B * M) / HBM_BYTES_PER_S, 'bytes'))
+        plain_ms, _ = _wall_ms(torch, dev,
+                               lambda: tandem_counts_plain(x, M, 11))
+        timed[label] = dict(
+            ms=time_launches(lambda: tandem_counts_cuda(x, M, 11), 10, dev,
+                             graph=True),
+            plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
+            reads=int(B), width=int(W), max_lag=M, pairs=pairs)
+        emit('tandem_counts_time', shape=label, card=smi,
+             compare_rate=rate, **timed[label])
+    return dict(max_abs_err=err, **timed)
+
+
+def _worker_runs(torch, n, out_dir):
+    """n ranks of parallel/multihost_worker.py on cuda:0 over gloo, each a
+    process with its own timeout; [{fields of its lines, wall_s}]."""
+    import socket
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'ciri_long_tpu_torch.parallel.multihost_worker',
+         '--coordinator', '127.0.0.1:{}'.format(port), '--num-processes',
+         str(n), '--process-id', str(i), '--device', 'cuda:0', '--scan-out',
+         os.path.join(out_dir, 'rank_{}.fa'.format(i))],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(n)]
+    runs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
+            run = {'wall_s': time.perf_counter() - t0, 'rc': p.returncode}
+            for ln in out.splitlines():
+                if ln.startswith('MULTIHOST_'):
+                    head, *kv = ln.split()
+                    run[head] = dict(x.split('=', 1) for x in kv)
+            if p.returncode != 0:
+                raise AssertionError('worker {} of {} failed:\n{}'.format(
+                    len(runs), n, out[-4000:]))
+            runs.append(run)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return runs
+
+
+def _trace_kernels(path):
+    """{kernel function of KERNEL_FUNCS, or 'other': events} of the CUDA
+    kernel events in a Chrome trace written by torch.profiler (an event's
+    name is the demangled signature)."""
+    import re
+    from collections import Counter
+    funcs = [f for fs in KERNEL_FUNCS.values() for f in fs]
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    return Counter(next((f for f in funcs
+                         if re.search(r'\b{}\b'.format(f), e['name'])),
+                        'other')
+                   for e in events if e.get('cat') == 'kernel')
+
+
+def phase_dist(torch, dev, smi, screened):
+    """Phase 10: the multi-device scan and the last entry points on the
+    card (see the module's docstring).  Returns the tandem_counts entry's
+    numbers and its launches in the dry run."""
+    import hashlib
+    import io
+    from contextlib import redirect_stdout
+    from ciri_long_tpu_torch.cli import main as cli_main_mod
+    from ciri_long_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ciri_long_tpu_torch.parallel.multihost_worker import \
+        build_demo_world
+    from ciri_long_tpu_torch.pipeline.find_bsj import scan_ccs_reads
+    from ciri_long_tpu_torch.tools import ssw_cli
+    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS, LAUNCHES,
+                                                    reset_launches)
+
+    failed = []
+    root = os.path.join(WORK, 'dist')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tandem = check_tandem_counts(torch, dev, smi, screened)
+
+    # the dry run at every visible card: the pipeline step (tandem_counts
+    # over lag ranges, the SW) and the sharded scan against one shard
+    n_cards = torch.cuda.device_count()
+    reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(n_cards, device='cuda')
+    dry = dict(cards=n_cards, wall_s=time.perf_counter() - t0,
+               launches={k: LAUNCHES[k] for k in ('tandem_counts',
+                                                  'sw_score_ends')})
+    if min(dry['launches'].values()) <= 0:
+        failed.append('the dry run missed a kernel: {}'.format(
+            dry['launches']))
+
+    # call --dist mesh on the call world, against phase 4's -t 1 cuda run
+    ref = os.path.join(WORK, 'world', 'genome.fa')
+    reads = os.path.join(WORK, 'world', 'reads.fa')
+    want = _call_outputs(os.path.join(WORK, 'out_cuda'), 'smoke')
+    t1 = json.loads(Path(WORK, 'out_cuda', 'smoke.json').read_text())
+    mesh = _cli_run(['call', '-i', reads, '-r', ref, '-t', '1', '--device',
+                     'cuda', '--dist', 'mesh'], os.path.join(root, 'mesh'),
+                    'smoke')
+    mesh_out = _call_outputs(os.path.join(root, 'mesh'), 'smoke')
+    mesh_fields = dict(
+        wall_s=mesh['wall_s'], identical=mesh_out == want,
+        launches={k: mesh['launches'][k] for k in CALL_KERNELS},
+        timing=json.loads(Path(root, 'mesh', 'smoke.json').read_text())[
+            'timing'], t1_timing=t1['timing'])
+    if not mesh_fields['identical']:
+        failed.append('call --dist mesh differs from -t 1 cuda')
+    if min(mesh_fields['launches'].values()) <= 0:
+        failed.append('call --dist mesh missed a kernel: {}'.format(
+            mesh_fields['launches']))
+
+    # the worker at one rank and at two ranks sharing the card, against a
+    # serial scan of the same demo world on the card
+    ctx, ccs_seq = build_demo_world()
+    os.makedirs(os.path.join(root, 'serial', 'tmp'))
+    scan_ccs_reads(ctx, ccs_seq, True, os.path.join(root, 'serial'), 'p',
+                   device=dev)
+    serial_md5 = hashlib.md5(Path(root, 'serial', 'p.cand_circ.fa')
+                             .read_bytes()).hexdigest()
+    workers = {}
+    for n in (1, 2):
+        runs = _worker_runs(torch, n, os.path.join(root, 'ranks{}'.format(n)))
+        workers[n] = runs
+        for t, run in enumerate(runs):
+            res, gat = run['MULTIHOST_RESULT'], run['MULTIHOST_GATHER']
+            scan = run['MULTIHOST_SCAN']
+            sw = int(run['MULTIHOST_LAUNCHES']['sw_score_ends'])
+            if (res['got'] != res['expected'] or gat['ids_ok'] != 'True'
+                    or scan['md5'] != serial_md5 or sw <= 0):
+                failed.append('worker {} of {}: {}'.format(t, n, run))
+
+    # ssw_cli on the card and on the host
+    rng = __import__('numpy').random.default_rng(1)
+    base = ''.join(rng.choice(list('ACGT'), size=400))
+    Path(root, 't.fa').write_text('>t1\n{}\n>t2\nACGTACGTTGCA\n'.format(base))
+    Path(root, 'q.fa').write_text('>q1\n{}\n>q2\n{}\n'.format(
+        base[50:120] + base[130:200], base[300:380].replace('G', 'N')))
+    printed = {}
+    reset_launches()
+    for device in ('cuda', 'cpu'):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            ssw_cli.main([os.path.join(root, 't.fa'),
+                          os.path.join(root, 'q.fa'), '--cigar', '--device',
+                          device])
+        printed[device] = buf.getvalue()
+    ssw = dict(identical=printed['cuda'] == printed['cpu'],
+               lines=len(printed['cuda'].splitlines()),
+               launches=LAUNCHES['sw_score_ends'])
+    if not ssw['identical'] or ssw['launches'] <= 0:
+        failed.append('ssw_cli: {}'.format(ssw))
+
+    # call --profile on the call world: the trace's kernel events by name
+    # beside the launches made inside the traced stages ([2/4]..[4/4]: the
+    # CCS stage's screen_keep and nw_traceback launches come before it)
+    prof_dir = os.path.join(root, 'profile')
+    window = []
+    inner = cli_main_mod._scan_stages
+
+    def traced_stages(*args, **kw):
+        window.append(dict(LAUNCHES))
+        inner(*args, **kw)
+        window.append(dict(LAUNCHES))
+
+    cli_main_mod._scan_stages = traced_stages
+    try:
+        prof = _cli_run(['call', '-i', reads, '-r', ref, '-t', '1',
+                         '--device', 'cuda', '--profile', prof_dir],
+                        os.path.join(root, 'prof_out'), 'smoke')
+    finally:
+        cli_main_mod._scan_stages = inner
+    trace = os.path.join(prof_dir, 'smoke.trace.json')
+    by_name = _trace_kernels(trace)
+    profile = dict(
+        trace_mb=os.path.getsize(trace) / 2 ** 20, wall_s=prof['wall_s'],
+        kernel_events=sum(by_name.values()), by_function=dict(by_name),
+        traced={k: sum(by_name.get(f, 0) for f in KERNEL_FUNCS[k])
+                for k in CALL_KERNELS},
+        window_launches={k: window[1][k] - window[0][k]
+                         for k in CALL_KERNELS},
+        launches={k: prof['launches'][k] for k in CALL_KERNELS},
+        identical=_call_outputs(os.path.join(root, 'prof_out'), 'smoke')
+        == want)
+    profile['counts_equal'] = profile['traced'] == profile['window_launches']
+    if not profile['kernel_events']:
+        failed.append('the profiler trace holds no CUDA kernel event')
+    if not profile['identical']:
+        failed.append('call --profile differs from -t 1 cuda')
+
+    emit('dist', card=smi, dryrun=dry, call_mesh=mesh_fields,
+         workers={n: [{k: v for k, v in run.items()} for run in runs]
+                  for n, runs in workers.items()},
+         serial_md5=serial_md5, ssw_cli=ssw, profile=profile)
+    if failed:
+        raise AssertionError('phase 10: ' + '; '.join(failed))
+    return tandem, dry['launches']['tandem_counts']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2782,6 +3116,8 @@ def main():
     for name, err in full_errs.items():
         collapse_errs[name] = max(collapse_errs.get(name, 0), err)
     threads = phase_threads(torch, smi, full_fields)
+    tandem, tandem_launches = phase_dist(
+        torch, dev, smi, x_seen['screen_keep'][0][0][0].numpy())
 
     bench = sw['bench']
     main = sw['main128']
@@ -2915,6 +3251,15 @@ def main():
             entry(name, call_launches[name], n.pop('max_abs_err'),
                   n.pop('ms'), n.pop('plain_ms'), n.pop('bound_ms'),
                   n.pop('bound_by')), source=CSRC + source, **n))
+    # the lag-range tandem counts at call's screened reads (2 048 lags)
+    # and at the dry run's shape, launched by the dry run (phase 10)
+    call_tc, dry_tc = tandem['call'], tandem['dryrun']
+    kernels.append(dict(
+        entry('tandem_counts', tandem_launches, tandem['max_abs_err'],
+              call_tc['ms'], call_tc['plain_ms'], call_tc['bound_ms'],
+              call_tc['bound_by']),
+        shape=[call_tc['reads'], call_tc['width'], call_tc['max_lag']],
+        pairs=call_tc['pairs'], dryrun=dry_tc))
     # each kernel of call and collapse: its launches in phase 9's -t 4
     # cuda runs, on each world
     for k in kernels:

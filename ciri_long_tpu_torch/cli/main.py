@@ -20,6 +20,7 @@ start-up overlaps it.  Spawn re-imports ``__main__``: a script that calls
 '__main__':`` guard.
 """
 
+import contextlib
 import json
 import os
 import pickle
@@ -144,8 +145,9 @@ def _prespawn_scan_pool(args, out_dir, prefix, ref_fasta, idx_file,
     """The scan stages' spawn pool, started before the CCS stage (JAX
     main.py:190-231): each worker's start-up (interpreter, torch, genome,
     index) overlaps that stage, and the pool serves scan_ccs and scan_raw.
-    None at -t 1 and on a CCS resume (nothing to overlap, and every worker
-    holds the genome and index).  The workers start at nice +5, so that
+    None at -t 1, with --dist mesh (the scan stage is the mesh's) and on a
+    CCS resume (nothing to overlap, and every worker holds the genome and
+    index).  The workers start at nice +5, so that
     their warm-up yields the cores to the CCS stage, when the renice back
     is sure to succeed (root, or RLIMIT_NICE admits it).  Spawn is safe
     after CUDA has initialised: each worker is a fresh interpreter."""
@@ -154,7 +156,7 @@ def _prespawn_scan_pool(args, out_dir, prefix, ref_fasta, idx_file,
                                                                  prefix))
                     and os.path.exists('{}/tmp/{}.raw.fa'.format(out_dir,
                                                                  prefix)))
-    if args.threads <= 1 or resuming_ccs:
+    if args.threads <= 1 or resuming_ccs or args.dist == 'mesh':
         return None
     from ciri_long_tpu_torch.pipeline.find_bsj import _spawn_pool
 
@@ -178,11 +180,6 @@ def _prespawn_scan_pool(args, out_dir, prefix, ref_fasta, idx_file,
 
 def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
                  ref_fasta, idx_file, ctx, index_cache, device, scan_pool):
-    from ciri_long_tpu_torch.context import Context
-    from ciri_long_tpu_torch.models.aligner import GenomeAligner
-    from ciri_long_tpu_torch.pipeline.find_bsj import (recover_ccs_reads,
-                                                       scan_ccs_reads,
-                                                       scan_raw_reads)
     from ciri_long_tpu_torch.pipeline.find_ccs import (find_ccs_reads,
                                                        load_ccs_reads)
 
@@ -205,12 +202,62 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
     logger.info('reads with cyclic consensus: {}'.format(
         reads_count['consensus']))
 
+    with _device_trace(args.profile, prefix, device, logger):
+        _scan_stages(args, logger, timer, reads_count, in_file, out_dir,
+                     prefix, ref_fasta, idx_file, ctx, index_cache, device,
+                     scan_pool, ccs_seq, is_canonical)
+
+
+@contextlib.contextmanager
+def _device_trace(profile_dir, prefix, device, logger):
+    """``--profile DIR``: a torch.profiler trace (CPU activity, and CUDA
+    activity on cuda) of what runs inside, written as the Chrome trace
+    DIR/{prefix}.trace.json (JAX main.py:271-274, :330-333: a device trace
+    from [2/4] to [4/4]).  Nothing without a DIR."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(profile_dir, '{}.trace.json'.format(prefix))
+    prof.export_chrome_trace(path)
+    logger.info('Device trace written to {}'.format(path))
+
+
+def _scan_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
+                 ref_fasta, idx_file, ctx, index_cache, device, scan_pool,
+                 ccs_seq, is_canonical):
+    """[2/4]..[4/4]: the scans of the consensus reads (through the mesh
+    with --dist mesh), the short ones' recovery and the raw reads."""
+    from ciri_long_tpu_torch.context import Context
+    from ciri_long_tpu_torch.models.aligner import GenomeAligner
+    from ciri_long_tpu_torch.pipeline.find_bsj import (recover_ccs_reads,
+                                                       scan_ccs_reads,
+                                                       scan_raw_reads)
+
     logger.info('[2/4] scanning consensus reads for BSJs')
     with timer.stage('scan_ccs', items=len(ccs_seq)):
-        tmp_cnt, short_seq = scan_ccs_reads(
-            ctx, ccs_seq, is_canonical, out_dir, prefix,
-            threads=args.threads, ref_fasta=ref_fasta, idx_file=idx_file,
-            pool=scan_pool, index_cache=index_cache, device=device)
+        if args.dist == 'mesh':
+            # reads sharded over the mesh's 'reads' axis, a card a shard,
+            # candidates merged in one gather (parallel/cohort.py);
+            # byte-identical to the pool path
+            from ciri_long_tpu_torch.parallel.cohort import scan_ccs_sharded
+            from ciri_long_tpu_torch.parallel.mesh import make_mesh
+            tmp_cnt, short_seq = scan_ccs_sharded(
+                make_mesh(lag_parallel=1, device=device), ctx, ccs_seq,
+                is_canonical, out_dir, prefix)
+        else:
+            tmp_cnt, short_seq = scan_ccs_reads(
+                ctx, ccs_seq, is_canonical, out_dir, prefix,
+                threads=args.threads, ref_fasta=ref_fasta,
+                idx_file=idx_file, pool=scan_pool, index_cache=index_cache,
+                device=device)
     for key, value in tmp_cnt.items():
         reads_count[key] += value
 
@@ -406,6 +453,16 @@ def main(argv=None):
     call_parser.add_argument('--debug', dest='debug', default=False,
                              action='store_true',
                              help='Run in debugging mode, (default: %(default)s)')
+    call_parser.add_argument('--dist', dest='dist', default=None,
+                             choices=['mesh'],
+                             help='Distribute the consensus scan over the '
+                                  'device mesh (a card a shard, one gather '
+                                  'of the candidates) instead of host '
+                                  'worker pools')
+    call_parser.add_argument('--profile', dest='profile', metavar='DIR',
+                             default=None,
+                             help='Write a torch.profiler trace of the scan '
+                                  'stages to DIR (optional)')
     call_parser.set_defaults(func=call)
 
     collapse_parser = subparsers.add_parser('collapse')

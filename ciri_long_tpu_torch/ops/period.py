@@ -8,8 +8,13 @@ vote's bar.  Those counts dominate the host's votes lag by lag, so a read the
 screen drops would get no consensus from find_consensus: the screen never
 changes which reads get one.
 
-- ``tandem_counts_plain``: out[b, d-1] = the positions i whose k-mer equals
-  the one at i + d (both windows free of codes >= 4), d in 1..max_lag;
+- ``tandem_counts_plain``: out[b, j] = the positions i whose k-mer equals
+  the one at i + d (both windows free of codes >= 4), d = lag_offset + j + 1
+  for j in 0..max_lag-1 (JAX's ``tandem_counts``, whose lag ranges are the
+  'lag' mesh axis's shards, parallel/mesh.py);
+- ``tandem_counts_cuda``: csrc/tandem_counts.cu, a block a read and chunk
+  of lags, every window compared at every lag of the range;
+  ``tandem_counts``: numpy in, numpy out, on ``device``;
 - ``screen_keep_plain``: the fused election, in int32 as JAX's
   ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
   bucket's b // 2: the support windows clip there, so L // 2 would be
@@ -61,9 +66,10 @@ def support_windows(max_lag):
             np.floor(1.06 * lags + 4).astype(np.int64))
 
 
-def tandem_counts_plain(reads, max_lag, k=11):
+def tandem_counts_plain(reads, max_lag, k=11, lag_offset=0):
     """Plain PyTorch k-mer self-match counts (any device): reads int8
-    [B, W] (PAD = 5 past a read).  Returns int32 [B, max_lag]."""
+    [B, W] (PAD = 5 past a read), lags lag_offset + 1 .. lag_offset +
+    max_lag (those past W - 1 count 0).  Returns int32 [B, max_lag]."""
     B, W = reads.shape
     dev = reads.device
     out = torch.zeros((B, max_lag), dtype=torch.int32, device=dev)
@@ -78,10 +84,72 @@ def tandem_counts_plain(reads, max_lag, k=11):
         kid = kid * 4 + torch.where(shifted < 4, shifted, 0)
         vk &= shifted < 4
     vk &= torch.arange(W, device=dev)[None, :] <= W - k
-    for d in range(1, min(max_lag, W - 1) + 1):
+    for d in range(lag_offset + 1, min(lag_offset + max_lag, W - 1) + 1):
         eq = (kid[:, :W - d] == kid[:, d:]) & vk[:, :W - d] & vk[:, d:]
-        out[:, d - 1] = eq.sum(dim=1, dtype=torch.int32)
+        out[:, d - lag_offset - 1] = eq.sum(dim=1, dtype=torch.int32)
     return out
+
+
+_TANDEM_SYMBOLS = {
+    'tandem_counts_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                             + [ctypes.c_void_p] * 2, ctypes.c_int),
+}
+
+
+def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0):
+    """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (W <=
+    SCREEN_MAX_LEN, codes 0..5), contiguous; max_lag >= 1, lag_offset >= 0.
+    Same output as tandem_counts_plain.  Raises on anything else and when
+    the launch is refused."""
+    from ciri_long_tpu_torch.ops import _build
+
+    if not reads.is_cuda:
+        raise ValueError('tandem_counts_cuda needs a CUDA tensor (got {})'
+                         .format(reads.device))
+    if reads.dtype != torch.int8 or reads.dim() != 2:
+        raise TypeError('tandem_counts_cuda needs int8 reads [B, W] (got {} '
+                        '{})'.format(reads.dtype, tuple(reads.shape)))
+    if not reads.is_contiguous():
+        raise ValueError('tandem_counts_cuda needs contiguous reads')
+    B, W = reads.shape
+    if not (1 <= W <= SCREEN_MAX_LEN and 1 <= k <= 15 and max_lag >= 1
+            and lag_offset >= 0):
+        raise ValueError('tandem_counts_cuda takes 1 <= W <= {}, k in 1..15, '
+                         'max_lag >= 1 and lag_offset >= 0 (got W={}, k={}, '
+                         'max_lag={}, lag_offset={})'.format(
+                             SCREEN_MAX_LEN, W, k, max_lag, lag_offset))
+    dev = reads.device
+    out = torch.empty((B, max_lag), dtype=torch.int32, device=dev)
+    lib = _build.load('tandem_counts.cu', _TANDEM_SYMBOLS)
+    with torch.cuda.device(dev):
+        rc = lib.tandem_counts_launch(
+            reads.data_ptr(), B, W, int(k), int(lag_offset), int(max_lag),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('tandem_counts launch failed: cudaError {} (B={}, '
+                           'W={}, max_lag={})'.format(rc, B, W, max_lag))
+    count_launch('tandem_counts')
+    return out
+
+
+@_count_dispatch('tandem_counts')
+def tandem_counts(reads, max_lag, k=11, lag_offset=0, pad_lags=None,
+                  device='cuda'):
+    """JAX's ``tandem_counts`` on ``device``: numpy reads int8 [B, L] (PAD
+    = 5), lags lag_offset + 1 .. lag_offset + max_lag; numpy int32 [B,
+    max_lag] out.  The kernel on the card, the plain version on the CPU.
+    ``pad_lags``, JAX's static bound on lag_offset + max_lag, is checked,
+    not needed."""
+    if pad_lags is not None and lag_offset + max_lag > pad_lags:
+        raise ValueError('lag_offset + max_lag = {} passes pad_lags = {}'
+                         .format(lag_offset + max_lag, pad_lags))
+    device = resolve_device(device)
+    reads = torch.from_numpy(np.ascontiguousarray(reads, np.int8))
+    if device.type == 'cpu':
+        out = tandem_counts_plain(reads, max_lag, k, lag_offset)
+    else:
+        out = tandem_counts_cuda(reads.to(device), max_lag, k, lag_offset)
+    return out.cpu().numpy()
 
 
 def screen_keys(row, k=11):

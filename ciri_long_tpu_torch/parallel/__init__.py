@@ -1,1 +1,3 @@
-"""Host-side parallel helpers of the port (collapse's dispatch fuser)."""
+"""Parallel layers of the port: collapse's dispatch fuser, the drain
+between a host pool and the card, and the mesh scan (records, mesh,
+cohort, multihost_worker, dryrun)."""

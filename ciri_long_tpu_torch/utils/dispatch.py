@@ -36,9 +36,11 @@ _STATS = defaultdict(lambda: [0, 0.0])
 LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
             'int16_probe': 0, 'int16_probe_all': 0, 'edit_distance': 0,
             'sw_traceback': 0, 'poa_align': 0, 'chain_dp': 0,
-            'chain_extract': 0, 'screen_keep': 0, 'nw_traceback': 0}
+            'chain_extract': 0, 'screen_keep': 0, 'nw_traceback': 0,
+            'tandem_counts': 0}
 # the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
-# the int16 probes serve misc/kexp and misc/int16_probe)
+# the int16 probes serve misc/kexp and misc/int16_probe; tandem_counts the
+# mesh's pipeline step, parallel/mesh.py)
 CALL_KERNELS = ('sw_score_ends', 'chain_dp', 'chain_extract', 'screen_keep',
                 'nw_traceback')
 COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback',

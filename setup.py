@@ -65,8 +65,10 @@ setup(
     packages=find_packages(include=['ciri_long_tpu', 'ciri_long_tpu.*',
                                     'ciri_long_tpu_torch',
                                     'ciri_long_tpu_torch.*']),
-    # the PyTorch/CUDA port builds its kernels from these at first use
-    package_data={'ciri_long_tpu_torch': ['csrc/*.cu']},
+    # the PyTorch/CUDA port builds its kernels (and its host C++ vote, over
+    # these headers) from these at first use
+    package_data={'ciri_long_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp',
+                                          'csrc/*.h']},
     ext_modules=_jax_cores + _port_cores,
     python_requires='>=3.10',
     install_requires=[

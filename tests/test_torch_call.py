@@ -41,10 +41,13 @@ from ciri_long_tpu_torch.tools.world import skill_world as skill_world_files
 from ciri_long_tpu_torch.cli.main import main as cli_main
 from ciri_long_tpu_torch.ops.chain import chain_extract_batch
 from ciri_long_tpu_torch.ops.edit import edit_distance_batch
-from ciri_long_tpu_torch.ops.period import screen_keep
+from ciri_long_tpu_torch.ops.period import screen_keep, tandem_counts
 from ciri_long_tpu_torch.pipeline.find_ccs import find_ccs_reads
 from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
 from ciri_long_tpu_torch.pipeline.collapse import correct_reads
+from ciri_long_tpu_torch.parallel.dryrun import dryrun_multichip
+from ciri_long_tpu_torch.parallel.mesh import make_mesh
+from ciri_long_tpu_torch.tools import ssw_cli
 from ciri_long_tpu_torch.utils.dispatch import LAUNCHES
 from tests.test_pipeline_call import make_rolling_read, rand_seq
 from tests.test_poa import mutate
@@ -333,12 +336,17 @@ def test_recover_ccs_reads_pool_matches_serial(recover_world):
     lambda: chain_extract_batch(np.zeros(1, np.int64), [], [], [], 30.0, 15),
     lambda: find_ccs_reads('unused.fa', 'unused', 'p'),
     lambda: screen_keep(np.full((1, 512), 5, np.int8), [0], 256),
+    lambda: make_mesh(),
+    lambda: tandem_counts(np.full((1, 64), 5, np.int8), 8),
+    lambda: ssw_cli.main(['unused_t.fa', 'unused_q.fa']),
+    lambda: dryrun_multichip(1),
 ], ids=['sw_align_batch', 'sw_align_batch_submit', 'sw_window_align',
         'sw_window_align_many', 'align_clip_segments_batch',
         'scan_ccs_chunk', 'scan_ccs_reads', 'recover_ccs_chunk',
         'recover_ccs_reads', 'scan_raw_reads', 'edit_distance_batch',
         'sw_traceback_batch', 'correct_reads', 'collapse', 'scan_raw_chunk',
-        'map_batch', 'chain_extract_batch', 'find_ccs_reads', 'screen_keep'])
+        'map_batch', 'chain_extract_batch', 'find_ccs_reads', 'screen_keep',
+        'make_mesh', 'tandem_counts', 'ssw_cli', 'dryrun_multichip'])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """With no ``device`` the port's entry points ask for 'cuda', which
     raises where no GPU is visible instead of running on the host."""

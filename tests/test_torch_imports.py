@@ -149,21 +149,8 @@ def test_cuda_without_gpu_raises(monkeypatch):
         resolve_device('meta')
 
 
-def test_kernel_sources_ship_with_package():
-    from ciri_long_tpu_torch.ops import _build
-
-    for src in ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
-                'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
-                'sw_traceback.cu'):
-        assert (_build.CSRC / src).exists(), src
-    setup = (REPO / 'setup.py').read_text()
-    assert "'ciri_long_tpu_torch': ['csrc/*.cu']" in setup
-    assert 'CIRI-long-torch=ciri_long_tpu_torch.cli.main:main' in setup
-
-
-def test_setup_names_the_ports_native_cores():
-    """setup.py builds each native core twice: as ciri_long_tpu._X for the
-    JAX package and as ciri_long_tpu_torch._X for the port."""
+def _setup_kwargs():
+    """The keyword arguments setup.py hands to setuptools.setup."""
     import setuptools
 
     seen = {}
@@ -174,6 +161,42 @@ def test_setup_names_the_ports_native_cores():
         exec(code, {'__name__': '__main__', '__file__': str(REPO / 'setup.py')})
     finally:
         setuptools.setup = orig
+    return seen
+
+
+def test_kernel_sources_ship_with_package():
+    from ciri_long_tpu_torch.ops import _build
+
+    for src in ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
+                'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
+                'sw_traceback.cu', 'tandem_counts.cu', 'star_vote.cpp',
+                'poa_graph.h'):
+        assert (_build.CSRC / src).exists(), src
+    seen = _setup_kwargs()
+    assert 'csrc/*.cu' in seen['package_data']['ciri_long_tpu_torch']
+    assert 'CIRI-long-torch=ciri_long_tpu_torch.cli.main:main' in \
+        seen['entry_points']['console_scripts']
+
+
+def test_package_data_covers_every_csrc_file():
+    """An installed port builds its kernels, its host C++ vote and their
+    headers from csrc/: every file there must match a package_data glob
+    (csrc/star_vote.cpp and csrc/poa_graph.h once did not)."""
+    import fnmatch
+
+    globs = _setup_kwargs()['package_data']['ciri_long_tpu_torch']
+    files = sorted(str(p.relative_to(PORT)) for p in (PORT / 'csrc').iterdir()
+                   if p.is_file())
+    assert len(files) >= 14
+    missed = [f for f in files if not any(fnmatch.fnmatch(f, g)
+                                          for g in globs)]
+    assert not missed, missed
+
+
+def test_setup_names_the_ports_native_cores():
+    """setup.py builds each native core twice: as ciri_long_tpu._X for the
+    JAX package and as ciri_long_tpu_torch._X for the port."""
+    seen = _setup_kwargs()
     names = {ext.name: ext.sources for ext in seen['ext_modules']}
     for core in ('_fastxcodec', '_chaincore', '_nwcore', '_alncore',
                  '_poacore', '_ccscore'):
