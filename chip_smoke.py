@@ -190,12 +190,17 @@ and exits non-zero if any phase fails (none is caught and skipped):
 10. ``dist``: the multi-device scan and the last entry points.  The
    lag-range tandem counts (csrc/tandem_counts.cu, the 'lag' axis's step
    of parallel/mesh.py) against tandem_counts_plain on the card, exact
-   (``kernel_vs_plain`` lines): at the dry run's shapes, at phase 4's
-   screened reads (1 104 x 4 096) over 2 048 lags cut into 1, 2 and 4
-   ranges, and on edge reads (all PAD, N, under k, lags past the width);
-   then timed at both shapes (``tandem_counts_time``: a CUDA graph's
-   replay, the plain version's wall, the bound from its (window, lag)
-   pairs at csrc/op_rate.cu's screen-compare rate or its bytes).  Then
+   (``kernel_vs_plain`` lines, each with the reads that took each route,
+   ``routes``): at the dry run's shapes, at phase 4's screened reads
+   (1 104 x 4 096) and at tools/call_x_ab.py's six screen cases (1 104 x
+   4 096: poly-A, di- and trinucleotide repeats, a period of 50, random,
+   all N) over 2 048 lags cut into 1, 2 and 4 ranges, and on edge reads
+   (all PAD, N, under k, lags past the width); it fails unless some read
+   took each route.  Then timed at both shapes (``tandem_counts_time``: a
+   CUDA graph's replay, the plain version's wall, the bound from the equal
+   k-mer pairs in the range at csrc/op_rate.cu's screen-compare rate or
+   the bytes, the reads once and the counts once; the (window, lag) pairs
+   of a brute-force design give ``window_bound_ms`` beside it).  Then
    ``dryrun_multichip`` at every visible card (its tandem_counts and SW
    launches: the kernels line's launches); ``call --dist mesh --device
    cuda`` on the ``call`` world, whose files and counters must equal phase
@@ -237,7 +242,8 @@ launches of call's run (``call_device_ms``, ``slowest_ms``,
 ``serial_bound_ms``, screen_keep's bound its equal k-mer pairs, its
 ``window_bound_ms`` the brute-force (window, lag) measure and
 ``lag_route_reads``); tandem_counts's those of phase 10 at call's screened
-reads, with its numbers at the dry run's shape (``dryrun``), and last
+reads (its bound the equal pairs, ``window_bound_ms``, ``lag_route_reads``),
+with its numbers at the dry run's shape (``dryrun``), and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -982,11 +988,10 @@ def _screen_pairs(reads, lags, k=11):
     return total
 
 
-def _screen_equal_pairs(reads, lags, k=11):
-    """The work the screen's function needs: the pairs of valid windows i <
-    j of one read with equal k-mer ids and j - i <= its lag range M, what
-    grouping the windows by k-mer id (a sort) finds in O(L log L + pairs).
-    About L M / p for a tandem read of period p, near 0 for a random one."""
+def _equal_pairs(reads, lo, hi, k=11):
+    """The pairs of valid windows i < j of each read with equal k-mer ids
+    and lo <= j - i <= hi (ints, or [B] ints a read), what grouping the
+    windows by k-mer id (a sort) finds in O(L log L + pairs)."""
     import numpy as np
     x = np.asarray(reads).astype(np.int64)
     B, W = x.shape
@@ -1000,13 +1005,25 @@ def _screen_equal_pairs(reads, lags, k=11):
     for j in range(k):
         kid = kid * 4 + code[:, j:j + n]
         valid &= ok[:, j:j + n]
+    # lags past W - 1 pair nothing; cut there, a lag keeps within one id
+    los = np.minimum(np.broadcast_to(np.asarray(lo, np.int64), (B,)), W)
+    his = np.minimum(np.broadcast_to(np.asarray(hi, np.int64), (B,)), W - 1)
     total = 0
-    for kr, vr, M in zip(kid, valid, np.asarray(lags)):
+    for kr, vr, a, b in zip(kid, valid, los, his):
+        if a > b:
+            continue
         pos = np.nonzero(vr)[0]
         key = np.sort(kr[pos] * (2 * W) + pos)    # by k-mer id, then position
-        after = np.searchsorted(key, key + int(M), 'right')
-        total += int((after - np.arange(1, len(key) + 1)).sum())
+        total += int((np.searchsorted(key, key + b, 'right')
+                      - np.searchsorted(key, key + a, 'left')).sum())
     return total
+
+
+def _screen_equal_pairs(reads, lags, k=11):
+    """The work the screen's function needs: the pairs of valid windows i <
+    j of one read with equal k-mer ids and j - i <= its lag range M.  About
+    L M / p for a tandem read of period p, near 0 for a random one."""
+    return _equal_pairs(reads, 1, lags, k)
 
 
 def _wall_ms(torch, dev, fn):
@@ -2794,9 +2811,10 @@ LAG_SPLITS = (1, 2, 4)
 
 
 def _tandem_pairs(reads, lag_offset, max_lag, k=11):
-    """The (window, lag) pairs tandem_counts compares for these reads: for
-    each valid window i, the lags d in lag_offset + 1 .. lag_offset +
-    max_lag with i + d at or below the read's last valid window."""
+    """The (window, lag) pairs a brute-force tandem_counts would compare for
+    these reads: for each valid window i, the lags d in lag_offset + 1 ..
+    lag_offset + max_lag with i + d at or below the read's last valid
+    window (the lag route's work)."""
     import numpy as np
     x = np.asarray(reads) < 4
     W = x.shape[1]
@@ -2809,6 +2827,13 @@ def _tandem_pairs(reads, lag_offset, max_lag, k=11):
             room = valid[-1] - valid - lag_offset
             total += int(np.clip(room, 0, max_lag).sum())
     return total
+
+
+def _tandem_equal_pairs(reads, lag_offset, max_lag, k=11):
+    """The work tandem_counts's function needs: the pairs of valid windows
+    i < j of one read with equal k-mer ids and lag_offset < j - i <=
+    lag_offset + max_lag (tandem_counts_plain's sum)."""
+    return _equal_pairs(reads, lag_offset + 1, lag_offset + max_lag, k)
 
 
 def _tandem_edge_reads(rng, W):
@@ -2829,62 +2854,81 @@ def check_tandem_counts(torch, dev, smi, screened):
     """Phase 10's kernel: csrc/tandem_counts.cu against tandem_counts_plain
     on the card, exact, at the dry run's shapes (its lag ranges at 1 and 2
     lag shards), at call's screened reads (``screened``, phase 4's screen
-    launch) at max_lag 2 048 cut into LAG_SPLITS ranges, and on edge reads
-    (all PAD, N, a read under k, lags past the width) at lag offsets; then
-    the kernel at call's shape and at the dry run's, timed: a CUDA graph's
-    replay of 10 launches, the plain version's wall, and the bound, its
-    (window, lag) pairs at csrc/op_rate.cu's screen-compare rate or its
-    bytes (the reads once, the counts once) at 3.35 TB/s.  Returns the
-    numbers of the kernels line."""
+    launch) and tools/call_x_ab.py's screen cases at max_lag 2 048 cut
+    into LAG_SPLITS ranges, and on edge reads (all PAD, N, a read under k,
+    lags past the width) at lag offsets, each launch with the reads that
+    took each route; then the kernel at call's shape and at the dry run's,
+    timed: a CUDA graph's replay of 10 launches, the plain version's wall,
+    and the bound, the equal k-mer pairs in the range at csrc/op_rate.cu's
+    screen-compare rate or the bytes (the reads once, the counts once) at
+    3.35 TB/s.  Returns the numbers of the kernels line."""
     import numpy as np
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
                                                recurrence_rate,
                                                time_launches)
     from ciri_long_tpu_torch.ops.period import (MAX_LAG, tandem_counts_cuda,
                                                 tandem_counts_plain)
+    from ciri_long_tpu_torch.tools.call_x_ab import SCREEN_CASES, screen_case
 
     rng = np.random.default_rng(0)
     dry = rng.integers(0, 4, (8, 192)).astype(np.int8)
     cases = [('dryrun 1x1', dry[:2], [(0, 32)]),
              ('dryrun 4x2', dry, [(0, 32), (32, 32)])]
-    for parts in LAG_SPLITS:
-        w = MAX_LAG // parts
-        cases.append(('call screen, {} lag ranges'.format(parts), screened,
-                      [(t * w, w) for t in range(parts)]))
+    for label, reads in ([('call screen', screened)]
+                         + [('screen case ' + name, screen_case(name)[0])
+                            for name in SCREEN_CASES]):
+        for parts in LAG_SPLITS:
+            w = MAX_LAG // parts
+            cases.append(('{}, {} lag ranges'.format(label, parts), reads,
+                          [(t * w, w) for t in range(parts)]))
     for W, ranges in ((120, [(0, 32), (32, 40), (96, 32)]),
                       (4096, [(0, 2048), (2048, 2048), (4000, 200)])):
         cases.append(('edge W={}'.format(W), _tandem_edge_reads(rng, W),
                       ranges))
     err = 0
+    took = {'pair': 0, 'lag': 0}
     for label, reads, ranges in cases:
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        B = int(x.shape[0])
         for offset, M in ranges:
-            got = tandem_counts_cuda(x, M, 11, offset)
+            routes = torch.zeros(B, dtype=torch.uint8, device=dev)
+            got = tandem_counts_cuda(x, M, 11, offset, routes=routes)
             want = tandem_counts_plain(x, M, 11, offset)
             e = int((got.long() - want.long()).abs().max())
+            lag = int(routes.sum())
+            took['lag'] += lag
+            took['pair'] += B - lag
             emit('kernel_vs_plain', kernel='tandem_counts', case=label,
-                 reads=int(x.shape[0]), width=int(x.shape[1]),
-                 lag_offset=offset, max_lag=M, nonzero=int((want > 0).sum()),
-                 max_abs_err=e)
+                 reads=B, width=int(x.shape[1]), lag_offset=offset,
+                 max_lag=M, nonzero=int((want > 0).sum()),
+                 routes={'pair': B - lag, 'lag': lag}, max_abs_err=e)
             err = max(err, e)
     if err:
         raise AssertionError('tandem_counts disagrees with the plain version')
+    if not min(took.values()):
+        raise AssertionError('a tandem_counts route took no read: {}'
+                             .format(took))
     rate = recurrence_rate(dev, 'screen_keep')
     timed = {}
     for label, reads, M in (('call', screened, MAX_LAG),
                             ('dryrun', dry[:2], 32)):
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         B, W = x.shape
+        equal = _tandem_equal_pairs(reads, 0, M)
         pairs = _tandem_pairs(reads, 0, M)
-        bound = max((pairs / rate, 'operations'),
+        bound = max((equal / rate, 'operations'),
                     ((B * W + 4 * B * M) / HBM_BYTES_PER_S, 'bytes'))
         plain_ms, _ = _wall_ms(torch, dev,
                                lambda: tandem_counts_plain(x, M, 11))
+        routes = torch.zeros(B, dtype=torch.uint8, device=dev)
+        tandem_counts_cuda(x, M, 11, routes=routes)
         timed[label] = dict(
             ms=time_launches(lambda: tandem_counts_cuda(x, M, 11), 10, dev,
                              graph=True),
             plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
-            reads=int(B), width=int(W), max_lag=M, pairs=pairs)
+            window_bound_ms=pairs / rate * 1e3, reads=int(B), width=int(W),
+            max_lag=M, equal_pairs=equal, pairs=pairs,
+            lag_route_reads=int(routes.sum()))
         emit('tandem_counts_time', shape=label, card=smi,
              compare_rate=rate, **timed[label])
     return dict(max_abs_err=err, **timed)
@@ -3259,7 +3303,9 @@ def main():
               call_tc['ms'], call_tc['plain_ms'], call_tc['bound_ms'],
               call_tc['bound_by']),
         shape=[call_tc['reads'], call_tc['width'], call_tc['max_lag']],
-        pairs=call_tc['pairs'], dryrun=dry_tc))
+        pairs=call_tc['pairs'], equal_pairs=call_tc['equal_pairs'],
+        window_bound_ms=call_tc['window_bound_ms'],
+        lag_route_reads=call_tc['lag_route_reads'], dryrun=dry_tc))
     # each kernel of call and collapse: its launches in phase 9's -t 4
     # cuda runs, on each world
     for k in kernels:

@@ -10,111 +10,99 @@
 //   out[b, j]  #{i : kid[i], kid[i + d] valid and equal}, d = lag_offset +
 //              j + 1, j in 0..max_lag-1 (0 for d >= W)
 //
-// Design: one block a (read, chunk of LAG_BLOCK lags).  The block stages
-// the read's codes and then its k-mer ids in shared memory (an invalid
-// window is -1; PAD_KID entries of -1 past W, so a lag group may read past
-// the read's end), 5 bytes a code, 20 KB at MAX_W.  Each warp takes groups
-// of GROUP consecutive lags: lane l walks windows i = l, l + 32, ... below
-// W - d0 (d0 the group's first lag), loads kid[i] once and compares it with
-// kid[i + d0 + g] for the GROUP lags g, then a warp reduction a lag.  The
-// work is every (window, lag) pair: the reads' bytes are few, so the bound
-// is those compares at csrc/op_rate.cu's screen-compare rate; GROUP lags a
-// load of kid[i] keep shared-memory loads at 1 + 1/GROUP a compare.
-// Every block recomputes its read's ids (k shared-memory loads a window),
-// small beside LAG_BLOCK lags of compares.
+// Design: one block a read, which counts only the pairs of equal k-mers
+// (csrc/kmer_pairs.h, the screen's count): the read's codes staged and one
+// sorted 32-bit key hash(kid) << POS_BITS | i a valid window; over lags lo =
+// lag_offset + 1 .. hi = min(lag_offset + max_lag, nwin - 1) (nwin the last
+// valid window + 1: no loop passes it), the pair route walks each window's
+// keys from the first at or past key + lo (a galloping search) to key + hi
+// and checks the codes, or, when a thread would walk over WALK_CAP keys (a
+// low-complexity read), the lag route counts LAGS lags a thread a pass of
+// THREADS * LAGS lags over the valid windows below nwin - d, comparing the
+// ids as float32 where they are exact (k <= 12: count_pairs<true>, on the
+// FP32 pipe, twice the INT32 pipe's rate).  A read with no
+// valid window or a range past nwin writes zeros and ends.  Then the row in
+// coalesced stores, zeros past hi.  Shared memory: the codes, the keys and
+// cnt over min(max_lag, W) lags, ~29 KB at W = 4 096 and 2 048 lags.
+// Bound: the reads' bytes and the counts' (one read, one write), or the
+// equal pairs in the range at csrc/op_rate.cu's compare rate; the pair
+// route's cost is the sort, O(W log^2 W) shared-memory compare-exchanges a
+// read, the lag route's the windows times the lags.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kmer_pairs.h"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_W = 4096;                 // the largest screen bucket
-constexpr int GROUP = 4;                    // lags a warp compares at once
-constexpr int LAG_BLOCK = 256;              // lags a block
-constexpr int PAD_KID = GROUP;              // -1 ids past W
+using namespace kmer;
 
-__host__ __device__ constexpr int codes_bytes(int W) {
-    return (W + 15) / 16 * 16;
+// lags of cnt a launch keeps: hi - lo + 1 <= min(max_lag, nwin - 1) < W
+__host__ __device__ constexpr int cnt_words(int W, int max_lag) {
+    return max_lag < W ? max_lag : W;
 }
 
-__host__ __device__ constexpr int smem_bytes(int W) {
-    return codes_bytes(W) + 4 * (W + PAD_KID);
+__host__ __device__ constexpr int smem_bytes(int W, int max_lag) {
+    return codes_bytes(W) + 4 * (keys_words(W) + cnt_words(W, max_lag));
 }
 
 __global__ void __launch_bounds__(THREADS)
 tandem_counts_kernel(const int8_t* __restrict__ reads, int W, int k,
-                     int lag_offset, int max_lag, int chunks,
-                     int* __restrict__ out) {
+                     int lag_offset, int max_lag, int* __restrict__ out,
+                     uint8_t* __restrict__ routes) {
     extern __shared__ __align__(16) unsigned char smem[];
     int8_t* codes = reinterpret_cast<int8_t*>(smem);
-    int* kid = reinterpret_cast<int*>(smem + codes_bytes(W));
+    uint32_t* keys = reinterpret_cast<uint32_t*>(smem + codes_bytes(W));
+    int* cnt = reinterpret_cast<int*>(keys + keys_words(W));
+    __shared__ Shared sh;
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    int* row = out + static_cast<int64_t>(b) * max_lag;
 
-    const int b = blockIdx.x / chunks;
-    const int chunk = blockIdx.x % chunks;
-    const int8_t* row = reads + static_cast<int64_t>(b) * W;
-    for (int i = threadIdx.x; i < W; i += THREADS) codes[i] = row[i];
-    __syncthreads();
-    for (int i = threadIdx.x; i < W + PAD_KID; i += THREADS) {
-        int id = -1;
-        if (i <= W - k) {
-            id = 0;
-            for (int t = 0; t < k; ++t) {
-                const int c = codes[i + t];
-                if (c < 0 || c > 3) { id = -1; break; }
-                id = id * 4 + c;
-            }
-        }
-        kid[i] = id;
+    const Windows win = write_keys(reads + static_cast<int64_t>(b) * W, W, k,
+                                   codes, keys, sh);
+    // lags lo..hi, both under W when the range is not empty
+    const int64_t lo = static_cast<int64_t>(lag_offset) + 1;
+    const int64_t want = static_cast<int64_t>(lag_offset) + max_lag;
+    const int64_t hi = want < win.nwin - 1 ? want : win.nwin - 1;
+    if (win.nvalid == 0 || lo > hi) {      // nothing to count
+        for (int j = tid; j < max_lag; j += THREADS) row[j] = 0;
+        if (tid == 0 && routes) routes[b] = 0;
+        return;
     }
-    __syncthreads();
-
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int j_end = min(max_lag, (chunk + 1) * LAG_BLOCK);
-    int* out_row = out + static_cast<int64_t>(b) * max_lag;
-    for (int j0 = chunk * LAG_BLOCK + warp * GROUP; j0 < j_end;
-         j0 += WARPS * GROUP) {
-        const int d0 = lag_offset + j0 + 1;
-        int cnt[GROUP] = {};
-        // i + d0 + g <= W - 1 + GROUP - 1 < W + PAD_KID: inside kid
-        for (int i = lane; i < W - d0; i += 32) {
-            const int a = kid[i];
-            if (a < 0) continue;
-#pragma unroll
-            for (int g = 0; g < GROUP; ++g) cnt[g] += kid[i + d0 + g] == a;
-        }
-#pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
-            int c = cnt[g];
-            for (int s = 16; s > 0; s >>= 1)
-                c += __shfl_down_sync(0xffffffffu, c, s);
-            if (lane == 0 && j0 + g < j_end) out_row[j0 + g] = c;
-        }
-    }
+    const int n = static_cast<int>(hi - lo) + 1;
+    for (int j = tid; j < n; j += THREADS) cnt[j] = 0;
+    const bool lag_route = count_pairs<true>(codes, W, k, keys, win,
+                                             static_cast<int>(lo),
+                                             static_cast<int>(hi), cnt);
+    for (int j = tid; j < max_lag; j += THREADS) row[j] = j < n ? cnt[j] : 0;
+    if (tid == 0 && routes) routes[b] = lag_route ? 1 : 0;
 }
 
 }  // namespace
 
 // reads int8 [B, W], out int32 [B, max_lag]; lags lag_offset + 1 ..
-// lag_offset + max_lag.  Returns the cudaError of the launch (0 on
-// success); cudaErrorInvalidValue for W outside 1..MAX_W, k outside
-// 1..15, a negative lag_offset or max_lag < 1.
+// lag_offset + max_lag.  ``routes`` (B bytes, or null) gets 1 for a read
+// that took the lag route, 0 for the pair route or nothing to count.
+// Returns the cudaError of the launch (0 on success);
+// cudaErrorInvalidValue for W outside 1..MAX_W, k outside 1..15, a negative
+// lag_offset or max_lag < 1.
 extern "C" int tandem_counts_launch(const void* reads, int B, int W, int k,
                                     int lag_offset, int max_lag, void* out,
-                                    void* stream) {
+                                    void* routes, void* stream) {
     if (B == 0) return 0;
     if (W < 1 || W > MAX_W || k < 1 || k > 15 || lag_offset < 0
         || max_lag < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int chunks = (max_lag + LAG_BLOCK - 1) / LAG_BLOCK;
-    const int64_t blocks = static_cast<int64_t>(B) * chunks;
-    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    tandem_counts_kernel<<<static_cast<unsigned>(blocks), THREADS,
-                           smem_bytes(W),
+    const int smem = smem_bytes(W, max_lag);
+    cudaError_t err = cudaFuncSetAttribute(
+        tandem_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tandem_counts_kernel<<<B, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(reads), W, k, lag_offset, max_lag, chunks,
-        static_cast<int*>(out));
+        static_cast<const int8_t*>(reads), W, k, lag_offset, max_lag,
+        static_cast<int*>(out), static_cast<uint8_t*>(routes));
     return static_cast<int>(cudaGetLastError());
 }

@@ -12,16 +12,19 @@ changes which reads get one.
   the one at i + d (both windows free of codes >= 4), d = lag_offset + j + 1
   for j in 0..max_lag-1 (JAX's ``tandem_counts``, whose lag ranges are the
   'lag' mesh axis's shards, parallel/mesh.py);
-- ``tandem_counts_cuda``: csrc/tandem_counts.cu, a block a read and chunk
-  of lags, every window compared at every lag of the range;
-  ``tandem_counts``: numpy in, numpy out, on ``device``;
+- ``tandem_counts_cuda``: csrc/tandem_counts.cu, one block a read, which
+  counts the pairs of equal k-mers in the range (csrc/kmer_pairs.h, the
+  screen's count) or, for a low-complexity read, every lag of it;
+  ``tandem_routes_plain`` says which; ``tandem_counts``: numpy in, numpy
+  out, on ``device``;
 - ``screen_keep_plain``: the fused election, in int32 as JAX's
   ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
   bucket's b // 2: the support windows clip there, so L // 2 would be
   another function);
 - ``screen_keep_cuda``: csrc/screen_keep.cu, one block a read, which counts
-  only the pairs of equal k-mers (sorted hash keys) or, for a
-  low-complexity read, every lag; ``screen_routes_plain`` says which;
+  only the pairs of equal k-mers (sorted hash keys, csrc/kmer_pairs.h) or,
+  for a low-complexity read, every lag; ``screen_routes_plain`` says
+  which;
 - ``screen_keep``: numpy in, numpy out, on ``device``.
 
 The support windows [ceil(0.94 l - 4), floor(1.06 l + 4)] come from numpy's
@@ -43,8 +46,8 @@ PAD = 5
 SCREEN_BUCKETS = (512, 1024, 2048, 4096)
 SCREEN_MAX_LEN = SCREEN_BUCKETS[-1]    # csrc/screen_keep.cu's MAX_W
 MAX_LAG = SCREEN_MAX_LEN // 2
-# csrc/screen_keep.cu's route rule: keys of POS_BITS of window position
-# under a hash of the k-mer id, THREADS a block, WALK_CAP keys a thread
+# csrc/kmer_pairs.h's route rule: keys of POS_BITS of window position under
+# a hash of the k-mer id, THREADS a block, WALK_CAP keys a thread
 POS_BITS = 13
 THREADS = 256
 WALK_CAP = 256
@@ -92,25 +95,22 @@ def tandem_counts_plain(reads, max_lag, k=11, lag_offset=0):
 
 _TANDEM_SYMBOLS = {
     'tandem_counts_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 5
-                             + [ctypes.c_void_p] * 2, ctypes.c_int),
+                             + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
 
 
-def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0):
+def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
     """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (W <=
     SCREEN_MAX_LEN, codes 0..5), contiguous; max_lag >= 1, lag_offset >= 0.
-    Same output as tandem_counts_plain.  Raises on anything else and when
-    the launch is refused."""
+    Same output as tandem_counts_plain; a ``routes`` uint8 [B] tensor on
+    the device, if given, gets each read's route (1 the lag route, 0 the
+    pair route or nothing to count; tandem_routes_plain).  Raises on
+    anything else and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
-    if not reads.is_cuda:
-        raise ValueError('tandem_counts_cuda needs a CUDA tensor (got {})'
-                         .format(reads.device))
     if reads.dtype != torch.int8 or reads.dim() != 2:
         raise TypeError('tandem_counts_cuda needs int8 reads [B, W] (got {} '
                         '{})'.format(reads.dtype, tuple(reads.shape)))
-    if not reads.is_contiguous():
-        raise ValueError('tandem_counts_cuda needs contiguous reads')
     B, W = reads.shape
     if not (1 <= W <= SCREEN_MAX_LEN and 1 <= k <= 15 and max_lag >= 1
             and lag_offset >= 0):
@@ -118,13 +118,25 @@ def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0):
                          'max_lag >= 1 and lag_offset >= 0 (got W={}, k={}, '
                          'max_lag={}, lag_offset={})'.format(
                              SCREEN_MAX_LEN, W, k, max_lag, lag_offset))
+    if not reads.is_cuda:
+        raise ValueError('tandem_counts_cuda needs a CUDA tensor (got {})'
+                         .format(reads.device))
+    if not reads.is_contiguous():
+        raise ValueError('tandem_counts_cuda needs contiguous reads')
     dev = reads.device
+    if routes is not None and (routes.device != dev
+                               or routes.dtype != torch.uint8
+                               or tuple(routes.shape) != (B,)
+                               or not routes.is_contiguous()):
+        raise ValueError('tandem_counts_cuda: routes must be a contiguous '
+                         'uint8 [B] tensor on the reads\' device')
     out = torch.empty((B, max_lag), dtype=torch.int32, device=dev)
     lib = _build.load('tandem_counts.cu', _TANDEM_SYMBOLS)
     with torch.cuda.device(dev):
         rc = lib.tandem_counts_launch(
             reads.data_ptr(), B, W, int(k), int(lag_offset), int(max_lag),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), None if routes is None else routes.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('tandem_counts launch failed: cudaError {} (B={}, '
                            'W={}, max_lag={})'.format(rc, B, W, max_lag))
@@ -153,7 +165,7 @@ def tandem_counts(reads, max_lag, k=11, lag_offset=0, pad_lags=None,
 
 
 def screen_keys(row, k=11):
-    """csrc/screen_keep.cu's sorted keys of one read's codes (numpy int
+    """csrc/kmer_pairs.h's sorted keys of one read's codes (numpy int
     [W]): hash(kid) << POS_BITS | i for each valid window i, the hash
     Fibonacci hashing of the k-mer id to 32 - POS_BITS bits; uint64 values
     of 32 bits, ascending."""
@@ -173,24 +185,42 @@ def screen_keys(row, k=11):
     return np.sort((h << np.uint64(POS_BITS)) | pos)
 
 
+def _lag_route(row, lo, hi, k):
+    """Whether csrc/kmer_pairs.h counts lags lo..hi of one read on its lag
+    route: thread t of the block walks, for each sorted key s = t, t +
+    THREADS, ..., the keys in [key_s + lo, key_s + min(hi, nwin - 1)] (nwin
+    the last valid window + 1); a read whose walk passes WALK_CAP keys in
+    some thread is low-complexity and counts every lag.  A read with
+    nothing to count walks no key."""
+    keys = screen_keys(row, k)
+    if not len(keys):
+        return False
+    hi = min(int(hi), int((keys & np.uint64(2 ** POS_BITS - 1)).max()))
+    if lo > hi:
+        return False
+    walk = (np.searchsorted(keys, keys + np.uint64(hi), 'right')
+            - np.searchsorted(keys, keys + np.uint64(lo), 'left'))
+    per_thread = np.bincount(np.arange(len(keys)) % THREADS, walk,
+                             minlength=THREADS)
+    return bool((per_thread > WALK_CAP).any())
+
+
 def screen_routes_plain(reads, max_lag, k=11):
     """Which route csrc/screen_keep.cu takes for each read (numpy reads
-    [B, W], max_lag an int or [B] ints): True for the lag route.  Thread t
-    of the block walks, for each sorted key s = t, t + THREADS, ..., the
-    keys in (key_s, key_s + M]; a read whose walk passes WALK_CAP keys in
-    some thread is low-complexity and counts every lag.  Returns bool
-    [B]."""
+    [B, W], max_lag an int or [B] ints): True for the lag route, over lags
+    1..M (``_lag_route``).  Returns bool [B]."""
     reads = np.asarray(reads)
     lags = np.broadcast_to(np.asarray(max_lag, np.int64), (len(reads),))
-    out = np.zeros(len(reads), bool)
-    for b, (row, M) in enumerate(zip(reads, lags)):
-        keys = screen_keys(row, k)
-        ends = np.searchsorted(keys, keys + np.uint64(M), 'right')
-        walk = ends - np.arange(1, len(keys) + 1)
-        per_thread = np.bincount(np.arange(len(keys)) % THREADS, walk,
-                                 minlength=THREADS)
-        out[b] = bool((per_thread > WALK_CAP).any())
-    return out
+    return np.array([_lag_route(row, 1, M, k)
+                     for row, M in zip(reads, lags)], bool)
+
+
+def tandem_routes_plain(reads, max_lag, k=11, lag_offset=0):
+    """Which route csrc/tandem_counts.cu takes for each read (numpy reads
+    [B, W]): True for the lag route, over lags lag_offset + 1 .. lag_offset
+    + max_lag (``_lag_route``).  Returns bool [B]."""
+    return np.array([_lag_route(row, lag_offset + 1, lag_offset + max_lag,
+                                k) for row in np.asarray(reads)], bool)
 
 
 def _lag_ranges(max_lag, B, device):

@@ -1,6 +1,7 @@
 """call's chaining, screen and polish kernels of two checkouts timed in turns
 on one card: csrc/chain_dp.cu's DP and extraction (X2), csrc/screen_keep.cu
-(X3) and csrc/nw_traceback.cu (X4).
+(X3) and its lag-range counts csrc/tandem_counts.cu, and
+csrc/nw_traceback.cu (X4).
 
     python3 -m ciri_long_tpu_torch.tools.call_x_ab --other DIR
         [--inputs FILE] [--nw-inputs FILE]
@@ -19,7 +20,11 @@ launches each), then ``screen_keep_cuda`` on each
 launch of SCREEN_CASES: SCREEN_READS reads of SCREEN_WIDTH codes each, a
 poly-A, a dinucleotide and a trinucleotide repeat, a perfect tandem repeat
 of period 50, random codes and all N (seed 0, made here with numpy, the
-same in both runs).  First X4 (build/chip_smoke/call_nw_inputs.pt, the
+same in both runs); then ``tandem_counts_cuda`` (csrc/tandem_counts.cu,
+the mesh's lag shard, where the checkout has it) on the recorded screen
+launch's reads at MAX_LAG lags in 1, 2 and 4 ranges, and on each
+SCREEN_CASES launch's reads at SCREEN_WIDTH // 2 lags.  First X4
+(build/chip_smoke/call_nw_inputs.pt, the
 default of --nw-inputs, written by chip_smoke.py: codes, lengths, bands
 and offsets, no plan): the pairs of call's largest nw_traceback launch
 (``nw_largest_ms``) and all the pairs of call's first-band launches as one
@@ -29,9 +34,9 @@ own ``nw_traceback_cuda``, each launch of the plan timed as a CUDA graph's
 replay of 10 and summed, with the plan's shape, the resident warps an SM
 it allows and, where the checkout's wrapper takes stamps, its first
 launch split into passes and walk (``nw_split``).  Either input file may be
-absent; its part is then left out.  Prints one JSON line a run, then the
-means of the two checkouts and their ratio, with the card's name and power
-limit.
+absent; its part is then left out (the SCREEN_CASES timings need
+neither).  Prints one JSON line a run, then the means of the two checkouts
+and their ratio, with the card's name and power limit.
 """
 
 import argparse
@@ -168,13 +173,32 @@ def time_tree(tree, inputs, nw_inputs=None):
             (out['nw_{}_ms'.format(key)], out['nw_{}_plan'.format(key)],
              out['nw_{}_split'.format(key)]) = time_nw(
                  torch, dev, saved[key], time_launches)
-    if not os.path.exists(inputs):
-        return out
-    saved = torch.load(inputs)
+    screened = None
+    if os.path.exists(inputs):
+        recorded, screened = time_recorded(torch, dev, torch.load(inputs),
+                                           time_launches)
+        out.update(recorded)
+    for name in SCREEN_CASES:
+        reads, lens, lags = (torch.from_numpy(a).to(dev)
+                             for a in screen_case(name))
+        out['screen_{}_ms'.format(name)] = time_launches(
+            lambda: period.screen_keep_cuda(reads, lens, lags), 10, dev,
+            graph=True)
+    if hasattr(period, 'tandem_counts_cuda'):
+        out.update(time_tandem(dev, screened, period, time_launches))
+    return out
+
+
+def time_recorded(torch, dev, saved, time_launches):
+    """X2 and X3 in this checkout on call's recorded launches (``saved``,
+    chip_smoke.py's X_INPUTS); (their numbers, the screen launch's reads on
+    the card)."""
+    from ciri_long_tpu_torch.ops import chain, period
 
     def on_card(args):
         return [a.to(dev) if torch.is_tensor(a) else a for a in args]
 
+    out = {}
     dp = on_card(saved['chain_dp'])
     out['chain_dp_ms'] = time_launches(lambda: chain.chain_dp_cuda(*dp), 10,
                                        dev, graph=True)
@@ -194,12 +218,29 @@ def time_tree(tree, inputs, nw_inputs=None):
     scr = on_card(saved['screen_keep'])
     out['screen_keep_ms'] = time_launches(
         lambda: period.screen_keep_cuda(*scr), 10, dev, graph=True)
+    return out, scr[0]
+
+
+def time_tandem(dev, screened, period, time_launches):
+    """csrc/tandem_counts.cu in this checkout: call's screened reads (on the
+    card, or None) at MAX_LAG lags cut into 1, 2 and 4 ranges (the ranges'
+    launches summed, ``tandem_call_{n}_ms``) and each SCREEN_CASES launch's
+    reads at SCREEN_WIDTH // 2 lags (``tandem_{case}_ms``), each launch a
+    CUDA graph's replay of 10."""
+    import torch
+
+    out = {}
+    for parts in (1, 2, 4) if screened is not None else ():
+        w = period.MAX_LAG // parts
+        out['tandem_call_{}_ms'.format(parts)] = sum(
+            time_launches(lambda o=t * w: period.tandem_counts_cuda(
+                screened, w, 11, o), 10, dev, graph=True)
+            for t in range(parts))
     for name in SCREEN_CASES:
-        reads, lens, lags = (torch.from_numpy(a).to(dev)
-                             for a in screen_case(name))
-        out['screen_{}_ms'.format(name)] = time_launches(
-            lambda: period.screen_keep_cuda(reads, lens, lags), 10, dev,
-            graph=True)
+        reads = torch.from_numpy(screen_case(name)[0]).to(dev)
+        out['tandem_{}_ms'.format(name)] = time_launches(
+            lambda: period.tandem_counts_cuda(reads, SCREEN_WIDTH // 2), 10,
+            dev, graph=True)
     return out
 
 

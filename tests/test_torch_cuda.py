@@ -10,7 +10,8 @@ with ``collapse --device cuda`` raising when a kernel cannot be built, and
 call's chaining DP and extraction and tandem screen (csrc/chain_dp.cu,
 also against the native chain core once ``setup.py build_ext --inplace``
 has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
-csrc/screen_keep.cu, with its route per read, on its ``screen_launches``),
+csrc/screen_keep.cu and the mesh's lag-range counts csrc/tandem_counts.cu,
+with their route per read, on its ``screen_launches``),
 and the center-star polish's banded NW (csrc/nw_traceback.cu, along the
 band ladder on tools/nw_cases.py in every width class: C = 1, 2, 4, 8 with
 the rows in registers, the wide classes with the rows in shared and global
@@ -969,6 +970,83 @@ def test_screen_keep_rejects_bad_inputs(dev):
         period.screen_keep_cuda(reads, lens, lags,
                                 routes=torch.zeros(2, dtype=torch.int32,
                                                    device=dev))
+
+
+@pytest.mark.parametrize('span', [(0, 2048), (1024, 1024), (100, 3000)])
+@pytest.mark.parametrize('case', ['poly_a', 'dinucleotide', 'period_50',
+                                  'no_valid_window', 'mixed_lags',
+                                  'short_width', 'width_100'])
+def test_tandem_counts_edge_launches(dev, case, span):
+    """csrc/tandem_counts.cu equal to tandem_counts_plain on
+    tools/chain_cases.py's screen launches at lag offsets 0, 100 and 1 024
+    (one pass and two of the lag route), each read on the route
+    tandem_routes_plain gives it."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    mat = chain_cases.screen_launches(np.random.default_rng(37))[case][0]
+    offset, M = span
+    x = torch.from_numpy(np.ascontiguousarray(mat)).to(dev)
+    routes = torch.full((len(mat),), 7, dtype=torch.uint8, device=dev)
+    got = period.tandem_counts_cuda(x, M, 11, offset, routes=routes)
+    want = period.tandem_counts_plain(x, M, 11, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(routes.cpu().numpy().astype(bool),
+                          period.tandem_routes_plain(mat, M, 11, offset))
+
+
+@pytest.mark.parametrize('k', [12, 13, 15])
+def test_tandem_counts_lag_route_at_k(dev, k):
+    """The lag route compares the ids as float32 up to k = 12 (exact there)
+    and as int32 past it: low-complexity reads at both, equal to the plain
+    version."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    launches = chain_cases.screen_launches(np.random.default_rng(37))
+    mat = np.concatenate([launches[c][0] for c in ('poly_a', 'dinucleotide',
+                                                    'period_50')])
+    x = torch.from_numpy(mat).to(dev)
+    routes = torch.zeros(len(mat), dtype=torch.uint8, device=dev)
+    got = period.tandem_counts_cuda(x, 3000, k, 100, routes=routes)
+    assert torch.equal(got, period.tandem_counts_plain(x, 3000, k, 100))
+    assert np.array_equal(routes.cpu().numpy().astype(bool),
+                          period.tandem_routes_plain(mat, 3000, k, 100))
+    assert routes[0] == 1
+
+
+def test_tandem_counts_hash_collision(dev):
+    """Two distinct 11-mers with one hash, 40 apart in a random read: the
+    pair route walks them together and counts nothing at lag 40."""
+    from ciri_long_tpu_torch.ops import period
+    rng = np.random.default_rng(5)
+    seen, pair = {}, None
+    while pair is None:
+        kid = int(rng.integers(0, 4 ** 11))
+        h = ((kid * 2654435761) & 0xffffffff) >> period.POS_BITS
+        if h in seen and seen[h] != kid:
+            pair = (seen[h], kid)
+        seen[h] = kid
+    mat = np.full((1, 200), 5, np.int8)
+    mat[0, :190] = rng.integers(0, 4, 190)
+    for at, kid in zip((60, 100), pair):
+        mat[0, at:at + 11] = [(kid >> (2 * (10 - j))) & 3 for j in range(11)]
+    x = torch.from_numpy(mat).to(dev)
+    got = period.tandem_counts_cuda(x, 64)
+    assert torch.equal(got, period.tandem_counts_plain(x, 64))
+    assert int(got[0, 39]) == 0
+
+
+def test_tandem_counts_rejects_bad_inputs(dev):
+    from ciri_long_tpu_torch.ops import period
+    with pytest.raises(ValueError, match='W <= 4096'):
+        period.tandem_counts_cuda(
+            torch.full((2, 4097), 5, dtype=torch.int8, device=dev), 8)
+    reads = torch.full((2, 512), 5, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        period.tandem_counts_cuda(reads.int(), 8)
+    with pytest.raises(ValueError, match='routes'):
+        period.tandem_counts_cuda(reads, 8, routes=torch.zeros(
+            2, dtype=torch.int32, device=dev))
 
 
 def test_call_stages_chain_and_screen_on_the_card(dev, tmp_path):

@@ -170,7 +170,7 @@ def test_kernel_sources_ship_with_package():
     for src in ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
                 'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
                 'sw_traceback.cu', 'tandem_counts.cu', 'star_vote.cpp',
-                'poa_graph.h'):
+                'poa_graph.h', 'kmer_pairs.h'):
         assert (_build.CSRC / src).exists(), src
     seen = _setup_kwargs()
     assert 'csrc/*.cu' in seen['package_data']['ciri_long_tpu_torch']

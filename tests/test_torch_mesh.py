@@ -30,11 +30,11 @@ from ciri_long_tpu.parallel import mesh as jmesh
 from ciri_long_tpu_torch.ops import period as tperiod
 from ciri_long_tpu_torch.ops.sw import SWParams
 from ciri_long_tpu_torch.parallel import mesh as tmesh
+from ciri_long_tpu_torch.tools import chain_cases as cases
+from tests.test_torch_period import emulate_pairs
 
 torch.set_num_threads(1)
 
-# csrc/tandem_counts.cu's schedule constants
-THREADS, GROUP, LAG_BLOCK = 256, 4, 256
 
 
 def tandem_reads(rng, W=120):
@@ -53,36 +53,35 @@ def tandem_reads(rng, W=120):
     return mat
 
 
-def emulate_kernel(reads, max_lag, k, lag_offset):
-    """csrc/tandem_counts.cu in numpy: a block a (read, LAG_BLOCK lags),
-    kid with PAD_KID = GROUP ids of -1 past W, each warp's groups of GROUP
-    lags from j0 = chunk * LAG_BLOCK + warp * GROUP in steps of WARPS *
-    GROUP, the lanes' windows i < W - d0 summed (the warp reduction), a
-    lag written only below the block's end.  Every output written once."""
-    B, W = reads.shape
-    out = np.full((B, max_lag), -1, np.int64)
-    chunks = -(-max_lag // LAG_BLOCK)
-    for b in range(B):
-        kid = np.full(W + GROUP, -1, np.int64)
-        for i in range(W - k + 1):
-            win = reads[b, i:i + k].astype(np.int64)
-            if (win <= 3).all() and (win >= 0).all():
-                kid[i] = int(''.join(map(str, win)), 4)
-        for chunk in range(chunks):
-            j_end = min(max_lag, (chunk + 1) * LAG_BLOCK)
-            for warp in range(THREADS // 32):
-                for j0 in range(chunk * LAG_BLOCK + warp * GROUP, j_end,
-                                THREADS // 32 * GROUP):
-                    d0 = lag_offset + j0 + 1
-                    i = np.arange(max(0, W - d0))
-                    a = kid[i]
-                    for g in range(GROUP):
-                        if j0 + g < j_end:
-                            assert out[b, j0 + g] == -1
-                            out[b, j0 + g] = int(
-                                ((kid[i + d0 + g] == a) & (a >= 0)).sum())
-    assert (out >= 0).all()
-    return out
+def emulate_tandem(reads, max_lag, k, lag_offset):
+    """csrc/tandem_counts.cu in numpy: a block a read, lags lo = lag_offset
+    + 1 .. lag_offset + max_lag counted by csrc/kmer_pairs.h's schedule
+    (``emulate_pairs``: the sorted keys, the route by WALK_CAP, the pair
+    walk from the searched start, the lag route up to nwin), the row zero
+    past the read's last valid window.  Returns (out int64 [B, max_lag],
+    routes bool [B], True for the lag route)."""
+    out = np.zeros((len(reads), max_lag), np.int64)
+    routes = np.zeros(len(reads), bool)
+    for b, row in enumerate(reads):
+        out[b], routes[b] = emulate_pairs(row, lag_offset + 1,
+                                          lag_offset + max_lag, k)
+    return out, routes
+
+
+def _held_to_jax(mat, max_lag, offset):
+    """The emulated kernel, tandem_counts and tandem_counts_plain equal to
+    JAX's tandem_counts, the routes to tandem_routes_plain; returns (JAX's
+    counts, the routes)."""
+    want = np.asarray(jperiod.tandem_counts(mat, max_lag, 11,
+                                            lag_offset=offset,
+                                            pad_lags=offset + max_lag))
+    got, routes = emulate_tandem(mat, max_lag, 11, offset)
+    assert np.array_equal(got, want)
+    assert np.array_equal(tperiod.tandem_counts(mat, max_lag, 11, offset,
+                                                device='cpu'), want)
+    assert np.array_equal(routes, tperiod.tandem_routes_plain(mat, max_lag,
+                                                              11, offset))
+    return want, routes
 
 
 @pytest.mark.parametrize('offset', [0, 32, 96])
@@ -99,27 +98,103 @@ def test_tandem_counts_at_lag_offsets(rng, offset):
         plain = tperiod.tandem_counts_plain(torch.from_numpy(mat), max_lag,
                                             11, offset).numpy()
         assert np.array_equal(plain, want)
-        assert np.array_equal(emulate_kernel(mat, max_lag, 11, offset), want)
+        emulated, routes = emulate_tandem(mat, max_lag, 11, offset)
+        assert np.array_equal(emulated, want)
+        assert not routes.any()
     assert want[0].any() or offset == 96      # the period shows below L
     assert not want[3:].any()                 # under k; all PAD
 
 
 @pytest.mark.parametrize('shape', [(3, 300, 0), (2, 600, 257), (2, 90, 5)])
 def test_tandem_kernel_schedule_edges(rng, shape):
-    """Lag ranges across a block's LAG_BLOCK and no multiple of GROUP, an
-    offset past one block, and lags past the width, against JAX."""
+    """Ranges of 300, 600 and 90 lags (no multiple of LAGS), an offset
+    past THREADS, and lags past the width, against JAX."""
     B, max_lag, offset = shape
     W = 700
     unit = rng.integers(0, 4, 37)
     mat = np.full((B, W), 5, np.int8)
     mat[0, :W - 5] = np.tile(unit, 20)[:W - 5]
     mat[1:, :W // 2] = rng.integers(0, 5, (B - 1, W // 2))
-    want = np.asarray(jperiod.tandem_counts(mat, max_lag, 11,
-                                            lag_offset=offset,
-                                            pad_lags=offset + max_lag))
-    assert np.array_equal(emulate_kernel(mat, max_lag, 11, offset), want)
-    assert np.array_equal(tperiod.tandem_counts(mat, max_lag, 11, offset,
-                                                device='cpu'), want)
+    _held_to_jax(mat, max_lag, offset)
+
+
+@pytest.mark.parametrize('offset', [0, 1024])
+@pytest.mark.parametrize('case', ['poly_a', 'dinucleotide', 'trinucleotide',
+                                  'period_50'])
+def test_tandem_low_complexity_takes_the_lag_route(case, offset):
+    """tools/chain_cases.py's low-complexity reads (beside a random and a
+    noisy tandem read, width 4 096) at 1 024 lags from offset 0 and from
+    mid-range: the low-complexity read takes the lag route (but for the
+    period of 50 from mid-range, whose ~20 keys a window in the range keep
+    every thread under WALK_CAP), the other two the pair route, all exact
+    to JAX."""
+    mat, _lens, _lags = cases.screen_launches(np.random.default_rng(13))[case]
+    want, routes = _held_to_jax(mat, 1024, offset)
+    lag = case != 'period_50' or offset == 0
+    assert routes.tolist() == [lag, False, False]
+    assert want[0].any() and want[2].any()
+
+
+@pytest.mark.parametrize('case', ['poly_a', 'period_50'])
+def test_tandem_lag_route_in_two_passes(case):
+    """3 000 lags from offset 100: the lag route's threads take a second
+    pass of THREADS * LAGS lags, exact to JAX up to the read's last
+    window."""
+    mat, _lens, _lags = cases.screen_launches(np.random.default_rng(13))[case]
+    want, routes = _held_to_jax(mat, 3000, 100)
+    assert routes.tolist() == [True, False, False]
+    assert want[0, 2048:].any()
+
+
+def _colliding_kmers(k=11):
+    """Two distinct k-mer ids with one Fibonacci hash (the kernels'
+    hash(kid) << POS_BITS | i keys), found by a seeded search."""
+    rng = np.random.default_rng(5)
+    seen = {}
+    while True:
+        kid = int(rng.integers(0, 4 ** k))
+        h = ((kid * 2654435761) & 0xffffffff) >> tperiod.POS_BITS
+        if h in seen and seen[h] != kid:
+            return seen[h], kid
+        seen[h] = kid
+
+
+def test_tandem_hash_collision_counts_nothing(rng):
+    """Two distinct k-mers with equal hashes, d = 40 apart in a random read:
+    their keys are walked together (the hashes alone would count one pair
+    at d), and the code check counts none, as JAX."""
+    k, d = 11, 40
+    a, b = (np.array([(x >> (2 * (k - 1 - j))) & 3 for j in range(k)],
+                     np.int8) for x in _colliding_kmers(k))
+    mat = np.full((2, 200), 5, np.int8)
+    mat[:, :190] = rng.integers(0, 4, (2, 190))
+    mat[0, 60:60 + k], mat[0, 60 + d:60 + d + k] = a, b
+    keys = tperiod.screen_keys(mat[0], k)
+    hashes, pos = keys >> np.uint64(tperiod.POS_BITS), keys & np.uint64(
+        (1 << tperiod.POS_BITS) - 1)
+    at = {int(p): int(h) for h, p in zip(hashes, pos)}
+    assert at[60] == at[60 + d]
+    for offset, max_lag in ((0, 64), (d - 1, 1), (20, 30)):
+        want, routes = _held_to_jax(mat, max_lag, offset)
+        assert want[0, d - offset - 1] == 0 and not routes.any()
+
+
+@pytest.mark.parametrize('offset', [200, 260])
+def test_tandem_range_past_the_last_window(rng, offset):
+    """Reads of 300 and 200 bases in width 700, lags offset + 1 .. offset +
+    64: the range starts past the 200-base read's last valid window (a row
+    of zeros, no route) and straddles the 300-base reads' (counts up to
+    it, zeros past)."""
+    mat = np.full((3, 700), 5, np.int8)
+    unit = rng.integers(0, 4, 23)
+    mat[0, :300] = np.tile(unit, 14)[:300]
+    mat[1, :200] = np.tile(unit, 9)[:200]
+    mat[2, :300] = 0                           # a poly-A
+    want, routes = _held_to_jax(mat, 64, offset)
+    end = 300 - 11 - offset                    # lags past nwin - 1 = 289
+    assert not want[1].any() and not routes[1]
+    assert want[0, :end].any() and want[2, :end].all()
+    assert not want[:, end:].any()
 
 
 def test_tandem_counts_refuses():
@@ -129,6 +204,40 @@ def test_tandem_counts_refuses():
     with pytest.raises(ValueError, match='pad_lags'):
         tperiod.tandem_counts(reads.numpy(), 8, lag_offset=4, pad_lags=10,
                               device='cpu')
+
+
+def test_tandem_counts_refuses_wider_than_the_kernel():
+    """csrc/tandem_counts.cu takes W <= 4 096 (its keys' POS_BITS); the
+    wrapper refuses a wider read before any launch, where JAX answers (no
+    entry point sends one: the dry run's reads are 192 wide)."""
+    mat = np.full((1, tperiod.SCREEN_MAX_LEN + 1), 5, np.int8)
+    mat[0, :300] = 0
+    want = np.asarray(jperiod.tandem_counts(mat, 8, 11))
+    assert want.shape == (1, 8) and want.all()
+    with pytest.raises(ValueError, match='W <= 4096'):
+        tperiod.tandem_counts_cuda(torch.from_numpy(mat), 8)
+    assert np.array_equal(tperiod.tandem_counts(mat, 8, device='cpu'), want)
+
+
+def test_smoke_tandem_work_counts(rng):
+    """chip_smoke.py's operations bound for tandem_counts counts the equal
+    k-mer pairs in the lag range: tandem_counts_plain summed, at offsets
+    inside, across and past the reads."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / 'chip_smoke.py'
+    spec = importlib.util.spec_from_file_location('chip_smoke_', path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    reads = cases.bucket_reads(rng, 1024)
+    mat, _lens = cases.pad(reads, 1024)
+    for offset, max_lag in ((0, 512), (100, 300), (700, 400), (1100, 8)):
+        want = int(tperiod.tandem_counts_plain(
+            torch.from_numpy(mat), max_lag, 11, offset).sum())
+        assert smoke._tandem_equal_pairs(mat, offset, max_lag) == want
+        assert want > 0 or offset >= 1024
+        assert smoke._tandem_pairs(mat, offset, max_lag) >= want
 
 
 @pytest.mark.parametrize('n', [1, 2, 6, 8])

@@ -12,9 +12,11 @@ package on the CPU.
   plain versions) screens every read the JAX package would (not those under
   2 * MIN_PERIOD or over SCREEN_MAX_LEN) and writes the same tmp/*.ccs.fa,
   tmp/*.raw.fa and counters as the CPU route and as the JAX package;
-- csrc/screen_keep.cu's sort-and-count emulated (``emulate_screen``: the
-  sorted hash keys, the route rule, the pair route's walk with its k-mer
-  check, the lag route's count) equal to ``tandem_counts_plain`` and JAX's
+- csrc/screen_keep.cu's sort-and-count emulated (``emulate_screen`` over
+  ``emulate_pairs``, csrc/kmer_pairs.h's schedule, which
+  tests/test_torch_mesh.py shares: the sorted hash keys, the route rule,
+  the pair route's walk from its searched start with its k-mer check, the
+  lag route's count up to nwin) equal to ``tandem_counts_plain`` and JAX's
   ``tandem_counts``, and its election to ``screen_keep_plain`` and JAX's
   ``screen_keep``, on tools/chain_cases.py's screen launches: random,
   tandem and N-poisoned reads, low-complexity reads (which take the lag
@@ -36,6 +38,9 @@ from ciri_long_tpu_torch.utils.seq import encode_seq
 from tests.test_pipeline_call import make_rolling_read, rand_seq
 
 torch.set_num_threads(1)
+
+# csrc/kmer_pairs.h's schedule constants
+THREADS, LAGS, PAD, WALK_CAP = 256, 8, 16, 256
 
 
 @pytest.mark.parametrize('b', tperiod.SCREEN_BUCKETS)
@@ -162,15 +167,12 @@ def test_find_ccs_reads_card_route_matches_cpu_and_jax(rng, tmp_path,
     assert jres[1] >= 10
 
 
-def emulate_screen(row, M, k=11):
-    """csrc/screen_keep.cu's counts for one read (codes [W], lag range M):
-    (cnt int64 [M], lag route).  The pair route walks each sorted key's
-    successors up to key + M and counts the pairs whose k-mer ids (not
-    only hashes) are equal; the lag route counts every window at every
-    lag."""
+def _kid(row, k, pad):
+    """The k-mer id of each window of one read (codes [W]) by position, -1
+    for an invalid window and for ``pad`` entries past W."""
     x = np.asarray(row).astype(np.int64)
     W = len(x)
-    kid = np.full(W + M + 1, -1, np.int64)
+    kid = np.full(W + pad, -1, np.int64)
     n = W - k + 1
     if n > 0:
         ok = x < 4
@@ -180,21 +182,91 @@ def emulate_screen(row, M, k=11):
             ids = ids * 4 + np.where(ok[j:j + n], x[j:j + n], 0)
             valid &= ok[j:j + n]
         kid[:n] = np.where(valid, ids, -1)
-    lag = bool(tperiod.screen_routes_plain(row[None], M, k)[0])
-    cnt = np.zeros(M + 1, np.int64)
-    if lag:
-        for d in range(1, M + 1):
-            cnt[d] = ((kid[:W] >= 0) & (kid[:W] == kid[d:W + d])).sum()
-    else:
-        keys = tperiod.screen_keys(row, k)
-        pos = (keys & ((1 << tperiod.POS_BITS) - 1)).astype(np.int64)
-        for s_, key in enumerate(keys):
-            for s2 in range(s_ + 1, len(keys)):
-                if keys[s2] > key + np.uint64(M):
-                    break
-                if kid[pos[s2]] == kid[pos[s_]]:
-                    cnt[pos[s2] - pos[s_]] += 1
-    return cnt[1:], lag
+    return kid
+
+
+def _first_at_least(keys, start, target):
+    """csrc/kmer_pairs.h's first_at_least: doubling steps from ``start``,
+    then a binary search of the last step."""
+    n = len(keys)
+    lo = hi = start
+    step = 1
+    while hi < n and keys[hi] < target:
+        lo, hi, step = hi + 1, hi + step, 2 * step
+    hi = min(hi, n)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if keys[mid] < target:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def emulate_pairs(row, lo, hi, k=11):
+    """csrc/kmer_pairs.h's count of one read (codes [W]) over lags lo..hi:
+    (cnt int64 [hi - lo + 1], lag route).  The sorted keys
+    (``screen_keys``) and nwin; the range cut at nwin - 1, and a read with
+    no valid window or nothing left in its range counts nothing on the pair
+    route.  The route: thread t walks, for its sorted keys s = t, t +
+    THREADS, ..., from the first key >= key + lo (the kernel's doubling
+    search from s + 1) to key + hi, and stops past WALK_CAP keys; the pair
+    route walks the same keys and counts the pairs whose k-mer ids (not
+    only hashes) are equal; the lag route's thread t counts lags at .. at +
+    LAGS - 1 (at = lo + LAGS t, then a pass of THREADS LAGS lags further)
+    over the windows i0 + u, u < LAGS, while i0 + at < nwin, reading kid
+    past W as the PAD entries of -1 (an index past them raises), each
+    count written once."""
+    W = len(row)
+    kid = _kid(row, k, PAD)
+    cnt = np.zeros(max(hi - lo + 1, 0), np.int64)
+    keys = tperiod.screen_keys(row, k).tolist()
+    n = len(keys)
+    if n == 0:
+        return cnt, False
+    pos = [key & ((1 << tperiod.POS_BITS) - 1) for key in keys]
+    nwin = max(pos) + 1
+    assert nwin <= W - k + 1
+    top = min(hi, nwin - 1)
+    if lo > top:
+        return cnt, False
+    starts = [_first_at_least(keys, s + 1, keys[s] + lo) for s in range(n)]
+    walked = np.zeros(THREADS, np.int64)
+    for t in range(THREADS):
+        for s in range(t, n, THREADS):
+            s2 = starts[s]
+            while (walked[t] <= WALK_CAP and s2 < n
+                   and keys[s2] <= keys[s] + top):
+                walked[t] += 1
+                s2 += 1
+    lag = bool((walked > WALK_CAP).any())
+    if not lag:
+        for s in range(n):
+            s2 = starts[s]
+            while s2 < n and keys[s2] <= keys[s] + top:
+                if kid[pos[s2]] == kid[pos[s]]:
+                    cnt[pos[s2] - pos[s] - lo] += 1
+                s2 += 1
+        return cnt, lag
+    written = np.zeros(len(cnt), bool)
+    for t in range(THREADS):
+        for at in range(lo + LAGS * t, top + 1, THREADS * LAGS):
+            i = np.arange(-(-(nwin - at) // LAGS) * LAGS)
+            xi = kid[i]
+            for s in range(LAGS):
+                if at + s <= top:
+                    assert not written[at + s - lo]
+                    written[at + s - lo] = True
+                    cnt[at + s - lo] = ((xi >= 0)
+                                        & (kid[i + at + s] == xi)).sum()
+    assert written[:top - lo + 1].all()
+    return cnt, lag
+
+
+def emulate_screen(row, M, k=11):
+    """csrc/screen_keep.cu's counts for one read (codes [W], lag range M):
+    (cnt int64 [M], lag route), csrc/kmer_pairs.h over lags 1..M."""
+    return emulate_pairs(row, 1, M, k)
 
 
 def _elect(cnt, L, M):
@@ -244,6 +316,7 @@ def test_screen_kernel_schedule_exact(case):
         assert routes == [case in LAG_ROUTE, False, False]
     else:                   # perfect repeats of short periods may take it
         assert routes.count(False) > len(routes) // 2
+    assert np.array_equal(routes, tperiod.screen_routes_plain(mat, lags))
     if len(set(lags.tolist())) == 1:
         jkeep = np.asarray(jperiod.screen_keep(mat, lens, M, 11, MIN_PERIOD,
                                                2.0))
