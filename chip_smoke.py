@@ -194,13 +194,25 @@ and exits non-zero if any phase fails (none is caught and skipped):
    ``routes``): at the dry run's shapes, at phase 4's screened reads
    (1 104 x 4 096) and at tools/call_x_ab.py's six screen cases (1 104 x
    4 096: poly-A, di- and trinucleotide repeats, a period of 50, random,
-   all N) over 2 048 lags cut into 1, 2 and 4 ranges, and on edge reads
-   (all PAD, N, under k, lags past the width); it fails unless some read
-   took each route.  Then timed at both shapes (``tandem_counts_time``: a
-   CUDA graph's replay, the plain version's wall, the bound from the equal
-   k-mer pairs in the range at csrc/op_rate.cu's screen-compare rate or
-   the bytes, the reads once and the counts once; the (window, lag) pairs
-   of a brute-force design give ``window_bound_ms`` beside it).  Then
+   all N) over 2 048 lags cut into 1, 2 and 4 ranges, on edge reads
+   (all PAD, N, under k, lags past the width) and on
+   tools/chain_cases.py's wide_cases (4 097 and 16 384 codes, which take
+   the wide route, in 1, 2 and 4 ranges and past the reads); it fails
+   unless some read took each route (pair, lag, wide).  Then timed at
+   call's, the dry run's and the two wide shapes
+   (``tandem_counts_time``: a CUDA graph's replay, the plain version's
+   wall, the bound from the equal k-mer pairs in the range at
+   csrc/op_rate.cu's screen-compare rate or the bytes, the reads once and
+   the counts once; the (window, lag) pairs of a brute-force design give
+   ``window_bound_ms`` beside it).  The lag profile (csrc/lag_profile.cu)
+   the same way against lag_profile_plain, bit for bit, on the same cases
+   and shapes (``lag_profile_time``: its bound the valid (position, lag)
+   pairs at csrc/op_rate.cu's packed lag rate, 32 pairs a word of bit
+   planes, or the bytes).  The public ops'
+   run: ops.lag_profile, tandem_counts past 4 096 codes,
+   ops.chain_scores_batch and edit_distance_batch_padded through their
+   numpy entry points on the card, the counts set to 0 just before,
+   each equal to its CPU route and each kernel launched.  Then
    ``dryrun_multichip`` at every visible card (its tandem_counts and SW
    launches: the kernels line's launches); ``call --dist mesh --device
    cuda`` on the ``call`` world, whose files and counters must equal phase
@@ -213,9 +225,20 @@ and exits non-zero if any phase fails (none is caught and skipped):
    ``call`` world, its files equal to phase 4's and its Chrome trace
    holding CUDA kernel events (counted by kernel function beside the
    ``LAUNCHES`` of the traced stages, [2/4]..[4/4]; equal counts are
-   reported, not required).  One ``dist`` line.
+   reported, not required).  One ``dist`` line, with ``public_ops``.
+11. ``recover``: ``call``'s short-consensus recovery ([3/4]) on the card:
+   tools/world.py::short_world (the ``call`` world and 16 one-exon loci of
+   30-59 bp) through the CLI at -t 1 and -t 4, on cuda and on cpu; every
+   run writes the -t 1 cuda run's tmp/*.ccs.fa, tmp/*.raw.fa, cand_circ.fa
+   and counters, sends reads to the recovery (its items > 0), and the
+   stage's own launches (counted around find_bsj.recover_ccs_reads) of
+   chain_dp and chain_extract are > 0 on cuda, all 0 on cpu; at -t 4 on
+   cuda the card takes a chunk of the recovery's drain.  One ``recover``
+   line: each run's wall, the stage's items, seconds, launches and SW
+   routes, the drains' splits, the BSJ recall and precision on the short
+   loci and on the rest.
 
-The twelve CUDA sources and the host vote (csrc/star_vote.cpp) build in
+The thirteen CUDA sources and the host vote (csrc/star_vote.cpp) build in
 parallel (one nvcc or c++ each) beside the native host cores (one
 extension at a time).  Then the card's ``nvidia-smi`` name
 and power limit, the kernels line (sw_score_ends's entry also has
@@ -243,7 +266,9 @@ launches of call's run (``call_device_ms``, ``slowest_ms``,
 ``window_bound_ms`` the brute-force (window, lag) measure and
 ``lag_route_reads``); tandem_counts's those of phase 10 at call's screened
 reads (its bound the equal pairs, ``window_bound_ms``, ``lag_route_reads``),
-with its numbers at the dry run's shape (``dryrun``), and last
+with its numbers at the dry run's shape (``dryrun``) and the wide route's
+(``wide``); lag_profile's at call's screened reads, launched by the public
+ops' run, its other shapes beside (``shapes``); and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -274,7 +299,7 @@ SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
            'sw_traceback.cu', 'poa_align.cu', 'chain_dp.cu',
            'screen_keep.cu', 'nw_traceback.cu', 'star_vote.cpp',
-           'tandem_counts.cu')
+           'tandem_counts.cu', 'lag_profile.cu')
 TILE_CASES = ((64, 28, 16384), (128, 54, 16384), (37, 33, 5000))
 TILE_PARAMS = ((1, 1, 1, 1), (10, 4, 8, 2), (2, 3, 5, 1))
 # the tiles' schedule edges: (padded Lq, the rows' real query lengths) at
@@ -323,6 +348,8 @@ REPLACES = {
                      ':400 nw_traceback_collect, an XLA program (X4)'),
     'tandem_counts': ('ciri_long_tpu/ops/period.py:85 tandem_counts (X3 '
                       'counts, lag ranges), an XLA program'),
+    'lag_profile': ('ciri_long_tpu/ops/period.py:55 lag_profile (its lag '
+                    'loop :32 _chunked_lag_sum), an XLA program'),
 }
 # call's kernels of X2, X3 and X4: (module, wrapper) recorded in phase 4
 CALL_X = {'chain_dp': ('chain', 'chain_dp_cuda'),
@@ -2804,7 +2831,9 @@ KERNEL_FUNCS = {'sw_score_ends': ('sw_wave_kernel', 'sw_tile_kernel'),
                 'screen_keep': ('screen_keep_kernel',),
                 'nw_traceback': ('nw_reg_kernel', 'nw_block_kernel',
                                  'nw_wide_kernel'),
-                'tandem_counts': ('tandem_counts_kernel',)}
+                'tandem_counts': ('tandem_counts_kernel',
+                                  'tandem_wide_kernel'),
+                'lag_profile': ('lag_profile_kernel',)}
 WORKER_TIMEOUT_S = 300
 # call's screened reads cut into these many lag ranges
 LAG_SPLITS = (1, 2, 4)
@@ -2850,27 +2879,20 @@ def _tandem_edge_reads(rng, W):
     return mat
 
 
-def check_tandem_counts(torch, dev, smi, screened):
-    """Phase 10's kernel: csrc/tandem_counts.cu against tandem_counts_plain
-    on the card, exact, at the dry run's shapes (its lag ranges at 1 and 2
-    lag shards), at call's screened reads (``screened``, phase 4's screen
-    launch) and tools/call_x_ab.py's screen cases at max_lag 2 048 cut
-    into LAG_SPLITS ranges, and on edge reads (all PAD, N, a read under k,
-    lags past the width) at lag offsets, each launch with the reads that
-    took each route; then the kernel at call's shape and at the dry run's,
-    timed: a CUDA graph's replay of 10 launches, the plain version's wall,
-    and the bound, the equal k-mer pairs in the range at csrc/op_rate.cu's
-    screen-compare rate or the bytes (the reads once, the counts once) at
-    3.35 TB/s.  Returns the numbers of the kernels line."""
+def _lag_range_cases(rng, screened):
+    """(label, reads, [(lag_offset, max_lag)]) of phase 10's lag-range
+    kernels (tandem_counts, lag_profile): the dry run's shapes (its lag
+    ranges at 1 and 2 lag shards), call's screened reads (``screened``,
+    phase 4's screen launch) and tools/call_x_ab.py's screen cases at
+    max_lag 2 048 cut into LAG_SPLITS ranges, edge reads (all PAD, N, a
+    read under k, lags past the width) at lag offsets, and
+    tools/chain_cases.py's wide_cases (4 097 and 16 384 codes: the wide
+    route)."""
     import numpy as np
-    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
-                                               recurrence_rate,
-                                               time_launches)
-    from ciri_long_tpu_torch.ops.period import (MAX_LAG, tandem_counts_cuda,
-                                                tandem_counts_plain)
+    from ciri_long_tpu_torch.ops.period import MAX_LAG
     from ciri_long_tpu_torch.tools.call_x_ab import SCREEN_CASES, screen_case
+    from ciri_long_tpu_torch.tools.chain_cases import wide_cases
 
-    rng = np.random.default_rng(0)
     dry = rng.integers(0, 4, (8, 192)).astype(np.int8)
     cases = [('dryrun 1x1', dry[:2], [(0, 32)]),
              ('dryrun 4x2', dry, [(0, 32), (32, 32)])]
@@ -2885,8 +2907,38 @@ def check_tandem_counts(torch, dev, smi, screened):
                       (4096, [(0, 2048), (2048, 2048), (4000, 200)])):
         cases.append(('edge W={}'.format(W), _tandem_edge_reads(rng, W),
                       ranges))
+    for label, (reads, ranges) in wide_cases(rng).items():
+        cases.append((label, reads, ranges))
+    return dry, cases
+
+
+# phase 10's timed shapes of the lag-range kernels: (label, case label of
+# _lag_range_cases, max_lag)
+LAG_TIMED = (('call', 'call screen, 1 lag ranges', 2048),
+             ('dryrun', 'dryrun 1x1', 32),
+             ('wide W=4097', 'wide W=4097', 2048),
+             ('wide W=16384', 'wide W=16384', 2048))
+
+
+def check_tandem_counts(torch, dev, smi, screened):
+    """Phase 10's kernel: csrc/tandem_counts.cu against tandem_counts_plain
+    on the card, exact, on _lag_range_cases, each launch with the reads
+    that took each route (pair, lag, and wide past 4 096 codes); then the
+    kernel at LAG_TIMED's shapes, timed: a CUDA graph's replay of 10
+    launches, the plain version's wall, and the bound, the equal k-mer
+    pairs in the range at csrc/op_rate.cu's screen-compare rate or the
+    bytes (the reads once, the counts once) at 3.35 TB/s.  Returns the
+    numbers of the kernels line."""
+    import numpy as np
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
+                                               recurrence_rate,
+                                               time_launches)
+    from ciri_long_tpu_torch.ops.period import (tandem_counts_cuda,
+                                                tandem_counts_plain)
+
+    _, cases = _lag_range_cases(np.random.default_rng(0), screened)
     err = 0
-    took = {'pair': 0, 'lag': 0}
+    took = {'pair': 0, 'lag': 0, 'wide': 0}
     for label, reads, ranges in cases:
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         B = int(x.shape[0])
@@ -2895,13 +2947,15 @@ def check_tandem_counts(torch, dev, smi, screened):
             got = tandem_counts_cuda(x, M, 11, offset, routes=routes)
             want = tandem_counts_plain(x, M, 11, offset)
             e = int((got.long() - want.long()).abs().max())
-            lag = int(routes.sum())
-            took['lag'] += lag
-            took['pair'] += B - lag
+            r = routes.cpu().numpy()
+            split = {name: int((r == code).sum()) for code, name in
+                     enumerate(('pair', 'lag', 'wide'))}
+            for name, n in split.items():
+                took[name] += n
             emit('kernel_vs_plain', kernel='tandem_counts', case=label,
                  reads=B, width=int(x.shape[1]), lag_offset=offset,
-                 max_lag=M, nonzero=int((want > 0).sum()),
-                 routes={'pair': B - lag, 'lag': lag}, max_abs_err=e)
+                 max_lag=M, nonzero=int((want > 0).sum()), routes=split,
+                 max_abs_err=e)
             err = max(err, e)
     if err:
         raise AssertionError('tandem_counts disagrees with the plain version')
@@ -2909,9 +2963,10 @@ def check_tandem_counts(torch, dev, smi, screened):
         raise AssertionError('a tandem_counts route took no read: {}'
                              .format(took))
     rate = recurrence_rate(dev, 'screen_keep')
+    by_label = {label: reads for label, reads, _ in cases}
     timed = {}
-    for label, reads, M in (('call', screened, MAX_LAG),
-                            ('dryrun', dry[:2], 32)):
+    for label, case, M in LAG_TIMED:
+        reads = by_label[case]
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         B, W = x.shape
         equal = _tandem_equal_pairs(reads, 0, M)
@@ -2928,10 +2983,128 @@ def check_tandem_counts(torch, dev, smi, screened):
             plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
             window_bound_ms=pairs / rate * 1e3, reads=int(B), width=int(W),
             max_lag=M, equal_pairs=equal, pairs=pairs,
-            lag_route_reads=int(routes.sum()))
+            lag_route_reads=int((routes == 1).sum()),
+            wide_route_reads=int((routes == 2).sum()))
         emit('tandem_counts_time', shape=label, card=smi,
              compare_rate=rate, **timed[label])
     return dict(max_abs_err=err, **timed)
+
+
+def check_lag_profile(torch, dev, smi, screened):
+    """Phase 10's lag profile: csrc/lag_profile.cu against
+    lag_profile_plain on the card, bit for bit (the float32 fractions'
+    bits), on _lag_range_cases but the screen cases; then timed at LAG_TIMED's shapes as
+    tandem_counts is, its bound the (position, lag) pairs with both codes
+    valid (the plain version's den summed) at csrc/op_rate.cu's packed
+    lag rate (codes as bit planes, 32 pairs a word: two popcounts), or the
+    bytes (the reads once, the fractions once).  Returns the numbers of
+    the kernels line."""
+    import numpy as np
+    from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
+                                               LAG_WORD_PAIRS,
+                                               recurrence_rate,
+                                               time_launches)
+    from ciri_long_tpu_torch.ops.period import (lag_profile_counts_plain,
+                                                lag_profile_cuda,
+                                                lag_profile_plain)
+
+    _, cases = _lag_range_cases(np.random.default_rng(0), screened)
+    # the profile has no route a read's data picks: the screen cases add
+    # nothing that call's screened reads do not cover
+    cases = [c for c in cases if not c[0].startswith('screen case')]
+    differ, err = 0, 0.0
+    for label, reads, ranges in cases:
+        x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        for offset, M in ranges:
+            got = lag_profile_cuda(x, M, offset)
+            want = lag_profile_plain(x, M, offset)
+            e = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            abs_err = float((got - want).abs().max())
+            emit('kernel_vs_plain', kernel='lag_profile', case=label,
+                 reads=int(x.shape[0]), width=int(x.shape[1]),
+                 lag_offset=offset, max_lag=M,
+                 nonzero=int((want > 0).sum()), differ_bits=e,
+                 max_abs_err=abs_err)
+            differ += e
+            err = max(err, abs_err)
+    if differ:
+        raise AssertionError('lag_profile disagrees with the plain version')
+    rate = recurrence_rate(dev, 'lag_profile') * LAG_WORD_PAIRS
+    by_label = {label: reads for label, reads, _ in cases}
+    timed = {}
+    for label, case, M in LAG_TIMED:
+        x = torch.from_numpy(np.ascontiguousarray(by_label[case])).to(dev)
+        B, W = x.shape
+        pairs = int(lag_profile_counts_plain(x, M)[1].sum())
+        bound = max((pairs / rate, 'operations'),
+                    ((B * W + 4 * B * M) / HBM_BYTES_PER_S, 'bytes'))
+        plain_ms, _ = _wall_ms(torch, dev, lambda: lag_profile_plain(x, M))
+        timed[label] = dict(
+            ms=time_launches(lambda: lag_profile_cuda(x, M), 10, dev,
+                             graph=True),
+            plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
+            reads=int(B), width=int(W), max_lag=M, valid_pairs=pairs)
+        emit('lag_profile_time', shape=label, card=smi, compare_rate=rate,
+             **timed[label])
+    return dict(max_abs_err=err, **timed)
+
+
+def public_ops(torch, dev):
+    """The JAX package's public device ops of the port, each through its
+    numpy entry point on the card as a caller would, the launch counts set
+    to 0 just before and read just after: ops.lag_profile and
+    ops.period.tandem_counts at the dry run's reads and past 4 096 codes,
+    ops.chain_scores_batch on rows with holes in their valid masks,
+    ops.edit.edit_distance_batch_padded; each held to its CPU route.
+    Returns the run's launches and routes."""
+    import numpy as np
+    from ciri_long_tpu_torch import ops
+    from ciri_long_tpu_torch.ops import edit, period
+    from ciri_long_tpu_torch.tools.chain_cases import wide_cases
+    from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES, ROUTES,
+                                                    reset_launches)
+
+    rng = np.random.default_rng(3)
+    dry = rng.integers(0, 4, (2, 192)).astype(np.int8)
+    wide, _ = wide_cases(rng, (6000,))['wide W=6000']
+    B, A = 4, 500
+    q = np.sort(rng.integers(0, 5000, (B, A)), axis=1)
+    r = q + rng.integers(0, 3, (B, A)) + 2000
+    ctg = np.zeros((B, A), np.int32)
+    valid = rng.random((B, A)) < 0.9
+    a = rng.integers(0, 4, (64, 80)).astype(np.int8)
+    b = rng.integers(0, 4, (64, 90)).astype(np.int8)
+    alen = rng.integers(0, 81, 64)
+    blen = rng.integers(0, 91, 64)
+    calls = {
+        'lag_profile dryrun': lambda d: ops.lag_profile(dry, 32, device=d),
+        'lag_profile wide': lambda d: ops.lag_profile(wide, 512, 100,
+                                                      device=d),
+        'tandem_counts wide': lambda d: period.tandem_counts(
+            wide, 512, 11, 100, device=d),
+        'chain_scores_batch': lambda d: ops.chain_scores_batch(
+            r, q, ctg, valid, 15, device=d),
+        'edit_distance_batch_padded': lambda d: edit.
+        edit_distance_batch_padded(a, b, alen, blen, device=d)}
+    want = {name: fn('cpu') for name, fn in calls.items()}
+    reset_launches()
+    got = {name: fn('cuda') for name, fn in calls.items()}
+    launches, routes = dict(LAUNCHES), dict(ROUTES)
+    same = {}
+    for name in calls:
+        g, w = got[name], want[name]
+        if name == 'chain_scores_batch':
+            # the card's libm log2 table; the CPU's is libm too once the
+            # native chain core is built (phase 1)
+            same[name] = bool(np.array_equal(g[1], w[1])
+                              and np.array_equal(g[0], w[0]))
+        else:
+            same[name] = bool(np.array_equal(np.asarray(g), np.asarray(w)))
+    return dict(identical=same,
+                launches={k: launches[k] for k in (
+                    'lag_profile', 'tandem_counts', 'chain_dp',
+                    'edit_distance')},
+                tandem_wide=routes['tandem_wide'])
 
 
 def _worker_runs(torch, n, out_dir):
@@ -3009,6 +3182,13 @@ def phase_dist(torch, dev, smi, screened):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     tandem = check_tandem_counts(torch, dev, smi, screened)
+    profile_numbers = check_lag_profile(torch, dev, smi, screened)
+    public = public_ops(torch, dev)
+    if not all(public['identical'].values()):
+        failed.append('a public op differs from its CPU route: {}'.format(
+            public))
+    if min(public['launches'].values()) <= 0 or public['tandem_wide'] <= 0:
+        failed.append('a public op missed its kernel: {}'.format(public))
 
     # the dry run at every visible card: the pipeline step (tandem_counts
     # over lag ranges, the SW) and the sharded scan against one shard
@@ -3124,10 +3304,143 @@ def phase_dist(torch, dev, smi, screened):
     emit('dist', card=smi, dryrun=dry, call_mesh=mesh_fields,
          workers={n: [{k: v for k, v in run.items()} for run in runs]
                   for n, runs in workers.items()},
-         serial_md5=serial_md5, ssw_cli=ssw, profile=profile)
+         serial_md5=serial_md5, ssw_cli=ssw, profile=profile,
+         public_ops=public)
     if failed:
         raise AssertionError('phase 10: ' + '; '.join(failed))
-    return tandem, dry['launches']['tandem_counts']
+    profile_numbers['launches'] = public['launches']['lag_profile']
+    return tandem, dry['launches']['tandem_counts'], profile_numbers
+
+
+def _recording_recovery(stages):
+    """Record each call of find_bsj.recover_ccs_reads (``call``'s [3/4]):
+    its items, seconds, and the launches and SW routes made inside it (on
+    the card from the stealer thread too: the call returns once its chunks
+    have drained).  Returns the undo."""
+    from ciri_long_tpu_torch.pipeline import find_bsj
+    from ciri_long_tpu_torch.utils.dispatch import LAUNCHES, ROUTES
+
+    inner = find_bsj.recover_ccs_reads
+
+    def recorded(ctx, short_reads, *args, **kw):
+        launches, routes = dict(LAUNCHES), dict(ROUTES)
+        t0 = time.perf_counter()
+        out = inner(ctx, short_reads, *args, **kw)
+        stages.append(dict(
+            items=len(short_reads), seconds=time.perf_counter() - t0,
+            launches={k: LAUNCHES[k] - launches[k] for k in (
+                'sw_score_ends', 'chain_dp', 'chain_extract')},
+            routes={k: ROUTES[k] - routes[k] for k in ('wave', 'tiled')}))
+        return out
+
+    find_bsj.recover_ccs_reads = recorded
+
+    def undo():
+        find_bsj.recover_ccs_reads = inner
+    return undo
+
+
+def _accuracy_split(cand_circ, truth, n_regular, tol=5):
+    """BSJ recall and precision (tools/world.py::bsj_accuracy's rule: both
+    ends within ``tol``) on the short loci (truth[n_regular:]) and on the
+    rest, each called locus counted with the group of its nearest true
+    locus."""
+    from ciri_long_tpu_torch.tools.world import called_bsjs
+    called = called_bsjs(cand_circ)
+
+    def match(c, t):
+        return (c[0] == t[0] and abs(c[1] - t[1]) <= tol
+                and abs(c[2] - t[2]) <= tol)
+
+    def nearest(c):
+        return min(range(len(truth)), key=lambda i: (
+            c[0] != truth[i][0], abs(c[1] - truth[i][1])
+            + abs(c[2] - truth[i][2])))
+
+    out = {}
+    for name, lo, hi in (('regular', 0, n_regular),
+                         ('short', n_regular, len(truth))):
+        group = [c for c in called if lo <= nearest(c) < hi]
+        out[name] = dict(
+            recall=sum(any(match(c, t) for c in called)
+                       for t in truth[lo:hi]) / max(1, hi - lo),
+            precision=sum(any(match(c, t) for t in truth[lo:hi])
+                          for c in group) / max(1, len(group)),
+            loci=hi - lo, called=len(group))
+    return out
+
+
+def phase_recover(torch, smi):
+    """Phase 11: ``call``'s short-consensus recovery ([3/4]) on the card.
+    tools/world.py::short_world (the ``call`` world and 16 one-exon loci
+    of 30-59 bp) through the CLI at -t 1 on cuda and cpu, then at -t
+    THREADS on both; fails unless every run writes the -t 1 cuda run's
+    tmp/*.ccs.fa, tmp/*.raw.fa and cand_circ.fa and its counters, every
+    run's recover_ccs items are > 0, the stage's own launches of chain_dp
+    and chain_extract are > 0 on cuda and every launch 0 on cpu, and at -t
+    THREADS on cuda the card took a chunk of the recovery's drain.  One
+    ``recover`` line: each run's wall, the stage's items, seconds,
+    launches and SW routes, the drains' splits, and the BSJ recall and
+    precision on the short loci and on the rest."""
+    from ciri_long_tpu_torch.tools.world import SHORT_LEN, short_world
+
+    root = os.path.join(WORK, 'short')
+    shutil.rmtree(root, ignore_errors=True)
+    ref, reads, truth = short_world(os.path.join(root, 'world'))
+    n_regular = 16
+    with open(reads) as f:
+        n_reads = sum(1 for ln in f if ln.startswith('>'))
+    stages, runs, failed = [], {}, []
+    undo = _recording_recovery(stages)
+    try:
+        for t, device in ((1, 'cuda'), (1, 'cpu'), (THREADS, 'cuda'),
+                          (THREADS, 'cpu')):
+            name = 'call_t{}_{}'.format(t, device)
+            out = os.path.join(root, name)
+            n_stages = len(stages)
+            run = _cli_run(['call', '-i', reads, '-r', ref, '-t', str(t),
+                            '--device', device], out, 'short')
+            run['stage'] = (stages[n_stages] if len(stages) > n_stages
+                            else None)
+            run['timing'] = json.loads(Path(out, 'short.json')
+                                       .read_text())['timing']
+            run['outputs'] = _call_outputs(out, 'short')
+            runs[name] = run
+    finally:
+        undo()
+    want = runs['call_t1_cuda']['outputs']
+    for name, run in runs.items():
+        run['identical'] = run.pop('outputs') == want
+        stage = run['stage']
+        if not run['identical']:
+            failed.append('{} differs from -t 1 cuda'.format(name))
+        if stage is None or run['timing']['recover_ccs']['items'] <= 0:
+            failed.append('{}: no read reached the recovery'.format(name))
+            continue
+        if name.endswith('cuda'):
+            if min(stage['launches']['chain_dp'],
+                   stage['launches']['chain_extract']) <= 0:
+                failed.append('{}: the recovery chained on the host: {}'
+                              .format(name, stage))
+        elif any(stage['launches'].values()) or any(
+                run['launches'].values()):
+            failed.append('{} launched a kernel'.format(name))
+    split = runs['call_t{}_cuda'.format(THREADS)]['stole'].get('recovery')
+    if split is None or split['logged'][0] < 1:
+        failed.append('-t {} cuda: the card took no recovery chunk: {}'
+                      .format(THREADS, split))
+    accuracy = _accuracy_split(
+        os.path.join(root, 'call_t1_cuda', 'short.cand_circ.fa'), truth,
+        n_regular)
+    emit('recover', card=smi, reads=n_reads, loci=n_regular,
+         short_loci=len(truth) - n_regular, short_len=list(SHORT_LEN),
+         accuracy=accuracy,
+         runs={name: {k: run[k] for k in (
+             'wall_s', 'identical', 'stage', 'stole', 'launches', 'timing')}
+               for name, run in runs.items()})
+    if failed:
+        raise AssertionError('phase 11: ' + '; '.join(failed))
+    return runs
 
 
 def main():
@@ -3160,8 +3473,9 @@ def main():
     for name, err in full_errs.items():
         collapse_errs[name] = max(collapse_errs.get(name, 0), err)
     threads = phase_threads(torch, smi, full_fields)
-    tandem, tandem_launches = phase_dist(
+    tandem, tandem_launches, profile = phase_dist(
         torch, dev, smi, x_seen['screen_keep'][0][0][0].numpy())
+    phase_recover(torch, smi)
 
     bench = sw['bench']
     main = sw['main128']
@@ -3305,7 +3619,20 @@ def main():
         shape=[call_tc['reads'], call_tc['width'], call_tc['max_lag']],
         pairs=call_tc['pairs'], equal_pairs=call_tc['equal_pairs'],
         window_bound_ms=call_tc['window_bound_ms'],
-        lag_route_reads=call_tc['lag_route_reads'], dryrun=dry_tc))
+        lag_route_reads=call_tc['lag_route_reads'], dryrun=dry_tc,
+        wide={label: tandem[label] for label in ('wide W=4097',
+                                                 'wide W=16384')}))
+    # the lag profile at call's screened reads (2 048 lags), launched by
+    # the public ops' run (phase 10), its other timed shapes beside
+    call_lp = profile['call']
+    kernels.append(dict(
+        entry('lag_profile', profile['launches'], profile['max_abs_err'],
+              call_lp['ms'], call_lp['plain_ms'], call_lp['bound_ms'],
+              call_lp['bound_by']),
+        shape=[call_lp['reads'], call_lp['width'], call_lp['max_lag']],
+        valid_pairs=call_lp['valid_pairs'],
+        shapes={label: profile[label] for label in (
+            'dryrun', 'wide W=4097', 'wide W=16384')}))
     # each kernel of call and collapse: its launches in phase 9's -t 4
     # cuda runs, on each world
     for k in kernels:

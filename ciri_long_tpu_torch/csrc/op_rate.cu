@@ -56,6 +56,14 @@
 //     Ht + gE c into the running prefix max, E = carry - gO - (c - 1) gE,
 //     H = max(Ht, E), and the 4-bit code: the case (H == E, H == F), the
 //     E-stay and F-stay compares, shifts and ors.
+//   kind 7, 32 positions of one lag of the lag profile (csrc/lag_profile.cu)
+//     in its packed form, the least work the profile's compares need: a
+//     read's codes as two bit planes and a valid mask, a bit a position;
+//     the partner's three words at the lag by three funnel shifts (a word
+//     of the step, the same for all chains, standing in for their loads),
+//     the valid pairs (and), the equal ones (two xors and an and-not, which
+//     ptxas fuses into LOP3s), two popcounts and two adds.  A "cell" of
+//     this kind is 32 (position, lag) pairs.
 //
 // serial_step_launch times a latency, not a rate: one warp runs the step
 // of the chaining DP that no design can take off its serial path, the
@@ -346,6 +354,44 @@ screen_rate_kernel(int steps, int q, int* out) {
 }
 
 __global__ void __launch_bounds__(THREADS)
+lag_rate_kernel(int steps, int q, int* out) {
+    uint32_t lo[CHAINS], hi[CHAINS], va[CHAINS];
+    int num[CHAINS], den[CHAINS];
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        lo[k] = threadIdx.x * 0x9e3779b9u + k;
+        hi[k] = blockIdx.x ^ (k * 0x85ebca6bu);
+        va[k] = ~(threadIdx.x << k);
+        num[k] = 0;
+        den[k] = 0;
+    }
+    const uint32_t base = (uint32_t)q * 0x9e3779b9u;
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+        const uint32_t w = base ^ (uint32_t)t;    // the partner's next word
+        const uint32_t wv = w | (w >> 7);
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            const int sh = (q + 3 * k) & 31;      // the lag mod 32
+            const uint32_t blo = __funnelshift_r(lo[k], w, sh);
+            const uint32_t bhi = __funnelshift_r(hi[k], ~w, sh);
+            const uint32_t bv = __funnelshift_r(va[k], wv, sh);
+            const uint32_t both = va[k] & bv;
+            const uint32_t eq = both & ~((lo[k] ^ blo) | (hi[k] ^ bhi));
+            num[k] += __popc(eq);
+            den[k] += __popc(both);
+            lo[k] = blo;
+            hi[k] = bhi;
+            va[k] = bv;
+        }
+    }
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) acc ^= num[k] ^ (den[k] << 8);
+    if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
+}
+
+__global__ void __launch_bounds__(THREADS)
 nw_rate_kernel(int steps, int q, int match, int mismatch, int gap_open,
                int gap_extend, int* out) {
     int h[CHAINS], hd[CHAINS], e[CHAINS], f[CHAINS], run[CHAINS];
@@ -437,7 +483,7 @@ extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 // distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
 // distance's word, 3 the POA graph alignment's cell, 4 the chaining DP's
 // candidate, 5 the tandem screen's window and lag, 6 the banded NW's cell
-// with its code (see above).  Returns
+// with its code, 7 the lag profile's packed word (see above).  Returns
 // cudaErrorInvalidValue for another kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
@@ -462,6 +508,8 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
     else if (kind == 6)
         nw_rate_kernel<<<blocks, THREADS, 0, st>>>(
             steps, q, match, mismatch, gap_open, gap_extend, o);
+    else if (kind == 7)
+        lag_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

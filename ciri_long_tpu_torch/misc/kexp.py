@@ -81,10 +81,12 @@ _CELL_RATE_SYMBOLS = {
 # distance's by its bit-parallel word (32 rows of one column) and, to
 # compare with a cell-by-cell design, by its DP cell; the POA graph
 # alignment's cell with one predecessor; call's chaining DP by its float64
-# candidate and the tandem screen by one window at one lag
+# candidate, the tandem screen by one window at one lag, and the lag
+# profile by a packed word of 32 (position, lag) pairs (LAG_WORD_PAIRS)
 RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2,
                'poa_align': 3, 'chain_dp': 4, 'screen_keep': 5,
-               'nw_traceback': 6}
+               'nw_traceback': 6, 'lag_profile': 7}
+LAG_WORD_PAIRS = 32
 
 
 def _rate(device, launcher, form):
@@ -116,7 +118,8 @@ def recurrence_rate(device, kernel):
     and one column; 'sw_traceback', a cell; 'edit_cell', one DP cell of the
     edit distance; 'poa_align', a graph-alignment cell with one
     predecessor; 'chain_dp', a chaining candidate; 'screen_keep', a window
-    at one lag; 'nw_traceback', a banded NW cell with its code), from
+    at one lag; 'nw_traceback', a banded NW cell with its code;
+    'lag_profile', a packed word of LAG_WORD_PAIRS (position, lag) pairs), from
     csrc/op_rate.cu's register-only loop of that update: the operations
     bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])

@@ -22,6 +22,8 @@ that is kept.
   ``device``: the two kernels of csrc/chain_dp.cu on the card, the plain
   versions for the CPU.  ``decode_chain_ids`` turns its outputs into
   backtrack_chains' shape.
+- ``chain_scores_batch``: JAX's padded [B, A] contract over the same DP
+  (the rows made CSR and back), (f float32, pre int32) out.
 """
 
 import ctypes
@@ -249,6 +251,58 @@ def chain_dp_cuda(offs, r, q, ctg, k, window=CHAIN_WINDOW,
                            'N={})'.format(rc, R, n))
     count_launch('chain_dp')
     return f, pre
+
+
+@_count_dispatch('chain_scores_batch')
+def chain_scores_batch(r, q, ctg, valid, k, window=CHAIN_WINDOW,
+                       max_gap_r=200_000, max_gap_q=5_000, device='cuda'):
+    """JAX's chain_scores_batch (ciri_long_tpu/ops/chain.py:82-100) on
+    ``device``: the chaining DP over padded [B, A] anchor tables (r, q
+    contig-local, ctg contig ids, each fitting int32; valid bool, True at
+    any slots of a row).  Returns numpy (f float32 [B, A], pre int32 [B,
+    A]): pre indexes the padded row, -1 for a chain start; an invalid
+    anchor keeps f = k, pre = -1 and is no predecessor.  The window counts
+    padded slots, as JAX's scan does: every slot of a row goes into one CSR
+    row, an invalid one under a contig id of its own (-2 less its flat
+    index), which chains with nothing.  The DP is chain_dp_cuda on the
+    card, chain_dp_plain on the CPU (float64, then rounded to float32: JAX's
+    float32 DP may differ in f's last bits and so break a near tie the
+    other way).  Only the DP's window of CHAIN_WINDOW slots is taken, on
+    both devices; another raises."""
+    if window != CHAIN_WINDOW:
+        raise ValueError('chain_scores_batch scores a window of {} slots '
+                         '(got {})'.format(CHAIN_WINDOW, window))
+    device = resolve_device(device)
+    valid = np.asarray(valid, bool)
+    B, A = valid.shape
+    if not A:
+        return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int32)
+    cols = []
+    for x in (r, q, ctg):
+        x = np.asarray(x)
+        if x.shape != (B, A):
+            raise ValueError('chain_scores_batch needs [B, A] tables like '
+                             'valid {} (got {})'.format((B, A), x.shape))
+        if x.size and (x.min() < -2 ** 31 or x.max() >= 2 ** 31):
+            raise ValueError('chain_scores_batch: positions must fit int32')
+        cols.append(np.ascontiguousarray(x, np.int32).reshape(-1))
+    if B * A >= 2 ** 31 - 2:
+        raise ValueError('chain_scores_batch: {} slots pass int32 contig '
+                         'ids'.format(B * A))
+    loose = -2 - np.arange(B * A, dtype=np.int64)
+    cols[2] = np.where(valid.reshape(-1), cols[2], loose).astype(np.int32)
+    offs = torch.arange(0, B * A + 1, A, dtype=torch.int64)
+    cols = [torch.from_numpy(c) for c in cols]
+    if device.type == 'cpu':
+        f, pre = chain_dp_plain(offs, *cols,
+                                log2_table(table_size(max_gap_r, max_gap_q)),
+                                k, window, max_gap_r, max_gap_q)
+    else:
+        f, pre = chain_dp_cuda(offs.to(device),
+                               *(c.to(device) for c in cols), k, window,
+                               max_gap_r, max_gap_q)
+    return (f.to(torch.float32).reshape(B, A).cpu().numpy(),
+            pre.reshape(B, A).cpu().numpy())
 
 
 def extract_plan(lens, device):

@@ -18,7 +18,9 @@ nothing else.  ``edit_distance_batch`` is the numpy entry point on
 ``device`` (default 'cuda', resolved by ``resolve_device``, which raises
 without a GPU): the kernel on the card, and on the CPU the native Myers core
 (native/alncore.cpp) when it is built, as the JAX package does on a host
-backend, else the plain version.  Equality is on codes: N (4) equals N.
+backend, else the plain version.  ``edit_distance_batch_padded`` is JAX's
+padded entry (explicit lengths) over it.  Equality is on codes: N (4)
+equals N.
 
 The JAX package pads batches and lengths onto bucket ladders to bound XLA
 compiles; the outputs do not depend on them, so the port pads to the batch's
@@ -211,6 +213,14 @@ def edit_distance_batch(a, b, alen=None, blen=None, device='cuda'):
         return edit_distance_batch_plain(*args).numpy()
     return edit_distance_cuda(*args, plan=edit_plan(
         a, b, alen, blen, device)).cpu().numpy()
+
+
+def edit_distance_batch_padded(a, b, alen, blen, device='cuda'):
+    """JAX's edit_distance_batch_padded (ciri_long_tpu/ops/edit.py:27-58):
+    numpy a [B, La], b [B, Lb] (codes 0..7) and lengths alen, blen [B] in,
+    int32 [B] out, the distance between a[i, :alen[i]] and b[i, :blen[i]];
+    edit_distance_batch on ``device``, the same kernel."""
+    return edit_distance_batch(a, b, alen, blen, device=device)
 
 
 def edit_distance(x: str, y: str) -> int:

@@ -14,9 +14,14 @@ changes which reads get one.
   'lag' mesh axis's shards, parallel/mesh.py);
 - ``tandem_counts_cuda``: csrc/tandem_counts.cu, one block a read, which
   counts the pairs of equal k-mers in the range (csrc/kmer_pairs.h, the
-  screen's count) or, for a low-complexity read, every lag of it;
-  ``tandem_routes_plain`` says which; ``tandem_counts``: numpy in, numpy
-  out, on ``device``;
+  screen's count) or, for a low-complexity read, every lag of it; reads
+  wider than SCREEN_MAX_LEN take its wide route, every window at every lag
+  in tiles of ids; ``tandem_routes_plain`` says which; ``tandem_counts``:
+  numpy in, numpy out, on ``device``;
+- ``lag_profile_plain`` / ``lag_profile_cuda`` (csrc/lag_profile.cu) /
+  ``lag_profile``: JAX's ``lag_profile``, the float32 fraction of valid
+  position pairs whose codes match at each lag of a range;
+- ``screen_periodic``: JAX's host election over ``tandem_counts`` (numpy);
 - ``screen_keep_plain``: the fused election, in int32 as JAX's
   ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
   bucket's b // 2: the support windows clip there, so L // 2 would be
@@ -29,8 +34,7 @@ changes which reads get one.
 
 The support windows [ceil(0.94 l - 4), floor(1.06 l + 4)] come from numpy's
 float64 expressions on the host (``support_windows``) and are clipped in
-integers, as JAX's program does with its static tables.  ``lag_profile``
-is not ported (ROADMAP, not to port).
+integers, as JAX's program does with its static tables.
 """
 
 import ctypes
@@ -97,27 +101,35 @@ _TANDEM_SYMBOLS = {
     'tandem_counts_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 5
                              + [ctypes.c_void_p] * 3, ctypes.c_int),
 }
+# csrc/tandem_counts.cu's and csrc/lag_profile.cu's lags a block on their
+# tiled routes (a grid dimension: at most 65 535 chunks of them)
+LAG_BLOCK = 256
+MAX_CHUNKS = 65535
 
 
 def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
-    """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (W <=
-    SCREEN_MAX_LEN, codes 0..5), contiguous; max_lag >= 1, lag_offset >= 0.
-    Same output as tandem_counts_plain; a ``routes`` uint8 [B] tensor on
-    the device, if given, gets each read's route (1 the lag route, 0 the
-    pair route or nothing to count; tandem_routes_plain).  Raises on
-    anything else and when the launch is refused."""
+    """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (codes
+    0..5), contiguous; max_lag >= 1, lag_offset >= 0.  Same output as
+    tandem_counts_plain; a ``routes`` uint8 [B] tensor on the device, if
+    given, gets each read's route (1 the lag route, 0 the pair route or
+    nothing to count, 2 the wide route of every read when W >
+    SCREEN_MAX_LEN; tandem_routes_plain).  Raises on anything else and when
+    the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     if reads.dtype != torch.int8 or reads.dim() != 2:
         raise TypeError('tandem_counts_cuda needs int8 reads [B, W] (got {} '
                         '{})'.format(reads.dtype, tuple(reads.shape)))
     B, W = reads.shape
-    if not (1 <= W <= SCREEN_MAX_LEN and 1 <= k <= 15 and max_lag >= 1
-            and lag_offset >= 0):
-        raise ValueError('tandem_counts_cuda takes 1 <= W <= {}, k in 1..15, '
-                         'max_lag >= 1 and lag_offset >= 0 (got W={}, k={}, '
-                         'max_lag={}, lag_offset={})'.format(
-                             SCREEN_MAX_LEN, W, k, max_lag, lag_offset))
+    wide = W > SCREEN_MAX_LEN
+    if not (W >= 1 and 1 <= k <= 15 and max_lag >= 1 and lag_offset >= 0
+            and not (wide and max_lag > LAG_BLOCK * MAX_CHUNKS)):
+        raise ValueError('tandem_counts_cuda takes W >= 1, k in 1..15, '
+                         'max_lag >= 1 (at most {} when W > {}) and '
+                         'lag_offset >= 0 (got W={}, k={}, max_lag={}, '
+                         'lag_offset={})'.format(
+                             LAG_BLOCK * MAX_CHUNKS, SCREEN_MAX_LEN, W, k,
+                             max_lag, lag_offset))
     if not reads.is_cuda:
         raise ValueError('tandem_counts_cuda needs a CUDA tensor (got {})'
                          .format(reads.device))
@@ -140,7 +152,7 @@ def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
     if rc != 0:
         raise RuntimeError('tandem_counts launch failed: cudaError {} (B={}, '
                            'W={}, max_lag={})'.format(rc, B, W, max_lag))
-    count_launch('tandem_counts')
+    count_launch('tandem_counts', *(('tandem_wide',) if wide else ()))
     return out
 
 
@@ -162,6 +174,122 @@ def tandem_counts(reads, max_lag, k=11, lag_offset=0, pad_lags=None,
     else:
         out = tandem_counts_cuda(reads.to(device), max_lag, k, lag_offset)
     return out.cpu().numpy()
+
+
+def lag_profile_counts_plain(reads, max_lag, lag_offset=0):
+    """The two counts of JAX's ``lag_profile`` in plain PyTorch (any
+    device): reads int8 [B, W]; for lags d = lag_offset + 1 .. lag_offset +
+    max_lag, num the positions i with i + d < W whose codes i and i + d are
+    both valid (< 4) and equal, den those with both valid.  Returns (num,
+    den), int32 [B, max_lag] each (0 for lags past W - 1)."""
+    B, W = reads.shape
+    x = reads.to(torch.int32)
+    v = x < 4
+    num = torch.zeros((B, max_lag), dtype=torch.int32, device=reads.device)
+    den = torch.zeros_like(num)
+    for d in range(lag_offset + 1, min(lag_offset + max_lag, W - 1) + 1):
+        both = v[:, :W - d] & v[:, d:]
+        num[:, d - lag_offset - 1] = (both & (x[:, :W - d] == x[:, d:])).sum(
+            dim=1, dtype=torch.int32)
+        den[:, d - lag_offset - 1] = both.sum(dim=1, dtype=torch.int32)
+    return num, den
+
+
+def lag_profile_plain(reads, max_lag, lag_offset=0):
+    """JAX's ``lag_profile`` in plain PyTorch (any device): float32 [B,
+    max_lag], num / max(den, 1) of lag_profile_counts_plain, the two
+    counts made float32 and divided once (bit-equal to JAX's)."""
+    num, den = lag_profile_counts_plain(reads, max_lag, lag_offset)
+    return num.to(torch.float32) / den.clamp(min=1).to(torch.float32)
+
+
+_PROFILE_SYMBOLS = {
+    'lag_profile_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 2, ctypes.c_int),
+}
+
+
+def lag_profile_cuda(reads, max_lag, lag_offset=0):
+    """csrc/lag_profile.cu on a CUDA tensor: reads int8 [B, W] (any width),
+    contiguous; 1 <= max_lag <= LAG_BLOCK * MAX_CHUNKS, lag_offset >= 0.
+    Same output as lag_profile_plain, bit for bit.  Raises on anything else
+    and when the launch is refused."""
+    from ciri_long_tpu_torch.ops import _build
+
+    if reads.dtype != torch.int8 or reads.dim() != 2:
+        raise TypeError('lag_profile_cuda needs int8 reads [B, W] (got {} {})'
+                        .format(reads.dtype, tuple(reads.shape)))
+    B, W = reads.shape
+    if not (W >= 1 and 1 <= max_lag <= LAG_BLOCK * MAX_CHUNKS
+            and lag_offset >= 0):
+        raise ValueError('lag_profile_cuda takes W >= 1, max_lag in 1..{} and '
+                         'lag_offset >= 0 (got W={}, max_lag={}, lag_offset='
+                         '{})'.format(LAG_BLOCK * MAX_CHUNKS, W, max_lag,
+                                      lag_offset))
+    if not reads.is_cuda:
+        raise ValueError('lag_profile_cuda needs a CUDA tensor (got {})'
+                         .format(reads.device))
+    if not reads.is_contiguous():
+        raise ValueError('lag_profile_cuda needs contiguous reads')
+    dev = reads.device
+    out = torch.empty((B, max_lag), dtype=torch.float32, device=dev)
+    lib = _build.load('lag_profile.cu', _PROFILE_SYMBOLS)
+    with torch.cuda.device(dev):
+        rc = lib.lag_profile_launch(
+            reads.data_ptr(), B, W, int(lag_offset), int(max_lag),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError('lag_profile launch failed: cudaError {} (B={}, '
+                           'W={}, max_lag={})'.format(rc, B, W, max_lag))
+    count_launch('lag_profile')
+    return out
+
+
+@_count_dispatch('lag_profile')
+def lag_profile(reads, max_lag, lag_offset=0, pad_lags=None, device='cuda'):
+    """JAX's ``lag_profile`` (ciri_long_tpu/ops/period.py:55) on
+    ``device``: numpy reads int8 [B, L] (PAD = 5), lags lag_offset + 1 ..
+    lag_offset + max_lag; numpy float32 [B, max_lag] out, the match
+    fraction of each lag.  The kernel on the card, the plain version on the
+    CPU.  ``pad_lags``, JAX's static bound on lag_offset + max_lag, is
+    checked, not needed."""
+    if pad_lags is not None and lag_offset + max_lag > pad_lags:
+        raise ValueError('lag_offset + max_lag = {} passes pad_lags = {}'
+                         .format(lag_offset + max_lag, pad_lags))
+    device = resolve_device(device)
+    reads = torch.from_numpy(np.ascontiguousarray(reads, np.int8))
+    if device.type == 'cpu':
+        out = lag_profile_plain(reads, max_lag, lag_offset)
+    else:
+        out = lag_profile_cuda(reads.to(device), max_lag, lag_offset)
+    return out.cpu().numpy()
+
+
+def screen_periodic(counts, lengths, min_period=30, min_units=2.0):
+    """JAX's host election over tandem_counts (ciri_long_tpu/ops/
+    period.py:171-200), numpy: keep[b] is False only when no candidate
+    period l in [min_period, L / min_units] has support >= max(8, 0.05 L)
+    within its relative window [0.94 l - 4, 1.06 l + 4] (support_windows,
+    clipped); a read under 2 min_period is dropped, one whose period range
+    passes the counts' lags (L / min_units > max_lag) is kept."""
+    counts = np.asarray(counts)
+    max_lag = counts.shape[1]
+    lags = np.arange(1, max_lag + 1)
+    lo_raw, hi_raw = support_windows(max_lag)
+    lo = np.clip(lo_raw, 1, max_lag + 1)
+    hi = np.clip(hi_raw, 0, max_lag)
+    keep = np.zeros(len(lengths), bool)
+    for b, L in enumerate(lengths):
+        if L < 2 * min_period:
+            continue
+        if L / min_units > max_lag:
+            keep[b] = True
+            continue
+        cs = np.concatenate([[0], np.cumsum(counts[b])])
+        sup = cs[hi] - cs[lo - 1]
+        valid_l = (lags >= min_period) & (lags <= L / min_units)
+        keep[b] = bool(np.any(sup[valid_l] >= max(8, 0.05 * L)))
+    return keep
 
 
 def screen_keys(row, k=11):
@@ -217,10 +345,15 @@ def screen_routes_plain(reads, max_lag, k=11):
 
 def tandem_routes_plain(reads, max_lag, k=11, lag_offset=0):
     """Which route csrc/tandem_counts.cu takes for each read (numpy reads
-    [B, W]): True for the lag route, over lags lag_offset + 1 .. lag_offset
-    + max_lag (``_lag_route``).  Returns bool [B]."""
+    [B, W]), as its ``routes`` output: 2 the wide route (every read when W
+    > SCREEN_MAX_LEN), else 1 for the lag route over lags lag_offset + 1 ..
+    lag_offset + max_lag (``_lag_route``) and 0 for the pair route.
+    Returns uint8 [B]."""
+    reads = np.asarray(reads)
+    if reads.shape[1] > SCREEN_MAX_LEN:
+        return np.full(len(reads), 2, np.uint8)
     return np.array([_lag_route(row, lag_offset + 1, lag_offset + max_lag,
-                                k) for row in np.asarray(reads)], bool)
+                                k) for row in reads], np.uint8)
 
 
 def _lag_ranges(max_lag, B, device):

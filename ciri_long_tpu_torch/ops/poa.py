@@ -33,6 +33,7 @@ place of its P <= 8 slots, so no alignment falls back to the native core).
 The results are byte-identical on every route.
 """
 
+import sys
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -563,3 +564,15 @@ def _poa_python(codes, m, x, o1, e1, o2, e2):
         _, aln = _align_to_graph(g, seq, m, x, o1, e1, o2, e2)
         _fuse(g, seq, aln)
     return _consensus(g)
+
+
+class _CallablePoa(sys.modules[__name__].__class__):
+    """``ciri_long_tpu_torch.ops.poa`` is this module, and called it is
+    ``poa``, as the JAX package's ``ops.poa`` (the function its
+    ``ops/__init__.py`` binds over the submodule)."""
+
+    def __call__(self, *args, **kwargs):
+        return poa(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallablePoa

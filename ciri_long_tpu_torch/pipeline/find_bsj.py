@@ -49,6 +49,7 @@ from ciri_long_tpu_torch.models.hits import (get_blocks, get_parital_blocks,
                                              merge_clip_exon, merge_exons,
                                              remove_long_insert)
 from ciri_long_tpu_torch.ops.sw import (SWParams, sw_align_batch,
+                                        sw_window_align,
                                         sw_window_align_many)
 from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
@@ -79,6 +80,34 @@ class _SSWRes:
         self.query_end = qe
         self.ref_begin = rb
         self.ref_end = re_
+
+
+def ssw_align(query_codes, ref_codes, params=CLIP_SW, device='cuda'):
+    """One SW alignment with the SSW-style result (inclusive ends), JAX's
+    ssw_align (ciri_long_tpu/pipeline/find_bsj.py:62): a reference over
+    32 768 codes through sw_window_align's exact chunks, a shorter one
+    through sw_align_batch at the length buckets, on ``device``."""
+    device = resolve_device(device)
+    if len(ref_codes) > 32768:
+        return _SSWRes(*sw_window_align(query_codes, ref_codes, params,
+                                        device=device))
+    q, _ = pad_encoded([query_codes],
+                       max_len=_bucket(max(1, len(query_codes))))
+    r, _ = pad_encoded([ref_codes], max_len=_bucket(max(1, len(ref_codes))))
+    res = sw_align_batch(q, r, params, device)
+    return _SSWRes(int(res.score[0]), int(res.query_begin[0]),
+                   int(res.query_end[0]), int(res.ref_begin[0]),
+                   int(res.ref_end[0]))
+
+
+def find_bsj(ctx, ccs, device='cuda'):
+    """The BSJ of one consensus read by rotation and remap, JAX's find_bsj
+    (ciri_long_tpu/pipeline/find_bsj.py:81-120, reference
+    find_bsj.py:139-179): find_bsj_batch of the one read, whose loop is
+    that one's, each map on ``device``.  Returns (circ, junction offset),
+    (None, None) when ccs * 2 does not map."""
+    circ, junc, _hits = find_bsj_batch(ctx, [ccs], resolve_device(device))[0]
+    return circ, junc
 
 
 def _map_many(ctx, seqs, device):
@@ -251,6 +280,19 @@ def _clip_finish(res, meta):
     circ_end = max(hit.r_en, clip_r_en)
     return (clipped_circ, circ_start, circ_end,
             (clip_r_st, clip_r_en, clip_base))
+
+
+def align_clip_segments(ctx, circ, hit, cfg=DEFAULT.call, device='cuda'):
+    """One read's clip re-alignment against the +-200 kb window around its
+    hit, JAX's align_clip_segments (ciri_long_tpu/pipeline/find_bsj.py:284,
+    reference find_bsj.py:182-233): _clip_prepare, ssw_align on
+    ``device``, _clip_finish."""
+    staged = _clip_prepare(ctx, circ, hit, cfg)
+    if staged[0] == 'done':
+        return staged[1]
+    _, clip_codes, ref_codes, meta = staged
+    return _clip_finish(ssw_align(clip_codes, ref_codes, device=device),
+                        meta)
 
 
 @_count_dispatch('clip_sw_batch')

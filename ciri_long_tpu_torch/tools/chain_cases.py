@@ -1,7 +1,8 @@
 """Anchor rows for the chaining DP and reads for the tandem screen at their
 edges (tests/test_torch_chain.py and tests/test_torch_period.py hold the
 plain versions to the JAX package on them, tests/test_torch_cuda.py the
-kernels to the plain versions and the native chain core).
+kernels to the plain versions and the native chain core), and reads wider
+than the screen's widest bucket for the lag-range kernels (``wide_cases``).
 
 Chain rows are (r, q, ctg) int64 arrays sorted by (r, q), r global, with
 contigs of CONTIG bases (ctg = r // CONTIG) or, for rows whose gaps span
@@ -279,6 +280,30 @@ def screen_launches(rng):
              for t, L in enumerate(rng.integers(60, 513, 16_384))]
     mat, lens = pad(reads, 512)
     out['many_reads'] = (mat, lens, np.full(len(reads), 256, np.int32))
+    return out
+
+
+def wide_cases(rng, widths=(4_097, 16_384)):
+    """{name: (reads int8 [B, W], [(lag_offset, max_lag)])} at each width
+    over csrc/tandem_counts.cu's 4 096 (its wide route) for the lag-range
+    kernels (tandem_counts, lag_profile): a tandem read of period 240, a
+    poly-A, a random read, one poisoned with N every 41 codes, one that
+    stops 3 codes short of the width and an all-PAD row; over 2 048 lags
+    from 0 cut into 1, 2 and 4 ranges, a range across the reads' end and
+    one past it."""
+    out = {}
+    for W in widths:
+        reads = [tandem(rng, W, 240, noise=0.02), np.zeros(W - 7, np.int8),
+                 rng.integers(0, 4, W).astype(np.int8),
+                 rng.integers(0, 4, W).astype(np.int8),
+                 rng.integers(0, 4, W - 3).astype(np.int8),
+                 np.zeros(0, np.int8)]
+        reads[3][5::41] = 4
+        mat, _ = pad(reads, W)
+        ranges = [(t * 2048 // n, 2048 // n) for n in (1, 2, 4)
+                  for t in range(n)]
+        out['wide W={}'.format(W)] = (mat, ranges + [(W - 300, 600),
+                                                     (W + 10, 64)])
     return out
 
 

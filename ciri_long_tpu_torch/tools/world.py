@@ -12,6 +12,10 @@ list file ``collapse -i`` takes (sample<TAB>cand_circ.fa a line).
 ``bsj_accuracy``: recall/precision of a ``cand_circ.fa`` against the
 simulated truth (the scoring rule of benchmarks/validate.py: a call
 matches a locus when both ends lie within ``tol`` bp).
+``make_world(..., short_loci=n)`` adds n one-exon loci of SHORT_LEN;
+``short_world`` is the ``call`` world with 16 of them: a smoke world whose
+consensus reads fail the scan's index and reach ``call``'s short-consensus
+recovery ([3/4]), not a sample's length distribution.
 """
 
 import os
@@ -73,8 +77,39 @@ def skill_world(root):
     return ref, reads
 
 
+# circle lengths of the short loci, [lo, hi) bp.  Of 960 reads from 16 loci
+# of 60-149 bp, 40 reach the recovery (the rest map on the scan's k = 15
+# index); of 30-59 bp, 287: two chunks of ccs_chunk_size = 250, so that at
+# -t > 1 the recovery drains between the pool and the card.  Circles this
+# short are rare in real samples: the range forces the stage, it does not
+# model a sample.
+SHORT_LEN = (30, 60)
+SHORT_GAP = 1000         # bp between a short locus and every other locus
+
+
+def short_loci_apart(clen, taken, rng, n):
+    """n one-exon loci on chr1, one a slot of the contig as random_loci
+    cuts it, each at least SHORT_GAP bp from every span of ``taken``
+    ([(start, end)], grown as loci are placed), exons of SHORT_LEN,
+    strands at random."""
+    slot = (clen - 2000) // max(1, n)
+    loci = []
+    for t in range(n):
+        lo = 1000 + t * slot
+        while True:
+            el = int(rng.integers(*SHORT_LEN))
+            st = int(rng.integers(lo, lo + slot - el - 100))
+            if all(st + el + SHORT_GAP <= a or b + SHORT_GAP <= st
+                   for a, b in taken):
+                break
+        taken.append((st, st + el))
+        strand = '+' if rng.random() < 0.5 else '-'
+        loci.append(('chr1', [(st, st + el)], strand))
+    return loci
+
+
 def make_world(root, genome_kb=2000, loci=16, depth=60, linear=240,
-               seed=0):
+               seed=0, short_loci=0):
     """Write ``root/genome.fa`` and ``root/reads.fa``.  Returns (genome
     path, reads path, truth loci as [(contig, start1, end)]).
 
@@ -83,11 +118,22 @@ def make_world(root, genome_kb=2000, loci=16, depth=60, linear=240,
     --profile nanopore): the tool's real input, and the one that leaves
     clipped bases for the +-200 kb window SW.  Under a uniform 2 % error
     profile no read of such a world leaves 20 clipped bases, so ``call``
-    never reaches the SW."""
+    never reaches the SW.
+
+    ``short_loci`` more one-exon loci of SHORT_LEN (``short_loci_apart``,
+    SHORT_GAP from every other locus) go through the same profile at the
+    same depth; their truth follows the regular loci's.
+    With none, the world draws the same numbers and writes the same bytes
+    as it did before short loci existed."""
     rng = np.random.default_rng(seed)
     chars = list(''.join(rng.choice(list('ACGT'), size=genome_kb * 1000)))
     truth_loci = random_loci(Genome.from_dict({'chr1': ''.join(chars)}), rng,
                              loci)
+    if short_loci:
+        taken = [(exons[0][0], exons[-1][1])
+                 for _ctg, exons, _strand in truth_loci]
+        truth_loci = truth_loci + short_loci_apart(
+            len(chars), taken, rng, short_loci)
     chr1 = ''.join(plant_splice_signals(chars, truth_loci))
     genome = Genome.from_dict({'chr1': chr1})
     os.makedirs(root, exist_ok=True)
@@ -105,6 +151,16 @@ def make_world(root, genome_kb=2000, loci=16, depth=60, linear=240,
     truth = [(ctg, exons[0][0] + 1, exons[-1][1])
              for ctg, exons, _strand in truth_loci]
     return ref, reads, truth
+
+
+def short_world(root, genome_kb=2000, loci=16, depth=60, linear=240,
+                short_loci=16, seed=0):
+    """make_world's world (by default the ``call`` world: 2 Mb, 16 loci,
+    depth 60, 240 linear reads, seed 0) and ``short_loci`` one-exon loci
+    of SHORT_LEN at the same depth.  Returns (genome path, reads path,
+    truth), truth[loci:] the short loci."""
+    return make_world(root, genome_kb, loci, depth, linear, seed,
+                      short_loci)
 
 
 def cohort_world(root, reads=4000, genome_kb=2000, loci=16, seed=0):
@@ -142,10 +198,8 @@ def sample_list(path, samples):
     return path
 
 
-def bsj_accuracy(cand_circ_fa, truth, tol=5):
-    """(recall, precision, n_called) of the distinct BSJs in a
-    cand_circ.fa: recall over the true loci, precision over the called
-    loci."""
+def called_bsjs(cand_circ_fa):
+    """The distinct BSJs of a cand_circ.fa, {(contig, start1, end)}."""
     called = set()
     with open(cand_circ_fa) as f:
         for line in f:
@@ -153,6 +207,14 @@ def bsj_accuracy(cand_circ_fa, truth, tol=5):
                 ctg, span = line.split('\t')[1].rsplit(':', 1)
                 st, en = span.split('-')
                 called.add((ctg, int(st), int(en)))
+    return called
+
+
+def bsj_accuracy(cand_circ_fa, truth, tol=5):
+    """(recall, precision, n_called) of the distinct BSJs in a
+    cand_circ.fa: recall over the true loci, precision over the called
+    loci."""
+    called = called_bsjs(cand_circ_fa)
 
     def match(a, b):
         return (a[0] == b[0] and abs(a[1] - b[1]) <= tol

@@ -37,10 +37,11 @@ LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
             'int16_probe': 0, 'int16_probe_all': 0, 'edit_distance': 0,
             'sw_traceback': 0, 'poa_align': 0, 'chain_dp': 0,
             'chain_extract': 0, 'screen_keep': 0, 'nw_traceback': 0,
-            'tandem_counts': 0}
+            'tandem_counts': 0, 'lag_profile': 0}
 # the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
 # the int16 probes serve misc/kexp and misc/int16_probe; tandem_counts the
-# mesh's pipeline step, parallel/mesh.py)
+# mesh's pipeline step, parallel/mesh.py; lag_profile ops/period.py's public
+# op)
 CALL_KERNELS = ('sw_score_ends', 'chain_dp', 'chain_extract', 'screen_keep',
                 'nw_traceback')
 COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback',
@@ -59,11 +60,13 @@ DEVICE_MS = {'poa_align': 0.0}
 # pairs, not launches, the
 # center-star pairs that needed a wider band than their first
 # (``nw_escalate``) and those that CCS's polish aligned on the host
-# (``nw_host``: the native center star of the cpu route; 0 on the card)
+# (``nw_host``: the native center star of the cpu route; 0 on the card);
+# csrc/tandem_counts.cu's wide route (reads over 4 096 codes,
+# ``tandem_wide``; its other two routes are a read's choice on the card)
 ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
           'tb_smem': 0, 'tb_global': 0, 'nw_c1': 0, 'nw_c2': 0, 'nw_c4': 0,
           'nw_c8': 0, 'nw_block': 0, 'nw_global': 0,
-          'nw_escalate': 0, 'nw_host': 0}
+          'nw_escalate': 0, 'nw_host': 0, 'tandem_wide': 0}
 
 
 _LAUNCH_LOCK = threading.Lock()

@@ -11,7 +11,9 @@ call's chaining DP and extraction and tandem screen (csrc/chain_dp.cu,
 also against the native chain core once ``setup.py build_ext --inplace``
 has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
 csrc/screen_keep.cu and the mesh's lag-range counts csrc/tandem_counts.cu,
-with their route per read, on its ``screen_launches``),
+with their route per read, on its ``screen_launches`` and, past 4 096
+codes, its ``wide_cases``; the lag profile csrc/lag_profile.cu;
+chain_scores_batch),
 and the center-star polish's banded NW (csrc/nw_traceback.cu, along the
 band ladder on tools/nw_cases.py in every width class: C = 1, 2, 4, 8 with
 the rows in registers, the wide classes with the rows in shared and global
@@ -1037,16 +1039,115 @@ def test_tandem_counts_hash_collision(dev):
 
 
 def test_tandem_counts_rejects_bad_inputs(dev):
+    """Bad types, k and route buffers are refused; a read wider than 4 096
+    codes is not (the wide route answers it)."""
     from ciri_long_tpu_torch.ops import period
-    with pytest.raises(ValueError, match='W <= 4096'):
-        period.tandem_counts_cuda(
-            torch.full((2, 4097), 5, dtype=torch.int8, device=dev), 8)
+    wide = torch.full((2, 4097), 5, dtype=torch.int8, device=dev)
+    assert not period.tandem_counts_cuda(wide, 8).any()
+    with pytest.raises(ValueError, match='k in 1..15'):
+        period.tandem_counts_cuda(wide, 8, k=16)
     reads = torch.full((2, 512), 5, dtype=torch.int8, device=dev)
     with pytest.raises(TypeError):
         period.tandem_counts_cuda(reads.int(), 8)
     with pytest.raises(ValueError, match='routes'):
         period.tandem_counts_cuda(reads, 8, routes=torch.zeros(
             2, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize('W', [4_097, 16_384])
+def test_tandem_counts_wide_route(dev, W):
+    """Reads wider than 4 096 codes take the wide route (routes 2, one
+    ROUTES['tandem_wide'] a launch), equal to tandem_counts_plain over
+    tools/chain_cases.py's wide_cases lag ranges, at k = 11 and 15."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    mat, ranges = chain_cases.wide_cases(np.random.default_rng(41), (W,))[
+        'wide W={}'.format(W)]
+    x = torch.from_numpy(mat).to(dev)
+    for k in (11, 15):
+        for offset, M in ranges:
+            routes = torch.zeros(len(mat), dtype=torch.uint8, device=dev)
+            before = ROUTES['tandem_wide']
+            got = period.tandem_counts_cuda(x, M, k, offset, routes=routes)
+            want = period.tandem_counts_plain(x, M, k, offset)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (k, offset, M)
+            assert np.array_equal(routes.cpu().numpy(),
+                                  period.tandem_routes_plain(mat, M, k,
+                                                             offset))
+            assert ROUTES['tandem_wide'] == before + 1
+    assert int(period.tandem_counts_plain(x, 2048, 11)[0].sum()) > 0
+
+
+def _profile_cases():
+    """(label, reads, [(lag_offset, max_lag)]) for lag_profile: the dry
+    run's 2 x 192 x 32, edge reads at 120 and 4 096 codes, and
+    tools/chain_cases.py's wide_cases."""
+    from ciri_long_tpu_torch.tools import chain_cases
+    rng = np.random.default_rng(43)
+    cases = [('dryrun', rng.integers(0, 4, (2, 192)).astype(np.int8),
+              [(0, 32), (32, 32)])]
+    for W, ranges in ((120, [(0, 32), (100, 40), (200, 8)]),
+                      (4096, [(0, 2048), (1000, 300), (4000, 200)])):
+        mat = np.full((4, W), 5, np.int8)
+        mat[0] = np.resize(rng.integers(0, 4, 37), W)
+        mat[1, :W // 2] = rng.integers(0, 6, W // 2)
+        mat[2, :9] = 2
+        cases.append(('edge W={}'.format(W), mat, ranges))
+    for label, (mat, ranges) in chain_cases.wide_cases(rng).items():
+        cases.append((label, mat, ranges))
+    return cases
+
+
+def test_lag_profile_matches_plain(dev):
+    """csrc/lag_profile.cu bit-equal to lag_profile_plain (its float32
+    fractions' bits) on every case, each launch counted."""
+    from ciri_long_tpu_torch.ops import period
+    for label, mat, ranges in _profile_cases():
+        x = torch.from_numpy(mat).to(dev)
+        for offset, M in ranges:
+            before = LAUNCHES['lag_profile']
+            got = period.lag_profile_cuda(x, M, offset)
+            want = period.lag_profile_plain(x, M, offset)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (label, offset, M)
+            assert LAUNCHES['lag_profile'] == before + 1
+    got = period.lag_profile(mat, 64, 10, pad_lags=74)
+    assert np.array_equal(got, period.lag_profile(mat, 64, 10, device='cpu'))
+
+
+def test_lag_profile_rejects_bad_inputs(dev):
+    from ciri_long_tpu_torch.ops import period
+    reads = torch.full((2, 64), 5, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        period.lag_profile_cuda(reads.int(), 8)
+    with pytest.raises(ValueError, match='max_lag'):
+        period.lag_profile_cuda(reads, 0)
+    with pytest.raises(ValueError, match='contiguous'):
+        period.lag_profile_cuda(reads.t(), 8)
+    assert not period.lag_profile_cuda(reads, 8).any()
+
+
+def test_chain_scores_batch_on_the_card(dev):
+    """chain_scores_batch on the card equal to the CPU route (the same
+    float64 DP, table aside: the card's libm table, the CPU's when the
+    native chain core is built), with non-prefix valid masks; a window
+    other than 64 is refused on both."""
+    from ciri_long_tpu_torch.ops import chain
+    rng = np.random.default_rng(47)
+    B, A = 5, 300
+    q = np.sort(rng.integers(0, 4000, (B, A)), axis=1)
+    r = q + rng.integers(0, 4, (B, A)) + 1000
+    ctg = (rng.random((B, A)) < 0.1).astype(np.int32)
+    valid = rng.random((B, A)) < 0.85
+    got = chain.chain_scores_batch(r, q, ctg, valid, 15, device=dev)
+    want = chain.chain_scores_batch(r, q, ctg, valid, 15, device='cpu')
+    assert np.array_equal(got[1], want[1])
+    assert np.allclose(got[0], want[0], rtol=0, atol=1e-4)
+    assert (got[1][~valid] == -1).all() and (got[0][~valid] == 15).all()
+    with pytest.raises(ValueError, match='window'):
+        chain.chain_scores_batch(r, q, ctg, valid, 15, window=32, device=dev)
 
 
 def test_call_stages_chain_and_screen_on_the_card(dev, tmp_path):

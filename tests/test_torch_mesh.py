@@ -206,17 +206,26 @@ def test_tandem_counts_refuses():
                               device='cpu')
 
 
-def test_tandem_counts_refuses_wider_than_the_kernel():
-    """csrc/tandem_counts.cu takes W <= 4 096 (its keys' POS_BITS); the
-    wrapper refuses a wider read before any launch, where JAX answers (no
-    entry point sends one: the dry run's reads are 192 wide)."""
-    mat = np.full((1, tperiod.SCREEN_MAX_LEN + 1), 5, np.int8)
-    mat[0, :300] = 0
-    want = np.asarray(jperiod.tandem_counts(mat, 8, 11))
-    assert want.shape == (1, 8) and want.all()
-    with pytest.raises(ValueError, match='W <= 4096'):
+def test_tandem_counts_refuses_wider_than_the_kernel(rng):
+    """Despite its name, no longer a refusal: a read wider than the 4 096
+    window positions of csrc/tandem_counts.cu's keys takes the kernel's
+    wide route (its route code 2).  The port's tandem_counts (plain on the
+    CPU) equals JAX's at 4 097 and 6 000 codes, tandem reads and random
+    ones, PAD tails and N."""
+    for W in (4_097, 6_000):
+        mat = np.full((3, W), 5, np.int8)
+        mat[0, :W - 5] = np.resize(rng.integers(0, 4, 41), W - 5)
+        mat[1] = rng.integers(0, 4, W)
+        mat[1, 7::53] = 4
+        mat[2, :300] = 0
+        want = np.asarray(jperiod.tandem_counts(mat, 64, 11, lag_offset=3,
+                                                pad_lags=67))
+        assert want[0].any() and want[2].any()
+        assert np.array_equal(tperiod.tandem_counts(mat, 64, 11, 3,
+                                                    device='cpu'), want)
+        assert (tperiod.tandem_routes_plain(mat, 64, 11, 3) == 2).all()
+    with pytest.raises(ValueError, match='CUDA tensor'):
         tperiod.tandem_counts_cuda(torch.from_numpy(mat), 8)
-    assert np.array_equal(tperiod.tandem_counts(mat, 8, device='cpu'), want)
 
 
 def test_smoke_tandem_work_counts(rng):
