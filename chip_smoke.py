@@ -195,20 +195,31 @@ and exits non-zero if any phase fails (none is caught and skipped):
    (1 104 x 4 096) and at tools/call_x_ab.py's six screen cases (1 104 x
    4 096: poly-A, di- and trinucleotide repeats, a period of 50, random,
    all N) over 2 048 lags cut into 1, 2 and 4 ranges, on edge reads
-   (all PAD, N, under k, lags past the width) and on
-   tools/chain_cases.py's wide_cases (4 097 and 16 384 codes, which take
-   the wide route, in 1, 2 and 4 ranges and past the reads); it fails
-   unless some read took each route (pair, lag, wide).  Then timed at
-   call's, the dry run's and the two wide shapes
-   (``tandem_counts_time``: a CUDA graph's replay, the plain version's
-   wall, the bound from the equal k-mer pairs in the range at
+   (all PAD, N, under k, lags past the width), on
+   tools/chain_cases.py's wide_cases (4 097 and 16 384 codes, in 1, 2
+   and 4 ranges and past the reads; 4 097 also at k = 2 and 5, the
+   k-run's other doubling levels), its lag_edge_cases
+   (csrc/lag_planes.h's word, chunk and segment edges at 120, 4 097 and
+   4 127 codes), full_reads (256 x 8 192) and odd_cases (codes outside
+   0..5 at 8 and 4 097 codes); it fails unless some read took each route
+   (the bit planes, the value route) and ROUTES['tandem_value'] counted
+   each value-route read of each launch.
+   Then timed at call's, the dry run's, the two wide shapes and 256 x
+   8 192 (``tandem_counts_time``: a CUDA graph's replay, the plain
+   version's wall, the bound from the equal k-mer pairs in the range at
    csrc/op_rate.cu's screen-compare rate or the bytes, the reads once and
    the counts once; the (window, lag) pairs of a brute-force design give
-   ``window_bound_ms`` beside it).  The lag profile (csrc/lag_profile.cu)
-   the same way against lag_profile_plain, bit for bit, on the same cases
-   and shapes (``lag_profile_time``: its bound the valid (position, lag)
-   pairs at csrc/op_rate.cu's packed lag rate, 32 pairs a word of bit
-   planes, or the bytes).  The public ops'
+   ``window_bound_ms`` beside it).  The lag profile
+   (csrc/lag_profile.cu) the same way against lag_profile_plain, bit for
+   bit, on the same cases and shapes, its value route's reads counted in
+   ROUTES['lag_value'] (``lag_profile_time``: its bound the valid
+   (position, lag) pairs at csrc/op_rate.cu's packed lag rate, 32 pairs a
+   word of bit planes, or the bytes, and ``one_popc_bound_ms`` at the rate
+   of a word with one popcount; ``library_ms`` float32 FFT
+   autocorrelations and ``conv1d_ms`` two grouped float32 F.conv1d calls,
+   each checked equal to the plain counts first, yardsticks the port
+   never calls).
+   The public ops'
    run: ops.lag_profile, tandem_counts past 4 096 codes,
    ops.chain_scores_batch and edit_distance_batch_padded through their
    numpy entry points on the card, the counts set to 0 just before,
@@ -265,10 +276,13 @@ launches of call's run (``call_device_ms``, ``slowest_ms``,
 ``serial_bound_ms``, screen_keep's bound its equal k-mer pairs, its
 ``window_bound_ms`` the brute-force (window, lag) measure and
 ``lag_route_reads``); tandem_counts's those of phase 10 at call's screened
-reads (its bound the equal pairs, ``window_bound_ms``, ``lag_route_reads``),
-with its numbers at the dry run's shape (``dryrun``) and the wide route's
-(``wide``); lag_profile's at call's screened reads, launched by the public
-ops' run, its other shapes beside (``shapes``); and last
+reads (its bound the equal pairs, ``window_bound_ms``, ``seg``), with its
+numbers at the dry run's shape (``dryrun``) and the wide shapes'
+(``wide``), the reads on each route (``routes``) and the value route's
+reads; lag_profile's at call's screened reads, launched by the public
+ops' run, its FFT yardstick as ``library_ms`` (conv1d's if the FFT's
+counts differ), ``conv1d_ms`` and ``one_popc_bound_ms`` beside, its other
+shapes beside (``shapes``); and last
 ``{"ok": true, "device": {...}}``.  Without a
 CUDA device it exits 2 and prints no result.  Its files go under
 build/chip_smoke/.
@@ -2831,8 +2845,7 @@ KERNEL_FUNCS = {'sw_score_ends': ('sw_wave_kernel', 'sw_tile_kernel'),
                 'screen_keep': ('screen_keep_kernel',),
                 'nw_traceback': ('nw_reg_kernel', 'nw_block_kernel',
                                  'nw_wide_kernel'),
-                'tandem_counts': ('tandem_counts_kernel',
-                                  'tandem_wide_kernel'),
+                'tandem_counts': ('tandem_counts_kernel',),
                 'lag_profile': ('lag_profile_kernel',)}
 WORKER_TIMEOUT_S = 300
 # call's screened reads cut into these many lag ranges
@@ -2880,35 +2893,48 @@ def _tandem_edge_reads(rng, W):
 
 
 def _lag_range_cases(rng, screened):
-    """(label, reads, [(lag_offset, max_lag)]) of phase 10's lag-range
+    """(label, reads, [(lag_offset, max_lag)], k) of phase 10's lag-range
     kernels (tandem_counts, lag_profile): the dry run's shapes (its lag
     ranges at 1 and 2 lag shards), call's screened reads (``screened``,
     phase 4's screen launch) and tools/call_x_ab.py's screen cases at
     max_lag 2 048 cut into LAG_SPLITS ranges, edge reads (all PAD, N, a
     read under k, lags past the width) at lag offsets, and
-    tools/chain_cases.py's wide_cases (4 097 and 16 384 codes: the wide
-    route)."""
+    tools/chain_cases.py's wide_cases (4 097 and 16 384 codes; 4 097
+    also at k = 2 and 5, the k-run's other doubling levels),
+    lag_edge_cases (csrc/lag_planes.h's word, chunk and segment edges at
+    120, 4 097 and 4 127 codes), full_reads (256 x 8 192) and odd_cases
+    (codes outside 0..5 at 8 and 4 097 codes: the value route, at their
+    own k); k 11 but there."""
     import numpy as np
     from ciri_long_tpu_torch.ops.period import MAX_LAG
     from ciri_long_tpu_torch.tools.call_x_ab import SCREEN_CASES, screen_case
-    from ciri_long_tpu_torch.tools.chain_cases import wide_cases
+    from ciri_long_tpu_torch.tools.chain_cases import (full_reads,
+                                                       lag_edge_cases,
+                                                       odd_cases, wide_cases)
 
     dry = rng.integers(0, 4, (8, 192)).astype(np.int8)
-    cases = [('dryrun 1x1', dry[:2], [(0, 32)]),
-             ('dryrun 4x2', dry, [(0, 32), (32, 32)])]
+    cases = [('dryrun 1x1', dry[:2], [(0, 32)], 11),
+             ('dryrun 4x2', dry, [(0, 32), (32, 32)], 11)]
     for label, reads in ([('call screen', screened)]
                          + [('screen case ' + name, screen_case(name)[0])
                             for name in SCREEN_CASES]):
         for parts in LAG_SPLITS:
             w = MAX_LAG // parts
             cases.append(('{}, {} lag ranges'.format(label, parts), reads,
-                          [(t * w, w) for t in range(parts)]))
+                          [(t * w, w) for t in range(parts)], 11))
     for W, ranges in ((120, [(0, 32), (32, 40), (96, 32)]),
                       (4096, [(0, 2048), (2048, 2048), (4000, 200)])):
         cases.append(('edge W={}'.format(W), _tandem_edge_reads(rng, W),
-                      ranges))
-    for label, (reads, ranges) in wide_cases(rng).items():
-        cases.append((label, reads, ranges))
+                      ranges, 11))
+    for label, (reads, ranges) in (list(wide_cases(rng).items())
+                                   + list(lag_edge_cases(rng).items())):
+        cases.append((label, reads, ranges, 11))
+        if label == 'wide W=4097':         # the k-run's other levels
+            cases += [('{} k={}'.format(label, k), reads, ranges, k)
+                      for k in (2, 5)]
+    cases.append(('full 256x8192', full_reads(rng), [(0, 2048)], 11))
+    for label, (reads, ranges, k) in odd_cases(rng).items():
+        cases.append((label, reads, ranges, k))
     return dry, cases
 
 
@@ -2917,53 +2943,62 @@ def _lag_range_cases(rng, screened):
 LAG_TIMED = (('call', 'call screen, 1 lag ranges', 2048),
              ('dryrun', 'dryrun 1x1', 32),
              ('wide W=4097', 'wide W=4097', 2048),
-             ('wide W=16384', 'wide W=16384', 2048))
+             ('wide W=16384', 'wide W=16384', 2048),
+             ('full 256x8192', 'full 256x8192', 2048))
 
 
 def check_tandem_counts(torch, dev, smi, screened):
     """Phase 10's kernel: csrc/tandem_counts.cu against tandem_counts_plain
     on the card, exact, on _lag_range_cases, each launch with the reads
-    that took each route (pair, lag, and wide past 4 096 codes); then the
-    kernel at LAG_TIMED's shapes, timed: a CUDA graph's replay of 10
-    launches, the plain version's wall, and the bound, the equal k-mer
-    pairs in the range at csrc/op_rate.cu's screen-compare rate or the
-    bytes (the reads once, the counts once) at 3.35 TB/s.  Returns the
-    numbers of the kernels line."""
+    that took each route (the bit planes, and the value route of reads with
+    a code outside 0..5); then the kernel at LAG_TIMED's shapes, timed: a
+    CUDA graph's replay of 10 launches, the plain version's wall, and the
+    bound, the equal k-mer pairs in the range at csrc/op_rate.cu's
+    screen-compare rate or the bytes (the reads once, the counts once) at
+    3.35 TB/s.  Returns the numbers of the kernels line."""
     import numpy as np
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
                                                recurrence_rate,
                                                time_launches)
-    from ciri_long_tpu_torch.ops.period import (tandem_counts_cuda,
+    from ciri_long_tpu_torch.ops.period import (odd_reads, tandem_counts_cuda,
                                                 tandem_counts_plain)
+    from ciri_long_tpu_torch.utils.dispatch import ROUTES, settle_routes
 
     _, cases = _lag_range_cases(np.random.default_rng(0), screened)
     err = 0
-    took = {'pair': 0, 'lag': 0, 'wide': 0}
-    for label, reads, ranges in cases:
+    took = {'planes': 0, 'value': 0}
+    settle_routes()
+    value_reads, odd_total = ROUTES['tandem_value'], 0
+    for label, reads, ranges, k in cases:
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
         B = int(x.shape[0])
+        n_odd = int(odd_reads(x).sum())
         for offset, M in ranges:
+            odd_total += n_odd
             routes = torch.zeros(B, dtype=torch.uint8, device=dev)
-            got = tandem_counts_cuda(x, M, 11, offset, routes=routes)
-            want = tandem_counts_plain(x, M, 11, offset)
+            got = tandem_counts_cuda(x, M, k, offset, routes=routes)
+            want = tandem_counts_plain(x, M, k, offset)
             e = int((got.long() - want.long()).abs().max())
             r = routes.cpu().numpy()
             split = {name: int((r == code).sum()) for code, name in
-                     enumerate(('pair', 'lag', 'wide'))}
+                     enumerate(('planes', 'value'))}
             for name, n in split.items():
                 took[name] += n
             emit('kernel_vs_plain', kernel='tandem_counts', case=label,
                  reads=B, width=int(x.shape[1]), lag_offset=offset,
-                 max_lag=M, nonzero=int((want > 0).sum()), routes=split,
-                 max_abs_err=e)
+                 max_lag=M, k=k, nonzero=int((want > 0).sum()),
+                 routes=split, max_abs_err=e)
             err = max(err, e)
+    settle_routes()
+    value_reads = ROUTES['tandem_value'] - value_reads
     if err:
         raise AssertionError('tandem_counts disagrees with the plain version')
-    if not min(took.values()):
-        raise AssertionError('a tandem_counts route took no read: {}'
-                             .format(took))
+    if not min(took.values()) or value_reads != odd_total:
+        raise AssertionError('a tandem_counts route took no read: {} (value '
+                             'route reads counted {} of {})'.format(
+                                 took, value_reads, odd_total))
     rate = recurrence_rate(dev, 'screen_keep')
-    by_label = {label: reads for label, reads, _ in cases}
+    by_label = {c[0]: c[1] for c in cases}
     timed = {}
     for label, case, M in LAG_TIMED:
         reads = by_label[case]
@@ -2975,30 +3010,32 @@ def check_tandem_counts(torch, dev, smi, screened):
                     ((B * W + 4 * B * M) / HBM_BYTES_PER_S, 'bytes'))
         plain_ms, _ = _wall_ms(torch, dev,
                                lambda: tandem_counts_plain(x, M, 11))
-        routes = torch.zeros(B, dtype=torch.uint8, device=dev)
-        tandem_counts_cuda(x, M, 11, routes=routes)
         timed[label] = dict(
             ms=time_launches(lambda: tandem_counts_cuda(x, M, 11), 10, dev,
                              graph=True),
             plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
             window_bound_ms=pairs / rate * 1e3, reads=int(B), width=int(W),
             max_lag=M, equal_pairs=equal, pairs=pairs,
-            lag_route_reads=int((routes == 1).sum()),
-            wide_route_reads=int((routes == 2).sum()))
+            seg=_lag_seg(torch, dev, B, W, M))
         emit('tandem_counts_time', shape=label, card=smi,
              compare_rate=rate, **timed[label])
-    return dict(max_abs_err=err, **timed)
+    return dict(max_abs_err=err, routes=took, value_reads=value_reads,
+                **timed)
 
 
 def check_lag_profile(torch, dev, smi, screened):
     """Phase 10's lag profile: csrc/lag_profile.cu against
     lag_profile_plain on the card, bit for bit (the float32 fractions'
-    bits), on _lag_range_cases but the screen cases; then timed at LAG_TIMED's shapes as
+    bits), on _lag_range_cases but the screen cases, the value route's
+    reads counted; then timed at LAG_TIMED's shapes as
     tandem_counts is, its bound the (position, lag) pairs with both codes
     valid (the plain version's den summed) at csrc/op_rate.cu's packed
     lag rate (codes as bit planes, 32 pairs a word: two popcounts), or the
-    bytes (the reads once, the fractions once).  Returns the numbers of
-    the kernels line."""
+    bytes (the reads once, the fractions once); beside it
+    ``one_popc_bound_ms``, the same pairs at the rate of a word with one
+    popcount (kind 8: den from the run's length, which a read of one valid
+    run allows), and the library yardsticks (``fft_yardstick``,
+    ``conv_yardstick``).  Returns the numbers of the kernels line."""
     import numpy as np
     from ciri_long_tpu_torch.misc.kexp import (HBM_BYTES_PER_S,
                                                LAG_WORD_PAIRS,
@@ -3006,16 +3043,23 @@ def check_lag_profile(torch, dev, smi, screened):
                                                time_launches)
     from ciri_long_tpu_torch.ops.period import (lag_profile_counts_plain,
                                                 lag_profile_cuda,
-                                                lag_profile_plain)
+                                                lag_profile_plain, odd_reads)
+
+    from ciri_long_tpu_torch.utils.dispatch import ROUTES, settle_routes
 
     _, cases = _lag_range_cases(np.random.default_rng(0), screened)
-    # the profile has no route a read's data picks: the screen cases add
-    # nothing that call's screened reads do not cover
+    # the profile's only route a read's data picks is the value route (a
+    # code outside 0..5): the screen cases add nothing that call's screened
+    # reads do not cover
     cases = [c for c in cases if not c[0].startswith('screen case')]
     differ, err = 0, 0.0
-    for label, reads, ranges in cases:
+    settle_routes()
+    value_reads, odd_total = ROUTES['lag_value'], 0
+    for label, reads, ranges, _ in cases:
         x = torch.from_numpy(np.ascontiguousarray(reads)).to(dev)
+        n_odd = int(odd_reads(x).sum())
         for offset, M in ranges:
+            odd_total += n_odd
             got = lag_profile_cuda(x, M, offset)
             want = lag_profile_plain(x, M, offset)
             e = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -3027,15 +3071,22 @@ def check_lag_profile(torch, dev, smi, screened):
                  max_abs_err=abs_err)
             differ += e
             err = max(err, abs_err)
+    settle_routes()
+    value_reads = ROUTES['lag_value'] - value_reads
     if differ:
         raise AssertionError('lag_profile disagrees with the plain version')
+    if not odd_total or value_reads != odd_total:
+        raise AssertionError('lag_profile counted {} value-route reads of {}'
+                             .format(value_reads, odd_total))
     rate = recurrence_rate(dev, 'lag_profile') * LAG_WORD_PAIRS
-    by_label = {label: reads for label, reads, _ in cases}
+    rate_one = recurrence_rate(dev, 'lag_matches') * LAG_WORD_PAIRS
+    by_label = {c[0]: c[1] for c in cases}
     timed = {}
     for label, case, M in LAG_TIMED:
         x = torch.from_numpy(np.ascontiguousarray(by_label[case])).to(dev)
         B, W = x.shape
-        pairs = int(lag_profile_counts_plain(x, M)[1].sum())
+        num, den = lag_profile_counts_plain(x, M)
+        pairs = int(den.sum())
         bound = max((pairs / rate, 'operations'),
                     ((B * W + 4 * B * M) / HBM_BYTES_PER_S, 'bytes'))
         plain_ms, _ = _wall_ms(torch, dev, lambda: lag_profile_plain(x, M))
@@ -3043,10 +3094,109 @@ def check_lag_profile(torch, dev, smi, screened):
             ms=time_launches(lambda: lag_profile_cuda(x, M), 10, dev,
                              graph=True),
             plain_ms=plain_ms, bound_ms=bound[0] * 1e3, bound_by=bound[1],
-            reads=int(B), width=int(W), max_lag=M, valid_pairs=pairs)
+            one_popc_bound_ms=max(pairs / rate_one,
+                                  (B * W + 4 * B * M) / HBM_BYTES_PER_S)
+            * 1e3,
+            reads=int(B), width=int(W), max_lag=M, valid_pairs=pairs,
+            seg=_lag_seg(torch, dev, B, W, M),
+            **fft_yardstick(torch, dev, x, M, num, den),
+            **conv_yardstick(torch, dev, x, M, num, den))
         emit('lag_profile_time', shape=label, card=smi, compare_rate=rate,
-             **timed[label])
-    return dict(max_abs_err=err, **timed)
+             one_popc_rate=rate_one, **timed[label])
+    return dict(max_abs_err=err, value_reads=value_reads, **timed)
+
+
+def _lag_seg(torch, dev, B, W, M):
+    """The positions a block ops/period.py::lag_plan gives csrc/lag_planes.h
+    for this launch on this card."""
+    from ciri_long_tpu_torch.ops.period import lag_plan
+    return lag_plan(int(B), int(W), M, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+
+
+def conv_yardstick(torch, dev, x, M, num, den):
+    """The nearest library form of the lag profile's counts, a yardstick the
+    port never calls: two grouped F.conv1d calls in float32 (groups = B,
+    TF32 off), the one-hot planes of codes 0..3 of each read correlated
+    with themselves for num and its valid plane for den, lags 1..M.  Held
+    equal to the plain counts (num, den) first; ``conv1d_ms``: the two
+    calls, the mean of 3 after one to warm up (CUDA events), or None and
+    the error when they disagree or fail."""
+    F = torch.nn.functional
+    B, W = x.shape
+    xi = x.long()
+    planes = torch.stack([xi == c for c in range(4)] + [xi < 4],
+                         1).float()                       # [B, 5, W]
+    # input[i + j] = plane[i + j + 1], zero past W: out[j] = lag j + 1
+    inp = torch.zeros((B, 5, W + M - 1), dtype=torch.float32, device=dev)
+    inp[:, :, :W - 1] = planes[:, :, 1:]
+    hot_in = inp[:, :4].reshape(1, 4 * B, -1)
+    hot_w = planes[:, :4].contiguous()
+    val_in = inp[:, 4:].reshape(1, B, -1)
+    val_w = planes[:, 4:].contiguous()
+
+    def convs():
+        return (F.conv1d(hot_in, hot_w, groups=B)[0],
+                F.conv1d(val_in, val_w, groups=B)[0])
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        c_num, c_den = convs()
+        same = (torch.equal(c_num.round().int(), num)
+                and torch.equal(c_den.round().int(), den))
+        if not same:
+            return dict(conv1d_ms=None, conv1d_error='conv1d counts differ '
+                        'from the plain counts')
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            convs()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        return dict(conv1d_ms=start.elapsed_time(stop) / 3)
+    except RuntimeError as e:
+        return dict(conv1d_ms=None, conv1d_error=str(e)[:200])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def fft_yardstick(torch, dev, x, M, num, den):
+    """The lag profile's counts as FFT autocorrelations in float32, a
+    yardstick the port never calls: the one-hot planes of codes 0..3 and
+    the valid plane of each read, zero-padded to N >= W + M (no wrap at lags
+    up to M), rfft, |F|^2, irfft, lags 1..M; num the four code planes'
+    sum.  Held equal to the plain counts (num, den) after rounding first;
+    ``library_ms``: the mean of 3 after one to warm up (CUDA events), or
+    None and the error when they disagree or fail."""
+    B, W = x.shape
+    n = 1 << (W + M - 1).bit_length()
+    xi = x.long()
+    planes = torch.stack([xi == c for c in range(4)] + [xi < 4],
+                         1).float()                       # [B, 5, W]
+
+    def ffts():
+        f = torch.fft.rfft(planes, n=n)
+        c = torch.fft.irfft(f.real ** 2 + f.imag ** 2, n=n)[..., 1:M + 1]
+        return c[:, :4].sum(1), c[:, 4]
+
+    try:
+        f_num, f_den = ffts()
+        if not (torch.equal(f_num.round().int(), num)
+                and torch.equal(f_den.round().int(), den)):
+            return dict(library_ms=None, library_error='FFT counts differ '
+                        'from the plain counts')
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            ffts()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        return dict(library_ms=start.elapsed_time(stop) / 3)
+    except RuntimeError as e:
+        return dict(library_ms=None, library_error=str(e)[:200])
 
 
 def public_ops(torch, dev):
@@ -3056,12 +3206,12 @@ def public_ops(torch, dev):
     ops.period.tandem_counts at the dry run's reads and past 4 096 codes,
     ops.chain_scores_batch on rows with holes in their valid masks,
     ops.edit.edit_distance_batch_padded; each held to its CPU route.
-    Returns the run's launches and routes."""
+    Returns the run's launches."""
     import numpy as np
     from ciri_long_tpu_torch import ops
     from ciri_long_tpu_torch.ops import edit, period
     from ciri_long_tpu_torch.tools.chain_cases import wide_cases
-    from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES, ROUTES,
+    from ciri_long_tpu_torch.utils.dispatch import (LAUNCHES,
                                                     reset_launches)
 
     rng = np.random.default_rng(3)
@@ -3089,7 +3239,7 @@ def public_ops(torch, dev):
     want = {name: fn('cpu') for name, fn in calls.items()}
     reset_launches()
     got = {name: fn('cuda') for name, fn in calls.items()}
-    launches, routes = dict(LAUNCHES), dict(ROUTES)
+    launches = dict(LAUNCHES)
     same = {}
     for name in calls:
         g, w = got[name], want[name]
@@ -3103,8 +3253,7 @@ def public_ops(torch, dev):
     return dict(identical=same,
                 launches={k: launches[k] for k in (
                     'lag_profile', 'tandem_counts', 'chain_dp',
-                    'edit_distance')},
-                tandem_wide=routes['tandem_wide'])
+                    'edit_distance')})
 
 
 def _worker_runs(torch, n, out_dir):
@@ -3187,7 +3336,7 @@ def phase_dist(torch, dev, smi, screened):
     if not all(public['identical'].values()):
         failed.append('a public op differs from its CPU route: {}'.format(
             public))
-    if min(public['launches'].values()) <= 0 or public['tandem_wide'] <= 0:
+    if min(public['launches'].values()) <= 0:
         failed.append('a public op missed its kernel: {}'.format(public))
 
     # the dry run at every visible card: the pipeline step (tandem_counts
@@ -3619,20 +3768,27 @@ def main():
         shape=[call_tc['reads'], call_tc['width'], call_tc['max_lag']],
         pairs=call_tc['pairs'], equal_pairs=call_tc['equal_pairs'],
         window_bound_ms=call_tc['window_bound_ms'],
-        lag_route_reads=call_tc['lag_route_reads'], dryrun=dry_tc,
+        seg=call_tc['seg'], dryrun=dry_tc,
+        routes=tandem['routes'], value_reads=tandem['value_reads'],
         wide={label: tandem[label] for label in ('wide W=4097',
-                                                 'wide W=16384')}))
+                                                 'wide W=16384',
+                                                 'full 256x8192')}))
     # the lag profile at call's screened reads (2 048 lags), launched by
     # the public ops' run (phase 10), its other timed shapes beside
     call_lp = profile['call']
     kernels.append(dict(
         entry('lag_profile', profile['launches'], profile['max_abs_err'],
               call_lp['ms'], call_lp['plain_ms'], call_lp['bound_ms'],
-              call_lp['bound_by']),
+              call_lp['bound_by'],
+              call_lp['library_ms'] if call_lp['library_ms'] is not None
+              else call_lp['conv1d_ms']),
         shape=[call_lp['reads'], call_lp['width'], call_lp['max_lag']],
         valid_pairs=call_lp['valid_pairs'],
+        one_popc_bound_ms=call_lp['one_popc_bound_ms'],
+        conv1d_ms=call_lp['conv1d_ms'],
+        value_reads=profile['value_reads'],
         shapes={label: profile[label] for label in (
-            'dryrun', 'wide W=4097', 'wide W=16384')}))
+            'dryrun', 'wide W=4097', 'wide W=16384', 'full 256x8192')}))
     # each kernel of call and collapse: its launches in phase 9's -t 4
     # cuda runs, on each world
     for k in kernels:

@@ -1,6 +1,6 @@
 // The exact k-mer self-match count of one read over a range of lags, for
-// Hopper: the shared body of csrc/screen_keep.cu (the CCS screen, lags 1..M)
-// and csrc/tandem_counts.cu (the mesh's lag shard, lags lag_offset + 1 ..).
+// Hopper: the body of csrc/screen_keep.cu (the CCS screen, lags 1..M; its
+// lag ranges from lo > 1 served csrc/tandem_counts.cu's earlier design).
 // One block of THREADS threads a read of width W <= MAX_W (codes 0-3 bases,
 // 4 N, 5 PAD):
 //   kid[i]   the base-4 id of the k-mer at i, valid when its k codes are all
@@ -34,14 +34,7 @@
 //      pass's start) and walks the windows i0 + u (u < LAGS) while i0 + at <
 //      nwin, comparing kid[i] (a broadcast) with kid[i + d] from 2 LAGS
 //      registers that slide LAGS windows a step (one load a window, two
-//      16-byte loads a step).  The compares and sums are integer work, and
-//      Hopper's INT32 pipe runs at half the FP32 pipe's rate: where the ids
-//      are exact in float32 (k <= 12), count_pairs<true> compares them as
-//      floats, |a - b| saturated, on the FP32 pipe (1 104 poly-A reads of
-//      4 096 at 2 048 lags: 1.14 ms against 1.70 as int32, H100 80GB HBM3,
-//      700 W).  csrc/screen_keep.cu keeps count_pairs<false>: with the
-//      float code in its kernel its pair route (the route of all of call's
-//      screened reads) ran ~5 % slower in the same runs.
+//      16-byte loads a step), as int32.
 // Work: the pair route is bound by its sort, O(W log^2 W) shared-memory
 // compare-exchanges a read, and its walk, the equal pairs plus a search a
 // window; the lag route by the valid windows times the lags.
@@ -268,70 +261,55 @@ __device__ __forceinline__ int first_at_least(const uint32_t* keys, int from,
     return lo;
 }
 
-// 1 where two windows' ids are equal, else 0.  As floats (ids of k <= 12
-// and -1, exact in float32) the test and the sum run on the FP32 pipe, at
-// twice the INT32 pipe's rate on Hopper.
-__device__ __forceinline__ int pair_eq(int a, int b) { return a == b; }
-__device__ __forceinline__ float pair_eq(float a, float b) {
-    return __saturatef(1.0f - fabsf(a - b));
-}
-
-template <typename Id> struct Quad;
-template <> struct Quad<int> { using T = int4; };
-template <> struct Quad<float> { using T = float4; };
-
 // w[0, LAGS) = p[0, LAGS), p 16-byte aligned: two 16-byte loads (a warp's
 // lanes read 8 words apart)
-template <typename Id>
-__device__ __forceinline__ void load_lags(const Id* p, Id* w) {
-    using T = typename Quad<Id>::T;
-    const T a = reinterpret_cast<const T*>(p)[0];
-    const T b = reinterpret_cast<const T*>(p)[1];
+__device__ __forceinline__ void load_lags(const int* p, int* w) {
+    const int4 a = reinterpret_cast<const int4*>(p)[0];
+    const int4 b = reinterpret_cast<const int4*>(p)[1];
     w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
     w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
 }
 
-// 5. The lag route of count_pairs: kid (as Id) over the keys (every thread
+// 5. The lag route of count_pairs: kid over the keys (every thread
 // is past the keys' last read), -1 for invalid windows and PAD past the
 // read, shifted so that kid + at is 16-byte aligned for every thread's
 // first lag at (at = lo mod 4).  Thread t's lags d = at + s compare kid[i]
 // (a broadcast) with w[u + s] = kid[i0 + at + u + s] for window i = i0 +
 // u, while some lag of the thread stays below nwin - i0; the reads stay
 // under nwin + 2 LAGS <= W + PAD.
-template <typename Id>
 __device__ __forceinline__ void lag_count(const int8_t* codes, int W, int k,
                                           uint32_t* keys, int nwin, int lo,
                                           int hi, int* cnt) {
-    Id* kid = reinterpret_cast<Id*>(keys) + (4 - lo % 4) % 4;
+    int* kid = reinterpret_cast<int*>(keys) + (4 - lo % 4) % 4;
     const int i_lo = run_start(W), i_hi = run_end(W);
-    for (int i = i_lo; i < i_hi; ++i) kid[i] = Id(-1);
-    if (static_cast<int>(threadIdx.x) < PAD) kid[W + threadIdx.x] = Id(-1);
+    for (int i = i_lo; i < i_hi; ++i) kid[i] = -1;
+    if (static_cast<int>(threadIdx.x) < PAD) kid[W + threadIdx.x] = -1;
     for_each_window(codes, W, k, i_lo, i_hi, [&](int i, uint32_t id) {
-        kid[i] = static_cast<Id>(id);
+        kid[i] = static_cast<int>(id);
     });
     __syncthreads();
     for (int at = lo + LAGS * static_cast<int>(threadIdx.x); at <= hi;
          at += PASS) {
-        Id c[LAGS];
-        Id w[2 * LAGS];
+        int c[LAGS];
+        int w[2 * LAGS];
         load_lags(kid + at, w);
 #pragma unroll
-        for (int s = 0; s < LAGS; ++s) c[s] = Id(0);
+        for (int s = 0; s < LAGS; ++s) c[s] = 0;
         for (int i0 = 0; i0 + at < nwin; i0 += LAGS) {
             load_lags(kid + i0 + at + LAGS, w + LAGS);
 #pragma unroll
             for (int u = 0; u < LAGS; ++u) {
-                const Id xi = kid[i0 + u];    // the same for every thread
-                if (xi < Id(0)) continue;
+                const int xi = kid[i0 + u];   // the same for every thread
+                if (xi < 0) continue;
 #pragma unroll
-                for (int s = 0; s < LAGS; ++s) c[s] += pair_eq(w[u + s], xi);
+                for (int s = 0; s < LAGS; ++s) c[s] += w[u + s] == xi;
             }
 #pragma unroll
             for (int s = 0; s < LAGS; ++s) w[s] = w[LAGS + s];
         }
 #pragma unroll
         for (int s = 0; s < LAGS; ++s)
-            if (at + s <= hi) cnt[at + s - lo] = static_cast<int>(c[s]);
+            if (at + s <= hi) cnt[at + s - lo] = c[s];
     }
 }
 
@@ -339,9 +317,7 @@ __device__ __forceinline__ void lag_count(const int8_t* codes, int W, int k,
 // 0 <= hi <= nwin - 1; lo > hi counts nothing), of the read whose codes and
 // keys write_keys wrote (nvalid > 0); the caller has zeroed cnt[0, hi - lo]
 // before this call's first barrier.  Returns true for the lag route; ends
-// on a barrier.  FP32_LAGS: the lag route compares the ids as float32 where
-// they are exact (k <= 12), else as int32.
-template <bool FP32_LAGS>
+// on a barrier.
 __device__ __forceinline__ bool count_pairs(const int8_t* codes, int W,
                                             int k, uint32_t* keys,
                                             Windows win, int lo, int hi,
@@ -394,14 +370,7 @@ __device__ __forceinline__ bool count_pairs(const int8_t* codes, int W,
         }
     } else {
         // 5. lag route
-        if constexpr (FP32_LAGS) {
-            if (k <= 12)
-                lag_count<float>(codes, W, k, keys, win.nwin, lo, hi, cnt);
-            else
-                lag_count<int>(codes, W, k, keys, win.nwin, lo, hi, cnt);
-        } else {
-            lag_count<int>(codes, W, k, keys, win.nwin, lo, hi, cnt);
-        }
+        lag_count(codes, W, k, keys, win.nwin, lo, hi, cnt);
     }
     __syncthreads();
     return lag_route;

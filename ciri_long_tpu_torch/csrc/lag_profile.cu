@@ -14,112 +14,124 @@
 //             counts are exact integers under 2^24 for W under 2^24)
 // A lag past the read gives 0 / 1 = 0.
 //
-// Design: one block a (read, chunk of LAGS lags), thread t the chunk's lag
-// t; positions in tiles of TILE.  The block stages the tile's codes twice
-// as bytes in shared memory, the positions p0 + x (A, an invalid code as
-// 0x10) and the partners p0 + dmin + x (B, an invalid code as 0x20; dmin
-// the chunk's first lag, partners past W invalid), so that an invalid code
-// never equals anything.  Thread t compares four positions a step: A's word
-// x / 4 (the same for every thread: a broadcast) against the four bytes of
-// B at x + t (a funnel shift of two words, the shift t mod 4 fixed for the
-// thread, one new word a step), with the SIMD byte compares __vcmpeq4 (the
-// matches) and __vcmplts4 (valid: signed < 4, both sides); the counts are
-// popcounts of the byte masks, 8 a position.  Any width works: a tile is
-// TILE positions whatever W is.  Bound: the (position, lag) pairs with both
-// codes valid, each one compare, at csrc/op_rate.cu's screen-compare rate,
-// or the bytes (the reads once, the fractions once) at 3.35 TB/s; a SIMD
-// word does four pairs in ~10 instructions.  The tiles stop at the read's
-// last valid code (found first, a pass over the row): a PAD tail costs one
-// load a code, not a compare a lag.  Smem: TILE + TILE + LAGS + 16 bytes.
+// Design: csrc/lag_planes.h with k = 1: one block a (segment of seg
+// positions, chunk of 2 048 lags, read), 512 threads, a lane four lags 32
+// apart; the read's codes as three bit planes (bit 0, bit 1, valid) in
+// shared memory, 32 (position, lag) pairs a step of a lane (a funnel shift
+// of the partner's words, eq = VA & VB & ~((LA ^ LB) | (HA ^ HB)), num +=
+// popc(eq), den += popc(VA & VB)); a read holding a code outside 0..5 (a
+// negative code is valid and compares by value) takes the value route,
+// signed compares of the codes, its reads counted on the card in
+// ``tally``.  The
+// wrapper (ops/period.py::lag_plan) picks seg from the launch's shape, so
+// that a few wide reads still cover the SMs: with one segment a read the
+// block writes its fractions; with more, each block adds its counts to
+// ``acc`` (int32 [B, max_lag, 2], zeroed, then B x chunks arrival counts,
+// zeroed) with integer atomics, exact and order-free, and the last block
+// of a (read, chunk) to arrive divides.  Bound: the valid pairs at
+// csrc/op_rate.cu's packed lag rate (kind 7: a word of 32 pairs, three
+// funnel shifts, the logic, two popcounts), or the bytes (the reads once,
+// the fractions once) at 3.35 TB/s.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lag_planes.h"
+
 namespace {
 
-constexpr int LAGS = 256;                  // lags a block, a thread each
-constexpr int TILE = 4096;                 // positions a tile
-constexpr int B_BYTES = TILE + LAGS + 16;  // partners a tile, one word spare
-constexpr uint8_t BAD_A = 0x10;
-constexpr uint8_t BAD_B = 0x20;
-constexpr unsigned FOURS = 0x04040404u;
+using namespace lagp;
 
-__global__ void __launch_bounds__(LAGS)
+__global__ void __launch_bounds__(THREADS, 2)
 lag_profile_kernel(const int8_t* __restrict__ reads, int W, int lag_offset,
-                   int max_lag, float* __restrict__ out) {
-    __shared__ __align__(16) uint8_t sa[TILE];
-    __shared__ __align__(16) uint8_t sb[B_BYTES];
-    const int b = blockIdx.x;
-    const int t = threadIdx.x;
-    const int j = blockIdx.y * LAGS + t;               // this thread's lag
-    const int64_t dmin = static_cast<int64_t>(lag_offset) + 1
-                         + static_cast<int64_t>(blockIdx.y) * LAGS;
-    const int8_t* row = reads + static_cast<int64_t>(b) * W;
-    // the read's last valid code + 1: no pair past it counts (a PAD tail)
+                   int max_lag, int seg, int nseg, float* __restrict__ out,
+                   int* __restrict__ acc, int* __restrict__ tally) {
+    __shared__ Planes pl;
     __shared__ int end;
-    if (t == 0) end = 0;
-    __syncthreads();
-    int mine = 0;
-    for (int p = t; p < W; p += LAGS)
-        if (row[p] < 4) mine = p + 1;
-    atomicMax(&end, mine);
-    __syncthreads();
-    // positions p < end - dmin have a valid partner for some lag
-    const int64_t span = static_cast<int64_t>(end) - dmin;
-    const uint32_t* wa = reinterpret_cast<const uint32_t*>(sa);
-    const uint32_t* wb = reinterpret_cast<const uint32_t*>(sb);
-    const int q = t >> 2;                              // B's word offset
-    const int shift = 8 * (t & 3);
-    unsigned num = 0, den = 0;
-    for (int64_t p0 = 0; p0 < span; p0 += TILE) {
-        for (int x = t; x < TILE; x += LAGS) {
-            const int64_t p = p0 + x;
-            const int c = p < end ? row[p] : 4;
-            sa[x] = c < 4 ? static_cast<uint8_t>(c) : BAD_A;
-        }
-        for (int x = t; x < B_BYTES; x += LAGS) {
-            const int64_t p = p0 + dmin + x;
-            const int c = p < end ? row[p] : 4;
-            sb[x] = c < 4 ? static_cast<uint8_t>(c) : BAD_B;
-        }
-        __syncthreads();
-        const int words = static_cast<int>(
-            (span - p0 < TILE ? span - p0 : TILE) + 3) / 4;
-        uint32_t lo = wb[q];
-        for (int w = 0; w < words; ++w) {
-            const uint32_t hi = wb[q + w + 1];
-            const uint32_t a = wa[w];
-            const uint32_t v = __funnelshift_r(lo, hi, shift);
-            num += __popc(__vcmpeq4(a, v));
-            den += __popc(__vcmplts4(a, FOURS) & __vcmplts4(v, FOURS));
-            lo = hi;
-        }
-        __syncthreads();
+    __shared__ bool last;
+    const int b = blockIdx.x / nseg;
+    const int64_t p0 = static_cast<int64_t>(blockIdx.x % nseg) * seg;
+    const int64_t dmin = static_cast<int64_t>(lag_offset) + 1
+                         + static_cast<int64_t>(blockIdx.y) * CHUNK;
+    const int8_t* row = reads + static_cast<int64_t>(b) * W;
+    if (threadIdx.x == 0) end = 0;
+    int num[LANE_LAGS] = {}, den[LANE_LAGS] = {};
+    if (row_odd(row, W)) {
+        if (threadIdx.x == 0 && blockIdx.x % nseg == 0 && blockIdx.y == 0)
+            tally_read(tally);
+        value_lags(row, W, 1, p0, seg, dmin, num, den);
+    } else {
+        packed_lags<true, 0>(row, W, 1, p0, seg, dmin, pl, &end, num, den);
     }
-    if (j < max_lag) {
-        const float n = static_cast<float>(num >> 3);
-        const float d = static_cast<float>(den >> 3 > 0 ? den >> 3 : 1);
-        out[static_cast<int64_t>(b) * max_lag + j] = __fdiv_rn(n, d);
+    // this lane's lag j + 32 m
+    const int j = blockIdx.y * CHUNK + WARP_LAGS * (threadIdx.x >> 5)
+                  + (threadIdx.x & 31);
+    float* orow = out + static_cast<int64_t>(b) * max_lag;
+    if (nseg == 1) {
+#pragma unroll
+        for (int m = 0; m < LANE_LAGS; ++m)
+            if (j + 32 * m < max_lag)
+                orow[j + 32 * m] = __fdiv_rn(static_cast<float>(num[m]),
+                                             static_cast<float>(
+                                                 max(den[m], 1)));
+        return;
+    }
+    int* arow = acc + 2 * static_cast<int64_t>(b) * max_lag;
+#pragma unroll
+    for (int m = 0; m < LANE_LAGS; ++m) {
+        const int jm = j + 32 * m;
+        if (jm < max_lag && num[m]) atomicAdd(&arow[2 * jm], num[m]);
+        if (jm < max_lag && den[m]) atomicAdd(&arow[2 * jm + 1], den[m]);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned* arrived = reinterpret_cast<unsigned*>(
+            acc + 2 * static_cast<int64_t>(gridDim.x / nseg) * max_lag);
+        last = atomicAdd(&arrived[static_cast<int64_t>(b) * gridDim.y
+                                  + blockIdx.y], 1u)
+               == static_cast<unsigned>(nseg - 1);
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int m = 0; m < LANE_LAGS; ++m) {
+        const int jm = j + 32 * m;
+        if (jm < max_lag)
+            orow[jm] = __fdiv_rn(static_cast<float>(__ldcg(&arow[2 * jm])),
+                                 static_cast<float>(
+                                     max(__ldcg(&arow[2 * jm + 1]), 1)));
     }
 }
 
 }  // namespace
 
 // reads int8 [B, W], out float32 [B, max_lag]; lags lag_offset + 1 ..
-// lag_offset + max_lag.  Returns the cudaError of the launch (0 on
-// success); cudaErrorInvalidValue for W < 1, a negative lag_offset or
-// max_lag < 1, or more than 65 535 chunks of lags.
+// lag_offset + max_lag, seg positions a block (a multiple of 32 up to
+// 4 096); acc int32, B max_lag 2 + B chunks words zeroed, when W > seg
+// (else unused, may be null); tally (one int32, or null) gets one more for
+// each read that took the value route.  Returns the cudaError of the
+// launch (0 on success);
+// cudaErrorInvalidValue for W < 1, a negative lag_offset, max_lag < 1, a
+// bad seg, acc null when needed, or more than 65 535 chunks of lags.
 extern "C" int lag_profile_launch(const void* reads, int B, int W,
-                                  int lag_offset, int max_lag, void* out,
+                                  int lag_offset, int max_lag, int seg,
+                                  void* out, void* acc, void* tally,
                                   void* stream) {
     if (B == 0) return 0;
-    if (W < 1 || lag_offset < 0 || max_lag < 1)
+    if (W < 1 || lag_offset < 0 || max_lag < 1 || seg < 32 || seg % 32
+        || seg > SEG_MAX)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int chunks = (max_lag + LAGS - 1) / LAGS;
-    if (chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    lag_profile_kernel<<<dim3(B, chunks), LAGS, 0,
+    const int chunks = (max_lag + CHUNK - 1) / CHUNK;
+    const int nseg = (W + seg - 1) / seg;
+    if (chunks > 65535 || static_cast<int64_t>(B) * nseg > 0x7fffffff
+        || (nseg > 1 && !acc))
+        return static_cast<int>(cudaErrorInvalidValue);
+    lag_profile_kernel<<<dim3(B * nseg, chunks), THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(reads), W, lag_offset, max_lag,
-        static_cast<float*>(out));
+        static_cast<const int8_t*>(reads), W, lag_offset, max_lag, seg, nseg,
+        static_cast<float*>(out), static_cast<int*>(acc),
+        static_cast<int*>(tally));
     return static_cast<int>(cudaGetLastError());
 }

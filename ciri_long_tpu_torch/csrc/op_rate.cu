@@ -64,6 +64,9 @@
 //     the valid pairs (and), the equal ones (two xors and an and-not, which
 //     ptxas fuses into LOP3s), two popcounts and two adds.  A "cell" of
 //     this kind is 32 (position, lag) pairs.
+//   kind 8, the same word with one popcount and one add: the matches
+//     only, for a read whose valid codes form one run (its valid pairs at
+//     lag d are n - d, no popcount needed).
 //
 // serial_step_launch times a latency, not a rate: one warp runs the step
 // of the chaining DP that no design can take off its serial path, the
@@ -353,6 +356,7 @@ screen_rate_kernel(int steps, int q, int* out) {
     if (acc == 0x7fffffff) out[0] = acc;  // keeps the work live
 }
 
+template <bool DEN>
 __global__ void __launch_bounds__(THREADS)
 lag_rate_kernel(int steps, int q, int* out) {
     uint32_t lo[CHAINS], hi[CHAINS], va[CHAINS];
@@ -379,7 +383,7 @@ lag_rate_kernel(int steps, int q, int* out) {
             const uint32_t both = va[k] & bv;
             const uint32_t eq = both & ~((lo[k] ^ blo) | (hi[k] ^ bhi));
             num[k] += __popc(eq);
-            den[k] += __popc(both);
+            if (DEN) den[k] += __popc(both);
             lo[k] = blo;
             hi[k] = bhi;
             va[k] = bv;
@@ -483,7 +487,8 @@ extern "C" int cell_rate_block_cells() { return THREADS * CHAINS; }
 // distance's DP cell, 1 SW with traceback, 2 the bit-parallel edit
 // distance's word, 3 the POA graph alignment's cell, 4 the chaining DP's
 // candidate, 5 the tandem screen's window and lag, 6 the banded NW's cell
-// with its code, 7 the lag profile's packed word (see above).  Returns
+// with its code, 7 the lag profile's packed word, 8 that word without
+// the valid pairs' popcount (see above).  Returns
 // cudaErrorInvalidValue for another kind.
 extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
                                       int match, int mismatch, int gap_open,
@@ -509,7 +514,9 @@ extern "C" int recurrence_rate_launch(int kind, int blocks, int steps, int q,
         nw_rate_kernel<<<blocks, THREADS, 0, st>>>(
             steps, q, match, mismatch, gap_open, gap_extend, o);
     else if (kind == 7)
-        lag_rate_kernel<<<blocks, THREADS, 0, st>>>(steps, q, o);
+        lag_rate_kernel<true><<<blocks, THREADS, 0, st>>>(steps, q, o);
+    else if (kind == 8)
+        lag_rate_kernel<false><<<blocks, THREADS, 0, st>>>(steps, q, o);
     else
         return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());

@@ -23,11 +23,9 @@
 // sorted 32-bit key hash(kid) << POS_BITS | i a valid window, then the pair
 // route (each window walks the keys of its hash up to key + M and checks
 // the codes) or, when a thread would walk over WALK_CAP keys, the lag route
-// (each thread counts LAGS lags over every window, as int32:
-// count_pairs<false>, which keeps the pair route as fast as before the
-// header).  A read with no valid window ends after its keys: all its
-// supports are 0.  Then a block scan of cnt gives cs and one
-// __syncthreads_or the election.
+// (each thread counts LAGS lags over every window, as int32).  A read with
+// no valid window ends after its keys: all its supports are 0.  Then a
+// block scan of cnt gives cs and one __syncthreads_or the election.
 // Shared memory: the codes, the keys and cs, ~29 KB at W = 4 096; 48
 // registers a thread, five blocks an SM.  Bound: the reads' bytes, or the equal pairs at
 // csrc/op_rate.cu's compare rate; the pair route's cost is the sort,
@@ -83,8 +81,8 @@ screen_keep_kernel(const int8_t* __restrict__ reads, int W,
     for (int d = tid; d <= MAX_LAG; d += THREADS) cs[d] = 0;
 
     // 2-4. cs[d] = the equal k-mer pairs at lag d, d in 1..M
-    const bool lag_route = count_pairs<false>(codes, W, k, keys, win, 1,
-                                              min(M, win.nwin - 1), cs + 1);
+    const bool lag_route = count_pairs(codes, W, k, keys, win, 1,
+                                       min(M, win.nwin - 1), cs + 1);
 
     // 5. inclusive scan of cs[1..MAX_LAG] (thread t's run is lags
     // t*LAGS+1 .. t*LAGS+LAGS), then the election

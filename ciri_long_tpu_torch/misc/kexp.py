@@ -82,10 +82,11 @@ _CELL_RATE_SYMBOLS = {
 # compare with a cell-by-cell design, by its DP cell; the POA graph
 # alignment's cell with one predecessor; call's chaining DP by its float64
 # candidate, the tandem screen by one window at one lag, and the lag
-# profile by a packed word of 32 (position, lag) pairs (LAG_WORD_PAIRS)
+# profile by a packed word of 32 (position, lag) pairs (LAG_WORD_PAIRS),
+# with the valid pairs' popcount or, for a read of one valid run, without
 RECURRENCES = {'edit_cell': 0, 'sw_traceback': 1, 'edit_distance': 2,
                'poa_align': 3, 'chain_dp': 4, 'screen_keep': 5,
-               'nw_traceback': 6, 'lag_profile': 7}
+               'nw_traceback': 6, 'lag_profile': 7, 'lag_matches': 8}
 LAG_WORD_PAIRS = 32
 
 
@@ -119,7 +120,8 @@ def recurrence_rate(device, kernel):
     edit distance; 'poa_align', a graph-alignment cell with one
     predecessor; 'chain_dp', a chaining candidate; 'screen_keep', a window
     at one lag; 'nw_traceback', a banded NW cell with its code;
-    'lag_profile', a packed word of LAG_WORD_PAIRS (position, lag) pairs), from
+    'lag_profile', a packed word of LAG_WORD_PAIRS (position, lag) pairs;
+    'lag_matches', that word's matches alone), from
     csrc/op_rate.cu's register-only loop of that update: the operations
     bound of that kernel."""
     return _rate(device, 'recurrence_rate_launch', RECURRENCES[kernel])

@@ -12,15 +12,17 @@ changes which reads get one.
   the one at i + d (both windows free of codes >= 4), d = lag_offset + j + 1
   for j in 0..max_lag-1 (JAX's ``tandem_counts``, whose lag ranges are the
   'lag' mesh axis's shards, parallel/mesh.py);
-- ``tandem_counts_cuda``: csrc/tandem_counts.cu, one block a read, which
-  counts the pairs of equal k-mers in the range (csrc/kmer_pairs.h, the
-  screen's count) or, for a low-complexity read, every lag of it; reads
-  wider than SCREEN_MAX_LEN take its wide route, every window at every lag
-  in tiles of ids; ``tandem_routes_plain`` says which; ``tandem_counts``:
-  numpy in, numpy out, on ``device``;
-- ``lag_profile_plain`` / ``lag_profile_cuda`` (csrc/lag_profile.cu) /
-  ``lag_profile``: JAX's ``lag_profile``, the float32 fraction of valid
-  position pairs whose codes match at each lag of a range;
+- ``tandem_counts_cuda``: csrc/tandem_counts.cu, csrc/lag_planes.h's
+  packed lag primitive at any width (codes as bit planes, 32 windows a
+  word, k-runs by doubling); a read with a code outside 0..5 takes its
+  value route (JAX's wrapping int32 ids by value, brute force), as in
+  csrc/lag_profile.cu; ``odd_reads`` says which; ``tandem_counts``: numpy
+  in, numpy out, on ``device``;
+- ``lag_profile_plain`` / ``lag_profile_cuda`` (csrc/lag_profile.cu, on
+  csrc/lag_planes.h, with the same value route) / ``lag_profile``: JAX's
+  ``lag_profile``, the float32 fraction of valid position pairs whose codes
+  match at each lag of a range; ``lag_plan`` gives both packed kernels'
+  positions a block;
 - ``screen_periodic``: JAX's host election over ``tandem_counts`` (numpy);
 - ``screen_keep_plain``: the fused election, in int32 as JAX's
   ``screen_keep``, with each read's own lag range ``max_lag`` (its screen
@@ -42,7 +44,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
+from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
+                                                route_tally)
 from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
 
 PAD = 5
@@ -98,38 +101,69 @@ def tandem_counts_plain(reads, max_lag, k=11, lag_offset=0):
 
 
 _TANDEM_SYMBOLS = {
-    'tandem_counts_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 5
-                             + [ctypes.c_void_p] * 3, ctypes.c_int),
+    'tandem_counts_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p] * 4, ctypes.c_int),
 }
-# csrc/tandem_counts.cu's and csrc/lag_profile.cu's lags a block on their
-# tiled routes (a grid dimension: at most 65 535 chunks of them)
-LAG_BLOCK = 256
+# csrc/lag_planes.h (csrc/tandem_counts.cu and csrc/lag_profile.cu): lags
+# a block (a grid dimension: at most 65 535
+# chunks of them); positions a block from SEG_MAX down to SEG_MIN, and at
+# most SEGS segments a read (each block reads its whole row once)
+LAG_BLOCK = 2048
 MAX_CHUNKS = 65535
+SEG_MAX = 4096
+SEG_MIN = 256
+SEGS = 16
+_SMS = {}
+
+
+def lag_plan(B, W, max_lag, sms):
+    """csrc/lag_planes.h's positions a block for B reads of W codes at
+    max_lag lags on a card of ``sms`` SMs: SEG_MAX, halved while the
+    launch's blocks (reads x chunks of lags x segments) number under 2 sms,
+    down to SEG_MIN and to a segment no shorter than W / SEGS."""
+    chunks = -(-max_lag // LAG_BLOCK)
+    seg = SEG_MAX
+    while (seg // 2 >= max(SEG_MIN, W / SEGS)
+           and B * chunks * -(-W // seg) < 2 * sms):
+        seg //= 2
+    return seg
+
+
+def _plan(dev, B, W, max_lag):
+    """lag_plan on ``dev``'s SM count (read once a device)."""
+    key = str(dev)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return lag_plan(B, W, max_lag, _SMS[key])
+
+
+def odd_reads(reads):
+    """Which reads (int8 [B, W], any device) hold a code outside 0..5: the
+    kernels' value route.  Returns bool [B]."""
+    return ((reads < 0) | (reads > 5)).any(dim=1)
 
 
 def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
-    """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (codes
-    0..5), contiguous; max_lag >= 1, lag_offset >= 0.  Same output as
+    """csrc/tandem_counts.cu on a CUDA tensor: reads int8 [B, W] (any
+    codes), contiguous; max_lag >= 1, lag_offset >= 0.  Same output as
     tandem_counts_plain; a ``routes`` uint8 [B] tensor on the device, if
-    given, gets each read's route (1 the lag route, 0 the pair route or
-    nothing to count, 2 the wide route of every read when W >
-    SCREEN_MAX_LEN; tandem_routes_plain).  Raises on anything else and when
-    the launch is refused."""
+    given, gets each read's route (0 the bit planes, 1 the value route of a
+    read with a code outside 0..5, counted in reads in
+    ROUTES['tandem_value'] once settle_routes runs; odd_reads says which).
+    Raises on anything else and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
     if reads.dtype != torch.int8 or reads.dim() != 2:
         raise TypeError('tandem_counts_cuda needs int8 reads [B, W] (got {} '
                         '{})'.format(reads.dtype, tuple(reads.shape)))
     B, W = reads.shape
-    wide = W > SCREEN_MAX_LEN
-    if not (W >= 1 and 1 <= k <= 15 and max_lag >= 1 and lag_offset >= 0
-            and not (wide and max_lag > LAG_BLOCK * MAX_CHUNKS)):
+    if not (W >= 1 and 1 <= k <= 15 and 1 <= max_lag <= LAG_BLOCK
+            * MAX_CHUNKS and lag_offset >= 0):
         raise ValueError('tandem_counts_cuda takes W >= 1, k in 1..15, '
-                         'max_lag >= 1 (at most {} when W > {}) and '
-                         'lag_offset >= 0 (got W={}, k={}, max_lag={}, '
-                         'lag_offset={})'.format(
-                             LAG_BLOCK * MAX_CHUNKS, SCREEN_MAX_LEN, W, k,
-                             max_lag, lag_offset))
+                         'max_lag in 1..{} and lag_offset >= 0 (got W={}, '
+                         'k={}, max_lag={}, lag_offset={})'.format(
+                             LAG_BLOCK * MAX_CHUNKS, W, k, max_lag,
+                             lag_offset))
     if not reads.is_cuda:
         raise ValueError('tandem_counts_cuda needs a CUDA tensor (got {})'
                          .format(reads.device))
@@ -142,17 +176,22 @@ def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
                                or not routes.is_contiguous()):
         raise ValueError('tandem_counts_cuda: routes must be a contiguous '
                          'uint8 [B] tensor on the reads\' device')
-    out = torch.empty((B, max_lag), dtype=torch.int32, device=dev)
+    seg = _plan(dev, B, W, max_lag)
+    # the blocks add into out with more than one segment a read
+    out = (torch.zeros if W > seg else torch.empty)(
+        (B, max_lag), dtype=torch.int32, device=dev)
+    tally = route_tally('tandem_value', dev)
     lib = _build.load('tandem_counts.cu', _TANDEM_SYMBOLS)
     with torch.cuda.device(dev):
         rc = lib.tandem_counts_launch(
             reads.data_ptr(), B, W, int(k), int(lag_offset), int(max_lag),
-            out.data_ptr(), None if routes is None else routes.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            seg, out.data_ptr(),
+            None if routes is None else routes.data_ptr(),
+            tally.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('tandem_counts launch failed: cudaError {} (B={}, '
                            'W={}, max_lag={})'.format(rc, B, W, max_lag))
-    count_launch('tandem_counts', *(('tandem_wide',) if wide else ()))
+    count_launch('tandem_counts')
     return out
 
 
@@ -204,15 +243,17 @@ def lag_profile_plain(reads, max_lag, lag_offset=0):
 
 
 _PROFILE_SYMBOLS = {
-    'lag_profile_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p] * 2, ctypes.c_int),
+    'lag_profile_launch': ([ctypes.c_void_p] + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] * 4, ctypes.c_int),
 }
 
 
 def lag_profile_cuda(reads, max_lag, lag_offset=0):
-    """csrc/lag_profile.cu on a CUDA tensor: reads int8 [B, W] (any width),
-    contiguous; 1 <= max_lag <= LAG_BLOCK * MAX_CHUNKS, lag_offset >= 0.
-    Same output as lag_profile_plain, bit for bit.  Raises on anything else
+    """csrc/lag_profile.cu on a CUDA tensor: reads int8 [B, W] (any width,
+    any codes), contiguous; 1 <= max_lag <= LAG_BLOCK * MAX_CHUNKS,
+    lag_offset >= 0.  Same output as lag_profile_plain, bit for bit; a read
+    with a code outside 0..5 takes the value route, counted in reads in
+    ROUTES['lag_value'] once settle_routes runs.  Raises on anything else
     and when the launch is refused."""
     from ciri_long_tpu_torch.ops import _build
 
@@ -233,11 +274,18 @@ def lag_profile_cuda(reads, max_lag, lag_offset=0):
         raise ValueError('lag_profile_cuda needs contiguous reads')
     dev = reads.device
     out = torch.empty((B, max_lag), dtype=torch.float32, device=dev)
+    seg = _plan(dev, B, W, max_lag)
+    # with more than one segment a read: the counts (num, den) of each lag,
+    # then each (read, chunk of lags)'s blocks arrived
+    acc = (torch.zeros(B * (2 * max_lag + -(-max_lag // LAG_BLOCK)),
+                       dtype=torch.int32, device=dev) if W > seg else None)
+    tally = route_tally('lag_value', dev)
     lib = _build.load('lag_profile.cu', _PROFILE_SYMBOLS)
     with torch.cuda.device(dev):
         rc = lib.lag_profile_launch(
-            reads.data_ptr(), B, W, int(lag_offset), int(max_lag),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            reads.data_ptr(), B, W, int(lag_offset), int(max_lag), seg,
+            out.data_ptr(), None if acc is None else acc.data_ptr(),
+            tally.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError('lag_profile launch failed: cudaError {} (B={}, '
                            'W={}, max_lag={})'.format(rc, B, W, max_lag))
@@ -341,19 +389,6 @@ def screen_routes_plain(reads, max_lag, k=11):
     lags = np.broadcast_to(np.asarray(max_lag, np.int64), (len(reads),))
     return np.array([_lag_route(row, 1, M, k)
                      for row, M in zip(reads, lags)], bool)
-
-
-def tandem_routes_plain(reads, max_lag, k=11, lag_offset=0):
-    """Which route csrc/tandem_counts.cu takes for each read (numpy reads
-    [B, W]), as its ``routes`` output: 2 the wide route (every read when W
-    > SCREEN_MAX_LEN), else 1 for the lag route over lags lag_offset + 1 ..
-    lag_offset + max_lag (``_lag_route``) and 0 for the pair route.
-    Returns uint8 [B]."""
-    reads = np.asarray(reads)
-    if reads.shape[1] > SCREEN_MAX_LEN:
-        return np.full(len(reads), 2, np.uint8)
-    return np.array([_lag_route(row, lag_offset + 1, lag_offset + max_lag,
-                                k) for row in reads], np.uint8)
 
 
 def _lag_ranges(max_lag, B, device):

@@ -80,9 +80,14 @@ from ciri_long_tpu_torch.utils.seq import (compress_seq, encode_seq,
 
 LOGGER = logging.getLogger('CIRI-long')
 
-# typenames match the attribute names: the spawn pool pickles READs
+# typenames match the attribute names: the spawn pool pickles READs;
+# the aliases load a corrected.pkl pickled under the names before the
+# rename (ciri_long_tpu.pipeline.collapse.Read / .Circ, through
+# annot/gtf.py::_PortUnpickler)
 READ = namedtuple('READ', 'read_id circ_id strand cirexon ss clip segments seq sample type')
 CIRC = namedtuple('CIRC', 'contig start end strand')
+Read = READ
+Circ = CIRC
 
 JUNC_SW = SWParams(JUNC_SCORE.match, JUNC_SCORE.mismatch,
                    JUNC_SCORE.gap_open, JUNC_SCORE.gap_extend)

@@ -1,7 +1,7 @@
 """call's chaining, screen and polish kernels of two checkouts timed in turns
 on one card: csrc/chain_dp.cu's DP and extraction (X2), csrc/screen_keep.cu
-(X3) and its lag-range counts csrc/tandem_counts.cu, and
-csrc/nw_traceback.cu (X4).
+(X3), its lag-range counts csrc/tandem_counts.cu and
+the lag profile csrc/lag_profile.cu, and csrc/nw_traceback.cu (X4).
 
     python3 -m ciri_long_tpu_torch.tools.call_x_ab --other DIR
         [--inputs FILE] [--nw-inputs FILE]
@@ -23,7 +23,14 @@ of period 50, random codes and all N (seed 0, made here with numpy, the
 same in both runs); then ``tandem_counts_cuda`` (csrc/tandem_counts.cu,
 the mesh's lag shard, where the checkout has it) on the recorded screen
 launch's reads at MAX_LAG lags in 1, 2 and 4 ranges, and on each
-SCREEN_CASES launch's reads at SCREEN_WIDTH // 2 lags.  First X4
+SCREEN_CASES launch's reads at SCREEN_WIDTH // 2 lags, and the dry run's
+2 x 192 x 32; then, where the checkout
+has them, ``lag_profile_cuda`` (csrc/lag_profile.cu) on the recorded
+screen launch's reads at MAX_LAG lags (``lag_profile_call_ms``) and both
+it and ``tandem_counts_cuda`` on each LAG_SHAPES batch
+at MAX_LAG lags (``lag_profile_{shape}_ms``, ``tandem_wide_{shape}_ms``:
+6 reads of 4 097 and of 16 384 codes and 256 of 8 192, every other read a
+rolling-circle read, seed 0, made here).  First X4
 (build/chip_smoke/call_nw_inputs.pt, the
 default of --nw-inputs, written by chip_smoke.py: codes, lengths, bands
 and offsets, no plan): the pairs of call's largest nw_traceback launch
@@ -54,6 +61,9 @@ SCREEN_READS = 1104            # call's screen launch on chip_smoke's world
 SCREEN_WIDTH = 4096
 SCREEN_CASES = ('poly_a', 'dinucleotide', 'trinucleotide', 'period_50',
                 'random', 'all_n')
+# the lag-range kernels' wide shapes (reads, codes)
+LAG_SHAPES = {'6x4097': (6, 4097), '6x16384': (6, 16384),
+              '256x8192': (256, 8192)}
 
 
 def screen_case(name, B=SCREEN_READS, W=SCREEN_WIDTH, seed=0):
@@ -77,6 +87,20 @@ def screen_case(name, B=SCREEN_READS, W=SCREEN_WIDTH, seed=0):
         raise ValueError('no screen case {!r}'.format(name))
     return (np.ascontiguousarray(reads), np.full(B, W, np.int32),
             np.full(B, W // 2, np.int32))
+
+
+def lag_case(name, seed=0):
+    """int8 reads [B, W] of LAG_SHAPES[name], no PAD: every other read a
+    random unit of 200-1 500 codes repeated, the rest random codes."""
+    import numpy as np
+
+    B, W = LAG_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (B, W)).astype(np.int8)
+    for b in range(0, B, 2):
+        reads[b] = np.resize(rng.integers(0, 4, int(rng.integers(200, 1501))),
+                             W)
+    return reads
 
 
 def nw_plan_shape(ntb, launch):
@@ -186,6 +210,8 @@ def time_tree(tree, inputs, nw_inputs=None):
             graph=True)
     if hasattr(period, 'tandem_counts_cuda'):
         out.update(time_tandem(dev, screened, period, time_launches))
+    if hasattr(period, 'lag_profile_cuda'):
+        out.update(time_lag(dev, screened, period, time_launches))
     return out
 
 
@@ -224,23 +250,52 @@ def time_recorded(torch, dev, saved, time_launches):
 def time_tandem(dev, screened, period, time_launches):
     """csrc/tandem_counts.cu in this checkout: call's screened reads (on the
     card, or None) at MAX_LAG lags cut into 1, 2 and 4 ranges (the ranges'
-    launches summed, ``tandem_call_{n}_ms``) and each SCREEN_CASES launch's
-    reads at SCREEN_WIDTH // 2 lags (``tandem_{case}_ms``), each launch a
-    CUDA graph's replay of 10."""
+    launches summed, ``tandem_call_{n}_ms``), each SCREEN_CASES launch's
+    reads at SCREEN_WIDTH // 2 lags (``tandem_{case}_ms``) and the dry
+    run's 2 x 192 random codes at 32 lags (``tandem_dryrun_ms``), each
+    launch a CUDA graph's replay of 10."""
+    import numpy as np
     import torch
 
-    out = {}
-    for parts in (1, 2, 4) if screened is not None else ():
-        w = period.MAX_LAG // parts
-        out['tandem_call_{}_ms'.format(parts)] = sum(
-            time_launches(lambda o=t * w: period.tandem_counts_cuda(
-                screened, w, 11, o), 10, dev, graph=True)
-            for t in range(parts))
+    launches = {}
+    if screened is not None:
+        for parts in (1, 2, 4):
+            w = period.MAX_LAG // parts
+            launches['call_{}'.format(parts)] = [(screened, w, t * w)
+                                                 for t in range(parts)]
     for name in SCREEN_CASES:
-        reads = torch.from_numpy(screen_case(name)[0]).to(dev)
-        out['tandem_{}_ms'.format(name)] = time_launches(
-            lambda: period.tandem_counts_cuda(reads, SCREEN_WIDTH // 2), 10,
-            dev, graph=True)
+        launches[name] = [(torch.from_numpy(screen_case(name)[0]).to(dev),
+                           SCREEN_WIDTH // 2, 0)]
+    launches['dryrun'] = [(torch.from_numpy(np.random.default_rng(0).integers(
+        0, 4, (2, 192)).astype(np.int8)).to(dev), 32, 0)]
+
+    def timed(runs):
+        return sum(time_launches(lambda r=r: period.tandem_counts_cuda(
+            r[0], r[1], 11, r[2]), 10, dev, graph=True) for r in runs)
+
+    return {'tandem_{}_ms'.format(name): timed(runs)
+            for name, runs in launches.items()}
+
+
+def time_lag(dev, screened, period, time_launches):
+    """csrc/lag_profile.cu and csrc/tandem_counts.cu in this checkout, each launch a CUDA graph's replay of 10: the profile on
+    call's screened reads (on the card, or None) at MAX_LAG lags, both on
+    each LAG_SHAPES batch at MAX_LAG lags."""
+    import torch
+
+    M = period.MAX_LAG
+    out = {}
+    if screened is not None:
+        out['lag_profile_call_ms'] = time_launches(
+            lambda: period.lag_profile_cuda(screened, M), 10, dev,
+            graph=True)
+    for name in LAG_SHAPES:
+        reads = torch.from_numpy(lag_case(name)).to(dev)
+        out['lag_profile_{}_ms'.format(name)] = time_launches(
+            lambda: period.lag_profile_cuda(reads, M), 10, dev, graph=True)
+        out['tandem_wide_{}_ms'.format(name)] = time_launches(
+            lambda: period.tandem_counts_cuda(reads, M), 10, dev,
+            graph=True)
     return out
 
 

@@ -2,7 +2,10 @@
 edges (tests/test_torch_chain.py and tests/test_torch_period.py hold the
 plain versions to the JAX package on them, tests/test_torch_cuda.py the
 kernels to the plain versions and the native chain core), and reads wider
-than the screen's widest bucket for the lag-range kernels (``wide_cases``).
+than the screen's widest bucket for the lag-range kernels (``wide_cases``),
+their word and segment edges (``lag_edge_cases``), full-length reads that
+fill the card (``full_reads``) and reads with codes outside 0..5, which
+take their value route (``odd_cases``).
 
 Chain rows are (r, q, ctg) int64 arrays sorted by (r, q), r global, with
 contigs of CONTIG bases (ctg = r // CONTIG) or, for rows whose gaps span
@@ -285,7 +288,7 @@ def screen_launches(rng):
 
 def wide_cases(rng, widths=(4_097, 16_384)):
     """{name: (reads int8 [B, W], [(lag_offset, max_lag)])} at each width
-    over csrc/tandem_counts.cu's 4 096 (its wide route) for the lag-range
+    over the screen's widest bucket, 4 096, for the lag-range
     kernels (tandem_counts, lag_profile): a tandem read of period 240, a
     poly-A, a random read, one poisoned with N every 41 codes, one that
     stops 3 codes short of the width and an all-PAD row; over 2 048 lags
@@ -305,6 +308,61 @@ def wide_cases(rng, widths=(4_097, 16_384)):
         out['wide W={}'.format(W)] = (mat, ranges + [(W - 300, 600),
                                                      (W + 10, 64)])
     return out
+
+
+def lag_edge_cases(rng, widths=(120, 4_097, 4_127)):
+    """{name: (reads int8 [B, W], [(lag_offset, max_lag)])} at the edges of
+    csrc/lag_planes.h's words and segments, at each width: a tandem read of
+    period 37, a random read, one with N every 41 codes, one that stops 3
+    codes short of the width, a poly-A run and an all-PAD row; lags 31-34
+    and 63-66 (across words), 2 100 lags from 0 (across the chunk of 2 048),
+    a range from 1 500 (its partners' words apart from the segment's) and
+    one across the reads' end."""
+    out = {}
+    for W in widths:
+        reads = [tandem(rng, W, 37, noise=0.02),
+                 rng.integers(0, 4, W).astype(np.int8),
+                 rng.integers(0, 4, W).astype(np.int8),
+                 rng.integers(0, 4, W - 3).astype(np.int8),
+                 np.zeros(W // 3, np.int8), np.zeros(0, np.int8)]
+        reads[2][5::41] = 4
+        mat, _ = pad(reads, W)
+        out['lag edges W={}'.format(W)] = (mat, [
+            (30, 4), (62, 4), (0, 2_100), (1_500, 600), (W - 40, 64)])
+    return out
+
+
+def full_reads(rng, B=256, W=8_192):
+    """B reads of W codes each, no PAD: every other one a rolling-circle
+    read (a random unit of 200-1 500 codes repeated, 5 % of the codes
+    replaced), the rest random.  The lag-range kernels' grid-filling
+    shape, int8 [B, W]."""
+    mat = rng.integers(0, 4, (B, W)).astype(np.int8)
+    for b in range(0, B, 2):
+        mat[b] = tandem(rng, W, int(rng.integers(200, 1_501)), noise=0.05)
+    return mat
+
+
+def odd_cases(rng):
+    """{name: (reads int8 [B, W], [(lag_offset, max_lag)], k)}: reads with
+    codes outside 0..5, whose negative codes are valid to JAX and whose
+    ids wrap, at widths 8 and 4 097 (both tandem_counts launch paths): at 8
+    the two rows where ids from the codes' low bits and JAX's ids disagree
+    at lag 4 (k = 2: JAX counts 0 and 1), beside a row of codes 0..5; at
+    4 097 those rows at the start of wider reads, a tandem read with a few
+    negative codes and a code 9, and a clean random read."""
+    small = np.array([[-1, 0, 5, 5, 3, 0, 5, 5], [1, -4, 5, 5, 0, 0, 5, 5],
+                      [0, 1, 2, 3, 0, 1, 2, 4]], np.int8)
+    W = 4_097
+    wide = np.full((4, W), 5, np.int8)
+    wide[:2, :8] = small[:2]
+    wide[0, 8:3_000] = rng.integers(0, 4, 2_992)
+    wide[2, :W - 3] = tandem(rng, W - 3, 53, noise=0.01)
+    wide[2, rng.integers(0, W - 3, 12)] = -2
+    wide[2, 700] = 9
+    wide[3] = rng.integers(0, 4, W)
+    return {'odd W=8': (small, [(0, 6), (2, 3)], 2),
+            'odd W=4097': (wide, [(0, 64), (1_000, 600)], 11)}
 
 
 def pad(reads, W):

@@ -61,12 +61,19 @@ DEVICE_MS = {'poa_align': 0.0}
 # center-star pairs that needed a wider band than their first
 # (``nw_escalate``) and those that CCS's polish aligned on the host
 # (``nw_host``: the native center star of the cpu route; 0 on the card);
-# csrc/tandem_counts.cu's wide route (reads over 4 096 codes,
-# ``tandem_wide``; its other two routes are a read's choice on the card)
+# and the value routes of csrc/tandem_counts.cu and csrc/lag_profile.cu
+# (``tandem_value``, ``lag_value``: counted in reads with a code outside
+# 0..5, not in launches), also picked on the card, where each such read
+# counts itself in a device tally (``route_tally``) that ``settle_routes``
+# folds in here
 ROUTES = {'wave': 0, 'tiled': 0, 'edit_thread': 0, 'edit_warp': 0,
           'tb_smem': 0, 'tb_global': 0, 'nw_c1': 0, 'nw_c2': 0, 'nw_c4': 0,
           'nw_c8': 0, 'nw_block': 0, 'nw_global': 0,
-          'nw_escalate': 0, 'nw_host': 0, 'tandem_wide': 0}
+          'nw_escalate': 0, 'nw_host': 0, 'tandem_value': 0,
+          'lag_value': 0}
+# (route, device) -> [int32 [1] tally on the device, its count already
+# folded]
+_TALLIES = {}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -91,7 +98,31 @@ def count_route(route, times=1):
         ROUTES[route] += times
 
 
+def route_tally(route, device):
+    """The int32 [1] tally on ``device`` to which a kernel adds one for each
+    read that takes ``route`` on the card (made, zero, at its first
+    use)."""
+    with _LAUNCH_LOCK:
+        key = (route, str(device))
+        if key not in _TALLIES:
+            _TALLIES[key] = [torch.zeros(1, dtype=torch.int32,
+                                         device=device), 0]
+        return _TALLIES[key][0]
+
+
+def settle_routes():
+    """Add to ROUTES the reads the card's tallies counted since the last
+    call (waits for the launches queued before it on each tally's
+    device)."""
+    with _LAUNCH_LOCK:
+        for (route, _), entry in _TALLIES.items():
+            n = int(entry[0][0])
+            ROUTES[route] += n - entry[1]
+            entry[1] = n
+
+
 def reset_launches():
+    settle_routes()
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0

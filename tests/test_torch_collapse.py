@@ -461,6 +461,43 @@ def test_corrected_pickle_loads_without_either_package(skill):
     assert len(corrected) == 1 and corrected[0][3] == 'chr1:20001-20520'
 
 
+def test_resumes_from_a_pickle_of_the_old_class_names(monkeypatch):
+    """A corrected.pkl pickled under the class paths the JAX package used
+    before the rename (ciri_long_tpu.pipeline.collapse.Circ and .Read),
+    written here through a stand-in module, loads through the port's
+    resume unpickler into its READ and CIRC with JAX's fields, as JAX's
+    pickle.load loads it through its aliases."""
+    import sys
+    import types
+    from collections import namedtuple
+    from ciri_long_tpu_torch.annot.gtf import _PortUnpickler
+
+    name = 'ciri_long_tpu.pipeline.collapse'
+    old = types.ModuleType(name)
+    old.Circ = namedtuple('Circ', jcl.CIRC._fields)
+    old.Read = namedtuple('Read', jcl.READ._fields)
+    for cls in (old.Circ, old.Read):
+        cls.__module__ = name
+    monkeypatch.setitem(sys.modules, name, old)
+    circ = old.Circ('chr1', 1, 10, '+')
+    read = old.Read('r1', 'chr1:1-10', '+', [(1, 10)], 'AG-GT', (0, 0), [],
+                    'ACGT', 's1', 'Annotated')
+    data = pickle.dumps([{'Annotated': 1}, [(circ, [read])]])
+    assert b'Circ' in data and b'Read' in data
+    monkeypatch.undo()
+    import io
+    circ_num, corrected = _PortUnpickler(io.BytesIO(data)).load()
+    (got_circ, (got_read,)), = corrected
+    assert circ_num == {'Annotated': 1}
+    assert type(got_circ) is tcl.CIRC and type(got_read) is tcl.READ
+    assert got_circ == tuple(circ) and got_read == tuple(read)
+    assert got_circ._fields == jcl.CIRC._fields
+    assert got_read._fields == jcl.READ._fields
+    assert tcl.Circ is tcl.CIRC and tcl.Read is tcl.READ
+    want = pickle.loads(data)[1][0]
+    assert type(want[0]) is jcl.CIRC and tuple(want[0]) == tuple(got_circ)
+
+
 def test_cohort_world_is_collapse_bench_world(tmp_path):
     """tools/world.py::cohort_world writes the files that
     benchmarks/collapse_bench.py:45-70 writes from the same seed, here at a

@@ -12,7 +12,9 @@ also against the native chain core once ``setup.py build_ext --inplace``
 has built it, on random rows and tools/chain_cases.py's ``dp_cases``, and
 csrc/screen_keep.cu and the mesh's lag-range counts csrc/tandem_counts.cu,
 with their route per read, on its ``screen_launches`` and, past 4 096
-codes, its ``wide_cases``; the lag profile csrc/lag_profile.cu;
+codes, its ``wide_cases``; the lag profile csrc/lag_profile.cu; both on
+csrc/lag_planes.h's word and segment edges and, for reads with codes
+outside 0..5, on their value route;
 chain_scores_batch),
 and the center-star polish's banded NW (csrc/nw_traceback.cu, along the
 band ladder on tools/nw_cases.py in every width class: C = 1, 2, 4, 8 with
@@ -981,8 +983,8 @@ def test_screen_keep_rejects_bad_inputs(dev):
 def test_tandem_counts_edge_launches(dev, case, span):
     """csrc/tandem_counts.cu equal to tandem_counts_plain on
     tools/chain_cases.py's screen launches at lag offsets 0, 100 and 1 024
-    (one pass and two of the lag route), each read on the route
-    tandem_routes_plain gives it."""
+    (2 048, 1 024 and 3 000 lags), every read on the bit planes (routes
+    0)."""
     from ciri_long_tpu_torch.ops import period
     from ciri_long_tpu_torch.tools import chain_cases
     mat = chain_cases.screen_launches(np.random.default_rng(37))[case][0]
@@ -993,14 +995,13 @@ def test_tandem_counts_edge_launches(dev, case, span):
     want = period.tandem_counts_plain(x, M, 11, offset)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert np.array_equal(routes.cpu().numpy().astype(bool),
-                          period.tandem_routes_plain(mat, M, 11, offset))
+    assert not routes.any()
 
 
 @pytest.mark.parametrize('k', [12, 13, 15])
 def test_tandem_counts_lag_route_at_k(dev, k):
-    """The lag route compares the ids as float32 up to k = 12 (exact there)
-    and as int32 past it: low-complexity reads at both, equal to the plain
+    """Low-complexity reads (the lag route of the sorted keys' earlier
+    design) at k = 12, 13 and 15 (the top k-run level), equal to the plain
     version."""
     from ciri_long_tpu_torch.ops import period
     from ciri_long_tpu_torch.tools import chain_cases
@@ -1011,9 +1012,7 @@ def test_tandem_counts_lag_route_at_k(dev, k):
     routes = torch.zeros(len(mat), dtype=torch.uint8, device=dev)
     got = period.tandem_counts_cuda(x, 3000, k, 100, routes=routes)
     assert torch.equal(got, period.tandem_counts_plain(x, 3000, k, 100))
-    assert np.array_equal(routes.cpu().numpy().astype(bool),
-                          period.tandem_routes_plain(mat, 3000, k, 100))
-    assert routes[0] == 1
+    assert not routes.any()
 
 
 def test_tandem_counts_hash_collision(dev):
@@ -1040,7 +1039,7 @@ def test_tandem_counts_hash_collision(dev):
 
 def test_tandem_counts_rejects_bad_inputs(dev):
     """Bad types, k and route buffers are refused; a read wider than 4 096
-    codes is not (the wide route answers it)."""
+    codes is not (the kernel takes any width)."""
     from ciri_long_tpu_torch.ops import period
     wide = torch.full((2, 4097), 5, dtype=torch.int8, device=dev)
     assert not period.tandem_counts_cuda(wide, 8).any()
@@ -1056,8 +1055,8 @@ def test_tandem_counts_rejects_bad_inputs(dev):
 
 @pytest.mark.parametrize('W', [4_097, 16_384])
 def test_tandem_counts_wide_route(dev, W):
-    """Reads wider than 4 096 codes take the wide route (routes 2, one
-    ROUTES['tandem_wide'] a launch), equal to tandem_counts_plain over
+    """Reads wider than 4 096 codes (one launch each, every read on the
+    bit planes, routes 0), equal to tandem_counts_plain over
     tools/chain_cases.py's wide_cases lag ranges, at k = 11 and 15."""
     from ciri_long_tpu_torch.ops import period
     from ciri_long_tpu_torch.tools import chain_cases
@@ -1067,15 +1066,13 @@ def test_tandem_counts_wide_route(dev, W):
     for k in (11, 15):
         for offset, M in ranges:
             routes = torch.zeros(len(mat), dtype=torch.uint8, device=dev)
-            before = ROUTES['tandem_wide']
+            before = LAUNCHES['tandem_counts']
             got = period.tandem_counts_cuda(x, M, k, offset, routes=routes)
             want = period.tandem_counts_plain(x, M, k, offset)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (k, offset, M)
-            assert np.array_equal(routes.cpu().numpy(),
-                                  period.tandem_routes_plain(mat, M, k,
-                                                             offset))
-            assert ROUTES['tandem_wide'] == before + 1
+            assert not routes.any()
+            assert LAUNCHES['tandem_counts'] == before + 1
     assert int(period.tandem_counts_plain(x, 2048, 11)[0].sum()) > 0
 
 
@@ -1115,6 +1112,73 @@ def test_lag_profile_matches_plain(dev):
             assert LAUNCHES['lag_profile'] == before + 1
     got = period.lag_profile(mat, 64, 10, pad_lags=74)
     assert np.array_equal(got, period.lag_profile(mat, 64, 10, device='cpu'))
+
+
+def _lag_edge_cases():
+    from ciri_long_tpu_torch.tools import chain_cases
+    return list(chain_cases.lag_edge_cases(
+        np.random.default_rng(21)).items())
+
+
+@pytest.mark.parametrize('case', range(3))
+def test_lag_kernels_at_word_edges(dev, case):
+    """csrc/lag_planes.h's edges (tools/chain_cases.py's lag_edge_cases:
+    lags across words and the chunk of 2 048, partners' words apart from
+    the segment's, W of 120, 4 097 and 4 127, N every 41 codes, a read 3
+    codes short): tandem_counts_cuda equal to tandem_counts_plain at k = 1,
+    2, 3, 5, 8, 11 and 15 (each k-run level at both ends),
+    lag_profile_cuda bit-equal to lag_profile_plain."""
+    from ciri_long_tpu_torch.ops import period
+    label, (mat, ranges) = _lag_edge_cases()[case]
+    x = torch.from_numpy(mat).to(dev)
+    for offset, M in ranges:
+        for k in (1, 2, 3, 5, 8, 11, 15):
+            got = period.tandem_counts_cuda(x, M, k, offset)
+            want = period.tandem_counts_plain(x, M, k, offset)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (label, k, offset, M)
+        got = period.lag_profile_cuda(x, M, offset)
+        want = period.lag_profile_plain(x, M, offset)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+            label, offset, M)
+
+
+@pytest.mark.parametrize('name', ['odd W=8', 'odd W=4097'])
+def test_odd_codes_take_the_value_route(dev, name):
+    """Reads with codes outside 0..5 (negative codes, valid to JAX, whose
+    ids wrap; a code 9) at widths 8 and 4 097: each such read on the value
+    route (routes 1) and counted once a
+    launch in ROUTES['tandem_value'] and ['lag_value'], both kernels
+    equal to their plain versions; lag 4 of the two small rows counts 0 and
+    1 at k = 2, as JAX's."""
+    from ciri_long_tpu_torch.ops import period
+    from ciri_long_tpu_torch.tools import chain_cases
+    from ciri_long_tpu_torch.utils.dispatch import settle_routes
+    mat, ranges, k = chain_cases.odd_cases(np.random.default_rng(5))[name]
+    x = torch.from_numpy(mat).to(dev)
+    odd = ((mat < 0) | (mat > 5)).any(axis=1)
+    for kk in (k, 1):
+        for offset, M in ranges:
+            settle_routes()
+            before = dict(ROUTES)
+            routes = torch.full((len(mat),), 7, dtype=torch.uint8, device=dev)
+            got = period.tandem_counts_cuda(x, M, kk, offset, routes=routes)
+            want = period.tandem_counts_plain(x, M, kk, offset)
+            prof = period.lag_profile_cuda(x, M, offset)
+            prof_want = period.lag_profile_plain(x, M, offset)
+            settle_routes()
+            assert torch.equal(got, want), (kk, offset, M)
+            assert torch.equal(prof.view(torch.int32),
+                               prof_want.view(torch.int32)), (offset, M)
+            r = routes.cpu().numpy()
+            assert np.array_equal(r, odd.astype(np.uint8))
+            assert (ROUTES['tandem_value']
+                    == before['tandem_value'] + int(odd.sum()))
+            assert ROUTES['lag_value'] == before['lag_value'] + int(odd.sum())
+    if name == 'odd W=8':
+        got = period.tandem_counts_cuda(x, 6, 2)
+        assert got[:2, 3].tolist() == [0, 1]
 
 
 def test_lag_profile_rejects_bad_inputs(dev):

@@ -54,8 +54,9 @@ def tandem_reads(rng, W=120):
 
 
 def emulate_tandem(reads, max_lag, k, lag_offset):
-    """csrc/tandem_counts.cu in numpy: a block a read, lags lo = lag_offset
-    + 1 .. lag_offset + max_lag counted by csrc/kmer_pairs.h's schedule
+    """csrc/kmer_pairs.h's count over a lag range in numpy (the sorted keys
+    of tandem_counts.cu's earlier design; the screen's count from lag 1):
+    a block a read, lags lo = lag_offset + 1 .. lag_offset + max_lag
     (``emulate_pairs``: the sorted keys, the route by WALK_CAP, the pair
     walk from the searched start, the lag route up to nwin), the row zero
     past the read's last valid window.  Returns (out int64 [B, max_lag],
@@ -69,8 +70,8 @@ def emulate_tandem(reads, max_lag, k, lag_offset):
 
 
 def _held_to_jax(mat, max_lag, offset):
-    """The emulated kernel, tandem_counts and tandem_counts_plain equal to
-    JAX's tandem_counts, the routes to tandem_routes_plain; returns (JAX's
+    """The emulated count, tandem_counts and tandem_counts_plain equal to
+    JAX's tandem_counts, the routes to ``_lag_route``'s; returns (JAX's
     counts, the routes)."""
     want = np.asarray(jperiod.tandem_counts(mat, max_lag, 11,
                                             lag_offset=offset,
@@ -79,8 +80,9 @@ def _held_to_jax(mat, max_lag, offset):
     assert np.array_equal(got, want)
     assert np.array_equal(tperiod.tandem_counts(mat, max_lag, 11, offset,
                                                 device='cpu'), want)
-    assert np.array_equal(routes, tperiod.tandem_routes_plain(mat, max_lag,
-                                                              11, offset))
+    assert np.array_equal(routes, [tperiod._lag_route(row, offset + 1,
+                                                      offset + max_lag, 11)
+                                   for row in mat])
     return want, routes
 
 
@@ -207,11 +209,11 @@ def test_tandem_counts_refuses():
 
 
 def test_tandem_counts_refuses_wider_than_the_kernel(rng):
-    """Despite its name, no longer a refusal: a read wider than the 4 096
-    window positions of csrc/tandem_counts.cu's keys takes the kernel's
-    wide route (its route code 2).  The port's tandem_counts (plain on the
-    CPU) equals JAX's at 4 097 and 6 000 codes, tandem reads and random
-    ones, PAD tails and N."""
+    """Despite its name, no longer a refusal: csrc/tandem_counts.cu takes
+    reads of any width on its bit planes (its route code 0 for reads of
+    codes 0..5).  The port's tandem_counts (plain on the CPU) equals JAX's
+    at 4 097 and 6 000 codes, tandem reads and random ones, PAD tails and
+    N."""
     for W in (4_097, 6_000):
         mat = np.full((3, W), 5, np.int8)
         mat[0, :W - 5] = np.resize(rng.integers(0, 4, 41), W - 5)
@@ -223,7 +225,7 @@ def test_tandem_counts_refuses_wider_than_the_kernel(rng):
         assert want[0].any() and want[2].any()
         assert np.array_equal(tperiod.tandem_counts(mat, 64, 11, 3,
                                                     device='cpu'), want)
-        assert (tperiod.tandem_routes_plain(mat, 64, 11, 3) == 2).all()
+        assert not tperiod.odd_reads(torch.from_numpy(mat)).any()
     with pytest.raises(ValueError, match='CUDA tensor'):
         tperiod.tandem_counts_cuda(torch.from_numpy(mat), 8)
 
