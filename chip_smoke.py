@@ -308,6 +308,9 @@ NW_INPUTS = os.path.join(WORK, 'call_nw_inputs.pt')
 # a spin before each recorded X2/X3 launch of call's run (~0.5 ms), longer
 # than a wrapper's host work
 X_SPIN_CYCLES = 1_000_000
+# the keys of a run-summary JSON that time the run (and so differ between
+# two runs of the same input): left out where runs are compared
+RUN_ONLY = ('timing', 'kernels', 'spans', 'counters', 'threads')
 CSRC = 'ciri_long_tpu_torch/csrc/'
 SOURCES = ('sw_score_ends.cu', 'sw_rowscan.cu', 'sw_chain.cu',
            'int16_probe.cu', 'op_rate.cu', 'edit_distance.cu',
@@ -907,7 +910,7 @@ def phase_call(torch, dev, smi):
     cand = [Path(WORK, d, 'smoke.cand_circ.fa').read_bytes()
             for d in ('out_cuda', 'out_cpu')]
     ccs_same = _same_ccs(WORK, 'out_cuda', 'out_cpu', 'smoke')
-    counters = [{k: v for k, v in s.items() if k not in ('timing', 'kernels')}
+    counters = [{k: v for k, v in s.items() if k not in RUN_ONLY}
                 for s in (gpu, cpu)]
     recall, precision, n_called = bsj_accuracy(
         os.path.join(WORK, 'out_cuda', 'smoke.cand_circ.fa'), truth)
@@ -2535,7 +2538,7 @@ def phase_collapse_full(torch, dev, smi):
     cohort_nw['cpu_host_pairs'] = ROUTES['nw_host']
     counters = [{k: v for k, v in json.loads(
         Path(root, d, 'cohort.json').read_text()).items()
-        if k not in ('timing', 'kernels')} for d in ('call', 'call_cpu')]
+        if k not in RUN_ONLY} for d in ('call', 'call_cpu')]
     same = _same_ccs(root, 'call', 'call_cpu', 'cohort') and (
         Path(root, 'call', 'cohort.cand_circ.fa').read_bytes()
         == Path(root, 'call_cpu', 'cohort.cand_circ.fa').read_bytes()) \
@@ -2718,7 +2721,7 @@ def _pool_start_s(ref, index_cache):
 def _call_outputs(out, prefix):
     counters = {k: v for k, v in json.loads(Path(
         out, prefix + '.json').read_text()).items()
-        if k not in ('timing', 'kernels')}
+        if k not in RUN_ONLY}
     return counters, {name: Path(out, name).read_bytes() for name in (
         'tmp/{}.ccs.fa'.format(prefix), 'tmp/{}.raw.fa'.format(prefix),
         '{}.cand_circ.fa'.format(prefix))}

@@ -208,26 +208,85 @@ def _call_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
                      scan_pool, ccs_seq, is_canonical)
 
 
+# the markers whose trace times and CLOCK_MONOTONIC times give the offset
+# from the one clock to the other (the first one pays the profiler's
+# start-up)
+_CLOCK_MARK = 'trace.clock'
+_CLOCK_MARKS = 5
+
+
 @contextlib.contextmanager
 def _device_trace(profile_dir, prefix, device, logger):
     """``--profile DIR``: a torch.profiler trace (CPU activity, and CUDA
-    activity on cuda) of what runs inside, written as the Chrome trace
-    DIR/{prefix}.trace.json (JAX main.py:271-274, :330-333: a device trace
-    from [2/4] to [4/4]).  Nothing without a DIR."""
+    activity on cuda) of what runs inside, on every thread (the spans and
+    states of utils/dispatch.py among it), written as the Chrome trace
+    DIR/{prefix}.trace.json (JAX main.py:271-274, :330-333: a device
+    trace).  Each round of csrc/poa_align.cu's loop adds its phases as
+    events ``poa.<phase>`` on the row of the thread that ran it.  Nothing
+    without a DIR."""
     if not profile_dir:
         yield
         return
+    import time
+
+    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ciri_long_tpu_torch.ops.poa import keep_round_stamps
 
     activities = [ProfilerActivity.CPU]
     if device.type == 'cuda':
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    def clock_marks():
+        marks = []
+        for _ in range(_CLOCK_MARKS):
+            t0 = time.perf_counter_ns()
+            with torch.profiler.record_function(_CLOCK_MARK):
+                pass
+            marks.append((t0, time.perf_counter_ns()))
+        return marks
+
+    with profile(activities=activities, experimental_config=config) as prof, \
+            keep_round_stamps() as rounds:
+        marks = clock_marks()
         yield
+        marks += clock_marks()
     path = os.path.join(profile_dir, '{}.trace.json'.format(prefix))
     prof.export_chrome_trace(path)
+    if rounds:
+        _add_round_events(path, rounds, marks)
     logger.info('Device trace written to {}'.format(path))
+
+
+def _add_round_events(path, rounds, marks):
+    """Write the POA rounds' phases into the Chrome trace at ``path``, on
+    its clock.  ``marks``: the CLOCK_MONOTONIC ns before and after each
+    clock marker, _CLOCK_MARKS at the trace's start and as many at its
+    end; at each end the tightest pair's midpoint against its event's
+    midpoint in the trace gives the offset, which is interpolated between
+    the two (the trace's clock drifts against CLOCK_MONOTONIC)."""
+    from ciri_long_tpu_torch.ops.poa import round_events
+
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace['traceEvents']
+    seen = sorted((e for e in events if e.get('name') == _CLOCK_MARK),
+                  key=lambda e: e['ts'])
+    ends = []
+    for part in (range(_CLOCK_MARKS), range(_CLOCK_MARKS, len(marks))):
+        k = min(part, key=lambda i: marks[i][1] - marks[i][0])
+        at_ns = (marks[k][0] + marks[k][1]) / 2
+        ends.append((at_ns, seen[k]['ts'] + seen[k]['dur'] / 2
+                     - at_ns / 1e3))
+    (n0, o0), (n1, o1) = ends
+    slope = (o1 - o0) / max(n1 - n0, 1.0)
+    events.extend(round_events(
+        rounds, lambda ns: ns / 1e3 + o0 + (ns - n0) * slope,
+        seen[0]['pid']))
+    with open(path, 'w') as f:
+        json.dump(trace, f)
 
 
 def _scan_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
@@ -298,7 +357,8 @@ def _scan_stages(args, logger, timer, reads_count, in_file, out_dir, prefix,
 
 
 def _finish_call(logger, timer, reads_count, out_dir, prefix):
-    from ciri_long_tpu_torch.utils.dispatch import CALL_KERNELS, launch_counts
+    from ciri_long_tpu_torch.utils.dispatch import (CALL_KERNELS,
+                                                    launch_counts, summary)
 
     logger.info('non-linear raw reads: {}'.format(reads_count['raw_unmapped']))
     logger.info('mapped consensus reads: {}'.format(reads_count['ccs_mapped']))
@@ -307,11 +367,12 @@ def _finish_call(logger, timer, reads_count, out_dir, prefix):
     logger.info('partial calls from raw reads: {}'.format(
         reads_count['partial']))
 
-    summary = dict(reads_count)
-    summary['timing'] = timer.as_dict()
-    summary['kernels'] = launch_counts(CALL_KERNELS)
+    out = dict(reads_count)
+    out['timing'] = timer.as_dict()
+    out['kernels'] = launch_counts(CALL_KERNELS)
+    out.update(summary())
     with open('{}/{}.json'.format(out_dir, prefix), 'w') as f:
-        json.dump(summary, f)
+        json.dump(out, f)
 
     logger.info('call stage done')
     return reads_count
@@ -325,7 +386,7 @@ def collapse(args):
     from ciri_long_tpu_torch.utils.dispatch import (COLLAPSE_KERNELS,
                                                     DEVICE_MS, launch_counts,
                                                     reset_launches,
-                                                    resolve_device)
+                                                    resolve_device, summary)
     from ciri_long_tpu_torch.utils.logger import StageTimer, get_logger
     from ciri_long_tpu_torch.utils.misc import check_dir, check_file
 
@@ -366,54 +427,62 @@ def collapse(args):
     ctx = Context(aligner=None, genome=genome, gtf_index=gtf_idx,
                   intron_index=intron_idx, ss_index=ss_idx)
 
-    corrected_file = '{}/tmp/{}.corrected.pkl'.format(out_dir, prefix)
-    if not debugging and os.path.exists(corrected_file):
-        logger.info('[1/2] resuming corrected clusters from tmp/')
-        with open(corrected_file, 'rb') as pkl:
-            circ_num, corrected_reads = _PortUnpickler(pkl).load()
-    else:
-        logger.info('[1/2] clustering + correcting candidate reads')
-        with timer.stage('cluster', items=len(cand_reads)):
-            reads_cluster = collapse_mod.cluster_reads(cand_reads)
-            logger.info('BSJ clusters: {}'.format(len(reads_cluster)))
-            idx_file = out_dir + '/tmp/ss.idx'
-            # refresh the packed-genome cache whenever the current run
-            # could not load it (absent OR stale)
-            import numpy as np
-            gcache = out_dir + '/tmp/gcodes'
-            backing = (ctx.genome.codes if ctx.genome.codes is not None
-                       else ctx.genome.packed)
-            if not isinstance(backing, np.memmap):
-                try:
-                    ctx.genome.save_cache(gcache)
-                except (OSError, ValueError):
-                    gcache = None
-            circ_num, corrected_reads = collapse_mod.correct_reads(
-                ctx, reads_cluster, threads=args.threads,
-                ref_fasta=ref_fasta,
-                idx_file=idx_file if os.path.exists(idx_file) else None,
-                gcache=gcache, device=device)
-        with open(corrected_file, 'wb') as pkl:
-            pickle.dump([circ_num, corrected_reads], pkl, -1)
-        logger.info('Corrected clusters: {}, {}/{}/{}/{} annotated/denovo/'
-                    'lariat/unknown'.format(
-                        len(corrected_reads), circ_num['Annotated'],
-                        circ_num['Denovo signal'],
-                        circ_num['High confidence lariat'],
-                        circ_num['Unknown signal']))
+    with _device_trace(args.profile, prefix, device, logger):
+        corrected_file = '{}/tmp/{}.corrected.pkl'.format(out_dir, prefix)
+        if not debugging and os.path.exists(corrected_file):
+            logger.info('[1/2] resuming corrected clusters from tmp/')
+            with open(corrected_file, 'rb') as pkl:
+                circ_num, corrected_reads = _PortUnpickler(pkl).load()
+        else:
+            logger.info('[1/2] clustering + correcting candidate reads')
+            with timer.stage('cluster', items=len(cand_reads)):
+                reads_cluster = collapse_mod.cluster_reads(cand_reads)
+                logger.info('BSJ clusters: {}'.format(len(reads_cluster)))
+                idx_file = out_dir + '/tmp/ss.idx'
+                # refresh the packed-genome cache whenever the current run
+                # could not load it (absent OR stale)
+                import numpy as np
+                gcache = out_dir + '/tmp/gcodes'
+                backing = (ctx.genome.codes if ctx.genome.codes is not None
+                           else ctx.genome.packed)
+                if not isinstance(backing, np.memmap):
+                    try:
+                        ctx.genome.save_cache(gcache)
+                    except (OSError, ValueError):
+                        gcache = None
+                circ_num, corrected_reads = collapse_mod.correct_reads(
+                    ctx, reads_cluster, threads=args.threads,
+                    ref_fasta=ref_fasta,
+                    idx_file=idx_file if os.path.exists(idx_file) else None,
+                    gcache=gcache, device=device)
+            with open(corrected_file, 'wb') as pkl:
+                pickle.dump([circ_num, corrected_reads], pkl, -1)
+            logger.info('Corrected clusters: {}, {}/{}/{}/{} annotated/denovo/'
+                        'lariat/unknown'.format(
+                            len(corrected_reads), circ_num['Annotated'],
+                            circ_num['Denovo signal'],
+                            circ_num['High confidence lariat'],
+                            circ_num['Unknown signal']))
 
-    logger.info('[2/2] writing expression / isoform matrices')
-    with timer.stage('exp_mtx'):
-        circ_cnt, iso_cnt = collapse_mod.cal_exp_mtx(
-            ctx, cand_reads, corrected_reads, out_dir, prefix)
-    if device.type == 'cuda':
-        import torch
-        torch.cuda.synchronize(device)
+        logger.info('[2/2] writing expression / isoform matrices')
+        with timer.stage('exp_mtx'):
+            circ_cnt, iso_cnt = collapse_mod.cal_exp_mtx(
+                ctx, cand_reads, corrected_reads, out_dir, prefix)
+        if device.type == 'cuda':
+            import torch
+            torch.cuda.synchronize(device)
     logger.info('circRNAs: {}  isoforms: {}'.format(circ_cnt, iso_cnt))
     logger.info('kernels: {}'.format(json.dumps(
         launch_counts(COLLAPSE_KERNELS))))
     # the device time of the launches a host loop times itself
     logger.info('device ms: {}'.format(json.dumps(DEVICE_MS)))
+    out = {'circRNAs': circ_cnt, 'isoforms': iso_cnt,
+           'timing': timer.as_dict(),
+           'kernels': launch_counts(COLLAPSE_KERNELS),
+           'device_ms': dict(DEVICE_MS)}
+    out.update(summary())
+    with open('{}/{}.json'.format(out_dir, prefix), 'w') as f:
+        json.dump(out, f)
     logger.info('collapse stage done')
     return circ_cnt, iso_cnt
 
@@ -494,6 +563,11 @@ def main(argv=None):
     collapse_parser.add_argument('--debug', dest='debug', default=False,
                                  action='store_true',
                                  help='Run in debugging mode, (default: %(default)s)')
+    collapse_parser.add_argument('--profile', dest='profile', metavar='DIR',
+                                 default=None,
+                                 help='Write a torch.profiler trace of the '
+                                      'clustering, correction and matrices '
+                                      'to DIR (optional)')
     collapse_parser.set_defaults(func=collapse)
 
     args = parser.parse_args(argv)

@@ -98,6 +98,7 @@
 // a waiting thread yields its core instead of spinning.
 
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -733,15 +734,21 @@ extern "C" int poa_align_launch(int B, int Vmax, int nmax, const void* bases,
 // rows; device_ms (double [2]) the launches' summed device time and the
 // largest's (CUDA events around each launch).  With ``kept``, round
 // ``keep_round``'s inputs are copied there (int32: Rounds::copy_inputs;
-// sized by an earlier run's stats of the same jobs).  Returns 0, a
-// cudaError, or -1 when a graph has more than MAX_ROW nodes, the direction
-// word's row field.
+// sized by an earlier run's stats of the same jobs).  phase_ns (double
+// [6]) gets the steady-clock ns the loop spent in each phase, summed over
+// rounds: pack, plan, upload, device_wait (the launch to the sync's
+// return), download and fuse; with ``stamps`` (int64 [stamp_rounds, 7]), each of the first
+// stamp_rounds rounds' phase boundaries (steady_clock, ns): the start of
+// its pack, plan, upload, launch, download and fuse, and its end.  Returns
+// 0, a cudaError, or -1 when a graph has more than MAX_ROW nodes, the
+// direction word's row field.
 extern "C" int poa_consensus_run(const void* codes, const void* lens,
                                  const void* counts, int njobs, int m, int x,
                                  int o1, int e1, int o2, int e2, void* stream,
                                  void* cons, void* cons_len, void* stats,
                                  void* device_ms, int keep_round,
-                                 void* kept) {
+                                 void* kept, void* phase_ns, void* stamps,
+                                 int stamp_rounds) {
     const auto* code = static_cast<const uint8_t*>(codes);
     const auto* len = static_cast<const int32_t*>(lens);
     const auto* cnt = static_cast<const int32_t*>(counts);
@@ -753,6 +760,25 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
     const Scores s{m, x, o1, e1, o2, e2};
     for (int k = 0; k < 9; ++k) st_out[k] = 0;
     ms_out[0] = ms_out[1] = 0.0;
+    auto* phase = static_cast<double*>(phase_ns);
+    for (int k = 0; k < 6; ++k) phase[k] = 0.0;
+    auto* stamp = static_cast<int64_t*>(stamps);
+    const auto now = [] {
+        return static_cast<int64_t>(
+            std::chrono::duration_cast<std::chrono::nanoseconds>(
+                std::chrono::steady_clock::now().time_since_epoch())
+                .count());
+    };
+    // the phases of the round in flight: their start times, and the time
+    // the last one ended
+    int64_t marks[6];
+    int64_t since = now();
+    const auto mark = [&](int k) {
+        const int64_t t = now();
+        marks[k] = since;
+        phase[k] += static_cast<double>(t - since);
+        since = t;
+    };
 
     poa_graph::Rounds rounds(code, len, cnt, njobs);
     DeviceBuf d_bases, d_offs, d_preds, d_seqs, d_nv, d_ns, d_sidx, d_spill,
@@ -767,13 +793,17 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
     int rc = 0;
     for (int64_t round = 0; err == cudaSuccess; ++round) {
         const int B = rounds.pack();
-        if (B == 0) break;
+        if (B == 0) {
+            mark(0);
+            break;
+        }
         if (rounds.vmax > MAX_ROW) {
             rc = -1;
             break;
         }
         if (kept && round == keep_round)
             rounds.copy_inputs(static_cast<int32_t*>(kept));
+        mark(0);
         int C, warps, emax, depth;
         launch_shape(rounds.nmax, C, warps);
         const int spill_rows = plan_launch(
@@ -785,6 +815,7 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
                                   Wp;
         const size_t pairs = static_cast<size_t>(B) *
                              (rounds.vmax + rounds.nmax + 1);
+        mark(1);
         if ((err = upload(d_bases, rounds.bases, st)) != cudaSuccess ||
             (err = upload(d_offs, rounds.offs, st)) != cudaSuccess ||
             (err = upload(d_preds, rounds.preds, st)) != cudaSuccess ||
@@ -800,6 +831,7 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
             (err = d_aln.reserve(pairs * 8, st)) != cudaSuccess ||
             (err = cudaEventRecord(start, st)) != cudaSuccess)
             break;
+        mark(2);
         rc = launch(B, rounds.vmax, rounds.nmax, C, warps, emax, depth,
                     static_cast<const uint8_t*>(d_bases.ptr),
                     static_cast<const int32_t*>(d_offs.ptr),
@@ -820,6 +852,7 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
             (err = cudaEventRecord(done, st)) != cudaSuccess ||
             (err = cudaEventSynchronize(done)) != cudaSuccess)
             break;
+        mark(3);
         acnt.resize(B);
         aln.resize(2 * pairs);
         float ms = 0.f;
@@ -832,6 +865,7 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
                 cudaSuccess ||
             (err = cudaEventElapsedTime(&ms, start, stop)) != cudaSuccess)
             break;
+        mark(4);
         ms_out[0] += ms;
         if (rounds.cells > st_out[6]) {
             st_out[1] = round;
@@ -845,6 +879,12 @@ extern "C" int poa_consensus_run(const void* codes, const void* lens,
             ms_out[1] = ms;
         }
         rounds.fuse_all(aln.data(), acnt.data());
+        mark(5);
+        if (stamp && round < stamp_rounds) {
+            int64_t* row = stamp + round * 7;
+            for (int k = 0; k < 6; ++k) row[k] = marks[k];
+            row[6] = since;
+        }
     }
     for (DeviceBuf* buf : {&d_bases, &d_offs, &d_preds, &d_seqs, &d_nv,
                            &d_ns, &d_sidx, &d_spill, &d_dir, &d_score,

@@ -32,8 +32,7 @@ from ciri_long_tpu_torch.models.minimizer import MinimizerIndex, minimizers
 from ciri_long_tpu_torch.ops.traceback import (banded_global_cigar,
                                                extend_align,
                                                splice_junction_align)
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
-from ciri_long_tpu_torch.utils.dispatch import resolve_device
+from ciri_long_tpu_torch.utils.dispatch import resolve_device, span
 
 MIN_INTRON = 30        # ref gap at least this long becomes an N op
 CHAIN_WINDOW = 64      # predecessors examined per anchor
@@ -247,7 +246,7 @@ class GenomeAligner:
         return selected
 
     # ------------------------------------------------------------------
-    @_count_dispatch('aligner.map_batch')
+    @span('aligner.map_batch')
     def map_batch(self, seqs, max_anchors: Optional[int] = 8192,
                   device='cuda') -> List[List[Hit]]:
         """Batched map(): one anchor table per (read, strand) row (the first

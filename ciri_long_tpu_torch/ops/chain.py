@@ -32,8 +32,8 @@ import ctypes.util
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
+                                                span)
 
 CHAIN_WINDOW = 64      # predecessors a step (models/aligner.py::CHAIN_WINDOW)
 MAX_GAP_Q = 5000       # the query gap map_batch chains under
@@ -253,7 +253,7 @@ def chain_dp_cuda(offs, r, q, ctg, k, window=CHAIN_WINDOW,
     return f, pre
 
 
-@_count_dispatch('chain_scores_batch')
+@span('chain_scores_batch')
 def chain_scores_batch(r, q, ctg, valid, k, window=CHAIN_WINDOW,
                        max_gap_r=200_000, max_gap_q=5_000, device='cuda'):
     """JAX's chain_scores_batch (ciri_long_tpu/ops/chain.py:82-100) on
@@ -360,7 +360,7 @@ def chain_extract_cuda(offs, f, pre, min_score, min_anchors, max_chains,
     return cid, scores, nch
 
 
-@_count_dispatch('chain_extract_batch')
+@span('chain_extract_batch')
 def chain_extract_batch(offs, r, q, ctg, min_score, k, window=CHAIN_WINDOW,
                         max_gap_r=200_000, max_gap_q=MAX_GAP_Q,
                         max_chains=10, min_anchors=3, device='cuda'):
@@ -421,7 +421,7 @@ def decode_chain_ids(offs, cid, scores, nch):
     return out
 
 
-@_count_dispatch('chain.backtrack')
+@span('chain.backtrack')
 def backtrack_chains(f, pre, valid, min_score, min_anchors, max_chains=10):
     """Greedy per-read chain extraction from (f, pre), identical to
     models/aligner.py::_chain's backtrack.  Native C++ core when built

@@ -32,8 +32,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
+                                                span)
 
 BIG = 1 << 28
 
@@ -190,7 +190,7 @@ def _lengths(lens, B, L, name):
     return lens
 
 
-@_count_dispatch('edit_distance_batch')
+@span('edit_distance_batch')
 def edit_distance_batch(a, b, alen=None, blen=None, device='cuda'):
     """Edit distances of padded code batches on ``device``: numpy a [B, La],
     b [B, Lb] and lengths [B] (default: the full widths) in, numpy int32 [B]

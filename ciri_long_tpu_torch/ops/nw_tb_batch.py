@@ -57,8 +57,7 @@ import numpy as np
 import torch
 
 from ciri_long_tpu_torch.utils.dispatch import (count_launch, count_route,
-                                                resolve_device)
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+                                                resolve_device, span)
 
 NEG = -(1 << 28)
 HALF_NEG = NEG // 2
@@ -563,7 +562,7 @@ def _launch(h, sel, band):
         h.pending.append((sel[launch.pairs], band[launch.pairs], out, runs))
 
 
-@_count_dispatch('nw_tb_submit')
+@span('nw_tb_submit')
 def nw_traceback_submit(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
                         match=2, mismatch=4, gap_open=4, gap_extend=2,
                         device='cuda') -> NwHandle:
@@ -627,7 +626,7 @@ class NwRuns:
         self.addr[t] = entries.ctypes.data if len(entries) else 0
 
 
-@_count_dispatch('nw_tb_collect')
+@span('nw_tb_collect')
 def nw_traceback_collect_runs(h: NwHandle) -> NwRuns:
     """Read the handle's launches back and finish the band ladder: a pair is
     done when its band covers max(n, m) or both bands' scores agree (the
@@ -680,7 +679,7 @@ def nw_traceback_collect(h: NwHandle) -> List[Tuple[int, list]]:
     return [(int(res.score[t]), res.cigar(t)) for t in range(len(res.score))]
 
 
-@_count_dispatch('nw_tb_batch')
+@span('nw_tb_batch')
 def nw_traceback_batch(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
                        match=2, mismatch=4, gap_open=4, gap_extend=2,
                        device='cuda') -> List[Tuple[int, list]]:

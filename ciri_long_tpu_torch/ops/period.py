@@ -45,8 +45,7 @@ import numpy as np
 import torch
 
 from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
-                                                route_tally)
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+                                                route_tally, span)
 
 PAD = 5
 # the JAX screen's length ladder: a read is screened at its bucket's lags
@@ -195,7 +194,7 @@ def tandem_counts_cuda(reads, max_lag, k=11, lag_offset=0, routes=None):
     return out
 
 
-@_count_dispatch('tandem_counts')
+@span('tandem_counts')
 def tandem_counts(reads, max_lag, k=11, lag_offset=0, pad_lags=None,
                   device='cuda'):
     """JAX's ``tandem_counts`` on ``device``: numpy reads int8 [B, L] (PAD
@@ -293,7 +292,7 @@ def lag_profile_cuda(reads, max_lag, lag_offset=0):
     return out
 
 
-@_count_dispatch('lag_profile')
+@span('lag_profile')
 def lag_profile(reads, max_lag, lag_offset=0, pad_lags=None, device='cuda'):
     """JAX's ``lag_profile`` (ciri_long_tpu/ops/period.py:55) on
     ``device``: numpy reads int8 [B, L] (PAD = 5), lags lag_offset + 1 ..
@@ -501,7 +500,7 @@ def screen_keep_cuda(reads, lengths, max_lag, k=11, min_period=30,
     return keep.bool()
 
 
-@_count_dispatch('screen_keep')
+@span('screen_keep')
 def screen_keep(reads, lengths, max_lag, k=11, min_period=30, min_units=2.0,
                 device='cuda'):
     """The screen of padded reads on ``device``: numpy reads int8 [B, W]

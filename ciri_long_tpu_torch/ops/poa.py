@@ -33,6 +33,7 @@ place of its P <= 8 slots, so no alignment falls back to the native core).
 The results are byte-identical on every route.
 """
 
+import contextlib
 import sys
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -390,6 +391,12 @@ def poa_consensus_many_plain(jobs: Sequence[Sequence], m: int = 10,
 
 
 _STREAMS = threading.local()
+# the phases of csrc/poa_align.cu's round loop (its phase_ns), counted as
+# ``poa.ns.<phase>``
+PHASES = ('pack', 'plan', 'upload', 'device_wait', 'download', 'fuse')
+# while ``keep_round_stamps`` is open: (native thread id, int64 [rounds, 7]
+# phase boundaries of each round, CLOCK_MONOTONIC ns) of each call
+_ROUND_STAMPS = None
 # the fields of csrc/poa_align.cu::poa_consensus_run's stats, after
 # 'launches' those of its largest launch (by cells), its plan's ring depth
 # and spill rows last
@@ -411,18 +418,49 @@ def _thread_stream(device):
     return streams[device]
 
 
+@contextlib.contextmanager
+def keep_round_stamps():
+    """Inside, every call of the round loop on the card keeps its rounds'
+    phase boundaries; yields the list of (native thread id, int64 [rounds,
+    7] CLOCK_MONOTONIC ns: the start of each round's pack, plan, upload,
+    launch, download and fuse, and its end) that they append to."""
+    global _ROUND_STAMPS
+    _ROUND_STAMPS = kept = []
+    try:
+        yield kept
+    finally:
+        _ROUND_STAMPS = None
+
+
+def round_events(kept, to_us, pid):
+    """Chrome trace events ('X', complete) of ``keep_round_stamps``'s
+    rounds, a phase each, named ``poa.<phase>`` on the thread that ran it;
+    ``to_us`` takes CLOCK_MONOTONIC ns to the trace's microseconds."""
+    events = []
+    for tid, stamps in kept:
+        for r, row in enumerate(stamps.tolist()):
+            at = [to_us(t) for t in row]
+            for k, phase in enumerate(PHASES):
+                events.append({
+                    'ph': 'X', 'cat': 'poa_round', 'name': 'poa.' + phase,
+                    'pid': pid, 'tid': tid, 'ts': at[k],
+                    'dur': at[k + 1] - at[k], 'args': {'round': r}})
+    return events
+
+
 def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
     """``poa_consensus_many`` on the card: one call of csrc/poa_align.cu's
     round loop for all the jobs.  ``stats`` (a dict) gets the loop's counts
     (STATS_FIELDS, 'device_ms', 'largest_ms'); ``keep`` is an earlier such
     dict of the same jobs, whose largest launch's inputs are kept and
-    returned beside the consensus list."""
+    returned beside the consensus list.  The loop's ns a phase go to the
+    counters ``poa.ns.<phase>``."""
     import torch
 
     from ciri_long_tpu_torch.ops import _build
     from ciri_long_tpu_torch.ops.poa_batch import (MAX_ROW, SYMBOLS,
                                                    split_inputs)
-    from ciri_long_tpu_torch.utils.dispatch import count_launch
+    from ciri_long_tpu_torch.utils.dispatch import count, count_launch
 
     codes, as_str = _queues(jobs)
     lens = np.array([len(c) for q in codes for c in q], np.int32)
@@ -433,6 +471,12 @@ def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
     cons_len = np.zeros(max(1, len(jobs)), np.int32)
     counted = np.zeros(len(STATS_FIELDS), np.int64)
     device_ms = np.zeros(2, np.float64)
+    phase_ns = np.zeros(len(PHASES), np.float64)
+    kept_stamps = _ROUND_STAMPS
+    stamps = None
+    if kept_stamps is not None:
+        # a round a sequence after each job's first, at most
+        stamps = np.zeros((max(1, int(counts.max(initial=0))), 7), np.int64)
     kept, shape = None, None
     if keep is not None:
         shape = [keep['largest_' + k]
@@ -449,10 +493,18 @@ def _poa_consensus_cuda(jobs, scores, device, stats=None, keep=None):
             *scores, stream.cuda_stream, cons.ctypes.data,
             cons_len.ctypes.data, counted.ctypes.data, device_ms.ctypes.data,
             -1 if keep is None else keep['largest_round'],
-            None if kept is None else kept.ctypes.data)
+            None if kept is None else kept.ctypes.data,
+            phase_ns.ctypes.data,
+            None if stamps is None else stamps.ctypes.data,
+            0 if stamps is None else len(stamps))
     if counted[0]:
         count_launch('poa_align', times=int(counted[0]),
                      device_ms=float(device_ms[0]))
+    for phase, ns in zip(PHASES, phase_ns.tolist()):
+        count('poa.ns.' + phase, ns)
+    if stamps is not None and counted[0]:
+        kept_stamps.append((threading.get_native_id(),
+                            stamps[:min(len(stamps), int(counted[0]))]))
     if rc == -1:
         raise ValueError('poa_consensus_many: a graph has more than {} '
                          "nodes, past csrc/poa_align.cu's direction "

@@ -217,7 +217,8 @@ SYMBOLS = {
                          ctypes.c_int),
     'poa_consensus_run': ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p] * 5
-                          + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+                          + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                          + [ctypes.c_int], ctypes.c_int),
 }
 # the largest row csrc/poa_align.cu's direction word holds (its row field,
 # 30 bits): graphs of more nodes are refused

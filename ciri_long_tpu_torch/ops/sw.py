@@ -27,8 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
+                                                span)
 
 NEG = -(1 << 28)
 PAD = 5
@@ -442,7 +442,7 @@ def _result(fields) -> SWResult:
                     ref_begin=r_begin, ref_end=r_end)
 
 
-@_count_dispatch('sw_align_batch')
+@span('sw_align_batch')
 def sw_align_batch(query, ref, params: SWParams, device='cuda') -> SWResult:
     """Batched SW with begin and end coordinates on ``device``.
 

@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from ciri_long_tpu_torch.ops.sw import BLOCK_SMEM
-from ciri_long_tpu_torch.utils.dispatch import count_launch, resolve_device
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
+from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
+                                                span)
 
 NEG = -(1 << 28)
 PAD = 5
@@ -394,7 +394,7 @@ def _chunks(qs, rs):
         yield lo, len(qs)
 
 
-@_count_dispatch('sw_traceback_batch')
+@span('sw_traceback_batch')
 def sw_traceback_batch(qs: Sequence[np.ndarray], rs: Sequence[np.ndarray],
                        match=1, mismatch=1, gap_open=1, gap_extend=1,
                        device='cuda') -> List[Optional[Tuple]]:

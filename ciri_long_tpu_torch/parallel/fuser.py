@@ -1,7 +1,7 @@
 """Cross-cluster dispatch fusion for the collapse stage.
 
-A copy of ``ciri_long_tpu/parallel/fuser.py`` (it imports only threading,
-time and concurrent.futures; the port keeps its own copy).
+The port's own copy of ``ciri_long_tpu/parallel/fuser.py``, with the
+accounting below added.
 
 The collapse correction pass runs clusters on worker threads
 (pipeline/collapse.py::correct_chunk); each cluster's control flow is a
@@ -23,11 +23,19 @@ dispatches.
 
 No reference analog: the reference's collapse loop is ~2500 serial SSW
 calls per cluster (collapse.py:161-173).
+
+Accounting (utils/dispatch.py): a worker's wait is its state ``fuser.wait``;
+the dispatcher's spans are ``fuser.linger`` (jobs pending while it is free
+and its fire rule is not yet met) and ``fuser.run.<kind>``; each round adds
+one to ``fuser.fire.<reason>`` (``all_blocked``, ``linger`` or ``stop``,
+so they sum to ``rounds``) and its jobs to ``fuser.jobs.<kind>``.
 """
 
 import threading
 import time
 from concurrent.futures import Future
+
+from ciri_long_tpu_torch.utils.dispatch import count, span, state
 
 _BY_THREAD = {}          # thread ident -> fuser (worker registration)
 
@@ -53,9 +61,10 @@ class DeviceFuser:
 
     def __init__(self, executors, linger_s=0.02):
         self._executors = executors
-        self._linger = linger_s
+        self._linger_ns = int(linger_s * 1e9)
         self._cv = threading.Condition()
         self._pending = []            # (kind, payload, Future)
+        self._first_ns = 0            # perf_counter_ns of the oldest job
         self._workers = set()         # registered thread idents
         self._blocked = 0
         self._stop = False
@@ -84,18 +93,19 @@ class DeviceFuser:
     def call(self, kind, payload):
         """Submit one job and block until its fused round completes."""
         fut = Future()
-        with self._cv:
-            if not self._pending:
-                self._first_ts = time.monotonic()
-            self._pending.append((kind, payload, fut))
-            self._blocked += 1
-            self._cv.notify_all()
-        try:
-            return fut.result()
-        finally:
+        with state('fuser.wait'):
             with self._cv:
-                self._blocked -= 1
+                if not self._pending:
+                    self._first_ns = time.perf_counter_ns()
+                self._pending.append((kind, payload, fut))
+                self._blocked += 1
                 self._cv.notify_all()
+            try:
+                return fut.result()
+            finally:
+                with self._cv:
+                    self._blocked -= 1
+                    self._cv.notify_all()
 
     def close(self):
         with self._cv:
@@ -104,35 +114,50 @@ class DeviceFuser:
         self._thread.join()
 
     # -- dispatcher side ------------------------------------------------
-    _first_ts = 0.0
+    def _fire_reason(self):
+        """Why the pending jobs go now, or None (called under the lock)."""
+        if self._stop:
+            return 'stop'
+        if self._blocked >= len(self._workers):
+            return 'all_blocked'
+        if time.perf_counter_ns() - self._first_ns >= self._linger_ns:
+            return 'linger'
+        return None
+
+    def _next_batch(self):
+        """(pending jobs, fire reason) once the fire rule is met; (None,
+        None) once closed with nothing pending."""
+        free = time.perf_counter_ns()
+        with self._cv:
+            while not self._pending:
+                if self._stop:
+                    return None, None
+                self._cv.wait(0.25)
+            reason = self._fire_reason()
+            if reason is None:
+                with span('fuser.linger',
+                          start_ns=max(free, self._first_ns)):
+                    while reason is None:
+                        left = self._linger_ns - (time.perf_counter_ns()
+                                                  - self._first_ns)
+                        self._cv.wait(max(5e-4, left / 1e9))
+                        reason = self._fire_reason()
+            batch, self._pending = self._pending, []
+        return batch, reason
 
     def _dispatch_loop(self):
         while True:
-            with self._cv:
-                while True:
-                    if self._stop and not self._pending:
-                        return
-                    if self._pending:
-                        all_blocked = (self._workers
-                                       and self._blocked
-                                       >= len(self._workers))
-                        age = time.monotonic() - self._first_ts
-                        if (self._stop or all_blocked
-                                or age >= self._linger
-                                or not self._workers):
-                            break
-                        self._cv.wait(max(5e-4, self._linger - age))
-                    else:
-                        self._cv.wait(0.25)
-                batch = self._pending
-                self._pending = []
+            batch, reason = self._next_batch()
+            if batch is None:
+                return
             by_kind = {}
             for kind, payload, fut in batch:
                 by_kind.setdefault(kind, []).append((payload, fut))
             for kind, jobs in by_kind.items():
                 try:
-                    results = self._executors[kind](
-                        [p for p, _ in jobs])
+                    with span('fuser.run.' + kind):
+                        results = self._executors[kind](
+                            [p for p, _ in jobs])
                     if len(results) != len(jobs):
                         raise RuntimeError(
                             'fused executor %r returned %d results for '
@@ -145,3 +170,5 @@ class DeviceFuser:
                     fut.set_result(res)
                 self.rounds += 1
                 self.jobs += len(jobs)
+                count('fuser.fire.' + reason)
+                count('fuser.jobs.' + kind, len(jobs))

@@ -26,6 +26,12 @@ edit-distance, traceback and sub-cluster POA call:
     workers.
 Either way the output is byte-identical to the JAX package's.
 
+Accounting (utils/dispatch.py): each cluster is the span
+``collapse.cluster`` on its thread, split into the states ``fuser.wait``,
+``poa.rounds``, ``collapse.junction_poa``, ``collapse.rotation_tb`` and the
+rest, ``collapse.cluster_host``; a pooled chunk adds the thread-seconds its
+pool left idle to ``pool.tail_thread_s``.
+
 Batched hot paths (SURVEY.md §7):
   * curate_junction -- the reference's hottest loop (~2500 SSW calls per
     cluster, collapse.py:161-173) becomes ONE batched [pairs] SW plus one
@@ -46,7 +52,7 @@ Deliberate, documented deviations from the reference:
 
 import logging
 import os
-import threading
+import time
 from collections import Counter, defaultdict, namedtuple
 from pathlib import Path
 
@@ -69,7 +75,8 @@ from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
 from ciri_long_tpu_torch.ops.traceback import cigar_to_string
 from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
 from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
-from ciri_long_tpu_torch.utils.dispatch import resolve_device
+from ciri_long_tpu_torch.utils.dispatch import (count, counters,
+                                                resolve_device, span, state)
 from ciri_long_tpu_torch.utils.logger import ProgressBar
 from ciri_long_tpu_torch.utils.misc import (flatten, grouper,
                                             min_sorted_items, pairwise)
@@ -417,23 +424,18 @@ def junc_scores_sorted(ctx, ctg, juncs, junc_seqs, device='cuda'):
     return [juncs[int(i)] for i in order]
 
 
-_FUSER_TOTALS = [0, 0]            # fused rounds, fused jobs (telemetry)
-_FUSER_TOTALS_LOCK = threading.Lock()
-
-
 def _device_fuser(device):
     """A DeviceFuser of the SW and edit-distance jobs on ``device``."""
     return DeviceFuser({'sw': lambda jobs: _fused_sw(jobs, device),
                         'edit': lambda jobs: _fused_edit(jobs, device)})
 
 
-def _close_fuser(fuser):
-    """Stop ``fuser`` and add its rounds and jobs to the totals that the
-    ``collapse fuser:`` log line reads."""
-    fuser.close()
-    with _FUSER_TOTALS_LOCK:
-        _FUSER_TOTALS[0] += fuser.rounds
-        _FUSER_TOTALS[1] += fuser.jobs
+def _correct_one(ctx, cluster, max_cluster, device):
+    """correct_cluster as the span ``collapse.cluster`` of this thread, the
+    time outside its other states going to ``collapse.cluster_host``."""
+    with span('collapse.cluster'), state('collapse.cluster_host'):
+        return correct_cluster(ctx, cluster, max_cluster=max_cluster,
+                               device=device)
 
 
 def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
@@ -448,7 +450,10 @@ def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
     the GIL and run side by side (funnelling them through one dispatcher
     would serialise them).  The fold runs in submission (index) order
     either way, keeping counters and corrected_reads byte-identical to a
-    serial run."""
+    serial run.  A pooled chunk adds to ``pool.tail_thread_s`` its wall
+    time times the pool's width less its clusters' thread-seconds: the
+    time its threads sat idle, mostly waiting for the chunk's last
+    clusters."""
     device = resolve_device(device)
     results = [None] * len(chunk)
     live = {i: c for i, c in enumerate(chunk) if c is not None}
@@ -456,30 +461,36 @@ def correct_chunk(ctx, chunk, max_cluster=200, exec_threads=1,
         from concurrent.futures import ThreadPoolExecutor
 
         fuser = _device_fuser(device) if device.type == 'cuda' else None
+        busy_ns = []
 
         def run_one(c):
+            t0 = time.perf_counter_ns()
             if fuser is not None:
                 fuser.register()
             try:
-                return correct_cluster(ctx, c, max_cluster=max_cluster,
-                                       device=device)
+                return _correct_one(ctx, c, max_cluster, device)
             finally:
                 if fuser is not None:
                     fuser.unregister()
+                busy_ns.append(time.perf_counter_ns() - t0)
 
+        width = min(exec_threads, len(live))
+        start = time.perf_counter_ns()
         try:
-            with ThreadPoolExecutor(min(exec_threads, len(live))) as ex:
+            with ThreadPoolExecutor(
+                    width, thread_name_prefix='collapse-cluster') as ex:
                 futs = {i: ex.submit(run_one, c) for i, c in live.items()}
                 for i, fut in futs.items():
                     results[i] = fut.result()
         finally:
             if fuser is not None:
-                _close_fuser(fuser)
+                fuser.close()
+        count('pool.tail_thread_s',
+              ((time.perf_counter_ns() - start) * width - sum(busy_ns))
+              / 1e9)
     else:
         for i, cluster in live.items():
-            results[i] = correct_cluster(ctx, cluster,
-                                         max_cluster=max_cluster,
-                                         device=device)
+            results[i] = _correct_one(ctx, cluster, max_cluster, device)
 
     cs_cluster = []
     cnt = defaultdict(int)
@@ -525,7 +536,8 @@ def correct_cluster(ctx, cluster, is_debug=False, max_cluster=200,
             tmp = transform_seq(q.seq, int(qb))
             junc_seqs.append(get_junc_seq(tmp, -max(head_pos) // 2, cfg.junc_width))
 
-    cs_junc, _ = poa(junc_seqs, 2, False, 10, -4, -8, -2, -24, -1)
+    with state('collapse.junction_poa'):
+        cs_junc, _ = poa(junc_seqs, 2, False, 10, -4, -8, -2, -24, -1)
 
     ctg = Counter([i.circ_id.split(':')[0] for i in cluster]).most_common()[0][0]
     tmp_st = [int(i.circ_id.split(':')[1].split('-')[0]) for i in cluster]
@@ -646,11 +658,14 @@ def correct_cluster(ctx, cluster, is_debug=False, max_cluster=200,
 
     # rotation alignments: the whole cluster in one call, one kernel launch
     # on the card, the host DP per read on the CPU (byte-identical)
-    tb_all = sw_traceback_batch(
-        [encode_seq(q.seq * 2) for q in tmp_cluster],
-        [junc_ref] * len(tmp_cluster),
-        JUNC_SW.match, JUNC_SW.mismatch,
-        JUNC_SW.gap_open, JUNC_SW.gap_extend, device) if tmp_cluster else []
+    tb_all = []
+    if tmp_cluster:
+        with state('collapse.rotation_tb'):
+            tb_all = sw_traceback_batch(
+                [encode_seq(q.seq * 2) for q in tmp_cluster],
+                [junc_ref] * len(tmp_cluster),
+                JUNC_SW.match, JUNC_SW.mismatch,
+                JUNC_SW.gap_open, JUNC_SW.gap_extend, device)
 
     for query, tb in zip(tmp_cluster, tb_all):
         if tb is None:
@@ -801,8 +816,9 @@ def cluster_sequence(hpc_freq, sequence, cfg=DEFAULT.collapse, device='cuda'):
         slots.append(len(ccs_seq))
         ccs_seq.append((None, cluster_reads))
     if jobs:
-        for slot, ccs in zip(slots, poa_consensus_many(jobs,
-                                                       device=device)):
+        with state('poa.rounds'):
+            done = poa_consensus_many(jobs, device=device)
+        for slot, ccs in zip(slots, done):
             ccs_seq[slot] = (ccs, ccs_seq[slot][1])
     return ccs_seq
 
@@ -1150,6 +1166,7 @@ def _device_chunks(ctx, device):
     return run, fuser
 
 
+@span('collapse.correct_reads')
 def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
                   ref_fasta=None, idx_file=None, gcache=None, device='cuda'):
     """The cluster-correction pass (collapse.py:842-868) on ``device``.
@@ -1165,6 +1182,7 @@ def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
     either way."""
     device = resolve_device(device)
     use_device = device.type == 'cuda'
+    fused_before = _fuser_totals()
 
     prog = ProgressBar()
     prog.update(0)
@@ -1225,18 +1243,27 @@ def correct_reads(ctx, reads_cluster, cfg=DEFAULT.collapse, threads=1,
             pool.terminate()
             pool.join()
         if fuser is not None:
-            _close_fuser(fuser)
+            fuser.close()
     prog.update(100)
     if drain is not None:
         LOGGER.info('hybrid collapse: device stole %d/%d chunks'
                     % (drain.stolen, len(chunks)))
-    with _FUSER_TOTALS_LOCK:
-        rounds, jobs = _FUSER_TOTALS
-        _FUSER_TOTALS[0] = _FUSER_TOTALS[1] = 0
+    rounds, jobs = (a - b for a, b in zip(_fuser_totals(), fused_before))
     if jobs:
         LOGGER.info('collapse fuser: %d device ops fused into %d rounds'
                     % (jobs, rounds))
     return circ_num, corrected_reads
+
+
+def _fuser_totals():
+    """(rounds, jobs) the fusers have run, from their counters."""
+    rounds = jobs = 0
+    for name, value in counters().items():
+        if name.startswith('fuser.fire.'):
+            rounds += value
+        elif name.startswith('fuser.jobs.'):
+            jobs += value
+    return rounds, jobs
 
 
 def circ_pos(x):

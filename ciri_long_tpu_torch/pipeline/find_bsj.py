@@ -52,8 +52,7 @@ from ciri_long_tpu_torch.ops.sw import (SWParams, sw_align_batch,
                                         sw_window_align,
                                         sw_window_align_many)
 from ciri_long_tpu_torch.parallel.hybrid import HybridDrain
-from ciri_long_tpu_torch.utils.dispatch import count_dispatch as _count_dispatch
-from ciri_long_tpu_torch.utils.dispatch import resolve_device
+from ciri_long_tpu_torch.utils.dispatch import resolve_device, span
 
 LOGGER = logging.getLogger('CIRI-long')
 
@@ -295,7 +294,7 @@ def align_clip_segments(ctx, circ, hit, cfg=DEFAULT.call, device='cuda'):
                         meta)
 
 
-@_count_dispatch('clip_sw_batch')
+@span('clip_sw_batch')
 def align_clip_segments_batch(ctx, items, cfg=DEFAULT.call, device='cuda'):
     """Clip re-alignment (reference align_clip_segments, find_bsj.py:182-233)
     over (circ, hit) pairs: all short-window SW alignments in a chunk run

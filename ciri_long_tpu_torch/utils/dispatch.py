@@ -1,4 +1,5 @@
-"""Device resolution, kernel launch counters and dispatch accounting.
+"""Device resolution, kernel launch counters, and the spans and counters of
+the host's work.
 
 ``resolve_device`` turns the CLI's ``--device`` into a ``torch.device`` and
 raises when CUDA is asked for and absent: the port never carries on on the
@@ -13,24 +14,28 @@ launches of each kernel's routes beside it, and ``DEVICE_MS`` the device
 time of the launches that a host loop times itself (csrc/poa_align.cu's
 round loop, CUDA events around each launch).
 
-``count_dispatch`` is the JAX package's env-gated accounting decorator
-(``ciri_long_tpu/utils/dispatch.py:24``): set CIRI_DISPATCH_STATS=1 and every
-wrapped entry point accumulates (calls, wall seconds), printed to stderr at
-exit.  Zero overhead when the variable is unset.
+``span(name)`` (a context manager or a decorator) adds a call and its
+nanoseconds (``time.perf_counter_ns``, CLOCK_MONOTONIC) to a table of the
+calling thread; ``state(name)`` does the same, but a state entered inside
+another takes its time from it, so the states a thread passes through sum
+to the span that holds them.  ``count(name, n)`` adds to a counter in the
+same table.  Each thread keeps its own table, so the hot path takes no
+lock; ``summary()`` merges them.  While a ``torch.profiler`` records, a span
+or state also opens a ``record_function`` of its name on the calling
+thread, which puts it on the device trace's clock; otherwise it costs two
+clock reads and a dict update.  ``SPAN_NAMES`` names every span, state and
+counter the program opens.  ``reset_launches`` clears the tables with the
+launch counts.
 """
 
-import atexit
+import array
 import functools
-import os
-import sys
 import threading
 import time
-from collections import defaultdict
 
+import numpy as np
 import torch
-
-_ENABLED = os.environ.get('CIRI_DISPATCH_STATS') not in (None, '', '0')
-_STATS = defaultdict(lambda: [0, 0.0])
+import torch.autograd.profiler as _profiler
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
@@ -122,12 +127,17 @@ def settle_routes():
 
 
 def reset_launches():
+    """Zero the launch counts, the device times, and every thread's spans
+    and counters."""
     settle_routes()
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
     for name in DEVICE_MS:
         DEVICE_MS[name] = 0.0
+    with _LAUNCH_LOCK:
+        _TABLES.clear()
+        _GENERATION[0] += 1
 
 
 def launch_counts(names=None):
@@ -151,37 +161,244 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
-def count_dispatch(name):
-    def deco(fn):
-        if not _ENABLED:
-            return fn
+# every span, state and counter the program opens or adds to, with what it
+# times or counts (spans and states in seconds of a thread, counters in
+# their own unit)
+SPAN_NAMES = {
+    # batched entry points (a span each call)
+    'aligner.map_batch': 'models/aligner.py: one batch of reads mapped',
+    'sw_align_batch': 'ops/sw.py: one batch of SW alignments',
+    'edit_distance_batch': 'ops/edit.py: one batch of edit distances',
+    'sw_traceback_batch': 'ops/sw_tb_batch.py: one batch of SW tracebacks',
+    'chain_scores_batch': 'ops/chain.py: one batch of chaining DPs',
+    'chain_extract_batch': 'ops/chain.py: chains extracted from a batch',
+    'chain.backtrack': 'ops/chain.py: host backtrack of chains',
+    'tandem_counts': 'ops/period.py: lag-range tandem counts',
+    'lag_profile': 'ops/period.py: lag profile',
+    'screen_keep': 'ops/period.py: the tandem screen',
+    'nw_tb_submit': 'ops/nw_tb_batch.py: NW traceback jobs submitted',
+    'nw_tb_collect': 'ops/nw_tb_batch.py: NW traceback results collected',
+    'nw_tb_batch': 'ops/nw_tb_batch.py: one batch of NW tracebacks',
+    'clip_sw_batch': 'pipeline/find_bsj.py: clip SW of a batch of reads',
+    # the stages of call and collapse (utils/logger.py::StageTimer)
+    'stage.ccs': 'call [1/4]: cyclic consensus',
+    'stage.scan_ccs': 'call [2/4]: consensus reads scanned',
+    'stage.recover_ccs': 'call [3/4]: short consensus reads recovered',
+    'stage.scan_raw': 'call [4/4]: raw reads scanned',
+    'stage.cluster': 'collapse [1/2]: clustering and correction',
+    'stage.exp_mtx': 'collapse [2/2]: expression and isoform matrices',
+    # collapse's correction pass (pipeline/collapse.py)
+    'collapse.correct_reads': 'the correction pass of collapse',
+    'collapse.cluster': 'one cluster corrected, on its thread; the sum of '
+                        'the five states below',
+    'collapse.cluster_host': 'state: host work of a cluster outside the '
+                             'four below',
+    'fuser.wait': 'state: a cluster thread waits on a fused SW or edit '
+                  'round (parallel/fuser.py)',
+    'poa.rounds': 'state: sub-cluster POA consensus (ops/poa.py::'
+                  'poa_consensus_many)',
+    'collapse.junction_poa': "state: the host POA of a cluster's junction "
+                             'windows',
+    'collapse.rotation_tb': 'state: the rotation SW tracebacks of a '
+                            'cluster (sw_traceback_batch)',
+    'pool.tail_thread_s': 'counter: s a chunk left its cluster threads '
+                          'idle (its wall x pool width - cluster seconds)',
+    # the fuser's dispatcher thread (parallel/fuser.py)
+    'fuser.linger': 'jobs pending, the dispatcher free, its fire rule not '
+                    'yet met',
+    'fuser.run.sw': 'a fused SW round run',
+    'fuser.run.edit': 'a fused edit-distance round run',
+    'fuser.fire.all_blocked': 'counter: rounds fired as every registered '
+                              'thread waited',
+    'fuser.fire.linger': 'counter: rounds fired as the oldest job reached '
+                         'the linger',
+    'fuser.fire.stop': 'counter: rounds fired as the fuser closed',
+    'fuser.jobs.sw': 'counter: SW jobs fused',
+    'fuser.jobs.edit': 'counter: edit-distance jobs fused',
+    # csrc/poa_align.cu's round loop, ns of steady clock a phase (thread-
+    # summed)
+    'poa.ns.pack': "counter: ns packing a round's jobs",
+    'poa.ns.plan': "counter: ns planning a round's launch",
+    'poa.ns.upload': "counter: ns copying a round's inputs to the card",
+    'poa.ns.device_wait': 'counter: ns from the launch to the sync',
+    'poa.ns.download': "counter: ns copying a round's alignments back",
+    'poa.ns.fuse': "counter: ns fusing a round's alignments into graphs",
+}
+
+# threads' tables since the last reset_launches, and its count
+_TABLES = []
+_GENERATION = [0]
+_LOCAL = threading.local()
+
+
+class _Table:
+    """One thread's spans (name -> [calls, ns, array of start, end ns]),
+    counters (name -> value) and stack of open states ([name, since ns,
+    calls])."""
+
+    __slots__ = ('thread', 'generation', 'spans', 'counts', 'states')
+
+    def __init__(self, thread, generation):
+        self.thread = thread
+        self.generation = generation
+        self.spans = {}
+        self.counts = {}
+        self.states = []
+
+    def add(self, name, t0, t1, calls=1):
+        entry = self.spans.get(name)
+        if entry is None:
+            entry = self.spans[name] = [0, 0, array.array('q')]
+        entry[0] += calls
+        entry[1] += t1 - t0
+        entry[2].append(t0)
+        entry[2].append(t1)
+
+    def enter_state(self, name, now, calls=1):
+        if self.states:
+            top = self.states[-1]
+            self.add(top[0], top[1], now, 0)
+        self.states.append([name, now, calls])
+
+    def exit_state(self, now):
+        name, since, calls = self.states.pop()
+        self.add(name, since, now, calls)
+        if self.states:
+            self.states[-1][1] = now
+
+
+def _table():
+    table = getattr(_LOCAL, 'table', None)
+    if table is None or table.generation != _GENERATION[0]:
+        with _LAUNCH_LOCK:
+            table = _LOCAL.table = _Table(threading.current_thread().name,
+                                          _GENERATION[0])
+            _TABLES.append(table)
+    return table
+
+
+def _record(name):
+    """An open ``record_function(name)`` while a profiler records, else
+    None."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    rf = _profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class span:
+    """Time a block (``with span(name):``) or every call of a function
+    (``@span(name)``) on the calling thread; after the block, ``ns`` is
+    its nanoseconds.  ``start_ns``: the span began earlier, at that
+    ``time.perf_counter_ns()`` (on another thread, say)."""
+
+    __slots__ = ('name', 'start_ns', 'ns', '_t0', '_rf', '_table')
+
+    def __init__(self, name, start_ns=None):
+        self.name = name
+        self.start_ns = start_ns
+        self.ns = None
+
+    def __enter__(self):
+        self._rf = _record(self.name)
+        self._table = _table()
+        self._t0 = time.perf_counter_ns()
+        if self.start_ns is not None:
+            self._t0 = min(self._t0, self.start_ns)
+        return self
+
+    def __exit__(self, *exc):
+        now = time.perf_counter_ns()
+        self.ns = now - self._t0
+        self._table.add(self.name, self._t0, now)
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+
+    def __call__(self, fn):
+        name = self.name
 
         @functools.wraps(fn)
-        def wrapped(*a, **kw):
-            t0 = time.monotonic()
-            try:
-                return fn(*a, **kw)
-            finally:
-                st = _STATS[name]
-                st[0] += 1
-                st[1] += time.monotonic() - t0
-        return wrapped
-    return deco
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
 
 
-def report(out=None):
-    out = out or sys.stderr
-    if not _STATS:
-        return
-    total = sum(w for _, w in _STATS.values())
-    print('--- dispatch stats (CIRI_DISPATCH_STATS) ---', file=out)
-    for name, (calls, wall) in sorted(_STATS.items(),
-                                      key=lambda kv: -kv[1][1]):
-        print('{:28s} {:6d} calls {:9.2f} s  ({:.0f} ms/call)'.format(
-            name, calls, wall, 1000.0 * wall / max(calls, 1)), file=out)
-    print('{:28s} {:>6s}       {:9.2f} s'.format('TOTAL', '', total),
-          file=out)
+class state:
+    """``with state(name):`` the calling thread is in state ``name``: its
+    time goes to ``name`` and not to the state it interrupts (a span
+    of its own on a thread in no state)."""
+
+    __slots__ = ('name', '_rf', '_table')
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = _record(self.name)
+        self._table = _table()
+        self._table.enter_state(self.name, time.perf_counter_ns())
+        return self
+
+    def __exit__(self, *exc):
+        self._table.exit_state(time.perf_counter_ns())
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
 
 
-if _ENABLED:
-    atexit.register(report)
+def count(name, n=1):
+    """Add ``n`` to the calling thread's counter ``name``."""
+    counts = _table().counts
+    counts[name] = counts.get(name, 0) + n
+
+
+def counters():
+    """{name: value} of every counter, summed over threads."""
+    out = {}
+    for table in list(_TABLES):
+        for name, value in list(table.counts.items()):
+            out[name] = out.get(name, 0) + value
+    return out
+
+
+def summary():
+    """The spans and counters since the last reset_launches: ``spans``
+    {name: {calls, seconds (wall time in which any thread was inside),
+    thread_seconds (summed over threads)}}, ``counters`` {name: value},
+    and ``threads`` {thread name: {span: {calls, seconds}}} (threads of one
+    name summed)."""
+    spans, threads, intervals = {}, {}, {}
+    for table in list(_TABLES):
+        mine = threads.setdefault(table.thread, {})
+        for name, (calls, ns, iv) in list(table.spans.items()):
+            tot = spans.setdefault(name, [0, 0])
+            tot[0] += calls
+            tot[1] += ns
+            # a copy of the whole (start, end) pairs: a buffer exported
+            # from the live array would stop its thread from growing it
+            intervals.setdefault(name, []).append(
+                np.frombuffer(iv[:len(iv) & ~1], np.int64).reshape(-1, 2))
+            row = mine.setdefault(name, {'calls': 0, 'seconds': 0.0})
+            row['calls'] += calls
+            row['seconds'] += ns / 1e9
+    return {'spans': {name: {'calls': calls, 'thread_seconds': ns / 1e9,
+                             'seconds': _union_s(intervals[name])}
+                      for name, (calls, ns) in sorted(spans.items())},
+            'counters': dict(sorted(counters().items())),
+            'threads': {t: dict(sorted(rows.items()))
+                        for t, rows in sorted(threads.items()) if rows}}
+
+
+def _union_s(parts):
+    """Seconds covered by the union of [start, end] ns intervals."""
+    iv = np.concatenate(parts)
+    if not len(iv):
+        return 0.0
+    iv = iv[np.argsort(iv[:, 0], kind='stable')]
+    ends = np.maximum.accumulate(iv[:, 1])
+    new = np.ones(len(iv), bool)
+    new[1:] = iv[1:, 0] > ends[:-1]
+    starts = iv[new, 0]
+    last = np.append(np.flatnonzero(new)[1:] - 1, len(iv) - 1)
+    return float((ends[last] - starts).sum()) / 1e9

@@ -53,20 +53,24 @@ def get_logger(logger_name='CIRI-long', fname=None, verbosity=False):
 
 class StageTimer:
     """Collects per-stage wall clock and throughput counters; dumped into the
-    run-summary JSON next to the reference's read counters."""
+    run-summary JSON next to the reference's read counters.  Each stage is
+    the span ``stage.<name>`` of utils/dispatch.py, whose time it reports."""
 
     def __init__(self):
         self.stages = {}
 
     @contextmanager
     def stage(self, name, items=None):
-        t0 = time.perf_counter()
+        from ciri_long_tpu_torch.utils.dispatch import span
+
         rec = {"seconds": None}
         self.stages[name] = rec
+        timed = span('stage.' + name)
         try:
-            yield rec
+            with timed:
+                yield rec
         finally:
-            dt = time.perf_counter() - t0
+            dt = timed.ns / 1e9
             rec["seconds"] = round(dt, 3)
             if items is not None and dt > 0:
                 rec["items"] = items

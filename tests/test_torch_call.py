@@ -3,7 +3,8 @@
 - the whole CLI on the small verification world (50 kb genome, one
   circRNA, 10 circular + 4 linear reads): JAX ``call --backend cpu`` and port ``call --device cpu`` give a
   byte-identical cand_circ.fa and equal counters (``timing`` and the port's
-  ``kernels`` aside), and each package resumes from the other's tmp/; the
+  ``kernels``, spans and counters aside), and each package resumes from
+  the other's tmp/; the
   port's CCS scan on a -t 2 spawn pool equals its serial run;
 - ``scan_ccs_chunk`` on the tests/test_pipeline_call.py world, with reads
   whose clipped bases take the +-200 kb window SW;
@@ -87,7 +88,8 @@ def _outputs(out):
     with open(out / 'vtest.json') as f:
         summary = json.load(f)
     counters = {k: v for k, v in summary.items()
-                if k not in ('timing', 'kernels')}
+                if k not in ('timing', 'kernels', 'spans', 'counters',
+                             'threads')}
     files = {name: (out / name).read_bytes()
              for name in ('vtest.cand_circ.fa', 'vtest.low_confidence.fa')}
     return counters, files, summary

@@ -16,6 +16,7 @@
   run; -t 2 with --device cuda raises.
 """
 
+import json
 import os
 import pickle
 import shutil
@@ -38,6 +39,7 @@ from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
 from ciri_long_tpu_torch.pipeline import collapse as tcl
 from ciri_long_tpu_torch.tools.world import (make_world, sample_list,
                                              skill_world)
+from ciri_long_tpu_torch.utils import dispatch
 
 torch.set_num_threads(1)
 
@@ -369,6 +371,7 @@ def test_cuda_route_structure_matches_host_route(cohort, monkeypatch):
 
     monkeypatch.setattr(tcl, 'correct_chunk', chunk_spy)
     monkeypatch.setattr(tcl, 'DeviceFuser', FuserSpy)
+    dispatch.reset_launches()
     got_cnt, got = tcl.correct_reads(cohort.tctx, clusters)
     assert dict(got_cnt) == dict(want_cnt)
     assert _norm(got) == _norm(want)
@@ -376,6 +379,25 @@ def test_cuda_route_structure_matches_host_route(cohort, monkeypatch):
     # every SW and edit job went through the fuser's rounds; the
     # traceback ran once a cluster
     assert len(rounds) == 1 and 0 < rounds[0][0] < rounds[0][1]
+    # the accounting: the fire counters sum to the rounds, the jobs by
+    # kind to the jobs, each cluster thread's states to its clusters' span
+    summary = dispatch.summary()
+    counted = summary['counters']
+    assert sum(v for k, v in counted.items()
+               if k.startswith('fuser.fire.')) == rounds[0][0]
+    assert counted['fuser.jobs.sw'] + counted['fuser.jobs.edit'] == \
+        rounds[0][1]
+    assert counted['pool.tail_thread_s'] >= 0
+    threads = {k: v for k, v in summary['threads'].items()
+               if k.startswith('collapse-cluster')}
+    assert 1 < len(threads) <= tcl.DEVICE_THREADS
+    for rows in threads.values():
+        assert rows['fuser.wait']['calls'] > 0
+        assert sum(rows[s]['seconds'] for s in (
+            'collapse.cluster_host', 'fuser.wait', 'poa.rounds',
+            'collapse.junction_poa', 'collapse.rotation_tb')
+            if s in rows) == pytest.approx(rows['collapse.cluster']['seconds'],
+                                           rel=1e-3)
     assert kernels.calls['sw'] > 0 and kernels.calls['edit'] > 0
     assert kernels.calls['tb'] >= sum(len(c) >= 2 for c in clusters)
     assert kernels.calls['poa'] > 0
@@ -419,6 +441,37 @@ def test_collapse_cli_matches_jax_on_two_sample_cohort(cohort):
     head = got['expression'].decode().splitlines()[0]
     assert head == 'circ_ID\ts1\ts2'
     assert b'.0' in got['expression']          # a circ missing from s2
+
+
+def test_collapse_cli_writes_its_summary(cohort):
+    """``collapse`` writes {out}/{prefix}.json beside its four files (which
+    stay equal to the JAX package's): its stages' timing, the kernels'
+    launches and device time, and the run's spans and counters; each
+    thread's states sum to its clusters' span."""
+    from ciri_long_tpu_torch.utils.dispatch import COLLAPSE_KERNELS
+
+    out = cohort.root / 'out_port'
+    assert _files(out, 'co') == _files(cohort.root / 'out_jax', 'co')
+    summary = json.loads((out / 'co.json').read_text())
+    assert set(summary['timing']) == {'cluster', 'exp_mtx'}
+    assert summary['kernels'] == {k: 0 for k in COLLAPSE_KERNELS}
+    assert summary['device_ms'] == {'poa_align': 0.0}
+    spans = summary['spans']
+    for name in ('collapse.correct_reads', 'collapse.cluster',
+                 'collapse.cluster_host', 'poa.rounds',
+                 'collapse.junction_poa', 'collapse.rotation_tb',
+                 'stage.cluster', 'stage.exp_mtx'):
+        assert spans[name]['calls'] > 0, name
+    for stage in ('cluster', 'exp_mtx'):
+        assert round(spans['stage.' + stage]['seconds'], 3) == \
+            summary['timing'][stage]['seconds']
+    assert spans['collapse.cluster']['calls'] >= 3
+    states = ('collapse.cluster_host', 'fuser.wait', 'poa.rounds',
+              'collapse.junction_poa', 'collapse.rotation_tb')
+    for rows in summary['threads'].values():
+        if 'collapse.cluster' in rows:
+            assert sum(rows[s]['seconds'] for s in states if s in rows) == \
+                pytest.approx(rows['collapse.cluster']['seconds'], rel=1e-3)
 
 
 @pytest.mark.parametrize('first,second', [('jax', 'port'), ('port', 'jax')])

@@ -708,6 +708,89 @@ def test_poa_round_loop_from_threads(dev):
         assert _norm(out) == _norm([poa_mod.poa(j)[0] for j in jobs])
 
 
+def test_profile_puts_each_poa_kernel_in_its_rounds_device_wait(dev,
+                                                                 tmp_path):
+    """``--profile``'s trace (cli/main.py::_device_trace, every thread):
+    each ``poa_align`` kernel's launch call lies inside one
+    ``poa.device_wait`` event of its thread (the launch found by the
+    kernel's correlation id), and the kernel inside that event once the
+    trace's device clock is brought onto its host clock
+    (``_device_clock_shift``), each within 50 us; the round loop's phase
+    counters stay under its calls' wall time."""
+    import json
+    import logging
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ciri_long_tpu_torch.cli.main import _device_trace
+    from ciri_long_tpu_torch.utils import dispatch
+
+    rng = np.random.default_rng(21)
+    batches = [_poa_jobs(rng, 3, 100, 900) for _ in range(4)]
+    poa_mod.poa_consensus_many(batches[0], device='cuda')   # build, warm
+    dispatch.reset_launches()
+    walls = []
+
+    def run(jobs):
+        # as on collapse's cluster threads: a span on the thread lets the
+        # trace name its CUDA runtime calls by the thread's id
+        with dispatch.state('poa.rounds'):
+            t0 = time.perf_counter_ns()
+            poa_mod.poa_consensus_many(jobs, device='cuda')
+            walls.append(time.perf_counter_ns() - t0)
+
+    with _device_trace(str(tmp_path), 'p', dev, logging.getLogger('test')):
+        with ThreadPoolExecutor(2) as pool:
+            list(pool.map(run, batches))
+        torch.cuda.synchronize()
+    counted = dispatch.counters()
+    phases = sum(counted['poa.ns.' + p] for p in poa_mod.PHASES)
+    assert 0 < phases <= sum(walls)
+    events = json.loads((tmp_path / 'p.trace.json').read_text())[
+        'traceEvents']
+    waits = {}
+    for e in events:
+        if e.get('name') == 'poa.device_wait':
+            waits.setdefault(e['tid'], []).append((e['ts'],
+                                                   e['ts'] + e['dur']))
+    launches = {e['args']['correlation']: e for e in events
+                if e.get('cat') == 'cuda_runtime'
+                and 'correlation' in e.get('args', {})}
+    kernels = [e for e in events if e.get('cat') == 'kernel'
+               and 'poa_align_kernel' in e.get('name', '')]
+    assert len(kernels) == dispatch.LAUNCHES['poa_align'] > 0
+    assert sum(map(len, waits.values())) == len(kernels)
+    pairs = sorted(((launches[k['args']['correlation']], k)
+                    for k in kernels), key=lambda p: p[0]['ts'])
+    shift = _device_clock_shift([la['ts'] for la, _ in pairs],
+                                [k['ts'] - la['ts'] for la, k in pairs])
+    for (launch, k), off in zip(pairs, shift):
+        rounds = [w for w in waits[launch['tid']]
+                  if w[0] - 50 <= launch['ts'] <= w[1] + 50]
+        assert len(rounds) == 1
+        lo, hi = rounds[0]
+        start = k['ts'] - off
+        assert lo - 50 <= start and start + k['dur'] <= hi + 50
+
+
+def _device_clock_shift(launch_us, lag_us, window_us=1e4):
+    """How far a torch.profiler trace shows each kernel after its true
+    start on the host's clock.  The trace maps the card's clock onto the
+    host's with a drift (up to ~400 ppm, and jumps of ~1 ms at its clock
+    syncs, seen on the H100), so a kernel can show before its own launch
+    call.  No kernel starts before its launch, and one of the kernels
+    launched near another waited next to nothing: the shift is the least
+    start-after-launch among the kernels launched within ``window_us``
+    before it, or after it, whichever is larger (the side of a sync
+    that it is on).  ``launch_us`` sorted."""
+    t = np.asarray(launch_us, np.float64)
+    lag = np.asarray(lag_us, np.float64)
+    lo = np.searchsorted(t, t - window_us, 'left')
+    hi = np.searchsorted(t, t + window_us, 'right')
+    return [max(lag[a:i + 1].min(), lag[i:b].min())
+            for i, (a, b) in enumerate(zip(lo, hi))]
+
+
 def test_poa_rejects_bad_inputs(dev):
     """More nodes than the direction word's row field holds (a batch of
     expanded tensors, never copied); a predecessor after its node; a ring

@@ -67,7 +67,8 @@ def _fasta(path):
 def _outputs(out):
     summary = json.loads((out / (PREFIX + '.json')).read_text())
     counters = {k: v for k, v in summary.items()
-                if k not in ('timing', 'kernels')}
+                if k not in ('timing', 'kernels', 'spans', 'counters',
+                             'threads')}
     files = {name: (out / name).read_bytes() for name in (
         PREFIX + '.cand_circ.fa', 'tmp/{}.ccs.fa'.format(PREFIX),
         'tmp/{}.raw.fa'.format(PREFIX))}

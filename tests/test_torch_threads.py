@@ -364,7 +364,8 @@ def _cli_outputs(out, prefix):
     with open(out / '{}.json'.format(prefix)) as f:
         summary = json.load(f)
     counters = {k: v for k, v in summary.items()
-                if k not in ('timing', 'kernels')}
+                if k not in ('timing', 'kernels', 'spans', 'counters',
+                             'threads')}
     return counters, {name: (out / name).read_bytes() for name in (
         '{}.cand_circ.fa'.format(prefix),
         '{}.low_confidence.fa'.format(prefix), 'tmp/{}.ccs.fa'.format(prefix),
