@@ -1901,22 +1901,43 @@ def phase_probe_time(torch, dev, smi):
     return sw, probes
 
 
-def compare_edit(torch, dev, label, a, b, alen, blen):
-    """csrc/edit_distance.cu against the plain version on one batch, on the
-    card, exact; returns the max abs difference or raises."""
-    from ciri_long_tpu_torch.ops.edit import (edit_distance_batch_plain,
-                                              edit_distance_cuda)
-    args = [torch.as_tensor(x).to(dev).contiguous() for x in (a, b, alen,
-                                                            blen)]
-    got = edit_distance_cuda(*args)
-    want = edit_distance_batch_plain(*args)
-    torch.cuda.synchronize(dev)
-    err = _max_err([got], [want])
+def compare_edit(torch, dev, label, a, b):
+    """csrc/edit_distance.cu's native round (ops/edit.py::
+    edit_distance_rows) against its plain twin (edit_distance_rows_plain,
+    the plain version on the card) on the pairs of two ops/rows.py::Rows,
+    exact; returns the max abs difference or raises."""
+    from ciri_long_tpu_torch.ops.edit import (edit_distance_rows,
+                                              edit_distance_rows_plain)
+    got = edit_distance_rows(a, b, dev)
+    want = edit_distance_rows_plain(a, b, dev)
+    err = _max_err([torch.from_numpy(got)], [torch.from_numpy(want)])
     emit('kernel_vs_plain', kernel='edit_distance', case=label,
-         B=int(args[0].shape[0]), La=int(args[0].shape[1]),
-         Lb=int(args[1].shape[1]), max_abs_err=err)
+         B=len(a.lens), La=int(a.lens.max(initial=0)),
+         Lb=int(b.lens.max(initial=0)), max_abs_err=err)
     if err:
         raise AssertionError('edit_distance disagrees with plain on ' + label)
+    return err
+
+
+def compare_sw_rows(torch, dev, label, q, r, pid, params):
+    """csrc/sw_score_ends.cu's native round (ops/sw.py::sw_align_rows: the
+    expand, both scorer passes, the reverse-prefix and result kernels)
+    against its plain twin (sw_align_rows_plain, the plain scorer on the
+    card) on one recorded round, exact: every score and coordinate.
+    Returns the max abs difference or raises."""
+    from ciri_long_tpu_torch.ops.rows import row_groups
+    from ciri_long_tpu_torch.ops.sw import sw_align_rows, sw_align_rows_plain
+    got = sw_align_rows(q, r, pid, params, dev)
+    want = sw_align_rows_plain(q, r, pid, params, dev)
+    err = _max_err([torch.from_numpy(got)], [torch.from_numpy(want)])
+    emit('kernel_vs_plain', kernel='sw_rows', case=label, B=len(q.lens),
+         groups=len(row_groups(q.lens, r.lens, pid)[1]),
+         Lq=int(q.lens.max(initial=0)), Lr=int(r.lens.max(initial=0)),
+         params=[list(p) for p in params], max_abs_err=err,
+         hits=int((want[0] > 0).sum()))
+    if err:
+        raise AssertionError('sw_align_rows disagrees with its plain twin '
+                             'on ' + label)
     return err
 
 
@@ -1981,6 +2002,7 @@ def phase_collapse_kernels(torch, dev):
     """Phase 6: collapse's kernels on tools/collapse_cases.py's and
     tools/poa_cases.py's cases; {name: max err}."""
     import numpy as np
+    from ciri_long_tpu_torch.ops.edit import _padded_rows
     from ciri_long_tpu_torch.ops.sw_tb_batch import pack_jobs
     from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
     from ciri_long_tpu_torch.tools.poa_cases import poa_cases
@@ -1992,7 +2014,8 @@ def phase_collapse_kernels(torch, dev):
     before = dict(ROUTES)
     for label, a, b, alen, blen in edit_cases(rng):
         errs['edit_distance'] = max(errs['edit_distance'], compare_edit(
-            torch, dev, label, a, b, alen, blen))
+            torch, dev, label, _padded_rows(a, np.clip(alen, 0, a.shape[1])),
+            _padded_rows(b, np.clip(blen, 0, b.shape[1]))))
     for label, qs, rs, scores in tb_cases(rng):
         errs['sw_traceback'] = max(errs['sw_traceback'], compare_tb(
             torch, dev, label, *pack_jobs(qs, rs), scores))
@@ -2007,40 +2030,73 @@ def phase_collapse_kernels(torch, dev):
     return errs
 
 
+# what a collapse run's recorder keeps, by name
+RECORDED = ('sw_score_ends', 'sw_rows', 'edit_distance', 'sw_traceback')
+
+
 def _recording(torch, seen):
-    """Wrap the three kernels' wrappers so that each call first copies its
-    arguments into ``seen`` (lists by kernel name); returns the undo.  The
-    launch counts stay the wrappers' own."""
-    from ciri_long_tpu_torch.ops import edit, sw, sw_tb_batch
+    """Record a collapse run's kernel inputs into ``seen`` (lists by the
+    names of RECORDED); returns the undo.  The launch counts stay the
+    wrappers' own.  The rotation's traceback: each sw_traceback_cuda
+    call's arguments.  The SW and edit distances are native rounds
+    (pipeline/collapse.py's sw_align_rows and edit_distance_rows): each
+    round's row views whole ('sw_rows': (q, r, pid, params);
+    'edit_distance': (a, b)), and each SW group's two scorer passes as the
+    padded launches the round makes ('sw_score_ends': (q, r, params) on
+    the card; the reverse pass's rows reversed at the round's ends)."""
+    import numpy as np
 
-    patched = [(sw, 'sw_score_ends_cuda', 'sw_score_ends'),
-               (edit, 'edit_distance_cuda', 'edit_distance'),
-               (sw_tb_batch, 'sw_traceback_cuda', 'sw_traceback')]
-    originals = []
-    for module, attr, name in patched:
-        kernel = getattr(module, attr)
-        originals.append((module, attr, kernel))
+    from ciri_long_tpu_torch.ops import sw_tb_batch
+    from ciri_long_tpu_torch.ops.rows import padded, row_groups
+    from ciri_long_tpu_torch.ops.sw import _reverse_rows
+    from ciri_long_tpu_torch.pipeline import collapse
 
-        def recorder(*args, _kernel=kernel, _name=name, **kw):
-            seen[_name].append(tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args))
-            return _kernel(*args, **kw)
+    real_tb = sw_tb_batch.sw_traceback_cuda
+    real_sw, real_edit = collapse.sw_align_rows, collapse.edit_distance_rows
 
-        setattr(module, attr, recorder)
+    def tb(*args, **kw):
+        seen['sw_traceback'].append(tuple(
+            a.clone() if torch.is_tensor(a) else a for a in args))
+        return real_tb(*args, **kw)
+
+    def on(x, device):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def sw_rows(q, r, pid, params, device, *args, **kw):
+        out = real_sw(q, r, pid, params, device, *args, **kw)
+        seen['sw_rows'].append((q, r, np.asarray(pid), list(params)))
+        order, groups = row_groups(q.lens, r.lens, pid)
+        for start, n, Lq, Lr, k in groups.tolist():
+            rows = order[start:start + n]
+            qp = padded((q.codes, q.off[rows], q.lens[rows]), Lq)[0]
+            rp = padded((r.codes, r.off[rows], r.lens[rows]), Lr)[0]
+            seen['sw_score_ends'] += [
+                (on(qp, device), on(rp, device), params[k]),
+                (on(_reverse_rows(qp, out[2, rows]), device),
+                 on(_reverse_rows(rp, out[4, rows]), device), params[k])]
+        return out
+
+    def edit_rows(a, b, device, *args, **kw):
+        seen['edit_distance'].append((a, b))
+        return real_edit(a, b, device, *args, **kw)
+
+    sw_tb_batch.sw_traceback_cuda = tb
+    collapse.sw_align_rows, collapse.edit_distance_rows = sw_rows, edit_rows
 
     def undo():
-        for module, attr, kernel in originals:
-            setattr(module, attr, kernel)
+        sw_tb_batch.sw_traceback_cuda = real_tb
+        collapse.sw_align_rows, collapse.edit_distance_rows = \
+            real_sw, real_edit
     return undo
 
 
-# collapse's calls whose wall the run sums over its threads: the SW (fused
-# rounds and direct calls), the edit distances, the rotation's traceback,
-# the junction consensus (a host ``poa`` on both routes) and the sub-cluster
-# consensus (``poa_consensus_many``: csrc/poa_align.cu's rounds on cuda,
-# host ``poa`` calls on cpu)
-TIMED_CALLS = {'sw': ('_fused_sw', '_sw_many_vs_many_direct'),
-               'edit': ('_edit_many_direct',),
+# collapse's calls whose wall the run sums over its threads: the SW and
+# the edit distances (native rounds, fused or a direct call's own), the
+# rotation's traceback, the junction consensus (a host ``poa`` on both
+# routes) and the sub-cluster consensus (``poa_consensus_many``:
+# csrc/poa_align.cu's rounds on cuda, host ``poa`` calls on cpu)
+TIMED_CALLS = {'sw': ('_fused_sw',),
+               'edit': ('_fused_edit',),
                'traceback': ('sw_traceback_batch',),
                'poa_junction': ('poa',),
                'poa_subcluster': ('poa_consensus_many',)}
@@ -2129,7 +2185,7 @@ def run_collapse(torch, label, ref, cand_circ, root):
                                                     reset_launches)
 
     lst = sample_list(os.path.join(root, 'samples.lst'), [('s1', cand_circ)])
-    seen = {name: [] for name in COLLAPSE_KERNELS if name != 'poa_align'}
+    seen = {name: [] for name in RECORDED}
     poa_calls = []
     runs = {}
     for device in ('cuda', 'cpu'):
@@ -2311,12 +2367,21 @@ def _real(x, torch):
     return first
 
 
+def _row_lens(args):
+    """int64 lengths of a recorded native round's two sides."""
+    return args[0].lens.astype('int64'), args[1].lens.astype('int64')
+
+
 def launch_cells(name, args, torch):
-    """The DP cells one recorded launch's data needs: real query x
-    reference lengths summed over its rows."""
+    """The DP cells one recorded launch's or native round's data needs:
+    real query x reference lengths summed over its rows (the forward
+    pass's, for a SW round)."""
     if name == 'sw_score_ends':
         q, r = args[0], args[1]
         return int((_real(q, torch) * _real(r, torch)).sum().item())
+    if name in ('sw_rows', 'edit_distance'):
+        n, m = _row_lens(args)
+        return int((n * m).sum())
     a, b, n, m = args[:4]
     n = n.long().clamp(0, a.shape[1])
     m = m.long().clamp(0, b.shape[1])
@@ -2330,24 +2395,23 @@ def launch_work(name, args, torch):
     that needs fewer."""
     if name != 'edit_distance':
         return launch_cells(name, args, torch)
-    a, b, n, m = args[:4]
-    n = n.long().clamp(0, a.shape[1])
-    m = m.long().clamp(0, b.shape[1])
-    words = torch.minimum((n + 31) // 32 * m, (m + 31) // 32 * n)
-    return int(words.sum().item())
+    n, m = _row_lens(args)
+    return int(((n + 31) // 32 * m).clip(max=(m + 31) // 32 * n).sum())
 
 
 def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
                    edit_all=True, label='collapse'):
     """The recorded inputs of a collapse run against the plain versions:
-    every edit and traceback launch (or the largest one when ``*_all`` is
-    False) and the ``sw_count`` largest SW launches.  {name: max err}."""
-    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+    every native edit round and traceback launch (or the largest one when
+    ``*_all`` is False), every native SW round (the ``sw_count`` largest
+    when ``edit_all`` is False) and the ``sw_count`` largest SW scorer
+    launches.  {name: max err}."""
     errs = {}
     for name, args_list in seen.items():
         order = sorted(range(len(args_list)), reverse=True,
                        key=lambda t: launch_work(name, args_list[t], torch))
         keep = {'sw_score_ends': order[:sw_count],
+                'sw_rows': order if edit_all else order[:sw_count],
                 'edit_distance': order if edit_all else order[:1],
                 'sw_traceback': order if tb_all else order[:1]}[name]
         err = 0
@@ -2360,6 +2424,8 @@ def check_recorded(torch, dev, seen, sw_count=SW_CHECKED, tb_all=True,
                                        sw_routes(args[0].shape[1],
                                                  args[1].shape[1],
                                                  args[2]))['sw_score_ends'])
+            elif name == 'sw_rows':
+                err = max(err, compare_sw_rows(torch, dev, case, *args))
             elif name == 'edit_distance':
                 err = max(err, compare_edit(torch, dev, case, *args))
             else:
@@ -2436,18 +2502,26 @@ def phase_collapse(torch, dev, smi, world_ref):
 
 def _time_recorded(torch, dev, name, args, n_iter):
     """ms of one recorded launch, a CUDA graph's replay of n_iter (the
-    route plans made beforehand, as the main path makes them)."""
+    route plans made beforehand, as the main path makes them); of a
+    recorded native round ('sw_rows', 'edit_distance'), which syncs, the
+    mean wall of n_iter rounds after one, staging and copies included."""
     from ciri_long_tpu_torch.misc.kexp import time_launches
     from ciri_long_tpu_torch.ops import edit, sw, sw_tb_batch
 
+    if name in ('sw_rows', 'edit_distance'):
+        def step():
+            if name == 'sw_rows':
+                sw.sw_align_rows(*args, dev)
+            else:
+                edit.edit_distance_rows(*args, dev)
+        step()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            step()
+        return (time.perf_counter() - t0) * 1e3 / n_iter
     if name == 'sw_score_ends':
         def step():
             sw.sw_score_ends_cuda(*args)
-    elif name == 'edit_distance':
-        plan = edit.edit_plan(*(t.cpu().numpy() for t in args), dev)
-
-        def step():
-            edit.edit_distance_cuda(*args, plan=plan)
     else:
         q, r, n, m = args[:4]
         plan = sw_tb_batch.tb_plan(n.cpu().numpy(), m.cpu().numpy(),
@@ -2460,12 +2534,14 @@ def _time_recorded(torch, dev, name, args, n_iter):
 
 def _plain_ms(torch, dev, name, args):
     from ciri_long_tpu_torch.misc.kexp import time_launches
-    from ciri_long_tpu_torch.ops.edit import edit_distance_batch_plain
-    from ciri_long_tpu_torch.ops.sw import sw_score_ends
+    from ciri_long_tpu_torch.ops.edit import edit_distance_rows_plain
+    from ciri_long_tpu_torch.ops.sw import (sw_align_rows_plain,
+                                            sw_score_ends)
     from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch_plain
 
     fn = {'sw_score_ends': sw_score_ends,
-          'edit_distance': edit_distance_batch_plain,
+          'sw_rows': lambda *a: sw_align_rows_plain(*a, dev),
+          'edit_distance': lambda *a: edit_distance_rows_plain(*a, dev),
           'sw_traceback': sw_traceback_batch_plain}[name]
     return time_launches(lambda: fn(*args), 1, dev)
 
@@ -2483,14 +2559,18 @@ def launch_bound(name, args, rates, torch):
         q, r = args[0], args[1]
         nbytes = int(_real(q, torch).sum() + _real(r, torch).sum()) \
             + 12 * q.shape[0]
+    elif name in ('sw_rows', 'edit_distance'):
+        # codes read once, 16 bytes of views and 20 (SW) or 4 bytes of
+        # answers a row
+        n, m = _row_lens(args)
+        nbytes = int(n.sum() + m.sum()) + len(n) * (
+            36 if name == 'sw_rows' else 20)
     else:
         a, b, n, m = args[:4]
         n = n.long().clamp(0, a.shape[1])
         m = m.long().clamp(0, b.shape[1])
-        nbytes = int(n.sum() + m.sum()) + 8 * a.shape[0]
-        nbytes += 4 * a.shape[0] if name == 'edit_distance' else \
-            24 * a.shape[0] + int(global_bytes(n.cpu().numpy(),
-                                               m.cpu().numpy()).sum())
+        nbytes = int(n.sum() + m.sum()) + 32 * a.shape[0] + int(
+            global_bytes(n.cpu().numpy(), m.cpu().numpy()).sum())
     ops_ms = launch_work(name, args, torch) / rates[name] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else \
@@ -2556,6 +2636,7 @@ def phase_collapse_full(torch, dev, smi):
     errs = check_recorded(torch, dev, seen, sw_count=2, tb_all=False,
                           edit_all=False, label='cohort collapse')
     rates = {'sw_score_ends': peak_cell_rate(dev),
+             'sw_rows': peak_cell_rate(dev),
              'edit_distance': recurrence_rate(dev, 'edit_distance'),
              'sw_traceback': recurrence_rate(dev, 'sw_traceback'),
              'edit_cell': recurrence_rate(dev, 'edit_cell'),
@@ -2582,8 +2663,11 @@ def phase_collapse_full(torch, dev, smi):
             cells=sum(launch_cells(name, a, torch) for a in args_list),
             updates=sum(work), ms=_time_recorded(torch, dev, name, big, 10),
             plain_ms=_plain_ms(torch, dev, name, big), bound_ms=bound_ms,
-            bound_by=bound_by, shape=[list(a.shape) for a in big
-                                      if torch.is_tensor(a)],
+            bound_by=bound_by, shape=(
+                [len(big[0].lens), int(big[0].lens.max(initial=0)),
+                 int(big[1].lens.max(initial=0))]
+                if name in ('sw_rows', 'edit_distance') else
+                [list(a.shape) for a in big if torch.is_tensor(a)]),
             largest_cells=launch_cells(name, big, torch),
             largest_updates=max(work))
         if name == 'edit_distance':   # the bound of a DP cell an update

@@ -7,9 +7,9 @@
 // as edit.py:47 and native/alncore.cpp:17 have it); alen 0 gives blen and
 // blen 0 gives alen.  Lengths are clamped to [0, La] and [0, Lb], so no
 // length makes the kernel read outside its rows.  Codes are 0..7, the range
-// of the match masks; the wrapper (ops/edit.py::edit_plan) refuses any
-// other code, and the kernel's ``& 7`` only keeps a refused code inside the
-// mask table.
+// of the match masks; the host driver (edit_rows_run) refuses any other
+// code, and the kernel's ``& 7`` only keeps a refused code inside the mask
+// table.
 //
 // Algorithm: Myers/Hyyro's blockwise bit-parallel recurrence, as the host
 // runs it in native/alncore.cpp::edit_distance_pair, on 32-bit words.  The
@@ -23,7 +23,7 @@
 // Edit distance is symmetric, so each pair picks which of a and b is the
 // pattern.
 //
-// Two routes, chosen per pair by the wrapper's plan (one launch runs both
+// Two routes, chosen per pair by edit_rows_run's plan (one launch runs both
 // lists; blocks [0, thread_blocks) take the first list):
 //   thread  the shorter sequence fits one word (or either is empty): one
 //           thread per pair, the shorter as the pattern, one word update a
@@ -52,8 +52,12 @@
 // pair written.  What the warp route adds on top is the two shuffles a step
 // and the idle lanes of patterns under 1024 codes.
 
+#include <algorithm>
 #include <cstdint>
+#include <vector>
 #include <cuda_runtime.h>
+
+#include "row_views.h"
 
 namespace {
 
@@ -230,18 +234,18 @@ edit_distance_kernel(const int8_t* __restrict__ a,
 
 }  // namespace
 
-// Plain C entry point for ctypes.  ``order`` lists the pairs of the thread
-// route (``n_thread``, those whose shorter sequence is at most 32 codes)
-// and then those of the warp route (``n_warp``).  ``edge_rows`` holds
-// n_warp * edge_len int8, edge_len >= max(La, Lb), when a warp-route
+// One launch of edit_distance_kernel.  ``order`` lists the pairs of the
+// thread route (``n_thread``, those whose shorter sequence is at most 32
+// codes) and then those of the warp route (``n_warp``).  ``edge_rows``
+// holds n_warp * edge_len int8, edge_len >= max(La, Lb), when a warp-route
 // pattern exceeds 1024 codes (it may be any pointer otherwise).  Launches
 // on ``stream``, allocates nothing, and returns cudaGetLastError() (0 on
 // success).
-extern "C" int edit_distance_launch(const void* a, const void* b,
-                                    const void* alen, const void* blen,
-                                    int La, int Lb, const void* order,
-                                    int n_thread, int n_warp, void* edge_rows,
-                                    int edge_len, void* out, void* stream) {
+static int edit_distance_launch(const void* a, const void* b,
+                                const void* alen, const void* blen, int La,
+                                int Lb, const void* order, int n_thread,
+                                int n_warp, void* edge_rows, int edge_len,
+                                void* out, void* stream) {
     const int thread_blocks = (n_thread + THREADS - 1) / THREADS;
     const int warp_blocks = (n_warp + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
     if (thread_blocks + warp_blocks == 0) return 0;
@@ -252,4 +256,132 @@ extern "C" int edit_distance_launch(const void* a, const void* b,
         static_cast<const int*>(order), n_thread, n_warp, thread_blocks,
         static_cast<int8_t*>(edge_rows), edge_len, static_cast<int*>(out));
     return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int WORD = 32;            // the thread route's longest sequence
+constexpr int GROUP = 32 * WORD;    // one warp's 32 words of pattern
+constexpr int BAD_CODES = -2;       // edit_rows_run's refusal of a code
+
+// True when a code outside 0..CODES-1 lies inside one of the B rows
+// (off, len) of ``codes`` (n bytes): a scan of the buffer, and only when
+// it holds such a code, of each row (ops/edit.py::edit_rows_plan's
+// refusal).
+bool bad_codes(const int8_t* codes, long long n, const int* off,
+               const int* len, int B) {
+    bool any = false;
+    for (long long i = 0; i < n && !any; ++i)
+        any = (uint8_t)codes[i] >= CODES;
+    if (!any) return false;
+    for (int p = 0; p < B; ++p)
+        for (int i = 0; i < len[p]; ++i)
+            if ((uint8_t)codes[off[p] + i] >= CODES) return true;
+    return false;
+}
+
+}  // namespace
+
+// The native rounds' staging on CUDA device ``device`` (null on failure),
+// kept by ops/rows.py::row_stage for the process.
+extern "C" void* edit_rows_stage_new(int device) {
+    return row_views::stage_new(device);
+}
+
+// One fused edit-distance round of B pairs over ragged views
+// (ops/rows.py): ``views`` int32 [4][B] (a offsets and lengths into
+// ``acodes``, b offsets and lengths into ``bcodes``).  Plans the routes as
+// ops/edit.py::edit_rows_plan does (the pairs whose shorter sequence is at
+// most WORD codes first, then the rest, each in pair order; a code outside 0..7
+// inside a pair's lengths refuses the round with BAD_CODES), then on the
+// stage's stream: one upload, the pairs expanded to [B, La] and [B, Lb]
+// (the longest of each side, at least 1), one launch of
+// edit_distance_kernel, the int32 [B] distances in one download to
+// ``out``.  ``info`` (int32 [2]) gets the thread and warp routes' pairs,
+// ``phase_ns`` (double [3]) the upload, device-wait and download ns
+// (csrc/row_views.h).  Returns 0, a cudaError or BAD_CODES.
+extern "C" int edit_rows_run(void* stage, const void* acodes, long long na,
+                             const void* bcodes, long long nb,
+                             const void* views, int B, void* out,
+                             void* info, void* phase_ns) {
+    using namespace row_views;
+    Stage& s = *static_cast<Stage*>(stage);
+    auto* phase = static_cast<double*>(phase_ns);
+    auto* routes = static_cast<int*>(info);
+    const int64_t t0 = now_ns();
+    routes[0] = routes[1] = 0;
+    if (B <= 0) {
+        phase[0] += static_cast<double>(now_ns() - t0);
+        return 0;
+    }
+    const auto* v = static_cast<const int*>(views);
+    const auto* a = static_cast<const int8_t*>(acodes);
+    const auto* b = static_cast<const int8_t*>(bcodes);
+    if (bad_codes(a, na, v, v + B, B) ||
+        bad_codes(b, nb, v + 2 * B, v + 3 * B, B))
+        return BAD_CODES;
+    int La = 1, Lb = 1;
+    for (int p = 0; p < B; ++p) {
+        La = std::max(La, v[B + p]);
+        Lb = std::max(Lb, v[3 * B + p]);
+    }
+    std::vector<int> order(B);
+    int n_thread = 0;
+    for (int p = 0; p < B; ++p)
+        if (std::min(v[B + p], v[3 * B + p]) <= WORD) order[n_thread++] = p;
+    int n_warp = n_thread;
+    for (int p = 0; p < B; ++p)
+        if (std::min(v[B + p], v[3 * B + p]) > WORD) order[n_warp++] = p;
+    n_warp -= n_thread;
+    const int edge_len = std::max(La, Lb);
+    const size_t edge_bytes =
+        edge_len > GROUP && n_warp ? (size_t)n_warp * edge_len : 1;
+    cudaError_t err = cudaSetDevice(s.device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+
+    // pinned: views, the route order, the group, a codes, b codes | out
+    const size_t a_bytes = align_up((size_t)B * La);
+    const Group group{0, B, La, Lb, 0, 0};
+    const size_t o_order = align_up((size_t)16 * B);
+    const size_t o_group = o_order + align_up((size_t)4 * B);
+    const size_t o_a = o_group + align_up(sizeof(Group));
+    const size_t o_b = o_a + align_up((size_t)na);
+    const size_t in_bytes = o_b + align_up((size_t)nb);
+    const size_t out_bytes = (size_t)4 * B;
+    if ((err = s.reserve_host(in_bytes + out_bytes)) != cudaSuccess ||
+        (err = s.in.reserve(in_bytes, s.stream)) != cudaSuccess ||
+        (err = s.pad.reserve(a_bytes + (size_t)B * Lb, s.stream)) !=
+            cudaSuccess ||
+        (err = s.ints.reserve(out_bytes, s.stream)) != cudaSuccess ||
+        (err = s.scratch.reserve(edge_bytes, s.stream)) != cudaSuccess)
+        return static_cast<int>(err);
+    stage_bytes(s, 0, views, (size_t)16 * B);
+    stage_bytes(s, o_order, order.data(), (size_t)4 * B);
+    stage_bytes(s, o_group, &group, sizeof(Group));
+    stage_bytes(s, o_a, acodes, (size_t)na);
+    stage_bytes(s, o_b, bcodes, (size_t)nb);
+    const cudaStream_t st = s.stream;
+    if ((err = cudaMemcpyAsync(s.in.ptr, s.host, in_bytes,
+                               cudaMemcpyHostToDevice, st)) != cudaSuccess)
+        return static_cast<int>(err);
+    const int64_t t1 = now_ns();
+    phase[0] += static_cast<double>(t1 - t0);
+
+    const int* d_views = s.in.at<int>(0);
+    int8_t* apad = s.pad.at<int8_t>(0);
+    int8_t* bpad = apad + a_bytes;
+    expand_kernel<<<expand_blocks(B), EXPAND_WARPS * 32, 0, st>>>(
+        s.in.at<int8_t>(o_a), s.in.at<int8_t>(o_b), d_views, B,
+        s.in.at<Group>(o_group), 1, apad, bpad);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    const int rc = edit_distance_launch(
+        apad, bpad, d_views + B, d_views + 3 * B, La, Lb,
+        s.in.at<int>(o_order), n_thread, n_warp, s.scratch.ptr, edge_len,
+        s.ints.ptr, st);
+    if (rc != 0) return rc;
+    routes[0] = n_thread;
+    routes[1] = n_warp;
+    return static_cast<int>(finish_round(s, s.ints.ptr, out_bytes, in_bytes,
+                                         out, t1, phase));
 }

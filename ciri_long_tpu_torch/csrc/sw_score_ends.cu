@@ -131,9 +131,13 @@
 // with B*K warps; the tiles spend the same a step, over B*ceil(Lr/T) warps
 // of (lr + 31) steps a strip, for a halo overhead of halo/T columns.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <vector>
 #include <cuda_runtime.h>
+
+#include "row_views.h"
 
 namespace {
 
@@ -736,4 +740,187 @@ extern "C" int sw_tiles_launch(const void* q, const void* r, int B, int Lq,
         static_cast<int*>(score), static_cast<int*>(q_end),
         static_cast<int*>(r_end));
     return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The reverse pass's inputs (the reference's reverse pass, ssw.c:836-849):
+// each row's prefix up to its forward end, reversed, PAD past it (all PAD
+// for a row without a positive cell, end -1); a warp a row, both sides.
+// Replaces ops/sw.py::_reverse_prefix's gather on the rows path.
+__global__ void __launch_bounds__(row_views::EXPAND_WARPS * 32)
+reverse_prefix_kernel(const int8_t* __restrict__ qpad,
+                      const int8_t* __restrict__ rpad,
+                      const int* __restrict__ q_end,
+                      const int* __restrict__ r_end, int B,
+                      const row_views::Group* __restrict__ groups, int G,
+                      int8_t* __restrict__ rq, int8_t* __restrict__ rr) {
+    const int lane = threadIdx.x & 31;
+    const long long row = (long long)blockIdx.x * row_views::EXPAND_WARPS +
+                          (threadIdx.x >> 5);
+    if (row >= B) return;
+    const row_views::Group g = groups[row_views::group_of(groups, G, row)];
+    const long long k = row - g.start;
+    const long long qa = g.abase + k * g.la, ra = g.bbase + k * g.lb;
+    const int eq = q_end[row], er = r_end[row];
+    for (int x = lane; x < g.la; x += 32)
+        rq[qa + x] = x <= eq ? qpad[qa + eq - x] : (int8_t)5;
+    for (int x = lane; x < g.lb; x += 32)
+        rr[ra + x] = x <= er ? rpad[ra + er - x] : (int8_t)5;
+}
+
+// out[row] = (score, q_begin, q_end, r_begin, r_end) from the forward
+// pass (score, q_end, r_end: [3][B]) and the reverse pass's ends (the
+// offsets of the begins: [3][B]); begins -1 where the score is not
+// positive (ops/sw.py::_sw_align_fused's assembly).
+__global__ void rows_result_kernel(const int* __restrict__ fwd,
+                                   const int* __restrict__ rev, int B,
+                                   int* __restrict__ out) {
+    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    if (row >= B) return;
+    const int s = fwd[row], qe = fwd[B + row], re = fwd[2 * B + row];
+    const bool none = s <= 0;
+    int* o = out + 5 * (size_t)row;
+    o[0] = s;
+    o[1] = none ? -1 : qe - rev[B + row];
+    o[2] = qe;
+    o[3] = none ? -1 : re - rev[2 * B + row];
+    o[4] = re;
+}
+
+// A group's plan row (ops/sw.py::sw_align_rows): start, rows, Lq, Lr,
+// match, mismatch, gap_open, gap_extend, route (0 wavefront, 1 tiles),
+// R, then K, P and the handoff row's place (0 none, 1 shared memory, 2
+// global scratch) for the wavefront, or T and halo for the tiles.
+constexpr int PLAN_COLS = 13;
+
+int launch_group(const int* p, const int8_t* q, const int8_t* r, int* score,
+                 int* q_end, int* r_end, void* scratch, cudaStream_t st) {
+    if (p[8] == 0)
+        return sw_wave_launch(q, r, p[1], p[2], p[3], p[4], p[5], p[6], p[7],
+                              p[9], p[10], p[11], p[12] == 1,
+                              p[12] == 2 ? scratch : nullptr, score, q_end,
+                              r_end, st);
+    return sw_tiles_launch(q, r, p[1], p[2], p[3], p[4], p[5], p[6], p[7],
+                           p[9], p[10], p[11], scratch, score, q_end, r_end,
+                           st);
+}
+
+}  // namespace
+
+// The native rounds' staging on CUDA device ``device`` (null on failure),
+// kept by ops/rows.py::row_stage for the process.
+extern "C" void* sw_rows_stage_new(int device) {
+    return row_views::stage_new(device);
+}
+
+// One fused SW round of B rows over ragged views (ops/rows.py): ``views``
+// int32 [4][B] (query offsets and lengths into ``qcodes``, reference
+// offsets and lengths into ``rcodes``), rows grouped in order by ``plans``
+// (int32 [G][PLAN_COLS]).  On the stage's stream: one upload, the rows
+// expanded to each group's padded layout, the forward pass a group, the
+// reversed prefixes, the reverse pass a group, the [B, 5] answers (score,
+// q_begin, q_end, r_begin, r_end, as ops/sw.py::_sw_align_fused gives
+// them) in one download to ``out``.  ``phase_ns`` (double [3]) gets the
+// upload, device-wait and download ns (csrc/row_views.h).  Returns 0, a
+// cudaError, or cudaErrorInvalidValue for a plan that does not tile the
+// rows.
+extern "C" int sw_rows_run(void* stage, const void* qcodes, long long nq,
+                           const void* rcodes, long long nr,
+                           const void* views, int B, const void* plans,
+                           int G, void* out, void* phase_ns) {
+    using namespace row_views;
+    Stage& s = *static_cast<Stage*>(stage);
+    auto* phase = static_cast<double*>(phase_ns);
+    const int64_t t0 = now_ns();
+    if (B <= 0) {
+        phase[0] += static_cast<double>(now_ns() - t0);
+        return 0;
+    }
+    cudaError_t err = cudaSetDevice(s.device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const auto* plan = static_cast<const int*>(plans);
+    std::vector<Group> groups(G);
+    long long qsize = 0, rsize = 0, next = 0;
+    size_t scratch = 16;
+    for (int g = 0; g < G; ++g) {
+        const int* p = plan + g * PLAN_COLS;
+        if (p[0] != next || p[1] <= 0 || p[2] <= 0 || p[3] <= 0)
+            return static_cast<int>(cudaErrorInvalidValue);
+        next += p[1];
+        groups[g] = Group{p[0], p[1], p[2], p[3], qsize, rsize};
+        qsize += align_up((size_t)p[1] * p[2]);
+        rsize += align_up((size_t)p[1] * p[3]);
+        if (p[8] == 0 && p[12] == 2)
+            scratch = std::max(scratch, (size_t)p[1] * p[3] * 8);
+        else if (p[8] == 1 && p[10] > 0)
+            scratch = std::max(scratch, (size_t)p[1] *
+                                            ((p[3] + p[10] - 1) / p[10]) *
+                                            12);
+    }
+    if (next != B) return static_cast<int>(cudaErrorInvalidValue);
+
+    // pinned: views, groups, query codes, reference codes | the answers
+    const size_t o_groups = align_up((size_t)16 * B);
+    const size_t o_q = o_groups + align_up(sizeof(Group) * G);
+    const size_t o_r = o_q + align_up((size_t)nq);
+    const size_t in_bytes = o_r + align_up((size_t)nr);
+    const size_t out_bytes = (size_t)20 * B;
+    const size_t n3 = align_up((size_t)12 * B);
+    if ((err = s.reserve_host(in_bytes + out_bytes)) != cudaSuccess ||
+        (err = s.in.reserve(in_bytes, s.stream)) != cudaSuccess ||
+        (err = s.pad.reserve(2 * (qsize + rsize), s.stream)) !=
+            cudaSuccess ||
+        (err = s.ints.reserve(2 * n3 + out_bytes, s.stream)) !=
+            cudaSuccess ||
+        (err = s.scratch.reserve(scratch, s.stream)) != cudaSuccess)
+        return static_cast<int>(err);
+    stage_bytes(s, 0, views, (size_t)16 * B);
+    stage_bytes(s, o_groups, groups.data(), sizeof(Group) * G);
+    stage_bytes(s, o_q, qcodes, (size_t)nq);
+    stage_bytes(s, o_r, rcodes, (size_t)nr);
+    const cudaStream_t st = s.stream;
+    if ((err = cudaMemcpyAsync(s.in.ptr, s.host, in_bytes,
+                               cudaMemcpyHostToDevice, st)) != cudaSuccess)
+        return static_cast<int>(err);
+    const int64_t t1 = now_ns();
+    phase[0] += static_cast<double>(t1 - t0);
+
+    const int* d_views = s.in.at<int>(0);
+    const Group* d_groups = s.in.at<Group>(o_groups);
+    int8_t* qpad = s.pad.at<int8_t>(0);
+    int8_t* rpad = qpad + qsize;
+    int8_t* rq = rpad + rsize;
+    int8_t* rr = rq + qsize;
+    int* fwd = s.ints.at<int>(0);
+    int* rev = s.ints.at<int>(n3);
+    int* res = s.ints.at<int>(2 * n3);
+    expand_kernel<<<expand_blocks(B), EXPAND_WARPS * 32, 0, st>>>(
+        s.in.at<int8_t>(o_q), s.in.at<int8_t>(o_r), d_views, B, d_groups, G,
+        qpad, rpad);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    for (int pass = 0; pass < 2; ++pass) {
+        int* ends = pass ? rev : fwd;
+        for (int g = 0; g < G; ++g) {
+            const int rc = launch_group(
+                plan + g * PLAN_COLS, (pass ? rq : qpad) + groups[g].abase,
+                (pass ? rr : rpad) + groups[g].bbase, ends + groups[g].start,
+                ends + B + groups[g].start, ends + 2 * B + groups[g].start,
+                s.scratch.ptr, st);
+            if (rc != 0) return rc;
+        }
+        if (pass == 0) {
+            reverse_prefix_kernel<<<expand_blocks(B), EXPAND_WARPS * 32, 0,
+                                    st>>>(qpad, rpad, fwd + B, fwd + 2 * B,
+                                          B, d_groups, G, rq, rr);
+            if ((err = cudaGetLastError()) != cudaSuccess)
+                return static_cast<int>(err);
+        }
+    }
+    rows_result_kernel<<<(B + 255) / 256, 256, 0, st>>>(fwd, rev, B, res);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    return static_cast<int>(
+        finish_round(s, res, out_bytes, in_bytes, out, t1, phase));
 }

@@ -8,19 +8,24 @@ call of [B] pairs instead of per-pair native calls.
 ``edit_distance_batch_plain`` is the plain PyTorch version (the JAX
 formulation: a scan over the rows of ``a``, insertions resolved exactly by a
 prefix min, D[i][j] = min_k<=j (C[k] + (j - k)) = cummin(C[k] - k) + j,
-valid because an insertion costs exactly 1); ``edit_distance_cuda`` launches
-the hand-written kernel ``csrc/edit_distance.cu`` (Myers/Hyyro bit-parallel:
-a thread per pair whose shorter sequence fits one 32-bit word, a warp per
-longer pair, the routes planned per pair by ``edit_plan``, which also
-refuses codes outside 0..7); ``edit_distance_auto``
-takes the kernel for CUDA tensors and the plain version for CPU tensors,
-nothing else.  ``edit_distance_batch`` is the numpy entry point on
+valid because an insertion costs exactly 1).  The hand-written kernel
+``csrc/edit_distance.cu`` (Myers/Hyyro bit-parallel: a thread per pair
+whose shorter sequence fits one 32-bit word, a warp per longer pair) has
+one host driver, ``edit_distance_rows``: on the card one native call over
+ragged row views (ops/rows.py; csrc/edit_distance.cu::edit_rows_run plans
+the routes, refuses codes outside 0..7, uploads, expands and launches),
+on the CPU ``edit_distance_batch`` on the rows padded.  ``edit_rows_plan``
+and ``edit_distance_rows_plain`` are its plan in numpy and its round with
+the plain version.  ``edit_distance_batch`` is the numpy entry point on
 ``device`` (default 'cuda', resolved by ``resolve_device``, which raises
-without a GPU): the kernel on the card, and on the CPU the native Myers core
-(native/alncore.cpp) when it is built, as the JAX package does on a host
-backend, else the plain version.  ``edit_distance_batch_padded`` is JAX's
-padded entry (explicit lengths) over it.  Equality is on codes: N (4)
-equals N.
+without a GPU): on the card ``edit_distance_rows`` over views of its
+padded rows, on the CPU the native Myers core (native/alncore.cpp) when it
+is built, as the JAX package does on a host backend, else the plain
+version.  ``edit_distance_cuda`` is the same round on CUDA tensors and
+``edit_distance_auto`` takes it for CUDA tensors and the plain version for
+CPU tensors, nothing else.  ``edit_distance_batch_padded`` is JAX's padded
+entry (explicit lengths) over ``edit_distance_batch``.  Equality is on
+codes: N (4) equals N.
 
 The JAX package pads batches and lengths onto bucket ladders to bound XLA
 compiles; the outputs do not depend on them, so the port pads to the batch's
@@ -28,10 +33,12 @@ own maxima.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
+from ciri_long_tpu_torch.ops.rows import Rows, check_rows, padded, row_stage
 from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
                                                 span)
 
@@ -68,12 +75,15 @@ def edit_distance_batch_plain(a: torch.Tensor, b: torch.Tensor,
     return torch.gather(D, 1, blen[:, None])[:, 0]
 
 
-_SYMBOLS = {
-    'edit_distance_launch': ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                             + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                             + [ctypes.c_void_p] + [ctypes.c_int]
-                             + [ctypes.c_void_p] * 2, ctypes.c_int),
+_ROWS_SYMBOLS = {
+    'edit_rows_stage_new': ([ctypes.c_int], ctypes.c_void_p),
+    'edit_rows_run': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p], ctypes.c_int),
 }
+# edit_rows_run's refusal of a code outside 0..7
+_BAD_CODES = -2
 # codes csrc/edit_distance.cu's match masks cover: 0..7
 CODES = 8
 # longest sequence of one word: the kernel's thread route
@@ -83,44 +93,24 @@ WORD = 32
 GROUP = 32 * WORD
 
 
-def _bad_codes(x, lens):
-    """True when a code outside 0..CODES-1 lies inside a row's length."""
-    if x.size == 0 or (x.min() >= 0 and x.max() < CODES):
-        return False
-    inside = np.arange(x.shape[1])[None, :] < lens[:, None]
-    return bool((((x < 0) | (x >= CODES)) & inside).any())
-
-
-def edit_plan(a, b, alen, blen, device):
-    """The routes of one launch of csrc/edit_distance.cu over numpy a
-    [B, La], b [B, Lb] and lengths [B]: (order int32 [B] on ``device``,
-    n_thread), the pairs whose shorter sequence fits one word (the thread
-    route, lengths clamped as the kernel clamps them) first, then the rest
-    (the warp route).  Raises on a code outside 0..7 inside a row's length:
-    the kernel's match masks cover no other code."""
-    n = np.clip(alen, 0, a.shape[1])
-    m = np.clip(blen, 0, b.shape[1])
-    if _bad_codes(a, n) or _bad_codes(b, m):
-        raise ValueError('edit distance kernel: codes must be 0..{} inside '
-                         'the lengths'.format(CODES - 1))
-    by_warp = np.minimum(n, m) > WORD
-    order = np.argsort(by_warp, kind='stable').astype(np.int32)
-    return (torch.from_numpy(order).to(device),
-            int(len(order) - by_warp.sum()))
+def _padded_rows(x, lens):
+    """Rows of numpy [B, L] codes, row k the first lens[k] codes of x[k]."""
+    B, L = x.shape
+    if x.size >= 2 ** 31:
+        raise ValueError('edit distance: {}x{} codes exceed int32 '
+                         'offsets'.format(B, L))
+    return Rows(np.ascontiguousarray(x, np.int8).reshape(-1),
+                (np.arange(B) * L).astype(np.int32),
+                np.ascontiguousarray(lens, np.int32))
 
 
 def edit_distance_cuda(a: torch.Tensor, b: torch.Tensor,
-                       alen: torch.Tensor, blen: torch.Tensor, plan=None):
-    """The hand-written CUDA kernel (csrc/edit_distance.cu) on CUDA tensors:
-    a int8 [B, La], b int8 [B, Lb], alen and blen int32 [B], contiguous, on
-    one device, codes 0..7.  Same output as edit_distance_batch_plain
-    (lengths clamped to [0, La] and [0, Lb]).  ``plan`` is edit_plan's
-    answer for these inputs when the caller has it (no copy back from the
-    card), else computed from the inputs read back.  Raises on anything
-    else, and when the launch is refused.  One launch runs both routes;
-    ROUTES counts it once for each route that has pairs."""
-    from ciri_long_tpu_torch.ops import _build
-
+                       alen: torch.Tensor, blen: torch.Tensor):
+    """edit_distance_rows' native round on CUDA tensors: a int8 [B, La], b
+    int8 [B, Lb], alen and blen int32 [B], contiguous, on one device,
+    codes 0..7 inside the lengths.  Same output as
+    edit_distance_batch_plain (lengths clamped to [0, La] and [0, Lb]), on
+    a's device.  Raises on anything else, and when the round fails."""
     tensors = (a, b, alen, blen)
     if not all(t.is_cuda and t.device == a.device for t in tensors):
         raise ValueError('edit_distance_cuda needs a, b, alen and blen on '
@@ -140,33 +130,11 @@ def edit_distance_cuda(a: torch.Tensor, b: torch.Tensor,
                                                 for t in tensors]))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('edit_distance_cuda needs contiguous inputs')
-    La, Lb = a.shape[1], b.shape[1]
-    if max(B, La, Lb + 64) >= 2 ** 31:
-        raise ValueError("edit_distance_cuda shape {}x{}x{} exceeds the "
-                         "kernel's int arguments".format(B, La, Lb))
-    dev = a.device
-    order, n_thread = plan or edit_plan(
-        *(t.cpu().numpy() for t in tensors), dev)
-    n_warp = B - n_thread
-    lib = _build.load('edit_distance.cu', _SYMBOLS)
-    out = torch.empty(B, dtype=torch.int32, device=dev)
-    # the group handoff rows; only warp-route patterns over GROUP use them
-    edge_len = max(La, Lb)
-    edge = torch.empty((n_warp, edge_len) if edge_len > GROUP and n_warp
-                       else (1,), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.edit_distance_launch(
-            a.data_ptr(), b.data_ptr(), alen.data_ptr(), blen.data_ptr(), La,
-            Lb, order.data_ptr(), n_thread, n_warp, edge.data_ptr(),
-            edge_len, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError('edit_distance launch failed: cudaError {} (B={}, '
-                           'La={}, Lb={})'.format(rc, B, La, Lb))
-    count_launch('edit_distance', *[route for route, k in
-                                    (('edit_thread', n_thread),
-                                     ('edit_warp', n_warp)) if k])
-    return out
+    x, y, n, m = (t.cpu().numpy() for t in tensors)
+    d = edit_distance_rows(_padded_rows(x, np.clip(n, 0, x.shape[1])),
+                           _padded_rows(y, np.clip(m, 0, y.shape[1])),
+                           a.device)
+    return torch.from_numpy(d).to(a.device)
 
 
 def edit_distance_auto(a: torch.Tensor, b: torch.Tensor, alen: torch.Tensor,
@@ -208,11 +176,108 @@ def edit_distance_batch(a, b, alen=None, blen=None, device='cuda'):
             return np.frombuffer(core.edit_many(
                 a, b, B, a.shape[1], b.shape[1], alen, blen),
                 np.int32).copy()
-    args = [torch.from_numpy(x).to(device) for x in (a, b, alen, blen)]
     if device.type == 'cpu':
-        return edit_distance_batch_plain(*args).numpy()
-    return edit_distance_cuda(*args, plan=edit_plan(
-        a, b, alen, blen, device)).cpu().numpy()
+        return edit_distance_batch_plain(*(torch.from_numpy(x) for x in (
+            a, b, alen, blen))).numpy()
+    return edit_distance_rows(_padded_rows(a, alen), _padded_rows(b, blen),
+                              device)
+
+
+def _codes_error():
+    return ValueError('edit distance kernel: codes must be 0..{} inside '
+                      'the lengths'.format(CODES - 1))
+
+
+def edit_rows_plan(a, b):
+    """csrc/edit_distance.cu::edit_rows_run's plan of two ops/rows.py::Rows
+    in numpy: (order int32 [B], n_thread), the pairs whose shorter row fits
+    one word (the thread route) first, then the rest (the warp route), each
+    in pair order.  Raises on a code outside 0..7 inside a row: the
+    kernel's match masks cover no other code."""
+    for rows in (a, b):
+        codes, off, lens = rows
+        if len(codes) and (codes.min() < 0 or codes.max() >= CODES):
+            at = np.repeat(off.astype(np.int64), lens) + (
+                np.arange(int(lens.sum())) -
+                np.repeat(np.cumsum(lens) - lens, lens))
+            bad = codes[at]
+            if ((bad < 0) | (bad >= CODES)).any():
+                raise _codes_error()
+    by_warp = np.minimum(a.lens, b.lens) > WORD
+    order = np.argsort(by_warp, kind='stable').astype(np.int32)
+    return order, int(len(order) - by_warp.sum())
+
+
+def edit_distance_rows(a, b, device='cuda', phases=None):
+    """Edit distances of every row pair (a[k], b[k]) of two ops/rows.py::
+    Rows: int32 [B], equal to edit_distance_batch_plain on the rows padded.
+    Raises on a code outside 0..7 inside a row.  On the card: one call of
+    csrc/edit_distance.cu::edit_rows_run with the interpreter's lock
+    released, on the device's ops/rows.py::row_stage, one edit_distance
+    launch (each route with pairs counted) and one ``fused_rows`` launch
+    counted; ``phases`` (a dict) gets the round's ops/sw.py::ROW_PHASES ns
+    added.  On the CPU: edit_distance_batch on the rows padded."""
+    from ciri_long_tpu_torch.ops import _build
+    from ciri_long_tpu_torch.ops.sw import ROW_PHASES, _add_phases
+
+    t0 = time.perf_counter_ns()
+    device = resolve_device(device)
+    check_rows(a, 'edit_distance_rows a')
+    check_rows(b, 'edit_distance_rows b')
+    B = len(a.lens)
+    if len(b.lens) != B:
+        raise ValueError('edit_distance_rows: {} and {} rows'.format(
+            B, len(b.lens)))
+    if device.type == 'cpu':
+        (apad, alen), (bpad, blen) = padded(a), padded(b)
+        return edit_distance_batch(apad, bpad, alen, blen, device)
+    La = int(a.lens.max(initial=1))
+    Lb = int(b.lens.max(initial=1))
+    if max(B, La, Lb + 64) >= 2 ** 31:
+        raise ValueError("edit_distance_rows shape {}x{}x{} exceeds the "
+                         "kernel's int arguments".format(B, La, Lb))
+    views = np.stack([a.off, a.lens, b.off, b.lens])
+    out = np.empty(B, np.int32)
+    info = np.zeros(2, np.int32)
+    acodes = np.ascontiguousarray(a.codes)
+    bcodes = np.ascontiguousarray(b.codes)
+    ns = np.zeros(len(ROW_PHASES), np.float64)
+    lib = _build.load('edit_distance.cu', _ROWS_SYMBOLS)
+    stage = row_stage(device)
+    with stage.lock:
+        ns[0] = time.perf_counter_ns() - t0
+        rc = lib.edit_rows_run(
+            stage.handle(lib, 'edit_rows'), acodes.ctypes.data, len(acodes),
+            bcodes.ctypes.data, len(bcodes), views.ctypes.data, B,
+            out.ctypes.data, info.ctypes.data, ns[1:4].ctypes.data)
+    t1 = time.perf_counter_ns()
+    if rc == _BAD_CODES:
+        raise _codes_error()
+    if rc != 0:
+        raise RuntimeError('edit_distance_rows: native round failed: '
+                           'cudaError {} (B={}, La={}, Lb={})'.format(
+                               rc, B, La, Lb))
+    if B:
+        count_launch('edit_distance', *[route for route, k in zip(
+            ('edit_thread', 'edit_warp'), info.tolist()) if k])
+        count_launch('fused_rows')
+    ns[4] = time.perf_counter_ns() - t1
+    _add_phases(phases, ns)
+    return out
+
+
+def edit_distance_rows_plain(a, b, device='cpu'):
+    """edit_distance_rows' native round with the plain version (on
+    ``device``): the plan of edit_rows_plan (the code check and the
+    routes), the pairs expanded to the widest row of each side, the
+    distances in the plan's order."""
+    order, _ = edit_rows_plan(a, b)
+    (apad, alen), (bpad, blen) = padded(a), padded(b)
+    out = np.empty(len(order), np.int32)
+    out[order] = edit_distance_batch_plain(
+        *(torch.from_numpy(np.ascontiguousarray(x[order])).to(device)
+          for x in (apad, bpad, alen, blen))).cpu().numpy()
+    return out
 
 
 def edit_distance_batch_padded(a, b, alen, blen, device='cuda'):

@@ -16,17 +16,26 @@ other shape.  ``sw_score_ends_auto`` takes the kernel for CUDA tensors and the
 plain version for CPU tensors, nothing else: a CUDA tensor never falls
 through to the plain version.
 
+``sw_align_rows`` is collapse's fused round over ragged row views
+(ops/rows.py): on the card one native call (csrc/sw_score_ends.cu::
+sw_rows_run: upload, expand, forward, reverse prefixes, reverse, the
+``[B, 5]`` answers), on the CPU the host core a length group;
+``sw_align_rows_plain`` is its schedule in numpy and the plain scorer.
+
 Host arrays come in as numpy; every batch function takes the ``device`` to
 run on (default 'cuda', resolved by ``resolve_device``, which raises when
 no GPU is visible; pass 'cpu' for the host) and returns numpy.
 """
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ciri_long_tpu_torch.ops.rows import (check_rows, padded, row_groups,
+                                          row_stage)
 from ciri_long_tpu_torch.utils.dispatch import (count_launch, resolve_device,
                                                 span)
 
@@ -121,6 +130,18 @@ _SW_SYMBOLS = {
         [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 10
         + [ctypes.c_void_p] * 5, ctypes.c_int),
 }
+
+_ROWS_SYMBOLS = {
+    'sw_rows_stage_new': ([ctypes.c_int], ctypes.c_void_p),
+    'sw_rows_run': ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+}
+# the phases of a native round: its Python before the call (pack), the
+# call's own (csrc/row_views.h: upload, device_wait, download) and its
+# Python after it (unpack)
+ROW_PHASES = ('pack', 'upload', 'device_wait', 'download', 'unpack')
 
 # The tiled route's rule: a tile owns the smallest multiple of 32 columns
 # that is at least TILE_MIN_COLS and TILE_HALOS halos, and the route is
@@ -597,4 +618,139 @@ def sw_window_align_many(pairs, params: SWParams, chunk=16384,
         out.append((int(score[w]), int(q_begin[w]), int(q_end[w]),
                     int(gstart[w]) + int(r_begin[w]),
                     int(gstart[w]) + int(r_end[w])))
+    return out
+
+
+def _rows_plan(groups, params):
+    """int32 [G, 13] plan rows of csrc/sw_score_ends.cu::sw_rows_run for
+    ops/rows.py::row_groups' ``groups``: start, rows, Lq, Lr, the params,
+    then the route _tile_plan gives (1: R, T, halo) or the wavefront's
+    (0: R, K, P and the handoff row's place, 0 none, 1 shared memory, 2
+    global)."""
+    plan = np.zeros((len(groups), 13), np.int32)
+    for g, (start, n, Lq, Lr, k) in enumerate(groups.tolist()):
+        p = params[k]
+        _check_params(p)
+        if max(n, Lq, Lr + 32) >= 2 ** 31:
+            raise ValueError("sw_align_rows: group {}x{}x{} exceeds the "
+                             "kernel's int arguments".format(n, Lq, Lr))
+        tiles = _tile_plan(Lq, Lr, p)
+        if tiles is None:
+            w = _wave_plan(n, Lq, Lr)
+            route = (0, w.rows, w.warps, w.per_block,
+                     ('none', 'smem', 'global').index(w.edge))
+        else:
+            route = (1, _tile_rows(Lq), *tiles, 0)
+        plan[g] = (start, n, Lq, Lr, *p, *route)
+    return plan
+
+
+def _host_rows(q, r, order, groups, params):
+    """[5, B] answers of sw_align_batch on the CPU, a length group at a
+    time, each padded to its own widths."""
+    out = np.empty((5, len(order)), np.int32)
+    for start, n, Lq, Lr, k in groups.tolist():
+        rows = order[start:start + n]
+        res = sw_align_batch(
+            padded((q.codes, q.off[rows], q.lens[rows]), Lq)[0],
+            padded((r.codes, r.off[rows], r.lens[rows]), Lr)[0], params[k],
+            'cpu')
+        out[:, rows] = np.stack(res)
+    return out
+
+
+def sw_align_rows(q, r, pid, params, device='cuda', phases=None):
+    """SW with begin and end coordinates of every row pair (q[k], r[k]) of
+    two ops/rows.py::Rows, under ``params[pid[k]]``: int32 [5, B] (score,
+    q_begin, q_end, r_begin, r_end a row), equal to sw_align_batch on the
+    rows padded.  Rows are grouped by row_groups.  On the card: one call of
+    csrc/sw_score_ends.cu::sw_rows_run with the interpreter's lock
+    released, on the device's ops/rows.py::row_stage, two sw_score_ends
+    launches a group on its route and three ``fused_rows`` launches
+    counted; ``phases`` (a dict) gets the round's ROW_PHASES ns added.  On
+    the CPU: sw_align_batch's host core a group."""
+    from ciri_long_tpu_torch.ops import _build
+
+    t0 = time.perf_counter_ns()
+    device = resolve_device(device)
+    check_rows(q, 'sw_align_rows query')
+    check_rows(r, 'sw_align_rows reference')
+    B = len(q.lens)
+    if len(r.lens) != B or len(pid) != B:
+        raise ValueError('sw_align_rows: {} queries, {} references and {} '
+                         'params indices'.format(B, len(r.lens), len(pid)))
+    order, groups = row_groups(q.lens, r.lens, pid)
+    if device.type == 'cpu':
+        return _host_rows(q, r, order, groups, params)
+    plan = _rows_plan(groups, params)
+    views = np.stack([q.off[order], q.lens[order], r.off[order],
+                      r.lens[order]])
+    res = np.empty((B, 5), np.int32)
+    qcodes = np.ascontiguousarray(q.codes)
+    rcodes = np.ascontiguousarray(r.codes)
+    ns = np.zeros(len(ROW_PHASES), np.float64)
+    lib = _build.load('sw_score_ends.cu', dict(_SW_SYMBOLS, **_ROWS_SYMBOLS))
+    stage = row_stage(device)
+    with stage.lock:
+        ns[0] = time.perf_counter_ns() - t0
+        rc = lib.sw_rows_run(
+            stage.handle(lib, 'sw_rows'), qcodes.ctypes.data, len(qcodes),
+            rcodes.ctypes.data, len(rcodes), views.ctypes.data, B,
+            plan.ctypes.data, len(plan), res.ctypes.data,
+            ns[1:4].ctypes.data)
+    t1 = time.perf_counter_ns()
+    if rc != 0:
+        raise RuntimeError('sw_align_rows: native round failed: cudaError '
+                           '{} ({} rows in {} groups)'.format(rc, B,
+                                                              len(plan)))
+    for route, n in zip(*np.unique(plan[:, 8], return_counts=True)):
+        count_launch('sw_score_ends', ('wave', 'tiled')[route],
+                     times=2 * int(n))
+    if B:
+        count_launch('fused_rows', times=3)
+    out = np.empty((5, B), np.int32)
+    out[:, order] = res.T
+    ns[4] = time.perf_counter_ns() - t1
+    _add_phases(phases, ns)
+    return out
+
+
+def _add_phases(phases, ns):
+    if phases is not None:
+        for name, v in zip(ROW_PHASES, ns.tolist()):
+            phases[name] = phases.get(name, 0.0) + v
+
+
+def _reverse_rows(x, ends):
+    """csrc/sw_score_ends.cu::reverse_prefix_kernel on numpy [n, L] codes:
+    row b's x[b, end - t] at t <= end, PAD past it."""
+    t = np.arange(x.shape[1])
+    idx = ends[:, None] - t[None, :]
+    return np.where(idx >= 0, np.take_along_axis(x, np.maximum(idx, 0), 1),
+                    np.int8(PAD)).astype(np.int8)
+
+
+def sw_align_rows_plain(q, r, pid, params, device='cpu'):
+    """sw_align_rows' native round in numpy and the plain scorer (on
+    ``device``): the same groups, each expanded to its padded widths, the
+    forward pass, the reversed prefixes (as the kernel builds them), the
+    reverse pass, the answers assembled as the result kernel does; int32
+    [5, B]."""
+    def scored(x, y, p):
+        return (t.cpu().numpy() for t in sw_score_ends(
+            torch.from_numpy(x).to(device), torch.from_numpy(y).to(device),
+            p))
+
+    order, groups = row_groups(q.lens, r.lens, pid)
+    out = np.empty((5, len(order)), np.int32)
+    for start, n, Lq, Lr, k in groups.tolist():
+        rows = order[start:start + n]
+        qp = padded((q.codes, q.off[rows], q.lens[rows]), Lq)[0]
+        rp = padded((r.codes, r.off[rows], r.lens[rows]), Lr)[0]
+        score, q_end, r_end = scored(qp, rp, params[k])
+        _, q_off, r_off = scored(_reverse_rows(qp, q_end),
+                                 _reverse_rows(rp, r_end), params[k])
+        none = score <= 0
+        out[:, rows] = (score, np.where(none, -1, q_end - q_off), q_end,
+                        np.where(none, -1, r_end - r_off), r_end)
     return out

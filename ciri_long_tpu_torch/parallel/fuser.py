@@ -12,8 +12,9 @@ round trip between them.
 
 The fuser turns that into a submit-all/collect-all shape: worker threads
 submit jobs and block on futures; ONE dispatcher thread drains the queue,
-concatenates every pending job of a kind into a single padded batch, runs
-ONE device call, and distributes row slices back.  K concurrent clusters
+hands every pending job of a kind to that kind's executor as one batch
+(collapse's: one native call over the jobs' row views), and distributes
+row slices back.  K concurrent clusters
 with op-chain depth k collapse from K*k calls to ~k fused rounds, and the
 device only ever sees one dispatcher.
 

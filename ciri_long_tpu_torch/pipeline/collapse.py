@@ -9,9 +9,10 @@ cal_exp_mtx :903).
 The device is passed explicitly, from ``correct_reads`` down to every SW,
 edit-distance, traceback and sub-cluster POA call:
   * ``cuda``: clusters run on a pool of DEVICE_THREADS threads; their SW
-    and edit-distance jobs fuse across clusters through one DeviceFuser
-    (parallel/fuser.py), each fused round a few launches of
-    csrc/sw_score_ends.cu and csrc/edit_distance.cu; the rotation step
+    and edit-distance jobs, ragged row views over shared code buffers
+    (ops/rows.py), fuse across clusters through one DeviceFuser
+    (parallel/fuser.py), each fused round one native call of
+    csrc/sw_score_ends.cu or csrc/edit_distance.cu; the rotation step
     launches csrc/sw_traceback.cu once per cluster; the sub-cluster
     consensus of ``cluster_sequence`` runs its alignments on the card
     (ops/poa.py::poa_consensus_many: csrc/poa_align.cu, one launch a round
@@ -66,11 +67,12 @@ from ciri_long_tpu_torch.annot.signal import (equivalent_seq,
                                               find_retained_introns)
 from ciri_long_tpu_torch.config import DEFAULT, JUNC_SCORE
 from ciri_long_tpu_torch.models.hits import find_alignment_pos
-from ciri_long_tpu_torch.ops.edit import edit_distance_batch
+from ciri_long_tpu_torch.ops.edit import edit_distance_rows
 from ciri_long_tpu_torch.ops.poa import poa, poa_consensus_many
-from ciri_long_tpu_torch.ops.sw import (SWParams, SWResult, sw_align_batch,
-                                        sw_align_batch_collect,
-                                        sw_align_batch_submit)
+from ciri_long_tpu_torch.ops.rows import (Rows, concat_rows, encoded_rows,
+                                          repeat_row, rows_of)
+from ciri_long_tpu_torch.ops.sw import (ROW_PHASES, SWParams, SWResult,
+                                        sw_align_rows)
 from ciri_long_tpu_torch.ops.sw_tb_batch import sw_traceback_batch
 from ciri_long_tpu_torch.ops.traceback import cigar_to_string
 from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
@@ -81,9 +83,8 @@ from ciri_long_tpu_torch.utils.logger import ProgressBar
 from ciri_long_tpu_torch.utils.misc import (flatten, grouper,
                                             min_sorted_items, pairwise)
 from ciri_long_tpu_torch.utils.seq import (compress_seq, encode_seq,
-                                           get_junc_seq, pad_encoded,
-                                           revcomp, revcomp_encoded,
-                                           transform_seq)
+                                           get_junc_seq, revcomp,
+                                           revcomp_encoded, transform_seq)
 
 LOGGER = logging.getLogger('CIRI-long')
 
@@ -103,100 +104,83 @@ JUNC_SW = SWParams(JUNC_SCORE.match, JUNC_SCORE.mismatch,
 # SW/edit calls fuse into few rounds
 DEVICE_THREADS = 16
 
-# the length ladder that groups a fused round's SW jobs: jobs of one rung
-# share a launch, padded to the group's own longest row
-_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 
-
-def _bucket(n):
-    for b in _BUCKETS:
-        if n <= b:
-            return b
-    return n
-
-
-def _pad(rows):
-    """[B, L] PAD-suffixed codes and lengths of ``rows``, L the longest row
-    (at least 1)."""
-    return pad_encoded(rows, max_len=max(1, max(map(len, rows))))
-
-
-def _sw_many_vs_many(queries, refs, params=JUNC_SW, device='cuda'):
-    """Batched SW of per-row (query, ref) code pairs; returns SWResult.
-    On a registered fuser worker thread (parallel/fuser.py) the job is
-    FUSED with every other cluster's pending SW into one device batch (on
-    the fuser's device); otherwise it runs directly on ``device``."""
+def _sw_rows(q, r, params=JUNC_SW, device='cuda'):
+    """Batched SW of the row pairs (q[k], r[k]) of two ops/rows.py::Rows;
+    returns SWResult.  On a registered fuser worker thread
+    (parallel/fuser.py) the job is FUSED with every other cluster's pending
+    SW into one round (on the fuser's device); otherwise it is a round of
+    its own on ``device``, through the same executor."""
     fuser = current_fuser()
     if fuser is not None:
-        return fuser.call('sw', (queries, refs, params))
-    return _sw_many_vs_many_direct(queries, refs, params, device)
+        return fuser.call('sw', (q, r, params))
+    return _fused_sw([(q, r, params)], device)[0]
 
 
-def _sw_many_vs_many_direct(queries, refs, params=JUNC_SW, device='cuda'):
-    return sw_align_batch(_pad(queries)[0], _pad(refs)[0], params, device)
+def _count_round(kind, rows, phases):
+    """A native round of ``kind``: fuser.native.<kind>, its rows and the
+    ns of its phases (fuser.ns.<phase>)."""
+    count('fuser.native.' + kind)
+    count('fuser.rows.' + kind, rows)
+    for name, ns in phases.items():
+        count('fuser.ns.' + name, ns)
 
 
 def _fused_sw(jobs, device='cuda'):
-    """Fused executor: group pending (queries, refs, params) jobs by the
-    length rungs of their longest rows, pad each group to its own longest
-    row, submit every group before collecting any, then slice rows back
-    out.  Row independence and padding invariance keep fused results
-    bit-identical to per-job calls."""
-    out = [None] * len(jobs)
-    groups = {}
-    for t, (q, r, p) in enumerate(jobs):
-        key = (p, _bucket(max(len(x) for x in q)),
-               _bucket(max(len(x) for x in r)))
-        groups.setdefault(key, []).append(t)
-    handles = []
-    for (p, _, _), idxs in groups.items():
-        allq, allr, cuts = [], [], [0]
-        for t in idxs:
-            allq.extend(jobs[t][0])
-            allr.extend(jobs[t][1])
-            cuts.append(cuts[-1] + len(jobs[t][0]))
-        handles.append((idxs, cuts, sw_align_batch_submit(
-            _pad(allq)[0], _pad(allr)[0], p, device)))
-    for idxs, cuts, h in handles:
-        res = sw_align_batch_collect(h)
-        for k, t in enumerate(idxs):
-            sl = slice(cuts[k], cuts[k + 1])
-            out[t] = SWResult(*[f[sl] for f in res])
+    """Fused executor: the (q, r, params) jobs of a round, each two Rows,
+    joined over one pair of code buffers (a few numpy calls a job, none a
+    row) and run by ops/sw.py::sw_align_rows (on the card one native call
+    on the device's staging; its rows grouped by length rungs), the
+    answers sliced back per job.  Row independence and padding invariance keep fused
+    results bit-identical to per-job calls.  A round on the card is counted
+    (_count_round)."""
+    device = resolve_device(device)
+    phases = dict.fromkeys(ROW_PHASES, 0)
+    t0 = time.perf_counter_ns()
+    params = list(dict.fromkeys(p for _, _, p in jobs))
+    n = np.fromiter((len(q.lens) for q, _, _ in jobs), np.int64, len(jobs))
+    pid = np.repeat(np.fromiter((params.index(p) for _, _, p in jobs),
+                                np.int64, len(jobs)), n)
+    q = concat_rows([job[0] for job in jobs])
+    r = concat_rows([job[1] for job in jobs])
+    phases['pack'] += time.perf_counter_ns() - t0
+    res = sw_align_rows(q, r, pid, params, device, phases)
+    t1 = time.perf_counter_ns()
+    cuts = np.r_[0, np.cumsum(n)].tolist()
+    out = [SWResult(*res[:, a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    phases['unpack'] += time.perf_counter_ns() - t1
+    if device.type == 'cuda':
+        _count_round('sw', len(q.lens), phases)
     return out
 
 
-def _edit_many(a_codes, b_codes, device='cuda'):
-    """Batched edit distances of per-row (a, b) code pairs; fused across
-    clusters like _sw_many_vs_many."""
+def _edit_rows(a, b, device='cuda'):
+    """Batched edit distances of the row pairs (a[k], b[k]) of two Rows;
+    fused across clusters like _sw_rows."""
     fuser = current_fuser()
     if fuser is not None:
-        return fuser.call('edit', (a_codes, b_codes))
-    return _edit_many_direct(a_codes, b_codes, device)
-
-
-def _edit_many_direct(a_codes, b_codes, device='cuda'):
-    apad, alen = _pad(a_codes)
-    bpad, blen = _pad(b_codes)
-    return edit_distance_batch(apad, bpad, alen, blen, device)
+        return fuser.call('edit', (a, b))
+    return _fused_edit([(a, b)], device)[0]
 
 
 def _fused_edit(jobs, device='cuda'):
-    cuts = [0]
-    alla, allb = [], []
-    for a, b in jobs:
-        alla.extend(a)
-        allb.extend(b)
-        cuts.append(cuts[-1] + len(a))
-    d = _edit_many_direct(alla, allb, device)
-    return [d[cuts[k]:cuts[k + 1]] for k in range(len(jobs))]
-
-
-def _sw_one_vs_many(query, refs, params=JUNC_SW, device='cuda'):
-    return _sw_many_vs_many([query] * len(refs), refs, params, device)
-
-
-def _sw_many_vs_one(queries, ref, params=JUNC_SW, device='cuda'):
-    return _sw_many_vs_many(queries, [ref] * len(queries), params, device)
+    """Fused executor of (a, b) Rows jobs, as _fused_sw: one
+    ops/edit.py::edit_distance_rows round, sliced back per job."""
+    device = resolve_device(device)
+    phases = dict.fromkeys(ROW_PHASES, 0)
+    t0 = time.perf_counter_ns()
+    n = np.fromiter((len(a.lens) for a, _ in jobs), np.int64, len(jobs))
+    a = concat_rows([job[0] for job in jobs])
+    b = concat_rows([job[1] for job in jobs])
+    phases['pack'] += time.perf_counter_ns() - t0
+    d = edit_distance_rows(a, b, device, phases)
+    t1 = time.perf_counter_ns()
+    cuts = np.r_[0, np.cumsum(n)].tolist()
+    out = [d[x:y] for x, y in zip(cuts[:-1], cuts[1:])]
+    phases['unpack'] += time.perf_counter_ns() - t1
+    if device.type == 'cuda':
+        _count_round('edit', len(a.lens), phases)
+    return out
 
 
 class Segment(object):
@@ -331,37 +315,43 @@ def curate_junction(ctx, ctg, st, en, junc, cfg=DEFAULT.collapse,
     reference's avg_score (collapse.py:156-158), including its slice
     convention junc[query_begin:query_end] (end-exclusive on an inclusive
     coordinate)."""
-    pairs = []
-    refs = []
     width = cfg.curate_width
     clen = ctx.contig_len[ctg]
     junc_codes = encode_seq(junc)
-    for i in range(max(0, min(st) - 25), max(st) + 25):
-        for j in range(min(en) - 25, min(max(en) + 25, clen)):
-            if j <= i:
-                continue
-            ref = np.concatenate([
-                ctx.genome.codes_of(ctg, j - width, j),
-                ctx.genome.codes_of(ctg, i, i + width)])
-            pairs.append((i, j))
-            refs.append(ref)
-    if not pairs:
+    ii, jj = np.meshgrid(np.arange(max(0, min(st) - 25), max(st) + 25),
+                         np.arange(min(en) - 25, min(max(en) + 25, clen)),
+                         indexing='ij')
+    keep = jj > ii
+    ii, jj = ii[keep], jj[keep]
+    K = len(ii)
+    if not K:
         return []
 
-    queries = [junc_codes] * len(pairs)
-    res = _sw_many_vs_many(queries, refs, JUNC_SW, device)
+    # reference row k: genome[j - width:j] + genome[i:i + width], each part
+    # clipped to the contig, gathered from one window of the contig
+    l1 = jj - np.maximum(0, jj - width)
+    l2 = np.maximum(0, np.minimum(clen, ii + width) - ii)
+    lo = max(0, int(min((jj - l1).min(), ii.min())))
+    hi = min(clen, int(max(jj.max(), (ii + width).max())))
+    window = ctx.genome.codes_of(ctg, lo, hi)
+    t = np.arange(2 * width)
+    rlen = (l1 + l2).astype(np.int32)
+    at = np.where(t < l1[:, None], (jj - l1)[:, None] + t,
+                  ii[:, None] + t - l1[:, None]) - lo
+    refs = Rows(window[np.where(t < rlen[:, None], at, 0)].ravel(),
+                np.arange(0, 2 * width * K, 2 * width, dtype=np.int32),
+                rlen)
+    res = _sw_rows(repeat_row(junc_codes, K), refs, JUNC_SW, device)
 
     # matched query substrings junc[qb:qe] vs the genomic junction
-    K = len(pairs)
     qb = res.query_begin
     qe = res.query_end
-    xs = [junc_codes[qb[t]:qe[t]] if qe[t] > qb[t]
-          else np.zeros(0, np.int8) for t in range(K)]
-    rlen = np.array([len(r) for r in refs], np.int32)
-    dists = _edit_many(refs, xs, device)
+    hit = qe > qb
+    xs = Rows(junc_codes, np.where(hit, qb, 0).astype(np.int32),
+              np.where(hit, qe - qb, 0).astype(np.int32))
+    dists = _edit_rows(refs, xs, device)
 
-    junc_scores = [(pairs[t][0], pairs[t][1], dists[t] / rlen[t])
-                   for t in range(K)]
+    junc_scores = list(zip(ii.tolist(), jj.tolist(), dists / rlen))
     return sorted(junc_scores, key=lambda x: x[2])
 
 
@@ -400,8 +390,8 @@ def junc_score(ctx, ctg, junc, junc_seqs, device='cuda'):
     """Mean SW score of the cluster's junction windows against the doubled
     candidate circular sequence (collapse.py:210-215), batched."""
     ref = np.concatenate([ctx.genome.codes_of(ctg, junc[0], junc[1])] * 2)
-    res = _sw_many_vs_one([encode_seq(s) for s in junc_seqs], ref, JUNC_SW,
-                          device)
+    res = _sw_rows(encoded_rows(junc_seqs), repeat_row(ref, len(junc_seqs)),
+                   JUNC_SW, device)
     return float(np.mean(res.score))
 
 
@@ -411,13 +401,14 @@ def junc_scores_sorted(ctx, ctg, juncs, junc_seqs, device='cuda'):
     evaluation, collapse.py:268-275); here ALL (junction, window) pairs
     run as ONE batch.  Stable on ties exactly like sorted(key=junc_score,
     reverse=True): equal means keep their input order."""
-    queries = [encode_seq(s) for s in junc_seqs]
-    refs = [np.concatenate([ctx.genome.codes_of(ctg, j[0], j[1])] * 2)
-            for j in juncs]
-    Q = len(queries)
-    res = _sw_many_vs_many(queries * len(juncs),
-                           [r for r in refs for _ in range(Q)], JUNC_SW,
-                           device)
+    queries = encoded_rows(junc_seqs)
+    refs = rows_of([np.concatenate([ctx.genome.codes_of(ctg, j[0], j[1])] * 2)
+                    for j in juncs])
+    Q, J = len(junc_seqs), len(juncs)
+    res = _sw_rows(
+        Rows(queries.codes, np.tile(queries.off, J), np.tile(queries.lens, J)),
+        Rows(refs.codes, np.repeat(refs.off, Q), np.repeat(refs.lens, Q)),
+        JUNC_SW, device)
     means = np.asarray(res.score, np.float64).reshape(len(juncs), Q) \
         .mean(axis=1)
     order = np.argsort(-means, kind='stable')
@@ -516,12 +507,14 @@ def correct_cluster(ctx, cluster, is_debug=False, max_cluster=200,
                  key=lambda x: len(x.seq), reverse=True)[0]
 
     # head-anchor: where does each read's alignment start on the reference
-    # read's first 50 bp?  (collapse.py:251-256, batched)
+    # read's first 50 bp?  (collapse.py:251-256, batched; the other reads
+    # encoded once for this and the template's SW)
     others = cluster[1:]
+    reads = encoded_rows([q.seq for q in others])
     ref50 = encode_seq(ref.seq[:50])
     if others:
-        res = _sw_many_vs_one([encode_seq(q.seq) for q in others], ref50,
-                              JUNC_SW, device)
+        res = _sw_rows(reads, repeat_row(ref50, len(others)), JUNC_SW,
+                       device)
         head_pos = [int(x) for x in res.ref_begin]
     else:
         head_pos = [0]
@@ -530,8 +523,8 @@ def correct_cluster(ctx, cluster, is_debug=False, max_cluster=200,
     junc_seqs = [get_junc_seq(template, -max(head_pos) // 2, cfg.junc_width)]
     if others:
         tcodes = encode_seq(template)
-        res = _sw_many_vs_one([encode_seq(q.seq) for q in others], tcodes,
-                              JUNC_SW, device)
+        res = _sw_rows(reads, repeat_row(tcodes, len(others)), JUNC_SW,
+                       device)
         for q, qb in zip(others, res.query_begin):
             tmp = transform_seq(q.seq, int(qb))
             junc_seqs.append(get_junc_seq(tmp, -max(head_pos) // 2, cfg.junc_width))
@@ -773,15 +766,13 @@ def cluster_sequence(hpc_freq, sequence, cfg=DEFAULT.collapse, device='cuda'):
         return hpc_freq
 
     P = len(hpc_freq)
-    codes = [encode_seq(h[0]) for h in hpc_freq]
-    pairs = [(i, j) for i in range(P) for j in range(P) if i < j]
-    a = [codes[i] for i, _ in pairs]
-    b = [codes[j] for _, j in pairs]
-    d = _edit_many(a, b, device)
+    seqs = encoded_rows([h[0] for h in hpc_freq])
+    row, col = np.triu_indices(P, 1)
+    d = _edit_rows(Rows(seqs.codes, seqs.off[row], seqs.lens[row]),
+                   Rows(seqs.codes, seqs.off[col], seqs.lens[col]), device)
 
     dist = np.zeros((P, P))
-    for t, (i, j) in enumerate(pairs):
-        dist[i][j] = d[t] / max(len(codes[i]), len(codes[j]))
+    dist[row, col] = d / np.maximum(seqs.lens[row], seqs.lens[col])
     dist = dist + dist.T
 
     if dist.sum() != 0:
@@ -1066,8 +1057,9 @@ class _ExonScorer:
         if len(query) == 0:
             val = 0
         else:
-            res = _sw_many_vs_many([query], [self.seq_codes], JUNC_SW,
-                                   self.device)
+            res = _sw_rows(repeat_row(query, 1),
+                           repeat_row(self.seq_codes, 1), JUNC_SW,
+                           self.device)
             val = int(res.ref_end[0] - res.ref_begin[0])
         self.cache[key] = val
         return val

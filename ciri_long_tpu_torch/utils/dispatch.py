@@ -42,22 +42,25 @@ LAUNCHES = {'sw_score_ends': 0, 'sw_rowscan': 0, 'sw_chain': 0,
             'int16_probe': 0, 'int16_probe_all': 0, 'edit_distance': 0,
             'sw_traceback': 0, 'poa_align': 0, 'chain_dp': 0,
             'chain_extract': 0, 'screen_keep': 0, 'nw_traceback': 0,
-            'tandem_counts': 0, 'lag_profile': 0}
+            'tandem_counts': 0, 'lag_profile': 0, 'fused_rows': 0}
 # the kernels ``call`` and ``collapse`` can launch (sw_rowscan, sw_chain and
 # the int16 probes serve misc/kexp and misc/int16_probe; tandem_counts the
 # mesh's pipeline step, parallel/mesh.py; lag_profile ops/period.py's public
-# op)
+# op; fused_rows the helper kernels of collapse's native SW and edit rounds,
+# csrc/row_views.h's expand and csrc/sw_score_ends.cu's reverse prefixes and
+# answers)
 CALL_KERNELS = ('sw_score_ends', 'chain_dp', 'chain_extract', 'screen_keep',
                 'nw_traceback')
 COLLAPSE_KERNELS = ('sw_score_ends', 'edit_distance', 'sw_traceback',
-                    'poa_align')
+                    'poa_align', 'fused_rows')
 # kernel name -> ms of device time since the last reset_launches()
 DEVICE_MS = {'poa_align': 0.0}
 # route -> launches that ran it since the last reset_launches (``call``'s
 # summary leaves this out): csrc/sw_score_ends.cu's wave and tiled
 # (ops/sw.py::_tile_plan), csrc/edit_distance.cu's thread and warp routes
-# (one launch may run both; ops/edit.py::edit_plan), csrc/sw_traceback.cu's
-# shared-memory and global routes (ops/sw_tb_batch.py::tb_plan),
+# (one launch may run both; csrc/edit_distance.cu::edit_rows_run plans
+# them), csrc/sw_traceback.cu's shared-memory and global routes
+# (ops/sw_tb_batch.py::tb_plan),
 # csrc/nw_traceback.cu's width classes, a kernel launch each: C = 1, 2, 4, 8
 # columns a lane with the rows in registers, a block of warps a pass
 # (nw_block), or the rows in global scratch (nw_global;
@@ -215,6 +218,23 @@ SPAN_NAMES = {
     'fuser.fire.stop': 'counter: rounds fired as the fuser closed',
     'fuser.jobs.sw': 'counter: SW jobs fused',
     'fuser.jobs.edit': 'counter: edit-distance jobs fused',
+    # collapse's native SW and edit rounds (pipeline/collapse.py::_fused_sw,
+    # _fused_edit on the card: the fuser's rounds, and a chunk of one
+    # cluster's direct calls), summed over rounds
+    'fuser.native.sw': 'counter: SW rounds that took the native call',
+    'fuser.native.edit': 'counter: edit rounds that took the native call',
+    'fuser.rows.sw': "counter: SW rows of the native rounds",
+    'fuser.rows.edit': "counter: edit-distance rows of the native rounds",
+    'fuser.ns.pack': "counter: ns joining a round's jobs and planning it "
+                     '(Python)',
+    'fuser.ns.upload': "counter: ns staging a round's rows and enqueueing "
+                       'their upload (native)',
+    'fuser.ns.device_wait': 'counter: ns from the upload enqueued to the '
+                            "round's sync (native)",
+    'fuser.ns.download': "counter: ns copying a round's answers out of "
+                         'pinned memory (native)',
+    'fuser.ns.unpack': "counter: ns slicing a round's answers per job "
+                       '(Python)',
     # csrc/poa_align.cu's round loop, ns of steady clock a phase (thread-
     # summed)
     'poa.ns.pack': "counter: ns packing a round's jobs",

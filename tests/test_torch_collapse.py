@@ -35,6 +35,10 @@ from ciri_long_tpu_torch.io.genome import Genome
 from ciri_long_tpu_torch.ops import edit, sw
 from ciri_long_tpu_torch.ops import sw_tb_batch as tb
 from ciri_long_tpu_torch.ops.poa import poa_consensus_many_plain
+from ciri_long_tpu_torch.ops import rows as rows_mod
+from ciri_long_tpu_torch.ops.rows import (RUNGS, Rows, concat_rows,
+                                          encoded_rows, padded, row_groups,
+                                          rows_of)
 from ciri_long_tpu_torch.parallel.fuser import DeviceFuser, current_fuser
 from ciri_long_tpu_torch.pipeline import collapse as tcl
 from ciri_long_tpu_torch.tools.world import (make_world, sample_list,
@@ -127,19 +131,64 @@ def cohort(tmp_path_factory):
         tclusters=tcl.cluster_reads(tcand))
 
 
-# -- the fuser copy ------------------------------------------------------
+# -- the fuser copy and the native rounds' twins ---------------------------
 
 def _rand_codes(rng, lo, hi):
     return rng.integers(0, 5, size=int(rng.integers(lo, hi))).astype(np.int8)
 
 
-def _sw_job(rng):
+def _lists(rows):
+    """The rows of a ops/rows.py::Rows as a list of code arrays."""
+    return [rows.codes[o:o + n] for o, n in zip(rows.off.tolist(),
+                                                rows.lens.tolist())]
+
+
+def _ragged(rng, seqs, n, case):
+    """Rows of n row views over ``seqs`` held once: random picks, with
+    empty slices (case 'empty') or the whole sequences in order."""
+    base = rows_of(seqs)
+    pick = rng.integers(0, len(seqs), n)
+    off, lens = base.off[pick].copy(), base.lens[pick].copy()
+    if case == 'empty':
+        lens[rng.random(n) < 0.3] = 0
+    elif case == 'slices':
+        cut = rng.integers(0, lens + 1)
+        off, lens = off + cut // 2, (lens - cut).astype(np.int32)
+    return Rows(base.codes, off.astype(np.int32), lens)
+
+
+# row lengths at each rung's edge (RUNGS up to 512) and past the last
+# rung a fused round of collapse meets
+EDGES = [0, 1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513]
+ROW_CASES = ('random', 'empty', 'slices', 'rung_edges')
+
+
+def _sw_job(rng, case='random'):
     n = int(rng.integers(1, 9))
-    qs = [_rand_codes(rng, 5, 300) for _ in range(n)]
-    rs = [_rand_codes(rng, 5, 500) for _ in range(n)]
+    if case == 'rung_edges':
+        qs = [_rand_codes(rng, k, k + 1) for k in EDGES]
+        rs = [_rand_codes(rng, k, k + 1) for k in EDGES[::-1]]
+        q, r = rows_of(qs), rows_of(rs)
+    else:
+        q = _ragged(rng, [_rand_codes(rng, 5, 300) for _ in range(3)], n,
+                    case)
+        r = _ragged(rng, [_rand_codes(rng, 5, 500) for _ in range(4)], n,
+                    case)
     p = sw.SWParams(10, 4, 8, 2) if rng.integers(2) else sw.SWParams(2, 4, 4,
                                                                       2)
-    return qs, rs, p
+    return q, r, p
+
+
+def _edit_job(rng, case='random'):
+    if case == 'rung_edges':
+        return (rows_of([_rand_codes(rng, k, k + 1) for k in EDGES]),
+                rows_of([_rand_codes(rng, k, k + 1) for k in EDGES[1:]]
+                        + [_rand_codes(rng, 40, 41)]))
+    n = int(rng.integers(1, 7))
+    return (_ragged(rng, [_rand_codes(rng, 0, 200) for _ in range(3)], n,
+                    case),
+            _ragged(rng, [_rand_codes(rng, 0, 150) for _ in range(2)], n,
+                    case))
 
 
 def _same_sw(got, want):
@@ -147,24 +196,223 @@ def _same_sw(got, want):
         assert np.array_equal(g, w)
 
 
-def test_fused_sw_matches_direct_and_jax(rng):
-    jobs = [_sw_job(rng) for _ in range(13)]
+def _jax_sw(q, r, p):
+    return jcl._sw_many_vs_many_direct(_lists(q), _lists(r),
+                                       jcl.SWParams(*p))
+
+
+@pytest.mark.parametrize('case', ROW_CASES)
+def test_fused_sw_matches_direct_and_jax(rng, case):
+    jobs = [_sw_job(rng, case) for _ in range(4 if case == 'rung_edges'
+                                              else 13)]
     fused = tcl._fused_sw(jobs, 'cpu')
-    for (qs, rs, p), got in zip(jobs, fused):
-        _same_sw(got, tcl._sw_many_vs_many_direct(qs, rs, p, 'cpu'))
-        _same_sw(got, jcl._sw_many_vs_many_direct(qs, rs, jcl.SWParams(*p)))
+    want = jcl._fused_sw([(_lists(q), _lists(r), jcl.SWParams(*p))
+                          for q, r, p in jobs])
+    for (q, r, p), got, w in zip(jobs, fused, want):
+        _same_sw(got, tcl._fused_sw([(q, r, p)], 'cpu')[0])
+        _same_sw(got, _jax_sw(q, r, p))
+        _same_sw(got, w)
 
 
-def test_fused_edit_matches_direct_and_jax(rng):
-    jobs = []
-    for _ in range(9):
-        n = int(rng.integers(1, 7))
-        jobs.append(([_rand_codes(rng, 0, 200) for _ in range(n)],
-                     [_rand_codes(rng, 0, 150) for _ in range(n)]))
+@pytest.mark.parametrize('case', ROW_CASES)
+def test_fused_edit_matches_direct_and_jax(rng, case):
+    jobs = [_edit_job(rng, case) for _ in range(9)]
     fused = tcl._fused_edit(jobs, 'cpu')
-    for (a, b), got in zip(jobs, fused):
-        assert np.array_equal(got, tcl._edit_many_direct(a, b, 'cpu'))
-        assert np.array_equal(got, jcl._edit_many_direct(a, b))
+    want = jcl._fused_edit([(_lists(a), _lists(b)) for a, b in jobs])
+    for (a, b), got, w in zip(jobs, fused, want):
+        assert np.array_equal(got, tcl._fused_edit([(a, b)], 'cpu')[0])
+        assert np.array_equal(got, jcl._edit_many_direct(_lists(a),
+                                                         _lists(b)))
+        assert np.array_equal(got, w)
+
+
+@pytest.mark.parametrize('case', ROW_CASES)
+def test_native_sw_round_twin_matches_fused_scorer(rng, case):
+    """sw_align_rows_plain (the native round's expand, forward pass,
+    reversed prefixes, reverse pass and [B, 5] answers, in numpy and the
+    plain scorer) equals _sw_align_fused on each job padded, the host
+    route and JAX, over a round of ragged jobs of two params."""
+    jobs = [_sw_job(rng, case) for _ in range(3 if case == 'rung_edges'
+                                              else 7)]
+    params = list(dict.fromkeys(p for _, _, p in jobs))
+    n = [len(q.lens) for q, _, _ in jobs]
+    pid = np.repeat([params.index(p) for _, _, p in jobs], n)
+    q = concat_rows([j[0] for j in jobs])
+    r = concat_rows([j[1] for j in jobs])
+    got = sw.sw_align_rows_plain(q, r, pid, params)
+    assert np.array_equal(got, sw.sw_align_rows(q, r, pid, params, 'cpu'))
+    at = 0
+    for jq, jr, p in jobs:
+        k = len(jq.lens)
+        want = [t.numpy() for t in sw._sw_align_fused(
+            torch.from_numpy(padded(jq)[0]), torch.from_numpy(padded(jr)[0]),
+            p)]
+        assert np.array_equal(got[:, at:at + k], np.stack(want))
+        _same_sw(got[:, at:at + k], _jax_sw(jq, jr, p))
+        at += k
+
+
+@pytest.mark.parametrize('case', ROW_CASES + ('bad_code',))
+def test_native_edit_round_twin_plans_the_routes_and_matches(rng, case):
+    """edit_rows_plan lists the pairs whose shorter row fits one word,
+    then the rest, each in pair order; edit_distance_rows_plain equals
+    the padded batch on the host and JAX; a code outside 0..7 inside a
+    row raises, one outside every row does not."""
+    jobs = [_edit_job(rng, 'random' if case == 'bad_code' else case)
+            for _ in range(5)]
+    a = concat_rows([j[0] for j in jobs])
+    b = concat_rows([j[1] for j in jobs])
+    if case == 'bad_code':
+        inside = int(np.flatnonzero(a.lens)[0])
+        outside = Rows(np.append(a.codes, np.int8(9)), a.off, a.lens)
+        assert edit.edit_rows_plan(outside, b)[1] >= 0
+        codes = a.codes.copy()
+        codes[a.off[inside]] = 8
+        with pytest.raises(ValueError, match='codes must be 0..7'):
+            edit.edit_rows_plan(Rows(codes, a.off, a.lens), b)
+        with pytest.raises(ValueError, match='codes must be 0..7'):
+            edit.edit_distance_rows_plain(Rows(codes, a.off, a.lens), b)
+        return
+    (apad, alen), (bpad, blen) = padded(a), padded(b)
+    order, n_thread = edit.edit_rows_plan(a, b)
+    short = [k for k in range(len(alen)) if min(alen[k], blen[k]) <= 32]
+    assert order.tolist() == short + [k for k in range(len(alen))
+                                      if k not in short]
+    assert n_thread == len(short)
+    got = edit.edit_distance_rows_plain(a, b)
+    assert np.array_equal(got, edit.edit_distance_batch(apad, bpad, alen,
+                                                        blen, 'cpu'))
+    assert np.array_equal(got, edit.edit_distance_rows(a, b, 'cpu'))
+    assert np.array_equal(got, jcl._edit_many_direct(_lists(a), _lists(b)))
+
+
+class _EmulatedRowsLib:
+    """csrc/sw_score_ends.cu's and csrc/edit_distance.cu's row-round entry
+    points emulated through their C interface (the pointers and ints
+    ctypes passes): the views, plan rows and route order read from memory,
+    the rounds computed with the plain scorer and edit distance."""
+
+    def __init__(self):
+        self.stages = []
+
+    @staticmethod
+    def _array(ptr, ctype, n):
+        if not n:
+            return np.zeros(0, np.ctypeslib.as_ctypes_type(ctype))
+        return np.ctypeslib.as_array((np.ctypeslib.as_ctypes_type(ctype) * n)
+                                     .from_address(ptr))
+
+    def _stage(self, device):
+        self.stages.append(device)
+        return 1000 + len(self.stages)
+
+    sw_rows_stage_new = edit_rows_stage_new = _stage
+
+    def sw_rows_run(self, h, qp, nq, rp, nr, vp, B, pp, G, outp, nsp):
+        qc, rc = self._array(qp, np.int8, nq), self._array(rp, np.int8, nr)
+        views = self._array(vp, np.int32, 4 * B).reshape(4, B)
+        plan = self._array(pp, np.int32, 13 * G).reshape(G, 13)
+        out = self._array(outp, np.int32, 5 * B).reshape(B, 5)
+        assert plan[:, 0].tolist() == np.r_[0, np.cumsum(plan[:, 1])[:-1]]\
+            .tolist() and plan[:, 1].sum() == B
+        for start, n, Lq, Lr, *p in plan[:, :8].tolist():
+            rows = slice(start, start + n)
+            q = Rows(qc, views[0, rows], views[1, rows])
+            r = Rows(rc, views[2, rows], views[3, rows])
+            assert Lq == max(1, q.lens.max()) and Lr == max(1, r.lens.max())
+            out[rows] = sw.sw_align_rows_plain(
+                q, r, np.zeros(n, np.int64), [sw.SWParams(*p)]).T
+        self._array(nsp, np.float64, 3)[:] += 1.0
+        return 0
+
+    def edit_rows_run(self, h, ap, na, bp, nb, vp, B, outp, infop, nsp):
+        ac, bc = self._array(ap, np.int8, na), self._array(bp, np.int8, nb)
+        views = self._array(vp, np.int32, 4 * B).reshape(4, B)
+        a = Rows(ac, views[0], views[1])
+        b = Rows(bc, views[2], views[3])
+        try:
+            order, n_thread = edit.edit_rows_plan(a, b)
+        except ValueError:
+            return -2
+        self._array(outp, np.int32, B)[:] = edit.edit_distance_rows_plain(
+            a, b)
+        self._array(infop, np.int32, 2)[:] = (n_thread, B - n_thread)
+        self._array(nsp, np.float64, 3)[:] += 1.0
+        return 0
+
+
+def test_native_round_wrappers_on_an_emulated_library(rng, monkeypatch):
+    """sw_align_rows and edit_distance_rows on the card's route with the
+    kernels' libraries emulated through their C interface: the views,
+    plan rows and answers round-trip to the twins' answers, the launches
+    and phases are counted, the device's one stage serves both kinds and
+    every round (each library's staging made once), a code outside 0..7
+    raises."""
+    from ciri_long_tpu_torch.ops import _build
+    lib = _EmulatedRowsLib()
+    monkeypatch.setattr(_build, 'load', lambda source, symbols: lib)
+    dev = torch.device('cuda', 0)
+    monkeypatch.setattr(sw, 'resolve_device', lambda d: dev)
+    monkeypatch.setattr(edit, 'resolve_device', lambda d: dev)
+    monkeypatch.setitem(dispatch.LAUNCHES, 'sw_score_ends', 0)
+    monkeypatch.setitem(dispatch.LAUNCHES, 'edit_distance', 0)
+    monkeypatch.setitem(dispatch.LAUNCHES, 'fused_rows', 0)
+    monkeypatch.setattr(rows_mod, '_STAGES', {})
+    jobs = [_sw_job(rng, 'slices') for _ in range(5)]
+    params = list(dict.fromkeys(p for _, _, p in jobs))
+    pid = np.repeat([params.index(p) for _, _, p in jobs],
+                    [len(q.lens) for q, _, _ in jobs])
+    q = concat_rows([j[0] for j in jobs])
+    r = concat_rows([j[1] for j in jobs])
+    phases = {}
+    got = sw.sw_align_rows(q, r, pid, params, 'cuda', phases)
+    assert np.array_equal(got, sw.sw_align_rows_plain(q, r, pid, params))
+    groups = row_groups(q.lens, r.lens, pid)[1]
+    assert dispatch.LAUNCHES['sw_score_ends'] == 2 * len(groups)
+    assert dispatch.LAUNCHES['fused_rows'] == 3
+    assert set(phases) == set(sw.ROW_PHASES)
+    assert phases['upload'] == phases['device_wait'] == 1.0
+    a, b = _edit_job(rng, 'empty')
+    d = edit.edit_distance_rows(a, b, 'cuda', phases)
+    assert np.array_equal(d, edit.edit_distance_rows_plain(a, b))
+    assert dispatch.LAUNCHES['edit_distance'] == 1
+    assert dispatch.LAUNCHES['fused_rows'] == 4
+    assert phases['download'] == 2.0
+    bad = Rows(np.full(4, 9, np.int8), np.zeros(1, np.int32),
+               np.full(1, 4, np.int32))
+    with pytest.raises(ValueError, match='codes must be 0..7'):
+        edit.edit_distance_rows(bad, bad, 'cuda')
+    sw.sw_align_rows(q, r, pid, params, 'cuda')
+    assert lib.stages == [0, 0]
+    assert list(rows_mod._STAGES) == [('cuda', 0)]
+    assert sorted(rows_mod.row_stage(dev)._handles.values()) == [1001, 1002]
+
+
+@pytest.mark.parametrize('seqs', [[], ['ACGTN'], ['AC', '', 'GGTTA', 'N']])
+def test_encoded_rows_hold_each_string_once(seqs):
+    """encoded_rows (one encode of the joined strings) gives rows_of's
+    Rows of the strings encoded one by one."""
+    from ciri_long_tpu_torch.utils.seq import encode_seq
+    got, want = encoded_rows(seqs), rows_of([encode_seq(x) for x in seqs])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_row_groups_follow_the_rungs(rng):
+    """row_groups: rows of one params index and one rung a side share a
+    group, in a stable order; widths are the group's longest rows."""
+    ql = np.array(EDGES + [40_000], np.int32)
+    rl = np.array(EDGES[::-1] + [3], np.int32)
+    pid = rng.integers(0, 2, len(ql))
+    order, groups = row_groups(ql, rl, pid)
+    assert sorted(order.tolist()) == list(range(len(ql)))
+    for start, n, lq, lr, k in groups.tolist():
+        rows = order[start:start + n]
+        assert list(rows) == sorted(rows)
+        assert set(pid[rows]) == {k}
+        assert len({int(np.searchsorted(RUNGS, x)) for x in ql[rows]}) == 1
+        assert len({int(np.searchsorted(RUNGS, x)) for x in rl[rows]}) == 1
+        assert lq == max(1, ql[rows].max()) and lr == max(1, rl[rows].max())
 
 
 def test_fuser_threads_roundtrip(rng):
@@ -194,7 +442,8 @@ def test_fuser_threads_roundtrip(rng):
     fuser.close()
     assert current_fuser() is None
     for job, got in zip(jobs, results):
-        _same_sw(got, tcl._sw_many_vs_many_direct(*job, 'cpu'))
+        _same_sw(got, tcl._fused_sw([job], 'cpu')[0])
+        _same_sw(got, _jax_sw(*job))
     assert fuser.jobs == len(jobs)
     assert 0 < fuser.rounds < len(jobs)
 
@@ -268,6 +517,114 @@ def test_curate_junction_matches_jax(cohort):
         assert got == want and len(got) > 100
 
 
+BUILDERS = ('curate_junction', 'head_anchor_and_template',
+            'junc_scores_sorted', 'cluster_sequence')
+
+
+def _record_rows(monkeypatch):
+    """(port, jax): the rows of every SW and edit job each package's
+    collapse builds from here on, as ('sw' | 'edit', rows, rows) with the
+    rows as lists of code arrays (the port's Rows expanded)."""
+    got, want = [], []
+    t_sw, t_edit = tcl._sw_rows, tcl._edit_rows
+    j_sw, j_edit = jcl._sw_many_vs_many, jcl._edit_many
+
+    def port_sw(q, r, params=tcl.JUNC_SW, device='cuda'):
+        got.append(('sw', _lists(q), _lists(r)))
+        return t_sw(q, r, params, device)
+
+    def port_edit(a, b, device='cuda'):
+        got.append(('edit', _lists(a), _lists(b)))
+        return t_edit(a, b, device)
+
+    def jax_sw(q, r, params=jcl.JUNC_SW):
+        want.append(('sw', list(q), list(r)))
+        return j_sw(q, r, params)
+
+    def jax_edit(a, b):
+        want.append(('edit', list(a), list(b)))
+        return j_edit(a, b)
+
+    monkeypatch.setattr(tcl, '_sw_rows', port_sw)
+    monkeypatch.setattr(tcl, '_edit_rows', port_edit)
+    monkeypatch.setattr(jcl, '_sw_many_vs_many', jax_sw)
+    monkeypatch.setattr(jcl, '_edit_many', jax_edit)
+    return got, want
+
+
+def _same_jobs(got, want):
+    assert [g[0] for g in got] == [w[0] for w in want]
+    for g, w in zip(got, want):
+        for side in (1, 2):
+            assert len(g[side]) == len(w[side])
+            for x, y in zip(g[side], w[side]):
+                assert x.dtype == np.int8 and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize('builder', BUILDERS)
+def test_row_view_builders_give_the_list_rows(cohort, monkeypatch, rng,
+                                              builder):
+    """Each ragged-view job builder of the port's collapse gives exactly
+    the rows the JAX package's list-building code gives, on random
+    clusters and windows of the cohort's genome (head-anchor and template:
+    every job of correct_cluster, whose first two are those)."""
+    from ciri_long_tpu_torch.utils.seq import compress_seq
+    got, want = _record_rows(monkeypatch)
+    clusters = [c for c in cohort.tclusters if len(c) >= 3]
+    assert clusters
+    for tc in clusters:
+        jc = [c for c in cohort.jclusters if c[0].read_id == tc[0].read_id][0]
+        ctg = tc[0].circ_id.split(':')[0]
+        st = [int(r.circ_id.split(':')[1].split('-')[0]) for r in tc]
+        en = [int(r.circ_id.split(':')[1].split('-')[1]) for r in tc]
+        if builder == 'curate_junction':
+            k = int(rng.integers(0, len(tc[0].seq) - 60))
+            junc = tc[int(rng.integers(len(tc)))].seq[k:k + int(
+                rng.integers(30, 60))]
+            pick = rng.permutation(len(tc))[:int(rng.integers(1, len(tc)))]
+            args = ([st[i] for i in pick], [en[i] for i in pick], junc)
+            tcl.curate_junction(cohort.tctx, ctg, *args, device='cpu')
+            jcl.curate_junction(cohort.jctx, ctg, *args)
+        elif builder == 'head_anchor_and_template':
+            tcl.correct_cluster(cohort.tctx, tc, device='cpu')
+            jcl.correct_cluster(cohort.jctx, jc)
+            assert got[0][0] == got[1][0] == 'sw'
+        elif builder == 'junc_scores_sorted':
+            juncs = [(min(st) + int(d), max(en) - int(e), 0.1)
+                     for d, e in rng.integers(-8, 8, (int(
+                         rng.integers(1, 4)), 2))]
+            seqs = [r.seq[:int(rng.integers(20, 50))] for r in tc]
+            tcl.junc_scores_sorted(cohort.tctx, ctg, juncs, seqs,
+                                   device='cpu')
+            jcl.junc_scores_sorted(cohort.jctx, ctg, juncs, seqs)
+        else:
+            pick = rng.permutation(len(tc))[:int(rng.integers(2, len(tc)
+                                                              + 1))]
+            hpc = [(compress_seq(tc[i].seq), [tc[i].read_id]) for i in pick]
+            sequence = {r.read_id: r.seq for r in tc}
+            assert tcl.cluster_sequence(hpc, sequence, device='cpu') == \
+                jcl.cluster_sequence(hpc, sequence)
+    assert got
+    _same_jobs(got, want)
+
+
+@pytest.mark.parametrize('P', [2, 3, 37, 200])
+def test_distance_matrix_equals_the_pair_loop(rng, P):
+    """cluster_sequence's vectorised distance matrix, d / max(len_i,
+    len_j) in one assignment, equals the loop over the pairs it replaced
+    bit for bit."""
+    lens = rng.integers(1, 3000, P).astype(np.int32)
+    i, j = np.triu_indices(P, 1)
+    d = rng.integers(0, 3000, len(i)).astype(np.int32)
+    loop = np.zeros((P, P))
+    for t, (a, b) in enumerate(zip(i.tolist(), j.tolist())):
+        loop[a][b] = d[t] / max(int(lens[a]), int(lens[b]))
+    vec = np.zeros((P, P))
+    vec[i, j] = d / np.maximum(lens[i], lens[j])
+    assert np.array_equal((loop + loop.T).view(np.uint64),
+                          (vec + vec.T).view(np.uint64))
+
+
 def test_cluster_sequence_matches_jax(cohort):
     from ciri_long_tpu_torch.utils.seq import compress_seq
     for tc in cohort.tclusters:
@@ -299,10 +656,12 @@ def test_correct_cluster_matches_jax(cohort):
 
 class _PlainKernels:
     """Stand-ins for the four kernels' entry points on the cuda route: the
-    plain PyTorch versions on CPU tensors, counted per call."""
+    native rounds' twins and the plain PyTorch versions on CPU tensors,
+    counted per call (and the rounds' rows)."""
 
     def __init__(self):
         self.calls = {'sw': 0, 'edit': 0, 'tb': 0, 'poa': 0}
+        self.rows = {'sw': 0, 'edit': 0}
         self.devices = set()
         self.lock = threading.Lock()
 
@@ -311,20 +670,15 @@ class _PlainKernels:
             self.calls[kind] += 1
             self.devices.add(getattr(device, 'type', device))
 
-    def sw_align_batch(self, q, r, p, device):
-        return sw.sw_align_batch_collect(self.sw_align_batch_submit(
-            q, r, p, device))
-
-    def sw_align_batch_submit(self, q, r, p, device):
+    def sw_align_rows(self, q, r, pid, params, device, phases=None):
         self._count('sw', device)
-        return ('dev', sw._sw_align_fused(sw._to_device(q, 'cpu'),
-                                          sw._to_device(r, 'cpu'), p))
+        self.rows['sw'] += len(q.lens)
+        return sw.sw_align_rows_plain(q, r, pid, params)
 
-    def edit_distance_batch(self, a, b, alen, blen, device):
+    def edit_distance_rows(self, a, b, device, phases=None):
         self._count('edit', device)
-        return edit.edit_distance_batch_plain(
-            *(torch.from_numpy(np.asarray(x)) for x in (a, b, alen,
-                                                        blen))).numpy()
+        self.rows['edit'] += len(a.lens)
+        return edit.edit_distance_rows_plain(a, b)
 
     def sw_traceback_batch(self, qs, rs, match, mismatch, gap_open,
                            gap_extend, device):
@@ -343,8 +697,7 @@ def _fake_cuda(monkeypatch, kernels):
     type is 'cuda', and its kernel entry points are ``kernels``'."""
     fake = SimpleNamespace(type='cuda')
     monkeypatch.setattr(tcl, 'resolve_device', lambda d: fake)
-    for name in ('sw_align_batch', 'sw_align_batch_submit',
-                 'edit_distance_batch', 'sw_traceback_batch',
+    for name in ('sw_align_rows', 'edit_distance_rows', 'sw_traceback_batch',
                  'poa_consensus_many'):
         monkeypatch.setattr(tcl, name, getattr(kernels, name))
     return fake
@@ -387,6 +740,17 @@ def test_cuda_route_structure_matches_host_route(cohort, monkeypatch):
                if k.startswith('fuser.fire.')) == rounds[0][0]
     assert counted['fuser.jobs.sw'] + counted['fuser.jobs.edit'] == \
         rounds[0][1]
+    # every round took the native call, with every row submitted; its
+    # phases lie inside the rounds' spans
+    assert counted['fuser.native.sw'] + counted['fuser.native.edit'] == \
+        rounds[0][0]
+    assert counted['fuser.native.sw'] == kernels.calls['sw']
+    assert counted['fuser.rows.sw'] == kernels.rows['sw'] > 0
+    assert counted['fuser.rows.edit'] == kernels.rows['edit'] > 0
+    run_ns = 1e9 * sum(summary['spans']['fuser.run.' + k]['thread_seconds']
+                       for k in ('sw', 'edit'))
+    phases = [counted['fuser.ns.' + p] for p in sw.ROW_PHASES]
+    assert min(phases) >= 0 and 0 < sum(phases) <= run_ns
     assert counted['pool.tail_thread_s'] >= 0
     threads = {k: v for k, v in summary['threads'].items()
                if k.startswith('collapse-cluster')}
@@ -413,7 +777,7 @@ def test_cuda_route_raises_when_a_kernel_fails(cohort, monkeypatch):
     def unbuilt(*a, **kw):
         raise RuntimeError('nvcc failed (1) building edit_distance.cu')
 
-    monkeypatch.setattr(tcl, 'edit_distance_batch', unbuilt)
+    monkeypatch.setattr(tcl, 'edit_distance_rows', unbuilt)
     with pytest.raises(RuntimeError, match='nvcc failed'):
         tcl.correct_reads(cohort.tctx, cohort.tclusters)
 
@@ -430,7 +794,7 @@ def test_collapse_cli_matches_jax_on_skill_world(skill):
     log = (skill.root / 'out_port' / 'vtest.log').read_text()
     assert 'circRNAs: 1  isoforms: 1' in log
     assert ('kernels: {"sw_score_ends": 0, "edit_distance": 0, '
-            '"sw_traceback": 0, "poa_align": 0}') in log
+            '"sw_traceback": 0, "poa_align": 0, "fused_rows": 0}') in log
     assert 'device ms: {"poa_align": 0.0}' in log
 
 

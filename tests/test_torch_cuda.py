@@ -3,7 +3,11 @@ card: the SW scorer of ``call`` and ``collapse`` (csrc/sw_score_ends.cu,
 both routes, the wavefront under every plan it takes), the
 harness's row scan and chained wavefront (csrc/sw_rowscan.cu,
 csrc/sw_chain.cu), the int16 probes (csrc/int16_probe.cu, one launch a
-probe and all six in one) and collapse's edit distance, SW with traceback
+probe and all six in one) and collapse's native SW and edit-distance
+rounds over row views (csrc/sw_score_ends.cu::sw_rows_run,
+csrc/edit_distance.cu::edit_rows_run) against the torch path, with their
+counters under ``collapse --device cuda``, and collapse's edit distance,
+SW with traceback
 and POA graph alignment (csrc/edit_distance.cu, csrc/sw_traceback.cu,
 csrc/poa_align.cu and its round loop, alone and from threads at once),
 with ``collapse --device cuda`` raising when a kernel cannot be built, and
@@ -36,6 +40,8 @@ from ciri_long_tpu_torch.misc import int16_probe, kexp
 from ciri_long_tpu_torch.ops import edit, poa_batch, sw
 from ciri_long_tpu_torch.ops import poa as poa_mod
 from ciri_long_tpu_torch.ops import sw_tb_batch as tb
+from ciri_long_tpu_torch.ops.rows import (Rows, concat_rows, padded,
+                                          repeat_row, row_groups, rows_of)
 from ciri_long_tpu_torch.tools.collapse_cases import edit_cases, tb_cases
 from ciri_long_tpu_torch.tools.poa_cases import poa_cases, star_graph
 from ciri_long_tpu_torch.tools.simulate import mutate
@@ -412,8 +418,11 @@ def test_edit_distance_matches_plain(dev, label):
     lengths and the fused round run both routes in that launch)."""
     case = dict((c[0], c[1:]) for c in edit_cases(np.random.default_rng(0)))
     args = [torch.from_numpy(x).to(dev) for x in case[label]]
-    _, n_thread = edit.edit_plan(*case[label], dev)
-    n_warp = len(case[label][2]) - n_thread
+    a, b, alen, blen = case[label]
+    _, n_thread = edit.edit_rows_plan(
+        edit._padded_rows(a, np.clip(alen, 0, a.shape[1])),
+        edit._padded_rows(b, np.clip(blen, 0, b.shape[1])))
+    n_warp = len(alen) - n_thread
     before, routes = LAUNCHES['edit_distance'], dict(ROUTES)
     got = edit.edit_distance_auto(*args)
     want = edit.edit_distance_batch_plain(*args)
@@ -478,14 +487,10 @@ def test_sw_traceback_batch_chunks_under_its_budget(dev, monkeypatch):
 
 
 def test_collapse_kernels_time_in_a_graph_with_their_plans(dev):
-    """chip_smoke.py times recorded launches as CUDA graph replays: with
-    their plans given, neither wrapper reads back from the card."""
-    a, b, alen, blen = edit_cases(np.random.default_rng(0))[-1][1:]
-    args = [torch.from_numpy(x).to(dev) for x in (a, b, alen, blen)]
-    plan = edit.edit_plan(a, b, alen, blen, dev)
-    assert kexp.time_launches(
-        lambda: edit.edit_distance_cuda(*args, plan=plan), 3, dev,
-        graph=True) > 0
+    """chip_smoke.py times recorded traceback launches as CUDA graph
+    replays: with its plan given, the wrapper reads nothing back from the
+    card.  (The edit distance's one host driver is a native round that
+    syncs; chip_smoke.py times its rounds by wall.)"""
     _, qs, rs, scores = tb_cases(np.random.default_rng(0))[-1]
     packed = tb.pack_jobs(qs, rs)
     targs = [torch.from_numpy(x).to(dev) for x in packed]
@@ -546,6 +551,165 @@ def test_collapse_raises_when_a_kernel_cannot_be_built(dev, tmp_path,
     with pytest.raises(RuntimeError, match='nvcc failed'):
         main(['collapse', '-i', lst, '-o', str(tmp_path / 'bad'), '-r', ref,
               '-p', 'v', '--device', 'cuda'])
+
+
+# -- collapse's native SW and edit rounds over row views ---------------------
+
+ROUND_CASES = ('junction', 'reads', 'pairs', 'mixed', '40k rows')
+
+
+def _round_jobs(name):
+    """A fused round's SW jobs (q, r, params) and edit jobs (a, b) of
+    ops/rows.py::Rows at collapse's shapes: ``junction`` curate_junction's
+    (a 50-code junction against 2 500 20-code genome pieces; its edit job
+    on the same pieces and slices of the junction), ``reads`` the head-
+    anchor and template SWs (150 reads of 300-6 000 codes against one 50-
+    code row and one template), ``pairs`` cluster_sequence's edit job (the
+    1 225 pairs of 50 sequences of 100-900 codes), ``mixed`` all of them
+    in one round, ``40k rows`` sixteen junction jobs."""
+    rng = np.random.default_rng(ROUND_CASES.index(name) + 11)
+
+    def codes(n):
+        return rng.integers(0, 5, int(n)).astype(np.int8)
+
+    def junction():
+        junc = codes(rng.integers(40, 60))
+        refs = rows_of([codes(20) for _ in range(2500)])
+        qb = rng.integers(0, 20, 2500).astype(np.int32)
+        xs = Rows(junc, qb, rng.integers(0, len(junc) - qb).astype(np.int32))
+        return [(repeat_row(junc, 2500), refs, (10, 4, 8, 2))], [(refs, xs)]
+
+    def reads():
+        rs = rows_of([codes(n) for n in rng.integers(300, 6000, 150)])
+        return [(rs, repeat_row(codes(50), 150), (10, 4, 8, 2)),
+                (rs, repeat_row(codes(1200), 150), (10, 4, 8, 2))], []
+
+    def pairs():
+        seqs = rows_of([codes(n) for n in rng.integers(100, 900, 50)])
+        i, j = np.triu_indices(50, 1)
+        return [], [(Rows(seqs.codes, seqs.off[i], seqs.lens[i]),
+                     Rows(seqs.codes, seqs.off[j], seqs.lens[j]))]
+
+    if name == 'mixed':
+        parts = [junction(), reads(), pairs(), junction()]
+    elif name == '40k rows':
+        parts = [junction() for _ in range(16)]
+    else:
+        parts = [{'junction': junction, 'reads': reads,
+                  'pairs': pairs}[name]()]
+    return ([job for p in parts for job in p[0]],
+            [job for p in parts for job in p[1]])
+
+
+@pytest.mark.parametrize('name', ROUND_CASES)
+def test_native_rounds_match_the_torch_path(dev, name):
+    """One native SW round and one native edit round over a fused round's
+    jobs give each job's answers of the torch path on its rows padded
+    (sw_align_batch: the scorer, _reverse_prefix's gather, the scorer) and
+    the plain edit distance's on the card and the host core's, and count
+    their launches."""
+    sw_jobs, edit_jobs = _round_jobs(name)
+    if sw_jobs:
+        params = [sw.SWParams(*p) for p in dict.fromkeys(
+            p for _, _, p in sw_jobs)]
+        n = [len(q.lens) for q, _, _ in sw_jobs]
+        pid = np.repeat([params.index(sw.SWParams(*p))
+                         for _, _, p in sw_jobs], n)
+        q = concat_rows([j[0] for j in sw_jobs])
+        r = concat_rows([j[1] for j in sw_jobs])
+        before, rows_before = LAUNCHES['sw_score_ends'], LAUNCHES['fused_rows']
+        phases = {}
+        got = sw.sw_align_rows(q, r, pid, params, dev, phases)
+        groups = row_groups(q.lens, r.lens, pid)[1]
+        assert LAUNCHES['sw_score_ends'] == before + 2 * len(groups)
+        assert LAUNCHES['fused_rows'] == rows_before + 3
+        assert set(phases) == set(sw.ROW_PHASES)
+        at = 0
+        for (jq, jr, p), k in zip(sw_jobs, n):
+            want = sw.sw_align_batch(padded(jq)[0], padded(jr)[0],
+                                     sw.SWParams(*p), dev)
+            assert np.array_equal(got[:, at:at + k], np.stack(want)), name
+            at += k
+    if edit_jobs:
+        a = concat_rows([j[0] for j in edit_jobs])
+        b = concat_rows([j[1] for j in edit_jobs])
+        before, routes = LAUNCHES['edit_distance'], dict(ROUTES)
+        got = edit.edit_distance_rows(a, b, dev)
+        order, n_thread = edit.edit_rows_plan(a, b)
+        assert LAUNCHES['edit_distance'] == before + 1
+        assert ROUTES['edit_thread'] == routes['edit_thread'] + (n_thread > 0)
+        assert ROUTES['edit_warp'] == routes['edit_warp'] + (
+            len(order) > n_thread)
+        assert np.array_equal(got, edit.edit_distance_rows_plain(a, b, dev)), \
+            name
+        assert np.array_equal(got, edit.edit_distance_batch(
+            padded(a)[0], padded(b)[0], a.lens, b.lens, device='cpu')), name
+
+
+def test_native_edit_round_refuses_codes_outside_0_to_7(dev):
+    a = rows_of([np.array([0, 1, 2, 8], np.int8), np.array([3], np.int8)])
+    b = rows_of([np.array([1, 2], np.int8), np.array([0, 9], np.int8)])
+    with pytest.raises(ValueError, match='codes must be 0..7'):
+        edit.edit_distance_rows(a, b, dev)
+    # a code outside every row is not read
+    ok = Rows(a.codes, a.off, np.array([3, 1], np.int32))
+    got = edit.edit_distance_rows(ok, Rows(b.codes, b.off,
+                                           np.array([2, 1], np.int32)), dev)
+    assert got.tolist() == [1, 1]
+
+
+def test_native_round_counters_match_the_fuser(dev, tmp_path, monkeypatch):
+    """``collapse --device cuda`` of a four-locus cohort: every fused
+    round took the native call (fuser.native.* sum to the fuser's rounds),
+    fuser.rows.* count every row submitted, and the native phases lie
+    inside the rounds' fuser.run.* spans."""
+    import json
+    import threading
+
+    from ciri_long_tpu_torch.cli.main import main
+    from ciri_long_tpu_torch.pipeline import collapse as tcl
+    from ciri_long_tpu_torch.tools.world import make_world, sample_list
+
+    ref, reads, _ = make_world(str(tmp_path / 'w'), genome_kb=300, loci=4,
+                               depth=12, linear=20, seed=3)
+    main(['call', '-i', reads, '-o', str(tmp_path / 'call'), '-r', ref,
+          '-p', 'co', '-t', '1', '--device', 'cuda'])
+    lst = sample_list(str(tmp_path / 's.lst'),
+                      [('co', str(tmp_path / 'call' / 'co.cand_circ.fa'))])
+    rows = {'sw': 0, 'edit': 0}
+    lock = threading.Lock()
+    real_sw, real_edit = tcl._sw_rows, tcl._edit_rows
+
+    def sw_rows(q, r, params=tcl.JUNC_SW, device='cuda'):
+        with lock:
+            rows['sw'] += len(q.lens)
+        return real_sw(q, r, params, device)
+
+    def edit_rows(a, b, device='cuda'):
+        with lock:
+            rows['edit'] += len(a.lens)
+        return real_edit(a, b, device)
+
+    monkeypatch.setattr(tcl, '_sw_rows', sw_rows)
+    monkeypatch.setattr(tcl, '_edit_rows', edit_rows)
+    out = tmp_path / 'col'
+    main(['collapse', '-i', lst, '-o', str(out), '-r', ref, '-p', 'co',
+          '--device', 'cuda'])
+    summary = json.loads((out / 'co.json').read_text())
+    c, spans = summary['counters'], summary['spans']
+    fired = sum(v for k, v in c.items() if k.startswith('fuser.fire.'))
+    assert fired > 0
+    assert c['fuser.native.sw'] + c['fuser.native.edit'] == fired
+    assert c['fuser.rows.sw'] == rows['sw'] > 0
+    assert c['fuser.rows.edit'] == rows['edit'] > 0
+    assert summary['kernels']['fused_rows'] == \
+        3 * c['fuser.native.sw'] + c['fuser.native.edit']
+    run_ns = {k: 1e9 * spans['fuser.run.' + k]['thread_seconds']
+              for k in ('sw', 'edit')}
+    for phase in sw.ROW_PHASES:
+        assert 0 <= c['fuser.ns.' + phase] <= sum(run_ns.values()), phase
+    assert sum(c['fuser.ns.' + p] for p in sw.ROW_PHASES) <= \
+        sum(run_ns.values())
 
 
 # -- collapse's POA graph alignment (csrc/poa_align.cu) ---------------------

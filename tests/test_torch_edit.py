@@ -12,8 +12,9 @@ recurrence in its schedule (the pattern chosen per route, 32-row words, a
 lane per word with its hout handed to the next lane a step later, groups
 of 32 words joined by an int8 handoff row, the score read at bit
 (n - 1) % 32 of the top word), held exactly to JAX and the plain version at
-every pair of lengths in BOUNDARY and on every case; ``edit_plan`` routes
-and refuses codes as the kernel needs."""
+every pair of lengths in BOUNDARY and on every case; ``edit_rows_plan``
+(the native round's plan, over the rows of a padded batch) routes and
+refuses codes as the kernel needs."""
 
 import numpy as np
 import pytest
@@ -150,14 +151,18 @@ def test_plan_routes_by_the_shorter_sequence_and_refuses_codes():
     b = np.zeros((5, 40), np.int8)
     alen = np.array([40, 32, 33, 0, 40], np.int32)
     blen = np.array([40, 40, 33, 40, 10], np.int32)
-    order, n_thread = edit.edit_plan(a, b, alen, blen, 'cpu')
+    def plan():
+        return edit.edit_rows_plan(edit._padded_rows(a, alen),
+                                   edit._padded_rows(b, blen))
+
+    order, n_thread = plan()
     assert n_thread == 3
     assert order.tolist() == [1, 3, 4, 0, 2]
     b[2, 39] = 8               # past blen: not read, accepted
-    edit.edit_plan(a, b, alen, blen, 'cpu')
+    plan()
     b[2, 5] = -1
     with pytest.raises(ValueError, match='codes must be 0..7'):
-        edit.edit_plan(a, b, alen, blen, 'cpu')
+        plan()
 
 
 @pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
